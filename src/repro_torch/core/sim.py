@@ -1,0 +1,450 @@
+"""Cycle-level engine of an SPM manycore (MemPool-like), in PyTorch.
+
+The port of ``repro.core.sim``: the same machine model, the same state
+and the same arithmetic, bit for bit.
+
+Machine model
+-------------
+* N cores, A addresses (each contended address lives in its own
+  single-ported bank — one request served per bank per cycle).
+* A shared request/response network with ``lat``-cycle one-way latency and
+  a global bandwidth cap of ``net_bw`` accepted requests per cycle, with
+  head-of-line blocking from requests parked at saturated banks.
+* Every core runs a per-core **program** owned by a workload plugin
+  (``core.workloads``).
+
+Each simulated cycle is one pass of the loop in :func:`simulate`: the
+core-side stages (timers, issue, retire, backoff, workers, network
+acceptance) are eager torch ops on the run's device, and the bank side
+(arbitration, the protocol's bank update, the latency histogram) is one
+call of ``kernels.engine_step.fused_step`` — the hand-written CUDA kernel
+on a GPU, its plain PyTorch version on the CPU.  All state is int32/bool
+tensors; ``cyc`` and the rotation ``shift`` are Python ints, and the loop
+never reads a device value back, so the host only queues work.
+
+Scope of this slice: the ``amo``/``lrsc``/``lrscwait``/``colibri``
+protocols, the one-step ``rmw_loop``/``zipf_histogram`` programs, the
+``flat`` topology and Fig. 5 workers.  Everything else the reference
+engine runs is refused at :class:`SimParams` construction with the
+ROADMAP item that will bring it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch.core import metrics as metrics_mod
+from repro_torch.core import protocols as proto_registry
+from repro_torch.core import topologies as topo_registry
+from repro_torch.core import workloads as wl_registry
+from repro_torch.core.metrics import LAT_BINS
+from repro_torch.core.protocols.base import (BACKOFF, MOD, NXT_BACKOFF,
+                                             NXT_MOD, NXT_WORK_DONE, OUT_DONE,
+                                             OUT_FAIL, OUT_GRANT, OUT_NONE,
+                                             OUT_SLEEP, P_ACQ, P_REL, REQ,
+                                             RESP, SLEEP, WORK, Ctx)
+from repro_torch.core.workloads.base import (ADDR_FIXED, ADDR_ZIPF,
+                                             K_BARRIER, zipf_index)
+from repro_torch.faults import FaultPlan
+from repro_torch.kernels import engine_step
+
+#: the protocols the port covers (the reference's Fig. 3 set)
+PROTOCOLS = ("amo", "lrsc", "lrscwait", "colibri")
+
+#: execution backends.  The port keeps the field so reference JSON loads;
+#: the device of the run (``device=``) picks kernel or plain code.
+BACKENDS = ("auto",)
+
+#: int32 sentinel for "no request" in the arbitration
+_BIG = 2**31 - 1
+
+_MASK32 = 0xFFFFFFFF
+_KNUTH = 2654435761
+
+
+@dataclasses.dataclass(frozen=True)
+class SimParams:
+    protocol: str = "colibri"
+    workload: str = "rmw_loop"       # per-core program (core.workloads)
+    n_cores: int = 256
+    # the reference's scan unroll factor; kept so reference JSON
+    # loads, and has no effect in the port
+    unroll: int = 1
+    # kept so reference JSON loads; only "auto" is accepted — the run's
+    # device picks the CUDA kernel (GPU) or its plain version (CPU)
+    backend: str = "auto"
+    n_addrs: int = 1                 # contention: fewer addresses = hotter
+    cycles: int = 20_000
+    lat: int = 5                     # one-way network latency (cycles)
+    work: int = 10                   # local work between atomics
+    modify: int = 4                  # cycles between load and store
+    # calibrated backoff policy: base 160 with one exponential doubling
+    backoff: int = 160               # base retry backoff
+    backoff_exp: int = 2             # exponential backoff: cap base<<(exp-1)
+    q_slots: int = 256               # lrscwait queue capacity (≥N ⇒ ideal)
+    net_bw: int = 64                 # network acceptances per cycle
+    # head-of-line blocking: each `hol_block` parked requests occupy one
+    # network slot (0 disables) — the Fig. 5 interference mechanism
+    hol_block: int = 16
+    n_workers: int = 0               # Fig.5: cores streaming a matmul
+    seed: int = 0
+    n_groups: int = 4                # colibri_hier: clusters of cores
+    zipf_skew: int = 100             # 100*s for ADDR_ZIPF streams (s=1.0)
+    topology: str = "flat"           # NoC topology (core.topologies)
+    clusters: int = 4                # leaf clusters (hierarchical topologies)
+    record_trace: bool = False       # per-completion trace (not ported)
+    telemetry_windows: int = 0       # windowed telemetry (not ported)
+    faults: FaultPlan = FaultPlan()  # fault schedule (only the empty plan)
+
+    _BOUNDS = (("n_cores", 1), ("cycles", 1), ("n_addrs", 1),
+               ("q_slots", 1), ("n_groups", 1), ("unroll", 1),
+               ("backoff_exp", 1), ("net_bw", 1), ("lat", 0),
+               ("work", 0), ("modify", 0), ("backoff", 0),
+               ("hol_block", 0), ("n_workers", 0), ("zipf_skew", 0),
+               ("telemetry_windows", 0), ("clusters", 1))
+
+    def __post_init__(self):
+        if self.protocol not in proto_registry.names():
+            raise ValueError(
+                f"unknown protocol {self.protocol!r}; registered protocols: "
+                f"{', '.join(proto_registry.names())}")
+        if self.workload not in wl_registry.names():
+            raise ValueError(
+                f"unknown workload {self.workload!r}; registered workloads: "
+                f"{', '.join(wl_registry.names())}")
+        if self.topology not in topo_registry.names():
+            raise ValueError(
+                f"unknown topology {self.topology!r}; registered topologies: "
+                f"{', '.join(topo_registry.names())}")
+        for fname, lo in self._BOUNDS:
+            v = getattr(self, fname)
+            if (not isinstance(v, (int, np.integer))
+                    or isinstance(v, bool) or v < lo):
+                raise ValueError(
+                    f"{fname} must be an int >= {lo} (got {v!r})")
+        if not isinstance(self.seed, (int, np.integer)) \
+                or isinstance(self.seed, bool):
+            raise ValueError(f"seed must be an int (got {self.seed!r})")
+        if not isinstance(self.record_trace, (bool, np.bool_)):
+            raise ValueError(
+                f"record_trace must be a bool (got {self.record_trace!r})")
+        if self.backend not in BACKENDS:
+            raise ValueError(
+                f"unknown backend {self.backend!r}; the port accepts: "
+                f"{', '.join(BACKENDS)} (the run's device picks the CUDA "
+                f"kernel or its plain version)")
+        if self.faults is None:
+            object.__setattr__(self, "faults", FaultPlan())
+        elif isinstance(self.faults, dict):
+            object.__setattr__(self, "faults", FaultPlan(**self.faults))
+        elif not isinstance(self.faults, FaultPlan):
+            raise ValueError(
+                f"faults must be a FaultPlan, a dict or None "
+                f"(got {self.faults!r})")
+        wl = wl_registry.get(self.workload)
+        if self.n_addrs < wl.min_addrs:
+            raise ValueError(
+                f"workload {self.workload!r} needs n_addrs >= "
+                f"{wl.min_addrs} (got {self.n_addrs})")
+        _refuse_unported(self, wl.program(self))
+
+
+def _refuse_unported(p: SimParams, prog) -> None:
+    """Raise ``NotImplementedError`` for what the reference engine runs
+    and the port does not yet (a refusal, never a fallback)."""
+    def refuse(what, item):
+        raise NotImplementedError(
+            f"{what} is not ported to repro_torch yet (ROADMAP item {item})")
+    if K_BARRIER in prog.kind:
+        refuse("a barrier program", "A8")
+    if prog.length != 1:
+        refuse("a multi-step program", "A8")
+    if ADDR_ZIPF in prog.addr_mode and p.zipf_skew != 0:
+        refuse(f"zipf_skew={p.zipf_skew} (only the uniform limit 0 is "
+               f"bit-identical so far)", "A8")
+    if p.record_trace:
+        refuse("record_trace=True", "A8")
+    if p.telemetry_windows > 0:
+        refuse("telemetry_windows > 0", "A11")
+    if p.faults.enabled:
+        refuse("an enabled FaultPlan", "A10")
+
+
+def _hash(x: torch.Tensor) -> torch.Tensor:
+    """Cheap counter-based pseudo-random (Knuth multiplicative), exactly
+    the reference's ``(x.astype(uint32) * 2654435761) >> 8``.
+
+    ``x`` is an int64 tensor holding the exact value of the reference's
+    int32 expression; masking to 32 bits equals its int32 wrap followed
+    by the uint32 cast.  The uint32 multiply is done in int64 on the
+    constant's two 16-bit halves, so no int64 product can overflow.
+    """
+    x = x & _MASK32
+    lo = x * (_KNUTH & 0xFFFF)
+    hi = ((x * (_KNUTH >> 16)) & 0xFFFF) << 16
+    return ((lo + hi) & _MASK32) >> 8
+
+
+def accept_rotating_fair(all_req: torch.Tensor, budget,
+                         shift: int) -> torch.Tensor:
+    """Accept the ``budget`` requesters with the lowest rotated priority
+    ``rot = (iota + shift) % n``.
+
+    Laying the request mask out in rot-space (a ``torch.roll`` by
+    ``shift``) and taking a cumulative sum yields each requester's exact
+    rank among requesters.
+    """
+    req_by_rot = torch.roll(all_req.to(torch.int32), shift)
+    rank = torch.roll(torch.cumsum(req_by_rot, 0, dtype=torch.int32),
+                      -shift) - 1
+    return all_req & (rank < budget)
+
+
+def _shl32(v: int, k: int) -> int:
+    """int32 ``v << k`` with the reference's wrap (0 once k >= 32)."""
+    if k >= 32:
+        return 0
+    r = (v << k) & _MASK32
+    return r - (1 << 32) if r >= 1 << 31 else r
+
+
+def resolve_device(device=None) -> torch.device:
+    """The run's device: ``None`` means ``"cuda"``, and a CUDA run
+    without a visible GPU raises instead of falling back."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on the GPU, and torch sees no CUDA device; "
+            "pass device='cpu' to run on the CPU")
+    return dev
+
+
+def simulate(p: SimParams, device) -> Dict[str, torch.Tensor]:
+    """One engine run on ``device``: the reference's flat result dict
+    (per-core and per-bank arrays, scalar counters, the protocol's bank
+    state), as tensors on that device."""
+    dev = torch.device(device)
+    i32 = torch.int32
+    proto = proto_registry.get(p.protocol)
+    prog = wl_registry.get(p.workload).program(p)
+    pt = prog.tables()
+    n, a = p.n_cores, p.n_addrs
+    q_cap = proto.q_cap(p, n)
+    exp_cap = 1 if proto.fixed_backoff else p.backoff_exp
+    # one-step programs (SimParams refuses others): every per-step table
+    # entry is a constant and the program counter never moves
+    pre_dur = int(pt["pre_mult"][0]) * p.work + int(pt["pre_add"][0])
+    mod_dur = int(pt["mod_mult"][0]) * p.modify + int(pt["mod_add"][0])
+    addr_mode = int(pt["addr_mode"][0])
+    fix_addr = (int(pt["addr_arg"][0]) & _MASK32) % p.n_addrs
+
+    def zeros(shape=(), dtype=i32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    iota = torch.arange(n, dtype=i32, device=dev)
+    hash_base = iota.to(torch.int64) * 7919 + p.seed
+    # backoff jitter ``_hash(core + cyc) % 32`` for every (core, cycle):
+    # one table over [0, cycles + n), read per cycle as a slice
+    jitter = (_hash(torch.arange(p.cycles + n, dtype=torch.int64,
+                                 device=dev)) % 32).to(i32)
+    ba = torch.arange(a, dtype=i32, device=dev)
+    # backoff base per failure streak: backoff << max(streak - 1, 0)
+    bo_tab = torch.tensor([_shl32(p.backoff, max(k - 1, 0))
+                           for k in range(exp_cap + 1)], dtype=i32,
+                          device=dev)
+    has_workers = p.n_workers > 0
+    is_worker = iota < p.n_workers
+    not_worker = ~is_worker
+    n_atomic = n - min(p.n_workers, n)
+
+    st = torch.full((n,), WORK, dtype=i32, device=dev)
+    tmr = (iota * 3) % (p.work + 1)                       # stagger
+    addr, phase, nxt = zeros(n), zeros(n), zeros(n)
+    arr_cyc = torch.full((n,), -1, dtype=i32, device=dev)
+    parked = zeros(n, torch.bool)
+    resp_prev = zeros()
+    opc, streak, acq_start = zeros(n), zeros(n), zeros(n)
+    bank = proto.init_bank_state(p, a, n, q_cap, dev)
+    xc = proto.init_core_state(p, n, dev)
+    msgs, polls, sleep_cyc, lat_max = zeros(), zeros(), zeros(), zeros()
+    backoff_cyc, active_cyc, bank_ops, net_stall = (zeros(), zeros(),
+                                                    zeros(), zeros())
+    addr_ops, lat_hist = zeros(a), zeros(LAT_BINS)
+    w_tmr, w_served = zeros(n), zeros(n)
+    ctx = Ctx(p=p, n=n, a=a, q_cap=q_cap, ba=ba, mod_dur=mod_dur)
+    # the engine's OUT_* -> (st, nxt) apply as lookup tables over the
+    # five codes: GRANT/DONE/FAIL answer with RESP and NXT_MOD /
+    # NXT_WORK_DONE / NXT_BACKOFF; SLEEP parks the core; NONE is no-op
+    kinds = (OUT_NONE, OUT_GRANT, OUT_DONE, OUT_FAIL, OUT_SLEEP)
+    resp_of_kind = torch.tensor([k in (OUT_GRANT, OUT_DONE, OUT_FAIL)
+                                 for k in kinds], device=dev)
+    nxt_of_kind = torch.tensor(
+        [NXT_MOD if k == OUT_GRANT else NXT_WORK_DONE if k == OUT_DONE
+         else NXT_BACKOFF for k in kinds], dtype=i32, device=dev)
+
+    def step_addr(opc):
+        """Current micro-op's target address (uniform counter hash,
+        fixed, or the Zipf stream)."""
+        if addr_mode == ADDR_FIXED:
+            return torch.full((n,), fix_addr, dtype=i32, device=dev)
+        h = _hash(hash_base + opc.to(torch.int64) * 104729)
+        if addr_mode == ADDR_ZIPF:
+            return zipf_index(h, p.n_addrs, p.zipf_skew)
+        return (h % p.n_addrs).to(i32)                  # ADDR_UNIFORM
+
+    for cyc in range(p.cycles):
+        # ---- timers ----
+        tmr = (tmr - 1).clamp_(min=0)
+        t0 = tmr == 0
+
+        # ---- timer-expiry dispatch: WORK -> acquire, BACKOFF ->
+        # reissue acquire, MOD -> release/SC ----
+        start = t0 & (st == WORK)
+        if has_workers:
+            start = start & not_worker
+        rb = t0 & (st == BACKOFF)
+        md = t0 & (st == MOD)
+        issue = start | rb | md
+        addr = torch.where(start, step_addr(opc), addr)
+        phase = phase.masked_fill(start | rb, P_ACQ).masked_fill_(md, P_REL)
+        st = st.masked_fill(issue, REQ)
+        tmr = tmr.masked_fill_(issue, p.lat)
+
+        # ---- RESP arrives: the current micro-op retires ----
+        ra = t0 & (st == RESP)
+        done = ra & (nxt == NXT_WORK_DONE)
+        st = st.masked_fill_(done, WORK)
+        tmr = tmr.masked_fill_(done, pre_dur)
+        opc = opc + done          # one-step program: ops == opc
+        acq_start = acq_start.masked_fill(start, cyc)
+        addr_ops = addr_ops.index_add(0, addr, done.to(i32))
+        to_mod = ra & (nxt == NXT_MOD)
+        st = st.masked_fill_(to_mod, MOD)
+        tmr = tmr.masked_fill_(to_mod, mod_dur)
+        to_bo = ra & (nxt == NXT_BACKOFF)
+        st = st.masked_fill_(to_bo, BACKOFF)
+        streak = torch.where(to_bo, (streak + 1).clamp_(max=exp_cap),
+                             streak.masked_fill(done, 0))
+        bo_len = bo_tab[streak] + jitter[cyc:cyc + n]
+        tmr = torch.where(to_bo, bo_len, tmr)
+
+        # ---- workers stream loads (Fig. 5) ----
+        if has_workers:
+            w_tmr = (w_tmr - 1).clamp_(min=0)
+            w_arr = is_worker & (w_tmr == 0)
+
+        # ---- network acceptance (rotating-fair, bounded bandwidth) ----
+        fresh = (st == REQ) & (tmr == 0) & ~parked
+        if has_workers:
+            fresh = fresh & not_worker
+        shift = (cyc * 97) % n
+        rot = torch.roll(iota, -shift)                    # (iota+shift)%n
+        all_req = (fresh | w_arr) if has_workers else fresh
+        hol = (parked.sum(dtype=i32) // p.hol_block) if p.hol_block else 0
+        budget = (p.net_bw - resp_prev - hol).clamp_(min=1)
+        accepted = accept_rotating_fair(all_req, budget, shift)
+        if has_workers:
+            w_acc = w_arr & accepted
+            w_served = w_served + w_acc
+            w_tmr = w_tmr.masked_fill_(w_acc, 2)
+            w_tmr = w_tmr.masked_fill_(is_worker & (w_tmr == 0), 1)
+        net_stall = net_stall + (all_req & ~accepted).sum(dtype=i32)
+        new_acc = fresh & accepted
+        parked = parked | new_acc
+        arr_cyc = arr_cyc.masked_fill(new_acc, cyc)
+
+        # ---- bank side: arbitration + protocol + histogram ----
+        arrived = parked & (st == REQ)
+        fs = engine_step.fused_step(
+            proto, p, bank, cand_cyc=arr_cyc.masked_fill(~arrived, _BIG),
+            rot=rot, addr=addr, phase=phase, acq_start=acq_start,
+            core={f: xc[f] for f in proto.fused_core_fields},
+            cyc=cyc, shift=shift, lat=p.lat, n=n, a=a, q_cap=q_cap,
+            cycles=p.cycles)
+        # apply the per-bank outcome codes to the winning cores.  A
+        # bank's winner was chosen among the cores whose addr is that
+        # bank, so gathering the bank lanes at ``addr`` reaches exactly
+        # the reference's scatter targets (no index is written twice)
+        winner = fs["win"][addr] == iota
+        parked = parked & ~winner
+        arr_cyc = arr_cyc.masked_fill_(winner, -1)
+        kind_c = fs["kind"][addr]
+        resp_c = winner & resp_of_kind[kind_c]
+        st = st.masked_fill_(resp_c, RESP)
+        st = st.masked_fill_(winner & (kind_c == OUT_SLEEP), SLEEP)
+        tmr = torch.where(resp_c, fs["tmr"][addr], tmr)
+        nxt = torch.where(resp_c, nxt_of_kind[kind_c], nxt)
+        n_win = winner.sum(dtype=i32)
+        polls = polls + fs["polls"]
+        msgs = msgs + 2 * n_win + fs["msgs"]
+        bank = fs["bank"]
+        bank_ops = bank_ops + n_win
+
+        # ---- wakeups (queue-based protocols) ----
+        wake_load = 0
+        if proto.uses_queue:
+            cs, bank, wake_load = proto.on_wake(ctx, dict(st=st, tmr=tmr),
+                                                bank)
+            st, tmr = cs["st"], cs["tmr"]
+
+        # ---- completion-latency histogram (accumulated in the kernel)
+        lat_hist = lat_hist + fs["hist"]
+        lat_max = torch.maximum(lat_max, fs["lat_max"])
+        # network slots taken next cycle by this cycle's responses,
+        # worker loads, protocol side-messages and wake-ups
+        resp_prev = n_win + fs["msgs"] + wake_load
+        if has_workers:
+            resp_prev = resp_prev + w_acc.sum(dtype=i32)
+        # ---- per-cycle state census ----
+        sleep_now = (st == SLEEP).sum(dtype=i32)
+        sleep_cyc = sleep_cyc + sleep_now
+        backoff_cyc = backoff_cyc + (st == BACKOFF).sum(dtype=i32)
+        if has_workers:
+            active_cyc = active_cyc + ((st != SLEEP)
+                                       & not_worker).sum(dtype=i32)
+        else:
+            # no BARWAIT in a barrier-free program: active = not asleep
+            active_cyc = active_cyc + (n_atomic - sleep_now)
+
+    out = dict(st=st, tmr=tmr, addr=addr, phase=phase, nxt=nxt,
+               pc=zeros(n), bar_cnt=zeros(n), opc=opc, arr_cyc=arr_cyc,
+               streak=streak, parked=parked, resp_prev=resp_prev, ops=opc.clone(),
+               acq_start=acq_start, msgs=msgs, polls=polls,
+               addr_ops=addr_ops, sleep_cyc=sleep_cyc, bar_cyc=zeros(),
+               lat_hist=lat_hist, lat_max=lat_max, active_cyc=active_cyc,
+               backoff_cyc=backoff_cyc, bank_ops=bank_ops,
+               net_stall=net_stall, w_tmr=w_tmr, w_served=w_served)
+    out.update(bank)
+    out.update(xc)
+    return out
+
+
+def derive_metrics(res: Dict[str, np.ndarray], n_workers: int, cycles: int,
+                   energy_fit=None) -> Dict[str, np.ndarray]:
+    """Attach the paper's metric set to a raw numpy result dict (alias
+    for :func:`repro_torch.core.metrics.attach`)."""
+    return metrics_mod.attach(res, n_workers, cycles, fit=energy_fit)
+
+
+def execute(p: SimParams, energy_fit=None, device=None
+            ) -> Dict[str, np.ndarray]:
+    """Run one configuration on ``device`` (default ``"cuda"``) and
+    return the metric-annotated result dict as numpy arrays.  Internal
+    entry point: the public surface is :func:`repro_torch.sync.run`."""
+    out = simulate(p, resolve_device(device))
+    res = {k: v.cpu().numpy() for k, v in out.items()}
+    return derive_metrics(res, min(p.n_workers, p.n_cores), p.cycles,
+                          energy_fit=energy_fit)
+
+
+def run(p: SimParams, energy_fit=None, device=None) -> Dict[str, np.ndarray]:
+    """Deprecated legacy entry point — use ``repro_torch.sync.run``."""
+    warnings.warn(
+        "repro_torch.core.sim.run() is deprecated; use "
+        "repro_torch.sync.run(Spec(...)), which returns a typed Result",
+        DeprecationWarning, stacklevel=2)
+    return execute(p, energy_fit=energy_fit, device=device)

@@ -1,0 +1,121 @@
+"""The port's engine against the reference's, key for key.
+
+``repro_torch.core.sim.execute`` on the CPU must return the same result
+dict as ``repro.core.sim.execute``: the same keys, every integer/bool
+array equal with the same dtype, and the derived float metrics ``==``.
+Also here: the port's construction-time refusals and its device rule.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro.core import sim as jsim
+from repro_torch.core import sim as tsim
+from repro_torch.faults import FaultPlan
+
+
+def _assert_results_equal(got, want):
+    assert set(got) == set(want)
+    for k, w in want.items():
+        g = got[k]
+        if isinstance(w, np.ndarray):
+            assert isinstance(g, np.ndarray), k
+            assert g.dtype == w.dtype, (k, g.dtype, w.dtype)
+            np.testing.assert_array_equal(g, w, err_msg=k)
+        else:
+            assert type(g) is type(w) and g == w, (k, g, w)
+
+
+POINTS = {
+    "zipf0_colibri": dict(protocol="colibri", workload="zipf_histogram",
+                          zipf_skew=0, n_cores=64, n_addrs=16, cycles=1500,
+                          seed=3),
+    "zipf0_lrsc_1bin": dict(protocol="lrsc", workload="zipf_histogram",
+                            zipf_skew=0, n_cores=64, n_addrs=1, cycles=1500,
+                            seed=4),
+    "zipf0_amo": dict(protocol="amo", workload="zipf_histogram",
+                      zipf_skew=0, n_cores=32, n_addrs=64, cycles=1000),
+    "workers_lrsc": dict(protocol="lrsc", n_cores=64, n_addrs=1,
+                         n_workers=8, net_bw=13, hol_block=16, cycles=1500,
+                         backoff=128, backoff_exp=1, seed=5),
+    "workers_colibri": dict(protocol="colibri", n_cores=64, n_addrs=2,
+                            n_workers=16, net_bw=13, hol_block=4,
+                            cycles=1500, seed=6),
+    "lrscwait_q8": dict(protocol="lrscwait", n_cores=64, n_addrs=1,
+                        q_slots=8, cycles=1500, seed=4),
+    "lrscwait_q8_4bins": dict(protocol="lrscwait", n_cores=64, n_addrs=4,
+                              q_slots=8, cycles=1500, seed=8, lat=3),
+}
+
+
+@pytest.mark.parametrize("name", sorted(POINTS))
+def test_execute_matches_reference_key_for_key(name):
+    cfg = POINTS[name]
+    want = jsim.execute(jsim.SimParams(backend="xla_cpu", **cfg))
+    got = tsim.execute(tsim.SimParams(**cfg), device="cpu")
+    _assert_results_equal(got, want)
+
+
+def test_bank_state_keys_and_dtypes_follow_the_protocol():
+    got = tsim.execute(tsim.SimParams(protocol="lrsc", n_cores=8,
+                                      n_addrs=2, cycles=50), device="cpu")
+    assert got["resv_valid"].dtype == np.bool_
+    assert got["resv_core"].dtype == np.int32
+    assert got["parked"].dtype == np.bool_
+    assert got["msgs"].shape == () and got["msgs"].dtype == np.int32
+
+
+# ---------------------------------------------------------------------------
+# construction-time rules
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kw", [
+    dict(workload="zipf_histogram", zipf_skew=100),
+    dict(record_trace=True),
+    dict(telemetry_windows=4),
+    dict(faults=FaultPlan(n_kill=1)),
+    dict(faults={"watchdog_cyc": 64}),
+])
+def test_unported_features_are_refused(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP item"):
+        tsim.SimParams(**kw)
+
+
+def test_skew_is_ignored_where_no_zipf_stream_runs():
+    # rmw_loop has no Zipf step: the default zipf_skew=100 is inert there
+    assert tsim.SimParams(workload="rmw_loop").zipf_skew == 100
+
+
+def test_unported_names_list_what_the_port_has():
+    with pytest.raises(ValueError, match="amo, colibri, lrsc, lrscwait"):
+        tsim.SimParams(protocol="ticket_lock")
+    with pytest.raises(ValueError, match="rmw_loop, zipf_histogram"):
+        tsim.SimParams(workload="ms_queue")
+    with pytest.raises(ValueError, match="registered topologies: flat"):
+        tsim.SimParams(topology="cluster2")
+
+
+def test_backend_accepts_auto_only():
+    assert tsim.SimParams(backend="auto").backend == "auto"
+    for b in ("xla_cpu", "pallas_interpret", "cuda"):
+        with pytest.raises(ValueError, match="the port accepts: auto"):
+            tsim.SimParams(backend=b)
+
+
+def test_bounds_match_the_reference():
+    for kw in (dict(n_cores=0), dict(cycles=0), dict(lat=-1),
+               dict(seed=1.5), dict(record_trace=1)):
+        with pytest.raises(ValueError):
+            tsim.SimParams(**kw)
+        with pytest.raises(ValueError):
+            jsim.SimParams(**kw)
+
+
+def test_execute_without_device_needs_a_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    p = tsim.SimParams(n_cores=8, cycles=10)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tsim.execute(p)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tsim.execute(p, device="cuda")
+    assert tsim.execute(p, device="cpu")["ops"].shape == (8,)

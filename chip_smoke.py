@@ -7,37 +7,54 @@ Phases, one JSON line each:
 
 1. device — needs ``torch.cuda.is_available()``; prints ``nvidia-smi``'s
    name and power limit of the card;
-2. build — compiles the ``engine_step`` CUDA kernel from the checkout;
-3. kernel — the kernel against its plain PyTorch version on the card,
-   for each protocol at every (cores, banks) shape the later phases give
-   it, plus the reference's multi-tile case, over chained cycles from
-   seeded random states: every output and bank array must be equal;
-4. exact — ``zipf_index`` (skew 0) and ``_hash`` on the card against the
+2. build — compiles the ``engine_step`` and ``colibri_scatter`` CUDA
+   kernels from the checkout, one ``nvcc`` each, in parallel;
+3. kernel — the engine_step kernel against its plain PyTorch version on
+   the card, for each protocol at every (cores, banks) shape the later
+   phases give it, plus the reference's multi-tile case, over chained
+   cycles from seeded random states: every output and bank array must
+   be equal;
+4. scatter_kernel — the colibri_scatter kernel against its plain
+   version on the card at the reference tests' shapes (f32 and bf16),
+   the trace path's shapes and two large ones: float sums within
+   ``tests/test_kernels.py``'s tolerances, histograms exact (also
+   against ``torch.bincount``), keys equal to ``bins`` dropped;
+5. exact — ``zipf_index`` (skew 0) and ``_hash`` on the card against the
    CPU over 2^24 inputs;
-5. golden — ``repro_torch.sync.run`` on the card reproduces the
+6. golden — ``repro_torch.sync.run`` on the card reproduces the
    reference's golden values (``tests/test_protocols.py``), and one point
    per protocol equals the port's own CPU run key for key;
-6. main path — the paper's 256-core MemPool at 20 000 cycles (Fig. 3
+7. main path — the paper's 256-core MemPool at 20 000 cycles (Fig. 3
    histogram, uniform bins) for colibri and lrsc at 1 and 256 bins, and
    a 1024-core colibri point: summaries and metrics equal the
    reference's values below, and the kernel ran once per cycle;
-7. profile — device time by kernel over 300 cycles of the main path
-   (``torch.profiler``): kernels per cycle, device busy share;
-8. kernels — the kernel's launches, agreement and times: device time
-   per call (profiler) beside the bound and the plain version's, and the
-   host-paced time per call (CUDA events over back-to-back calls).
+8. trace path — the four 256-core points again with ``record_trace``
+   and 64 telemetry windows: the traces, telemetry, exact-waits latency
+   percentiles, ``trace_latency_hist`` (one colibri_scatter launch),
+   span counts and, at one bin, the Perfetto JSON equal the reference's
+   values below; colibri shows no BACKOFF span and no poll, lrsc shows
+   BACKOFF spans; wall time beside the same point untraced;
+9. profile — device time by kernel over 300 cycles of the main path
+   (``torch.profiler``), untraced and traced: kernels per cycle, device
+   busy share;
+10. kernel times — each kernel's device time per call (profiler) beside
+   its bound, its plain version's and the PyTorch library call's, at
+   the shapes the paths give it; the kernels line.
 
 The reference values below were computed with the JAX package
-(``repro``); ``tests/test_torch_sync.py`` recomputes them so they cannot
+(``repro``); ``tests/test_torch_sync.py`` and
+``tests/test_torch_trace_values.py`` recompute them so they cannot
 drift.  The script imports neither JAX nor ``repro``.  It exits non-zero
 when any phase fails, and its last line is the device record.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -47,10 +64,14 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import convert  # noqa: E402
-from repro_torch.core import protocols, sim  # noqa: E402
+from repro_torch.core import metrics, protocols, sim  # noqa: E402
 from repro_torch.core.workloads.base import zipf_index  # noqa: E402
-from repro_torch.kernels import LAUNCHES, engine_step  # noqa: E402
+from repro_torch.kernels import LAUNCHES, _build  # noqa: E402
+from repro_torch.kernels import colibri_scatter, engine_step  # noqa: E402
+import repro_torch.kernels.colibri_scatter.kernel as cs_kernel  # noqa: E402
 from repro_torch.kernels.engine_step import kernel as es_kernel  # noqa: E402
+from repro_torch.obs import perfetto  # noqa: E402
+from repro_torch.obs.schema import STATE_NAMES  # noqa: E402
 from repro_torch.sync import Spec, run  # noqa: E402
 
 PROTOS = ("amo", "lrsc", "lrscwait", "colibri")
@@ -174,6 +195,137 @@ KERNEL_SHAPES = tuple(sorted(
     | {(256, 64), (1024, 256), (2048, 512)}))
 
 
+# ---- the trace path: the main path's 256-core points, traced ---------
+#: (protocol, cores, bins) of the trace phase, each with record_trace and
+#: 64 telemetry windows at 20 000 cycles
+TRACE_POINTS = FULL_WIDTH_POINTS[:4]
+#: points whose Perfetto JSON is hashed (8 617 and 60 273 spans); at 256
+#: bins (~0.9 M spans) the span counts are compared instead
+PERFETTO_HASHED = (("colibri", 256, 1), ("lrsc", 256, 1))
+#: result arrays hashed (sha256 of their bytes in this dtype, C order)
+TRACE_ARRAYS = {"trace_step": "<i4", "trace_wait": "<i4",
+                "trace_state": "i1", "trace_qlen": "<i4", "tele": "<i4"}
+#: the reference's values for those points (repro.sync.run, xla_cpu,
+#: repro.core.metrics.trace_latency_hist, repro.obs), as trace_record
+#: computes them
+TRACE_REF = {
+ "colibri/256/1": {
+    "ops": 1316, "msgs": 11546, "polls": 0, "sleep_cyc": 5047667,
+    "backoff_cyc": 0, "bank_ops": 2887, "net_stall": 0, "ops_min": 5,
+    "ops_max": 6, "lat_hist_sum": 1316, "lat_max": 4082, "throughput":
+    0.0658, "jain_fairness": 0.9954476898175397, "energy_pj_per_op":
+    121.97751835945519, "lat_p50": 3830.0, "lat_p95": 3830.0,
+    "trace_step_sha256":
+        "0472fb9ba51890d1204a45ce08b86968ff13c5d81342ab8e338acddd533f8bf4",
+    "trace_wait_sha256":
+        "e22a87a754792560c5f7357b031f9354de5696938d9f4f611e6088e8cab1c36a",
+    "trace_state_sha256":
+        "d677b874ff22e43f38428b69a60c4a3d44a5d8481e96cf2f5c4889b754e280ec",
+    "trace_qlen_sha256":
+        "744651736fa82604c2ae59556eb8d66ed5b894de5742acfe0f91052a589d33bf",
+    "tele_sha256":
+        "2db73807f512e4143718fcff946904ce260f6974285dacde97f6efc4b0f27cdb",
+    "trace_latency_hist": [
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 3, 4, 4, 6, 6, 8, 9, 11, 13, 15, 19, 21,
+        26, 31, 37, 1103, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+    "spans": {
+        "WORK": 1525, "REQ": 2888, "SLEEP": 1570, "MOD": 1317, "BACKOFF": 0,
+        "RESP": 1317, "BARWAIT": 0},
+    "perfetto_sha256":
+        "715dd8c10d961d637e6d76d5413fc6ff1e3eac5e81c0aed336ab703f9cdd1364"},
+ "colibri/256/256": {
+    "ops": 150414, "msgs": 603226, "polls": 0, "sleep_cyc": 3178,
+    "backoff_cyc": 0, "bank_ops": 301035, "net_stall": 535, "ops_min": 587,
+    "ops_max": 588, "lat_hist_sum": 150414, "lat_max": 38, "throughput":
+    7.5207, "jain_fairness": 0.9999992844889197, "energy_pj_per_op":
+    3.006174464066015, "lat_p50": 24.0, "lat_p95": 24.0,
+    "trace_step_sha256":
+        "5ea0a2c42027bc3ca05ff92ea94cf0316b6f61c52c7c0eea582ea89d51ab2f6a",
+    "trace_wait_sha256":
+        "028ab26218e33ea9de1038afc236d5d01f5530dcc9a5fdfb7e037949122ce7cc",
+    "trace_state_sha256":
+        "8b05f50cc8cd76387f7b6dbaa6a7ca93e5d44e31b973cdbc18646543a860696e",
+    "trace_qlen_sha256":
+        "504adf6635753e78041e533bb9ccf0003a9b31d0a82d6c6d4662b109a44c2434",
+    "tele_sha256":
+        "7406384caa464eb3bbd61a3bf20356458fd54194df9818dd55bd636df3843df1",
+    "trace_latency_hist": [
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 150020, 257,
+        136, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+    "spans": {
+        "WORK": 150623, "REQ": 301160, "SLEEP": 289, "MOD": 150528,
+        "BACKOFF": 0, "RESP": 300746, "BARWAIT": 0}},
+ "lrsc/256/1": {
+    "ops": 202, "msgs": 39990, "polls": 9773, "sleep_cyc": 0, "backoff_cyc":
+    3181329, "bank_ops": 19995, "net_stall": 0, "ops_min": 0, "ops_max": 5,
+    "lat_hist_sum": 202, "lat_max": 19917, "throughput": 0.0101,
+    "jain_fairness": 0.3777029028436019, "energy_pj_per_op":
+    847.9332441822619, "lat_p50": 6978.0, "lat_p95": 17713.0,
+    "trace_step_sha256":
+        "3cb813ad0398380e0c05ff742e8df01799b1223bc7f30ac0a934ede3e3ac84f5",
+    "trace_wait_sha256":
+        "e87103c805e61929829d71c35251765092083853850b8e67d4f24eda1806f18b",
+    "trace_state_sha256":
+        "85e74384d71cbb448ba9a893bdbee51d0899cdc5c0aec0d2885c5183ac838af3",
+    "trace_qlen_sha256":
+        "f8c784aa6b57396e7c5e094c34d079d8252473e46e2f60593a921dbebf941fcc",
+    "tele_sha256":
+        "83d730a3a1016ebf8105d4179b4f6f26ced0fce20360211f5391947f980e8fad",
+    "trace_latency_hist": [
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 1, 0, 5, 19, 0, 2, 1, 0, 2, 0, 0, 1, 1, 8, 2, 2, 4, 4,
+        6, 7, 7, 9, 6, 13, 18, 17, 18, 17, 17, 14, 1, 0, 0, 0, 0, 0, 0],
+    "spans": {
+        "WORK": 411, "REQ": 20079, "SLEEP": 0, "MOD": 10017, "BACKOFF":
+        9771, "RESP": 19995, "BARWAIT": 0},
+    "perfetto_sha256":
+        "540e540d0a5c41665f8aa90126716b1c7a0b8a0c72c542f9eefba84fdecdc030"},
+ "lrsc/256/256": {
+    "ops": 122101, "msgs": 504118, "polls": 3847, "sleep_cyc": 0,
+    "backoff_cyc": 873078, "bank_ops": 252059, "net_stall": 16, "ops_min":
+    310, "ops_max": 576, "lat_hist_sum": 122101, "lat_max": 2730,
+    "throughput": 6.10505, "jain_fairness": 0.9909470155320287,
+    "energy_pj_per_op": 3.0730100606274298, "lat_p50": 24.0, "lat_p95": 24.0,
+    "trace_step_sha256":
+        "6a57e447d8fde94c1f89fc887854ff97bc264da84f647c3db5e0b86b62e88751",
+    "trace_wait_sha256":
+        "83cf7fc7d9687a5bc65f74a5d80fc60c4fc8e0b61ef7415e555aa9b2bf6002c3",
+    "trace_state_sha256":
+        "4de5fe6d6d6ddd77086f5695e3e513d9e7c54f5c2f74b7a069e4014e52beecc5",
+    "trace_qlen_sha256":
+        "99bc76fe79fcfd5e5baf554639fed136ae926dbc105e2e09e70e34f497af1dcb",
+    "tele_sha256":
+        "16bcffab30d539de5df811a84460d9d697e7ba6f331e3b904b6aea03b27a3942",
+    "trace_latency_hist": [
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 119585, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 400, 1266, 0, 0, 0, 0, 571, 11, 0, 188,
+        0, 49, 20, 8, 2, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0],
+    "spans": {
+        "WORK": 122310, "REQ": 252105, "SLEEP": 0, "MOD": 126030, "BACKOFF":
+        3847, "RESP": 252059, "BARWAIT": 0}}}
+
+# ---- the colibri_scatter kernel -----------------------------------------
+#: (T, bins, d, dtype) of the scatter_kernel phase: the reference tests'
+#: shapes in both dtypes (513 x 1 x 4: the whole stream in one bin), the
+#: trace path's (its four points' completion counts into the 64 latency
+#: bins) and two large cases
+SCATTER_SHAPES = tuple(
+    [(t, b, d, dt) for dt in ("float32", "bfloat16")
+     for t, b, d in ((100, 7, 1), (1000, 64, 8), (2048, 300, 16),
+                     (513, 1, 4))]
+    + [(t, 64, 1, "float32") for t in (150_414, 122_101, 1_316, 202)]
+    + [(1 << 20, 64, 1, "float32"), (1 << 16, 1024, 128, "float32")])
+#: dtype -> (rtol, atol), tests/test_kernels.py's
+SCATTER_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (0.15, 1.5)}
+#: the trace path's largest shape: the kernels line's times
+SCATTER_HEAD = (150_414, 64, 1, "float32")
+
+KERNELS = ("engine_step", "colibri_scatter")
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
@@ -207,12 +359,42 @@ def full_width_summary(r) -> dict:
     return out
 
 
+def trace_spec(proto: str, n: int, bins: int) -> Spec:
+    return full_width_spec(proto, n, bins).replace(record_trace=True,
+                                                   telemetry_windows=64)
+
+
+def trace_record(stats, log, hist, perfetto_json=None) -> dict:
+    """What the trace phase holds against the reference: the summary,
+    the exact-waits latency percentiles, the sha256 of each trace array
+    and of the telemetry, the trace latency histogram ``hist``, the
+    span count of each state over all cores (from the ``EventLog``
+    ``log``) and the sha256 of the Perfetto JSON bytes, if given."""
+    out = full_width_summary(stats)
+    out["lat_p50"] = float(stats["lat_p50"])
+    out["lat_p95"] = float(stats["lat_p95"])
+    for k, dt in TRACE_ARRAYS.items():
+        out[f"{k}_sha256"] = hashlib.sha256(np.ascontiguousarray(
+            stats[k], dtype=dt).tobytes()).hexdigest()
+    out["trace_latency_hist"] = [int(v) for v in hist]
+    out["spans"] = {name: int(log.span_counts(code).sum())
+                    for code, name in sorted(STATE_NAMES.items())}
+    if perfetto_json is not None:
+        out["perfetto_sha256"] = hashlib.sha256(perfetto_json).hexdigest()
+    return out
+
+
 class Failed(Exception):
     """A phase's check failed."""
 
 
+#: the card's ``nvidia-smi`` name and power limit, once read; every
+#: record carries it beside its numbers
+CARD = {}
+
+
 def emit(**rec) -> None:
-    print(json.dumps(rec), flush=True)
+    print(json.dumps(dict(rec, **CARD)), flush=True)
 
 
 def require(ok: bool, what: str) -> None:
@@ -310,6 +492,51 @@ def phase_kernel(dev) -> int:
                 cases += 1
     emit(phase="kernel", cases=cases, shapes=KERNEL_SHAPES,
          protocols=PROTOS, max_abs_err=worst, equal=True)
+    return worst
+
+
+def scatter_inputs(dev, t: int, bins: int, d: int, dtype: str, seed: int):
+    """Seeded keys in [0, bins) and standard-normal values on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    keys = torch.randint(0, bins, (t,), generator=g, device=dev,
+                         dtype=torch.int32)
+    vals = torch.randn((t, d), generator=g, device=dev)
+    return keys, vals.to(getattr(torch, dtype))
+
+
+def phase_scatter_kernel(dev) -> dict:
+    worst = dict.fromkeys(SCATTER_TOL, 0.0)
+    for i, (t, bins, d, dtype) in enumerate(SCATTER_SHAPES):
+        keys, vals = scatter_inputs(dev, t, bins, d, dtype, i)
+        dropped = keys.clone()
+        dropped[::7] = bins                      # out of range: dropped
+        for k in (keys, dropped):
+            out = colibri_scatter.colibri_scatter_add(k, vals, bins)
+            ref = colibri_scatter.scatter_add_ref(k, vals, bins)
+            hist = colibri_scatter.colibri_histogram(k, bins)
+            torch.cuda.synchronize()
+            what = f"T={t} bins={bins} d={d} {dtype}"
+            require(out.dtype == vals.dtype
+                    and tuple(out.shape) == (bins, d), f"{what}: output "
+                    f"{out.dtype}{tuple(out.shape)}")
+            rtol, atol = SCATTER_TOL[dtype]
+            err = float((out.float() - ref.float()).abs().max())
+            require(torch.allclose(out.float(), ref.float(), rtol=rtol,
+                                   atol=atol),
+                    f"{what}: kernel differs from plain by {err}")
+            worst[dtype] = max(worst[dtype], err)
+            require(torch.equal(hist, colibri_scatter.histogram_ref(k, bins))
+                    and torch.equal(hist, torch.bincount(
+                        k[k < bins], minlength=bins).int()),
+                    f"{what}: histogram differs")
+            if d == 1:
+                flat = colibri_scatter.colibri_scatter_add(k, vals[:, 0],
+                                                           bins)
+                require(torch.equal(flat, out[:, 0]),
+                        f"{what}: 1-D vals differ")
+    emit(phase="scatter_kernel", cases=2 * len(SCATTER_SHAPES),
+         shapes=SCATTER_SHAPES, max_abs_err=worst, tolerance=SCATTER_TOL,
+         histograms_exact=True, equal=True)
     return worst
 
 
@@ -411,19 +638,25 @@ def device_rows(prof) -> list:
     return rows
 
 
-def device_ms(fn, reps: int) -> float:
+def device_ms(fn, reps: int):
     """Device time per call of ``fn``: the sum of the device activities
-    it launches, from ``torch.profiler``, over ``reps`` calls."""
+    it launches, from ``torch.profiler``, over ``reps`` calls.  A
+    profile that recorded no device activity is taken again, up to three
+    times, and then reported as ``None`` (not measured)."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(10):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(r[2] for r in device_rows(prof)) / reps / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        busy = sum(r[2] for r in device_rows(prof))
+        if busy > 0:
+            return busy / reps / 1e3
+    return None
 
 
 #: bank-state lanes the protocol update reads at a bank with a request
@@ -507,14 +740,72 @@ def phase_main() -> dict:
     return dict(launches=total, points=points)
 
 
-def phase_profile() -> None:
-    """Device time by kernel over 300 cycles of the 256-core colibri
-    point: how busy the card is, and the kernel's share of it."""
+def phase_trace(main_points: list) -> dict:
+    """The trace path at full width, each point beside its untraced run
+    of the main phase (same call, same card)."""
+    untraced = {(r["protocol"], r["cores"], r["bins"]): r["wall_s"]
+                for r in main_points}
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    total = dict.fromkeys(LAUNCHES, 0)
+    by = {}
+    for name, n, bins in TRACE_POINTS:
+        key = f"{name}/{n}/{bins}"
+        spec = trace_spec(name, n, bins)
+        reset_launches()
+        t0 = time.perf_counter()
+        r = run(spec)
+        wall = time.perf_counter() - t0
+        hist = metrics.trace_latency_hist(r.stats)
+        launches = dict(LAUNCHES)
+        for k, v in launches.items():
+            total[k] += v
+        cycles = spec.costs.cycles
+        require(launches["engine_step"] == cycles,
+                f"{key}: {launches['engine_step']} engine_step launches, "
+                f"{cycles} cycles")
+        require(launches["colibri_scatter"] == 1,
+                f"{key}: {launches['colibri_scatter']} colibri_scatter "
+                f"launches for one trace_latency_hist")
+        doc = None
+        if (name, n, bins) in PERFETTO_HASHED:
+            path = out_dir / f"trace_{name}_{n}_{bins}.json"
+            doc = Path(perfetto.export(r, str(path))).read_bytes()
+        got = trace_record(r.stats, r.events(), hist, doc)
+        want = TRACE_REF[key]
+        require(got == want, f"{key}: differs from the reference on "
+                f"{[k for k in want if got.get(k) != want[k]]}")
+        by[(name, bins)] = got
+        base = untraced[(name, n, bins)]
+        emit(phase="trace_point", equal=True, protocol=name, cores=n,
+             bins=bins, cycles=cycles, launches=launches, wall_s=wall,
+             ms_per_cycle=wall / cycles * 1e3, untraced_wall_s=base,
+             untraced_ms_per_cycle=base / cycles * 1e3,
+             overhead_ms_per_cycle=(wall - base) / cycles * 1e3,
+             polls=got["polls"], lat_p50=got["lat_p50"],
+             lat_p95=got["lat_p95"], spans=got["spans"],
+             perfetto_bytes=None if doc is None else len(doc))
+    bin_counts = sorted({b for _, _, b in TRACE_POINTS})
+    for bins in bin_counts:
+        col, lr = by[("colibri", bins)], by[("lrsc", bins)]
+        require(col["spans"]["BACKOFF"] == 0 and col["polls"] == 0,
+                f"colibri at {bins} bins: {col['spans']['BACKOFF']} "
+                f"BACKOFF spans, {col['polls']} polls")
+        require(lr["spans"]["BACKOFF"] > 0,
+                f"lrsc at {bins} bins shows no BACKOFF span")
+    emit(phase="trace", points=len(TRACE_POINTS), launches=total,
+         lrsc_backoff_spans={b: by[("lrsc", b)]["spans"]["BACKOFF"]
+                             for b in bin_counts},
+         colibri_backoff_spans=0, equal=True)
+    return dict(launches=total)
+
+
+def profile_run(spec) -> dict:
+    """Device activity of one run of ``spec`` under ``torch.profiler``,
+    after a warm run and an unprofiled timed run."""
     from torch.profiler import ProfilerActivity, profile
-    cycles = 300
-    spec = Spec(protocol="colibri", workload="zipf_histogram", zipf_skew=0,
-                n_cores=256, n_addrs=1, cycles=cycles)
-    launches = LAUNCHES["engine_step"]
+    cycles = spec.costs.cycles
+    launches = dict(LAUNCHES)
     run(spec)                                          # warm
     t0 = time.perf_counter()
     run(spec)
@@ -524,18 +815,62 @@ def phase_profile() -> None:
         t0 = time.perf_counter()
         run(spec)
         wall_prof = time.perf_counter() - t0
-    LAUNCHES["engine_step"] = launches         # not the main path's run
+    LAUNCHES.update(launches)                  # not a path's counted run
     rows = device_rows(prof)
     busy = sum(r[2] for r in rows)
     kern = [r for r in rows if "engine_step" in r[0]]
-    emit(phase="profile", cycles=cycles, wall_s=wall,
-         wall_s_profiled=wall_prof, device_busy_us=busy,
-         device_busy_share=busy / 1e6 / wall,
-         device_activities_per_cycle=sum(r[1] for r in rows) / cycles,
-         engine_step_us=sum(r[2] for r in kern),
-         engine_step_launches=sum(r[1] for r in kern),
-         engine_step_share_of_busy=sum(r[2] for r in kern) / busy,
-         top=[dict(kernel=k[:80], count=c, us=t) for k, c, t in rows[:12]])
+    return dict(cycles=cycles, wall_s=wall, wall_s_profiled=wall_prof,
+                ms_per_cycle=wall / cycles * 1e3, device_busy_us=busy,
+                device_busy_share=busy / 1e6 / wall,
+                device_activities_per_cycle=sum(r[1] for r in rows) / cycles,
+                engine_step_us=sum(r[2] for r in kern),
+                engine_step_launches=sum(r[1] for r in kern),
+                engine_step_share_of_busy=sum(r[2] for r in kern) / busy,
+                top=[dict(kernel=k[:80], count=c, us=t)
+                     for k, c, t in rows[:12]])
+
+
+def phase_profile() -> None:
+    """Device time by kernel over 300 cycles of the 256-core colibri
+    point, untraced and with the trace and telemetry on: how busy the
+    card is, and the engine_step kernel's share of it."""
+    spec = Spec(protocol="colibri", workload="zipf_histogram", zipf_skew=0,
+                n_cores=256, n_addrs=1, cycles=300)
+    emit(phase="profile", **profile_run(spec))
+    emit(phase="profile_traced", **profile_run(
+        spec.replace(record_trace=True, telemetry_windows=64)))
+
+
+def time_scatter(dev, t: int, bins: int, d: int, dtype: str) -> dict:
+    """Device time per call of the commit kernel (on pre-sorted
+    inputs), the whole op (sort + commit), the plain version and
+    ``index_add_`` (and, for histograms, ``colibri_histogram`` and
+    ``torch.bincount``), beside the commit's bound."""
+    keys, vals = scatter_inputs(dev, t, bins, d, dtype, seed=t + bins + d)
+    order = torch.argsort(keys, stable=True)
+    sk, sv = keys[order].contiguous(), vals[order].contiguous()
+    buf = torch.zeros((bins, d), dtype=vals.dtype, device=dev)
+    reps = 20 if t * d >= 1 << 20 else 100
+    n_bytes = 4 * t + (t + bins) * d * vals.element_size()
+    launches = LAUNCHES["colibri_scatter"]
+    rec = dict(
+        t=t, bins=bins, d=d, dtype=dtype,
+        ms=device_ms(lambda: cs_kernel.scatter_commit_cuda(sk, sv, bins),
+                     reps),
+        op_ms=device_ms(lambda: colibri_scatter.colibri_scatter_add(
+            keys, vals, bins), reps),
+        plain_ms=device_ms(lambda: colibri_scatter.scatter_add_ref(
+            keys, vals, bins), reps),
+        library_ms=device_ms(lambda: buf.index_add_(0, keys, vals), reps),
+        bound_bytes=n_bytes, bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3)
+    if d == 1 and dtype == "float32":
+        lk = keys.long()
+        rec["histogram_op_ms"] = device_ms(
+            lambda: colibri_scatter.colibri_histogram(keys, bins), reps)
+        rec["bincount_ms"] = device_ms(
+            lambda: torch.bincount(lk, minlength=bins), reps)
+    LAUNCHES["colibri_scatter"] = launches     # timing runs are not counted
+    return rec
 
 
 def timed(phase, *args):
@@ -554,22 +889,28 @@ def main() -> int:
     dev = torch.device("cuda")
     smi = smi_line()
     print(smi, flush=True)
+    CARD["card"] = smi
     emit(phase="device", name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    info = es_kernel.build()
+    with ThreadPoolExecutor(len(KERNELS)) as pool:    # one nvcc each
+        builds = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
     es_kernel._launcher()
-    ptxas = [ln.strip() for ln in info["log"].splitlines()
-             if "registers" in ln or "spill" in ln]
+    cs_kernel._launcher()
     emit(phase="build", seconds=time.perf_counter() - t0,
-         library=Path(info["path"]).name, ptxas=ptxas)
+         libraries={k: Path(v["path"]).name for k, v in builds.items()},
+         ptxas={k: [ln.strip() for ln in v["log"].splitlines()
+                    if "registers" in ln or "spill" in ln]
+                for k, v in builds.items()})
 
     worst = timed(phase_kernel, dev)
+    scatter_worst = timed(phase_scatter_kernel, dev)
     timed(phase_exact, dev)
     timed(phase_golden)
     main_run = timed(phase_main)
+    trace_run = timed(phase_trace, main_run["points"])
     timed(phase_profile)
 
     timing = [time_kernel(dev, "colibri", 256, 1),
@@ -586,6 +927,23 @@ def main() -> int:
         bound_by="bytes", library_ms=None, call_ms=head["call_ms"],
         plain_call_ms=head["plain_call_ms"],
         shape=dict(protocol=head["protocol"], n=head["n"], a=head["a"]))]
+    t0 = time.perf_counter()
+    scatter_times = [time_scatter(dev, *shape) for shape in SCATTER_SHAPES]
+    emit(phase="scatter_time", seconds=time.perf_counter() - t0,
+         shapes=scatter_times)
+    head = next(r for r in scatter_times
+                if (r["t"], r["bins"], r["d"], r["dtype"]) == SCATTER_HEAD)
+    kernels.append(dict(
+        name="colibri_scatter", route="cuda",
+        source="src/repro_torch/csrc/colibri_scatter.cu",
+        replaces="src/repro/kernels/colibri_scatter/kernel.py:29",
+        launches=trace_run["launches"]["colibri_scatter"],
+        max_abs_err=max(scatter_worst.values()),
+        ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by="bytes", library_ms=head["library_ms"],
+        op_ms=head["op_ms"], max_abs_err_by_dtype=scatter_worst,
+        shape=dict(t=head["t"], bins=head["bins"], d=head["d"],
+                   dtype=head["dtype"])))
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,13 +5,17 @@
 * **Fairness** — Jain's fairness index over the per-core completed-op
   distribution, the min/max rates and a NaN-safe span.
 * **Latency** — per-atomic completion-latency percentiles (p50 / p95 /
-  max) from the engine's geometric histogram (``lat_hist``,
-  :data:`LAT_BINS` buckets, :data:`LAT_SUB` per octave) and the exact
-  maximum (``lat_max``).
+  max): exact from the recorded waits of a ``record_trace`` run
+  (``trace_wait``), else from the engine's geometric histogram
+  (``lat_hist``, :data:`LAT_BINS` buckets, :data:`LAT_SUB` per octave);
+  the maximum (``lat_max``) is exact either way.  The recorded waits
+  also fold onto the histogram's bins through the ``colibri_scatter``
+  kernel (:func:`trace_latency_hist`).
 * **Energy** — pJ per completed op through the Table II-calibrated
   event-energy model (``core.costmodel``).
 
-Everything but :func:`lat_bucket` is numpy on the host and equals the
+Everything but :func:`lat_bucket` and the commit of
+:func:`trace_latency_hist` is numpy on the host and equals the
 reference's derivation exactly; :func:`lat_bucket` is the engine's
 on-device bucketing.
 """
@@ -120,15 +124,69 @@ def _percentile_from_hist(hist: np.ndarray, q: float,
     return float(min(bucket_rep(idx), lat_max))
 
 
+def _recorded_waits(res: Dict[str, np.ndarray]) -> np.ndarray:
+    """The per-completion waits of a ``record_trace`` run (``trace_wait``
+    holds -1 where no core retired)."""
+    tw = np.asarray(res["trace_wait"])
+    return tw[tw >= 0]
+
+
+def _percentile_from_waits(waits: np.ndarray, q: float) -> float:
+    """Exact inverted-CDF percentile (the value at rank ⌈q·k⌉) over the
+    recorded per-completion waits."""
+    if waits.size == 0:
+        return 0.0
+    s = np.sort(waits)
+    return float(s[max(int(math.ceil(q * s.size)), 1) - 1])
+
+
+def trace_latency_hist(res: Dict[str, np.ndarray], use_kernel: bool = True,
+                       device=None) -> np.ndarray:
+    """Exact-trace completion-latency histogram on the engine's
+    geometric bins: the recorded per-completion waits
+    (``record_trace=True``) folded onto the ``LAT_BINS``/``LAT_SUB``
+    geometry of ``lat_hist``.
+
+    The waits are bucketed as the reference's ``trace_latency_hist``
+    buckets them — numpy's float32 ``log2`` on the host, which puts
+    8191 and 32767 in buckets 52 and 60, where the engine's
+    ``lat_bucket`` (XLA's rounding) puts them in 51 and 59 — so the
+    result equals the reference's.  The commit goes through the
+    ``colibri_scatter`` kernel on ``device`` (``None`` means ``"cuda"``,
+    and raises without a GPU; the CPU runs its plain version);
+    ``use_kernel=False`` uses a plain ``np.bincount``.
+    """
+    waits = _recorded_waits(res)
+    if waits.size == 0:
+        return np.zeros((LAT_BINS,), np.int32)
+    bkt = np.clip((LAT_SUB * np.log2(
+        waits.astype(np.float32) + np.float32(1.0))).astype(np.int32),
+        0, LAT_BINS - 1)
+    if not use_kernel:
+        return np.bincount(bkt, minlength=LAT_BINS).astype(np.int32)
+    from repro_torch.core.sim import resolve_device
+    from repro_torch.kernels.colibri_scatter import colibri_histogram
+    keys = torch.from_numpy(bkt).to(resolve_device(device))
+    return colibri_histogram(keys, LAT_BINS).cpu().numpy()
+
+
 def latency_percentiles(res: Dict[str, np.ndarray]) -> Dict[str, float]:
-    """p50/p95/max completion latency for one result dict, from the
-    always-on ``lat_hist``/``lat_max`` accumulators (≤ one bucket width
-    of error; max is exact)."""
+    """p50/p95/max completion latency for one result dict: exact from
+    the recorded waits when a trace was recorded (``trace_wait``), else
+    from the always-on ``lat_hist``/``lat_max`` accumulators (≤ one
+    bucket width of error); max is exact either way."""
     lat_max = float(np.asarray(res.get("lat_max", 0)))
-    hist = np.asarray(res.get("lat_hist", np.zeros(LAT_BINS, np.int64)))
-    return {"lat_p50": _percentile_from_hist(hist, 0.50, lat_max),
-            "lat_p95": _percentile_from_hist(hist, 0.95, lat_max),
-            "lat_max": lat_max}
+    if "trace_wait" in res:
+        waits = _recorded_waits(res)
+        out = {"lat_p50": _percentile_from_waits(waits, 0.50),
+               "lat_p95": _percentile_from_waits(waits, 0.95)}
+    else:
+        hist = np.asarray(res.get("lat_hist",
+                                  np.zeros(LAT_BINS, np.int64)))
+        out = {"lat_p50": _percentile_from_hist(hist, 0.50, lat_max),
+               "lat_p95": _percentile_from_hist(hist, 0.95, lat_max)}
+    out["lat_max"] = lat_max
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -149,6 +149,12 @@ class Protocol:
                         device) -> Dict[str, torch.Tensor]:
         return {}
 
+    def queue_depth(self, bank: Dict) -> Optional[torch.Tensor]:
+        """(a,) per-bank reservation-queue occupancy, or ``None`` for
+        queueless protocols; the engine's telemetry and trace read it
+        once per cycle.  Default: the single FIFO queue's ``qlen``."""
+        return bank.get("qlen")
+
     def init_core_state(self, p, n: int, device) -> Dict[str, torch.Tensor]:
         return {}
 

@@ -22,11 +22,13 @@ on a GPU, its plain PyTorch version on the CPU.  All state is int32/bool
 tensors; ``cyc`` and the rotation ``shift`` are Python ints, and the loop
 never reads a device value back, so the host only queues work.
 
-Scope of this slice: the ``amo``/``lrsc``/``lrscwait``/``colibri``
+Scope of the port so far: the ``amo``/``lrsc``/``lrscwait``/``colibri``
 protocols, the one-step ``rmw_loop``/``zipf_histogram`` programs, the
-``flat`` topology and Fig. 5 workers.  Everything else the reference
-engine runs is refused at :class:`SimParams` construction with the
-ROADMAP item that will bring it.
+``flat`` topology, Fig. 5 workers, the per-cycle event traces
+(``record_trace``) and the windowed telemetry (``telemetry_windows``).
+Everything else the reference engine runs is refused at
+:class:`SimParams` construction with the ROADMAP item that will bring
+it.
 """
 from __future__ import annotations
 
@@ -51,6 +53,7 @@ from repro_torch.core.workloads.base import (ADDR_FIXED, ADDR_ZIPF,
                                              K_BARRIER, zipf_index)
 from repro_torch.faults import FaultPlan
 from repro_torch.kernels import engine_step
+from repro_torch.obs.schema import TELE_K, TELE_NSUM, window_len
 
 #: the protocols the port covers (the reference's Fig. 3 set)
 PROTOCOLS = ("amo", "lrsc", "lrscwait", "colibri")
@@ -96,8 +99,8 @@ class SimParams:
     zipf_skew: int = 100             # 100*s for ADDR_ZIPF streams (s=1.0)
     topology: str = "flat"           # NoC topology (core.topologies)
     clusters: int = 4                # leaf clusters (hierarchical topologies)
-    record_trace: bool = False       # per-completion trace (not ported)
-    telemetry_windows: int = 0       # windowed telemetry (not ported)
+    record_trace: bool = False       # event traces (repro_torch.obs)
+    telemetry_windows: int = 0       # windowed telemetry (repro_torch.obs)
     faults: FaultPlan = FaultPlan()  # fault schedule (only the empty plan)
 
     _BOUNDS = (("n_cores", 1), ("cycles", 1), ("n_addrs", 1),
@@ -166,10 +169,6 @@ def _refuse_unported(p: SimParams, prog) -> None:
     if ADDR_ZIPF in prog.addr_mode and p.zipf_skew != 0:
         refuse(f"zipf_skew={p.zipf_skew} (only the uniform limit 0 is "
                f"bit-identical so far)", "A8")
-    if p.record_trace:
-        refuse("record_trace=True", "A8")
-    if p.telemetry_windows > 0:
-        refuse("telemetry_windows > 0", "A11")
     if p.faults.enabled:
         refuse("an enabled FaultPlan", "A10")
 
@@ -275,6 +274,21 @@ def simulate(p: SimParams, device) -> Dict[str, torch.Tensor]:
                                                     zeros(), zeros())
     addr_ops, lat_hist = zeros(a), zeros(LAT_BINS)
     w_tmr, w_served = zeros(n), zeros(n)
+    # observability (repro_torch.obs): decided once per run, so with
+    # both features off the loop issues exactly the ops it would without
+    # them and the result dict has none of their keys
+    use_tele, use_trace = p.telemetry_windows > 0, p.record_trace
+    if use_tele or use_trace:
+        no_queue = zeros(a)              # queue depth of queueless banks
+    if use_tele:
+        tele = zeros((p.telemetry_windows, TELE_K))
+        tele_cw = window_len(p.cycles, p.telemetry_windows)
+        zero = zeros()                   # barwait, xcl_msgs (flat)
+    if use_trace:
+        trace_wait = zeros((p.cycles, n))
+        trace_state = zeros((p.cycles, n), torch.int8)
+        trace_qlen = zeros((p.cycles, a))
+        no_retire = torch.full((), -1, dtype=i32, device=dev)
     ctx = Ctx(p=p, n=n, a=a, q_cap=q_cap, ba=ba, mod_dur=mod_dur)
     # the engine's OUT_* -> (st, nxt) apply as lookup tables over the
     # five codes: GRANT/DONE/FAIL answer with RESP and NXT_MOD /
@@ -352,7 +366,8 @@ def simulate(p: SimParams, device) -> Dict[str, torch.Tensor]:
             w_served = w_served + w_acc
             w_tmr = w_tmr.masked_fill_(w_acc, 2)
             w_tmr = w_tmr.masked_fill_(is_worker & (w_tmr == 0), 1)
-        net_stall = net_stall + (all_req & ~accepted).sum(dtype=i32)
+        stall_now = (all_req & ~accepted).sum(dtype=i32)
+        net_stall = net_stall + stall_now
         new_acc = fresh & accepted
         parked = parked | new_acc
         arr_cyc = arr_cyc.masked_fill(new_acc, cyc)
@@ -380,9 +395,14 @@ def simulate(p: SimParams, device) -> Dict[str, torch.Tensor]:
         nxt = torch.where(resp_c, nxt_of_kind[kind_c], nxt)
         n_win = winner.sum(dtype=i32)
         polls = polls + fs["polls"]
-        msgs = msgs + 2 * n_win + fs["msgs"]
+        msgs_now = 2 * n_win + fs["msgs"]
+        msgs = msgs + msgs_now
         bank = fs["bank"]
         bank_ops = bank_ops + n_win
+        if use_tele:
+            # bank-access outcome tallies, before wake-ups
+            oc = engine_step.outcome_counts(fs["kind"])
+            st_pre_wake = st
 
         # ---- wakeups (queue-based protocols) ----
         wake_load = 0
@@ -402,13 +422,37 @@ def simulate(p: SimParams, device) -> Dict[str, torch.Tensor]:
         # ---- per-cycle state census ----
         sleep_now = (st == SLEEP).sum(dtype=i32)
         sleep_cyc = sleep_cyc + sleep_now
-        backoff_cyc = backoff_cyc + (st == BACKOFF).sum(dtype=i32)
+        backoff_now = (st == BACKOFF).sum(dtype=i32)
+        backoff_cyc = backoff_cyc + backoff_now
         if has_workers:
-            active_cyc = active_cyc + ((st != SLEEP)
-                                       & not_worker).sum(dtype=i32)
+            active_now = ((st != SLEEP) & not_worker).sum(dtype=i32)
         else:
             # no BARWAIT in a barrier-free program: active = not asleep
-            active_cyc = active_cyc + (n_atomic - sleep_now)
+            active_now = n_atomic - sleep_now
+        active_cyc = active_cyc + active_now
+
+        # ---- observability: end-of-cycle queue depths (after on_wake),
+        # one telemetry window row, one trace row ----
+        if use_tele or use_trace:
+            qd = proto.queue_depth(bank)
+            qd = no_queue if qd is None else qd.to(i32)
+        if use_tele:
+            wakes = (((st_pre_wake == SLEEP) & (st != SLEEP)).sum(dtype=i32)
+                     if proto.uses_queue else zero)
+            # flat topology: every accepted request is local
+            row = torch.stack([
+                active_now, sleep_now, backoff_now, zero, oc["grants"],
+                oc["retires"], oc["fails"], oc["enqueues"], wakes, msgs_now,
+                stall_now, accepted.sum(dtype=i32), zero,
+                qd.sum(dtype=i32)])
+            tw = tele[cyc // tele_cw]
+            tw[:TELE_NSUM] += row
+            tw[TELE_NSUM:].clamp_(min=qd.max())      # queue_max
+        if use_trace:
+            torch.where(done, cyc - acq_start, no_retire,
+                        out=trace_wait[cyc])
+            trace_state[cyc].copy_(st)
+            trace_qlen[cyc].copy_(qd)
 
     out = dict(st=st, tmr=tmr, addr=addr, phase=phase, nxt=nxt,
                pc=zeros(n), bar_cnt=zeros(n), opc=opc, arr_cyc=arr_cyc,
@@ -418,8 +462,17 @@ def simulate(p: SimParams, device) -> Dict[str, torch.Tensor]:
                lat_hist=lat_hist, lat_max=lat_max, active_cyc=active_cyc,
                backoff_cyc=backoff_cyc, bank_ops=bank_ops,
                net_stall=net_stall, w_tmr=w_tmr, w_served=w_served)
+    if use_tele:
+        out["tele"] = tele
     out.update(bank)
     out.update(xc)
+    if use_trace:
+        # the retired micro-op's pre-advance program counter, which is 0
+        # in a one-step program: 0 where a core retired, else -1
+        out["trace_step"] = (trace_wait >= 0).to(i32) - 1
+        out["trace_wait"] = trace_wait
+        out["trace_state"] = trace_state
+        out["trace_qlen"] = trace_qlen
     return out
 
 

@@ -1,9 +1,9 @@
 """Hand-written GPU kernels of the port, each beside its plain version.
 
 Each kernel package provides:
-  * ``kernel.py`` — builds the CUDA source (``repro_torch/csrc``) with
-    ``nvcc`` at first use, binds it with ``ctypes`` and launches it on
-    PyTorch's current stream, counting launches;
+  * ``kernel.py`` — binds the CUDA source (``repro_torch/csrc``), built
+    with ``nvcc`` at first use by ``_build``, through ``ctypes`` and
+    launches it on PyTorch's current stream, counting launches;
   * ``ops.py``    — the public op: CUDA tensors go to the kernel, CPU
     tensors to the plain version;
   * ``ref.py``    — the plain PyTorch version the kernel is held against.
@@ -13,4 +13,4 @@ a wrapper adds one where it launches its kernel and nowhere else.
 """
 from typing import Dict
 
-LAUNCHES: Dict[str, int] = {"engine_step": 0}
+LAUNCHES: Dict[str, int] = {"engine_step": 0, "colibri_scatter": 0}

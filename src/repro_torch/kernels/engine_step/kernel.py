@@ -1,12 +1,8 @@
 """The CUDA ``engine_step`` kernel: build, bind and launch.
 
-The source is ``repro_torch/csrc/engine_step.cu``.  It is compiled with
-``nvcc`` for ``sm_90a`` into a shared library with a plain C interface
-the first time a launch needs it, cached by the source's content hash
-(under ``build/repro_torch/`` of the checkout when the package runs from
-its source tree, else under the user's cache directory), and bound with
-``ctypes``.  Nothing here runs at import time, so CPU-only hosts import
-this module freely; a launch on a host without ``nvcc`` raises.
+The source is ``repro_torch/csrc/engine_step.cu``, built and loaded by
+``repro_torch.kernels._build`` (``nvcc`` at first use, cached by content
+hash; nothing runs at import time).
 
 ``fused_step_cuda`` launches the kernel on PyTorch's current stream and
 adds one to ``LAUNCHES["engine_step"]`` per launch.  It updates the
@@ -16,10 +12,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import Dict
 
@@ -28,65 +20,20 @@ import torch
 from repro_torch.core.metrics import LAT_BINS
 from repro_torch.core.protocols.base import (KERNEL_AMO, KERNEL_LRSC,
                                              KERNEL_QUEUE)
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, _build
 
-#: the package root (``.../repro_torch``) and the kernel source in it
-_PKG = Path(__file__).resolve().parents[2]
-SOURCE = _PKG / "csrc" / "engine_step.cu"
-
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: the package root (``.../repro_torch``) whose ``csrc/`` holds the source
+_PKG = _build.PKG
 
 
 def build_dir() -> Path:
-    """Where the library is built: ``build/repro_torch/`` of the checkout
-    when the package runs from its source tree (``<root>/src/repro_torch``
-    beside ``<root>/pyproject.toml``), else ``repro_torch/`` under the
-    user's cache directory (``$XDG_CACHE_HOME`` or ``~/.cache``)."""
-    root = _PKG.parent.parent
-    if _PKG.parent.name == "src" and (root / "pyproject.toml").is_file():
-        return root / "build" / "repro_torch"
-    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
-    return Path(cache) / "repro_torch"
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    # PyTorch's own toolkit lookup (CUDA_HOME / CUDA_PATH / the default
-    # install prefix)
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
-        return str(Path(CUDA_HOME) / "bin" / "nvcc")
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
-                       "it is needed to build the engine_step CUDA kernel")
-
-
-def build() -> Dict[str, str]:
-    """Compile the kernel library if this source has not been built yet.
-    Returns ``{"path": ..., "log": ...}`` (the log holds ``ptxas -v``'s
-    register/shared-memory report when a build ran, else is empty)."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    out = build_dir() / f"libengine_step_{digest}.so"
-    if out.exists():
-        return {"path": str(out), "log": ""}
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"building the engine_step kernel failed ({' '.join(cmd)}):\n"
-            f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return {"path": str(out), "log": proc.stdout + proc.stderr}
+    """Where the library is built (see ``_build.build_dir``)."""
+    return _build.build_dir(_PKG)
 
 
 @functools.lru_cache(maxsize=1)
 def _launcher():
-    lib = ctypes.CDLL(build()["path"])
-    fn = lib.engine_step_launch
+    fn = _build.library("engine_step").engine_step_launch
     fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 10 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int

@@ -118,6 +118,24 @@ class Result:
         v = self.stats.get("worker_rate")
         return None if v is None else float(v)
 
+    # ---- observability views --------------------------------------------
+    def timeseries(self):
+        """The windowed telemetry of this point as a typed
+        :class:`repro_torch.obs.Timeseries`.  Requires the spec to have
+        run with ``telemetry_windows > 0``; raises ``ValueError``
+        otherwise."""
+        from repro_torch.obs.timeseries import Timeseries
+        return Timeseries.from_result(self)
+
+    def events(self):
+        """The event traces of this point as a typed
+        :class:`repro_torch.obs.EventLog` (per-core state spans,
+        retirement completions, per-bank queue-depth trace) — the input
+        of ``repro_torch.obs.perfetto.export``.  Requires
+        ``record_trace=True``; raises ``ValueError`` otherwise."""
+        from repro_torch.obs.events import EventLog
+        return EventLog.from_result(self)
+
     # ---- raw access -----------------------------------------------------
     def __getitem__(self, key: str) -> Any:
         return self.stats[key]
@@ -184,9 +202,11 @@ class Result:
 
     # ---- workload validation --------------------------------------------
     def check(self) -> Dict[str, Any]:
-        """Run the producing workload's conservation-law validator."""
+        """Run the producing workload's conservation-law validator, with
+        the completion trace when the spec recorded one."""
         wl = _workloads.get(self.spec.workload.name)
-        return wl.check(self.spec.to_params(), self.stats)
+        return wl.check(self.spec.to_params(), self.stats,
+                        self.stats.get("trace_step"))
 
     def energy_stats(self) -> Dict[str, float]:
         """The billable stat totals (the costmodel input contract)."""

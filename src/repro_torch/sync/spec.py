@@ -15,8 +15,9 @@ organised into five sub-groups instead of the engine's flat
 ``topology``   the machine: cores, contended addresses/banks, network
                bandwidth, head-of-line blocking factor
 ``costs``      cycle costs and execution: network latency, local work,
-               modify time, horizon, seed, and the reference's unroll,
-               backend and trace flags (kept for JSON compatibility)
+               modify time, horizon, seed, the event-trace and telemetry
+               switches, and the reference's unroll and backend (kept
+               for JSON compatibility)
 ``faults``     the fault schedule (:class:`repro_torch.faults.
                FaultPlan`); the port runs only the empty plan
 =============  ==========================================================
@@ -98,8 +99,8 @@ class Costs:
     unroll: int = 1           # the reference's scan unroll; no effect
     backend: str = "auto"     # only "auto": the run's device picks the
     #                           CUDA kernel or its plain version
-    record_trace: bool = False  # per-completion trace (not ported yet)
-    telemetry_windows: int = 0  # windowed telemetry (not ported yet)
+    record_trace: bool = False  # per-cycle event traces (Result.events())
+    telemetry_windows: int = 0  # windowed telemetry (Result.timeseries())
 
 
 #: (spec attribute, group class) in declaration order.  ``faults`` is

@@ -1,4 +1,4 @@
-"""The port on an NVIDIA GPU: the CUDA kernel and a run through it.
+"""The port on an NVIDIA GPU: the CUDA kernels and a run through them.
 
 Every test here is marked ``gpu`` and skips without a CUDA device (the
 CUDA kernel has no CPU mode).  The file imports neither JAX nor the
@@ -7,7 +7,8 @@ reference package, so it runs on a GPU host that has only PyTorch:
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
 The expected values come from ``chip_smoke.py``, whose embedded
-reference values ``tests/test_torch_sync.py`` recomputes with JAX.
+reference values ``tests/test_torch_sync.py`` and
+``tests/test_torch_trace_values.py`` recompute with JAX.
 """
 import importlib.util
 from pathlib import Path
@@ -19,7 +20,7 @@ import torch
 from repro_torch import convert
 from repro_torch.core import protocols
 from repro_torch.core.sim import SimParams
-from repro_torch.kernels import LAUNCHES, engine_step
+from repro_torch.kernels import LAUNCHES, colibri_scatter, engine_step
 from repro_torch.sync import Spec, run
 
 PROTOS = ("amo", "lrsc", "lrscwait", "colibri")
@@ -77,3 +78,24 @@ def test_run_on_gpu_matches_golden_and_cpu(cuda_device):
     obs = cs.observe(gpu.stats)
     assert {k: obs[k] for k in want} == want
     assert cs.int_keys_equal(gpu.stats, cpu.stats) == []
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(513, 1, 4, "float32"),
+                                   (2048, 300, 16, "bfloat16"),
+                                   (150_414, 64, 1, "float32")])
+def test_scatter_kernel_matches_plain_version(shape, cuda_device):
+    cs = _chip_smoke()
+    t, bins, d, dtype = shape
+    keys, vals = cs.scatter_inputs(cuda_device, t, bins, d, dtype, seed=t)
+    keys[::7] = bins                             # dropped by both
+    before = LAUNCHES["colibri_scatter"]
+    out = colibri_scatter.colibri_scatter_add(keys, vals, bins)
+    hist = colibri_scatter.colibri_histogram(keys, bins)
+    torch.cuda.synchronize()
+    assert LAUNCHES["colibri_scatter"] == before + 2
+    ref = colibri_scatter.scatter_add_ref(keys, vals, bins)
+    rtol, atol = cs.SCATTER_TOL[dtype]
+    assert out.dtype == vals.dtype
+    assert torch.allclose(out.float(), ref.float(), rtol=rtol, atol=atol)
+    assert torch.equal(hist, colibri_scatter.histogram_ref(keys, bins))

@@ -71,8 +71,8 @@ def test_bank_state_keys_and_dtypes_follow_the_protocol():
 
 @pytest.mark.parametrize("kw", [
     dict(workload="zipf_histogram", zipf_skew=100),
-    dict(record_trace=True),
-    dict(telemetry_windows=4),
+    dict(workload="zipf_histogram", zipf_skew=150),
+    dict(faults={"msg_drop_bp": 100}),
     dict(faults=FaultPlan(n_kill=1)),
     dict(faults={"watchdog_cyc": 64}),
 ])

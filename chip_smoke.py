@@ -7,8 +7,9 @@ Phases, one JSON line each:
 
 1. device — needs ``torch.cuda.is_available()``; prints ``nvidia-smi``'s
    name and power limit of the card;
-2. build — compiles the ``engine_step`` and ``colibri_scatter`` CUDA
-   kernels from the checkout, one ``nvcc`` each, in parallel;
+2. build — compiles the ``engine_step``, ``colibri_scatter``,
+   ``flash_attention`` and ``rglru_scan`` CUDA kernels from the
+   checkout, one ``nvcc`` each, in parallel;
 3. kernel — the engine_step kernel against its plain PyTorch version on
    the card, for each protocol at every (cores, banks) shape the later
    phases give it, plus the reference's multi-tile case, over chained
@@ -19,25 +20,41 @@ Phases, one JSON line each:
    the trace path's shapes and two large ones: float sums within
    ``tests/test_kernels.py``'s tolerances, histograms exact (also
    against ``torch.bincount``), keys equal to ``bins`` dropped;
-5. exact — ``zipf_index`` (skew 0) and ``_hash`` on the card against the
+5. the LM serve path (recurrentgemma-2b):
+   flash_kernel / rglru_kernel — each kernel against its plain version
+   on the card at the reference tests' shapes and the serve shapes,
+   within ``tests/test_kernels.py``'s tolerances;
+   serve_a — full width, one (rglru, rglru, local) unit, f32 weights
+   seeded on the card and copied to the CPU: the card's prefill and
+   decode logits, teacher-forced on the CPU engine's greedy tokens,
+   within ``SERVE_A_TOL`` of the port's CPU logits;
+   serve_b — the slice's main path: full width and depth, bf16, four
+   512-token requests and 16 new tokens each through ``ServeEngine``;
+   exactly 8 flash_attention and 18 rglru_scan launches in the
+   prefill and none in decode, finite logits, prefill ms, decode ms
+   per token, peak memory, a profile of one prefill and one decode
+   step; lm_kernel_time — both kernels' device time at the serve
+   shapes beside their bounds, their plain versions and (flash)
+   ``scaled_dot_product_attention``;
+6. exact — ``zipf_index`` (skew 0) and ``_hash`` on the card against the
    CPU over 2^24 inputs;
-6. golden — ``repro_torch.sync.run`` on the card reproduces the
+7. golden — ``repro_torch.sync.run`` on the card reproduces the
    reference's golden values (``tests/test_protocols.py``), and one point
    per protocol equals the port's own CPU run key for key;
-7. main path — the paper's 256-core MemPool at 20 000 cycles (Fig. 3
+8. main path — the paper's 256-core MemPool at 20 000 cycles (Fig. 3
    histogram, uniform bins) for colibri and lrsc at 1 and 256 bins, and
    a 1024-core colibri point: summaries and metrics equal the
    reference's values below, and the kernel ran once per cycle;
-8. trace path — the four 256-core points again with ``record_trace``
+9. trace path — the four 256-core points again with ``record_trace``
    and 64 telemetry windows: the traces, telemetry, exact-waits latency
    percentiles, ``trace_latency_hist`` (one colibri_scatter launch),
    span counts and, at one bin, the Perfetto JSON equal the reference's
    values below; colibri shows no BACKOFF span and no poll, lrsc shows
    BACKOFF spans; wall time beside the same point untraced;
-9. profile — device time by kernel over 300 cycles of the main path
+10. profile — device time by kernel over 300 cycles of the main path
    (``torch.profiler``), untraced and traced: kernels per cycle, device
    busy share;
-10. kernel times — each kernel's device time per call (profiler) beside
+11. kernel times — each kernel's device time per call (profiler) beside
    its bound, its plain version's and the PyTorch library call's, at
    the shapes the paths give it; the kernels line.
 
@@ -49,6 +66,7 @@ when any phase fails, and its last line is the device record.
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import subprocess
@@ -70,7 +88,13 @@ from repro_torch.kernels import LAUNCHES, _build  # noqa: E402
 from repro_torch.kernels import colibri_scatter, engine_step  # noqa: E402
 import repro_torch.kernels.colibri_scatter.kernel as cs_kernel  # noqa: E402
 from repro_torch.kernels.engine_step import kernel as es_kernel  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import flash_attention, rglru_scan  # noqa: E402
+import repro_torch.kernels.flash_attention.kernel as fa_kernel  # noqa: E402
+import repro_torch.kernels.rglru_scan.kernel as rg_kernel  # noqa: E402
+from repro_torch.models import build  # noqa: E402
 from repro_torch.obs import perfetto  # noqa: E402
+from repro_torch.serving import Request, ServeEngine  # noqa: E402
 from repro_torch.obs.schema import STATE_NAMES  # noqa: E402
 from repro_torch.sync import Spec, run  # noqa: E402
 
@@ -323,7 +347,62 @@ SCATTER_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (0.15, 1.5)}
 #: the trace path's largest shape: the kernels line's times
 SCATTER_HEAD = (150_414, 64, 1, "float32")
 
-KERNELS = ("engine_step", "colibri_scatter")
+# ---- the LM serve path: recurrentgemma-2b through ServeEngine ---------
+SERVE_ARCH = "recurrentgemma-2b"
+#: (b, sq, skv, h, kv, hd, causal, dtype) of the flash_kernel phase: the
+#: reference tests' shapes (tests/test_kernels.py, causal only where
+#: sq == skv) in both dtypes, the smoke config's head dim 32, head dim
+#: 256 in f32, and the serve path's prefill shapes (phase serve_a: two
+#: 256-token prompts, f32; serve_b: four 512-token prompts, bf16, also
+#: in f32 to hold its long rows to the f32 tolerance)
+FLASH_SHAPES = tuple(
+    [(b, sq, skv, h, kv, hd, c, dt) for dt in ("float32", "bfloat16")
+     for b, sq, skv, h, kv, hd in ((2, 128, 128, 4, 4, 64),
+                                   (1, 200, 200, 4, 2, 32),
+                                   (2, 64, 256, 2, 1, 64))
+     for c in (True, False) if not (c and sq != skv)]
+    + [(2, 40, 40, 4, 1, 32, True, "float32"),
+       (1, 96, 96, 10, 1, 256, False, "float32"),
+       (2, 256, 256, 10, 1, 256, True, "float32"),
+       (4, 512, 512, 10, 1, 256, True, "float32"),
+       (4, 512, 512, 10, 1, 256, True, "bfloat16")])
+#: dtype -> (rtol, atol) of the kernel against its plain version on the
+#: card.  f32: tests/test_kernels.py's.  bf16: both sum in f32 and round
+#: the output to bf16 once, so they differ by about one bf16 rounding of
+#: o (worst 1.95e-3 on an H100); 1e-2 is about 5x that and well under
+#: the typical |o| of 0.07-0.1 at these shapes, so a dropped key tile or
+#: a mis-rescaled accumulator shows.  (The CPU tests against the Pallas
+#: kernel keep tests/test_kernels.py's 2e-2 / 1e-1.)
+FLASH_TOL = {"float32": (2e-5, 1e-4), "bfloat16": (1e-2, 1e-2)}
+#: the serve path's full-depth prefill shape: the kernels line's times
+FLASH_HEAD = FLASH_SHAPES[-1]
+#: (T, B, w) of the rglru_kernel phase: the reference tests' shapes and
+#: the serve path's (serve_a: 256 x 2, serve_b: 512 x 4, width 2560)
+RGLRU_SHAPES = ((64, 2, 128), (100, 3, 60), (256, 1, 256), (256, 2, 2560),
+                (512, 4, 2560))
+#: tests/test_kernels.py's rtol and atol (the sum order differs)
+RGLRU_TOL = (1e-4, 1e-4)
+RGLRU_HEAD = RGLRU_SHAPES[-1]
+#: serve_a: full width, one (rglru, rglru, local) unit, f32 weights
+#: seeded on the card and copied to the CPU; 2 requests x 256 tokens, 8
+#: new; card logits (kernels) against the port's CPU logits (plain
+#: versions), teacher-forced on the CPU's tokens
+SERVE_A = dict(layers=3, requests=2, prompt=256, new=8, seed=13)
+#: prefill and decode logits, card vs CPU, both f32 with TF32 off: sums
+#: in other orders through 3 layers of width 2560 and a 2560 x 256 000
+#: head (the CPU tests hold the same model math to 2e-3 at smoke width)
+SERVE_A_TOL = (2e-3, 2e-3)
+#: serve_b: full width and depth (26 layers, bf16), 4 requests x 512
+#: tokens, 16 new each, one batch through ServeEngine
+SERVE_B = dict(requests=4, prompt=512, new=16, seed=17)
+#: launches per prefill of the full model: one per local / rglru layer
+SERVE_B_LAUNCHES = {"flash_attention": 8, "rglru_scan": 18}
+#: bf16 dense peak of the tensor cores and the f32 CUDA-core peak (H100
+#: SXM data sheet), for the operation bounds
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
+
+KERNELS = ("engine_step", "colibri_scatter", "flash_attention", "rglru_scan")
 
 
 def reset_launches() -> None:
@@ -873,6 +952,349 @@ def time_scatter(dev, t: int, bins: int, d: int, dtype: str) -> dict:
     return rec
 
 
+# ---- the LM serve path ---------------------------------------------------
+
+def flash_inputs(dev, b, sq, skv, h, kv, hd, dtype, seed):
+    """Seeded standard-normal q ``(b, sq, h, hd)`` and k, v ``(b, skv,
+    kv, hd)`` on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    return tuple(torch.randn(shape, generator=g, device=dev).to(dt)
+                 for shape in ((b, sq, h, hd), (b, skv, kv, hd),
+                               (b, skv, kv, hd)))
+
+
+def phase_flash_kernel(dev) -> dict:
+    worst = dict.fromkeys(FLASH_TOL, 0.0)
+    for i, (b, sq, skv, h, kv, hd, causal, dtype) in enumerate(FLASH_SHAPES):
+        q, k, v = flash_inputs(dev, b, sq, skv, h, kv, hd, dtype, i)
+        out = flash_attention.flash_attention(q, k, v, causal=causal)
+        ref = flash_attention.flash_attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        what = f"{(b, sq, skv, h, kv, hd)} causal={causal} {dtype}"
+        require(out.dtype == q.dtype and out.shape == q.shape,
+                f"{what}: output {out.dtype}{tuple(out.shape)}")
+        rtol, atol = FLASH_TOL[dtype]
+        err = float((out.float() - ref.float()).abs().max())
+        require(torch.allclose(out.float(), ref.float(), rtol=rtol,
+                               atol=atol),
+                f"{what}: kernel differs from plain by {err}")
+        worst[dtype] = max(worst[dtype], err)
+    emit(phase="flash_kernel", cases=len(FLASH_SHAPES), shapes=FLASH_SHAPES,
+         max_abs_err=worst, tolerance=FLASH_TOL, equal=True)
+    return worst
+
+
+def rglru_inputs(dev, t, b, w, seed):
+    """Seeded decays in (0, 1), inputs and initial state on the card, as
+    the reference tests draw them."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.sigmoid(torch.randn((t, b, w), generator=g, device=dev) + 2.0)
+    x = torch.randn((t, b, w), generator=g, device=dev) * 0.3
+    return a, x, torch.randn((b, w), generator=g, device=dev)
+
+
+def phase_rglru_kernel(dev) -> float:
+    worst = 0.0
+    rtol, atol = RGLRU_TOL
+    for i, (t, b, w) in enumerate(RGLRU_SHAPES):
+        a, x, h0 = rglru_inputs(dev, t, b, w, i)
+        out = rglru_scan.rglru_scan(a, x, h0)
+        ref = rglru_scan.rglru_scan_ref(a, x, h0)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        require(out.dtype == torch.float32 and tuple(out.shape) == (t, b, w)
+                and torch.allclose(out, ref, rtol=rtol, atol=atol),
+                f"{(t, b, w)}: kernel differs from plain by {err}")
+        worst = max(worst, err)
+    emit(phase="rglru_kernel", cases=len(RGLRU_SHAPES), shapes=RGLRU_SHAPES,
+         max_abs_err=worst, tolerance=RGLRU_TOL, equal=True)
+    return worst
+
+
+def prompts(vocab: int, n: int, length: int, seed: int) -> np.ndarray:
+    return np.random.default_rng(seed).integers(
+        0, vocab, (n, length)).astype(np.int32)
+
+
+def serve(eng, toks: np.ndarray, new: int) -> np.ndarray:
+    """One batch of ``toks`` through ``eng``; the greedy tokens."""
+    reqs = [Request(prompt=p, max_new_tokens=new, id=i)
+            for i, p in enumerate(toks)]
+    for r in reqs:
+        eng.submit(r)
+    require(eng.run_once() == len(reqs), "the engine left requests")
+    return np.stack([r.result for r in reqs])
+
+
+def greedy_logits(model, toks: np.ndarray, new: int, cache_len: int,
+                  forced=None):
+    """The engine's steps for equal-length prompts, keeping the logits:
+    prefill, then ``new`` decode steps, each fed the argmax of the last
+    logits, or ``forced[:, step]``.  Returns (logits of each step on the
+    CPU, (B, new) tokens fed)."""
+    dev = model.device
+    hidden, cache = model.prefill(torch.from_numpy(toks).to(dev), cache_len)
+    out = [model.logits(hidden[:, -1:])[:, -1]]
+    fed = []
+    for step in range(new):
+        tok = (out[-1].argmax(-1).int() if forced is None
+               else torch.from_numpy(forced[:, step]).to(dev))
+        fed.append(tok.cpu().numpy())
+        pos = torch.full((toks.shape[0],), toks.shape[1] + step,
+                         dtype=torch.int32, device=dev)
+        lg, cache = model.decode_step(cache, tok[:, None], pos)
+        out.append(lg[:, -1])
+    return [o.float().cpu() for o in out], np.stack(fed, axis=1)
+
+
+def phase_serve_a(dev) -> dict:
+    """Full width, one (rglru, rglru, local) unit, f32: the card's
+    prefill and decode logits against the port's on the CPU, on the
+    same weights, teacher-forced on the CPU's greedy tokens."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sa = SERVE_A
+    cfg = dataclasses.replace(get_config(SERVE_ARCH),
+                              num_layers=sa["layers"],
+                              param_dtype="float32", compute_dtype="float32")
+    cache_len = sa["prompt"] + sa["new"]
+    toks = prompts(cfg.vocab_size, sa["requests"], sa["prompt"], sa["seed"])
+    card = build(cfg, dev).init(sa["seed"])
+    cpu = build(cfg, "cpu").load_params(card.params())
+    t0 = time.perf_counter()
+    cpu_tokens = serve(ServeEngine(cfg, cpu, batch_size=sa["requests"],
+                                   cache_len=cache_len, device="cpu"),
+                       toks, sa["new"])
+    cpu_logits, fed = greedy_logits(cpu, toks, sa["new"], cache_len)
+    cpu_s = time.perf_counter() - t0
+    require(np.array_equal(fed, cpu_tokens),
+            f"CPU engine tokens {cpu_tokens} != its greedy steps {fed}")
+    del cpu
+    reset_launches()
+    card_logits, _ = greedy_logits(card, toks, sa["new"], cache_len,
+                                   forced=cpu_tokens)
+    launches = dict(LAUNCHES)
+    card_tokens = serve(ServeEngine(cfg, card, batch_size=sa["requests"],
+                                    cache_len=cache_len), toks, sa["new"])
+    rtol, atol = SERVE_A_TOL
+    errs = []
+    for step, (c, g) in enumerate(zip(cpu_logits, card_logits)):
+        require(bool(torch.isfinite(g).all()), f"step {step}: logits not "
+                                                f"finite")
+        errs.append(float((g - c).abs().max()))
+        require(torch.allclose(g, c, rtol=rtol, atol=atol),
+                f"step {step}: card logits differ from the CPU's by "
+                f"{errs[-1]}")
+    require(launches["flash_attention"] == 1 and launches["rglru_scan"] == 2,
+            f"one unit's prefill launched {launches}")
+    emit(phase="serve_a", arch=SERVE_ARCH, layers=sa["layers"],
+         requests=sa["requests"], prompt=sa["prompt"], new=sa["new"],
+         dtype="float32", max_abs_err_by_step=errs, max_abs_err=max(errs),
+         tolerance=SERVE_A_TOL, launches=launches,
+         cpu_tokens=cpu_tokens.tolist(), card_tokens=card_tokens.tolist(),
+         tokens_agree=bool(np.array_equal(cpu_tokens, card_tokens)),
+         cpu_seconds=cpu_s, equal=True)
+    return dict(max_abs_err=max(errs))
+
+
+class Probe:
+    """Wraps a model's ``prefill``, ``decode_step`` and ``logits``: per
+    call, the kernel launches it made, its wall seconds (ended by a
+    synchronize) and whether its floats were finite."""
+
+    def __init__(self, model):
+        self.calls = {"prefill": [], "decode_step": [], "logits": []}
+        for name in self.calls:
+            setattr(model, name, self._wrap(name, getattr(model, name)))
+
+    def _wrap(self, name, fn):
+        def call(*args, **kwargs):
+            before = dict(LAUNCHES)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            first = out[0] if isinstance(out, tuple) else out
+            self.calls[name].append(dict(
+                seconds=time.perf_counter() - t0,
+                finite=bool(torch.isfinite(first).all()),
+                launches={k: LAUNCHES[k] - before[k] for k in LAUNCHES}))
+            return out
+        return call
+
+
+def profile_call(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: its wall ms (ended by
+    a synchronize), the device time of what it launched, the busy share
+    and the top device activities by time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = device_rows(prof)
+    busy = sum(r[2] for r in rows)
+    return dict(wall_ms=wall * 1e3, device_busy_ms=busy / 1e3,
+                device_busy_share=busy / 1e6 / wall,
+                device_activities=sum(r[1] for r in rows),
+                top=[dict(kernel=k[:70], count=c, us=t)
+                     for k, c, t in rows[:8]])
+
+
+def phase_serve_b(dev) -> dict:
+    """The main path of the LM: recurrentgemma-2b at full width and depth
+    (bf16, seeded on the card) serving one batch through ServeEngine."""
+    sb = SERVE_B
+    cfg = get_config(SERVE_ARCH)
+    cache_len = sb["prompt"] + sb["new"]
+    toks = prompts(cfg.vocab_size, sb["requests"], sb["prompt"], sb["seed"])
+    t0 = time.perf_counter()
+    model = build(cfg, dev).init(sb["seed"])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    eng = ServeEngine(cfg, model, batch_size=sb["requests"],
+                      cache_len=cache_len)
+    serve(eng, toks, sb["new"])                          # warm
+    probe = Probe(model)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    tokens = serve(eng, toks, sb["new"])
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    solo = serve(eng, toks[:1], sb["new"])
+    # where the time goes: one prefill and one decode step, profiled
+    # (not part of the counted run)
+    launches_after = dict(LAUNCHES)
+    x = torch.from_numpy(toks).to(dev)
+    state = {}
+
+    def pre_call():
+        state["out"] = model.prefill(x, cache_len)
+
+    def dec_call():
+        hidden, cache = state["out"]
+        tok = model.logits(hidden[:, -1:])[:, -1].argmax(-1).int()[:, None]
+        pos = torch.full((sb["requests"],), sb["prompt"], dtype=torch.int32,
+                         device=dev)
+        model.decode_step(cache, tok, pos)
+    profiles = dict(prefill=profile_call(pre_call),
+                    decode_step=profile_call(dec_call))
+    LAUNCHES.update(launches_after)
+    pre, dec = probe.calls["prefill"][0], probe.calls["decode_step"][:sb["new"]]
+    require(all(c["finite"] for c in probe.calls["prefill"]
+                + probe.calls["decode_step"] + probe.calls["logits"]),
+            "non-finite hidden states or logits")
+    require(tokens.shape == (sb["requests"], sb["new"]),
+            f"tokens {tokens.shape}")
+    for k, n in SERVE_B_LAUNCHES.items():
+        require(pre["launches"][k] == n and launches[k] == n,
+                f"{k}: {pre['launches'][k]} launches in the prefill, "
+                f"{launches[k]} in the batch, want {n}")
+        require(all(c["launches"][k] == 0 for c in dec),
+                f"{k} launched in decode")
+    decode_s = sum(c["seconds"] for c in dec)
+    emit(phase="serve_b", arch=SERVE_ARCH, layers=cfg.num_layers,
+         params=n_params, dtype=cfg.param_dtype, requests=sb["requests"],
+         prompt=sb["prompt"], new=sb["new"], init_s=init_s,
+         launches=launches, prefill_launches=pre["launches"],
+         decode_launches=sum(sum(c["launches"].values()) for c in dec),
+         prefill_ms=pre["seconds"] * 1e3,
+         decode_ms_per_token=decode_s / len(dec) * 1e3,
+         batch_wall_s=wall,
+         tokens_per_s=sb["requests"] * sb["new"] / wall,
+         peak_memory_bytes=peak, tokens=tokens.tolist(),
+         solo_tokens=solo[0].tolist(),
+         solo_agrees=bool(np.array_equal(solo[0], tokens[0])),
+         logits_finite=True, profile=profiles)
+    return dict(launches=launches)
+
+
+def flash_bound(b, sq, skv, h, kv, hd, causal, dtype) -> dict:
+    """The least time the card could take for one flash call: q, k, v
+    read once (KV heads not repeated), o written once, over 3.35 TB/s;
+    the products of the unmasked (query, key) pairs, 4 * hd flops each,
+    over the type's peak."""
+    size = torch.tensor([], dtype=getattr(torch, dtype)).element_size()
+    n_bytes = (2 * b * sq * h * hd + 2 * b * skv * kv * hd) * size
+    pairs = (sum(min(i + 1, skv) for i in range(sq)) if causal
+             else sq * skv)
+    flops = 4 * hd * pairs * b * h
+    peak = BF16_FLOPS if dtype == "bfloat16" else F32_FLOPS
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
+    return dict(bound_bytes=n_bytes, bound_flops=flops,
+                bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_flash(dev) -> dict:
+    b, sq, skv, h, kv, hd, causal, dtype = FLASH_HEAD
+    q, k, v = flash_inputs(dev, b, sq, skv, h, kv, hd, dtype, seed=5)
+    # the library call's layout: heads first, KV heads repeated
+    qs, ks, vs = (t.repeat_interleave(h // t.shape[2], dim=2)
+                  .transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    launches = LAUNCHES["flash_attention"]
+    rec = dict(shape=FLASH_HEAD,
+               ms=device_ms(lambda: fa_kernel.flash_attention_cuda(
+                   q, k, v, causal=causal), 20),
+               plain_ms=device_ms(lambda: flash_attention.flash_attention_ref(
+                   q, k, v, causal=causal), 10),
+               library_ms=device_ms(lambda: sdpa(qs, ks, vs,
+                                                 is_causal=causal), 20),
+               **flash_bound(*FLASH_HEAD))
+    LAUNCHES["flash_attention"] = launches     # timing runs are not counted
+    return rec
+
+
+def time_rglru(dev) -> dict:
+    t, b, w = RGLRU_HEAD
+    a, x, h0 = rglru_inputs(dev, t, b, w, seed=5)
+    n_bytes = 12 * t * b * w + 4 * b * w
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, 2 * t * b * w / F32_FLOPS
+    launches = LAUNCHES["rglru_scan"]
+    rec = dict(shape=RGLRU_HEAD,
+               ms=device_ms(lambda: rg_kernel.rglru_scan_cuda(a, x, h0), 50),
+               plain_ms=device_ms(lambda: rglru_scan.rglru_scan_ref(a, x, h0),
+                                  3),
+               library_ms=None, bound_bytes=n_bytes,
+               bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    LAUNCHES["rglru_scan"] = launches          # timing runs are not counted
+    return rec
+
+
+def lm_phases(dev) -> list:
+    """The serve path's phases; its entries of the kernels line."""
+    flash_worst = timed(phase_flash_kernel, dev)
+    rglru_worst = timed(phase_rglru_kernel, dev)
+    timed(phase_serve_a, dev)
+    main_run = timed(phase_serve_b, dev)
+    t0 = time.perf_counter()
+    flash_t, rglru_t = time_flash(dev), time_rglru(dev)
+    emit(phase="lm_kernel_time", seconds=time.perf_counter() - t0,
+         flash_attention=flash_t, rglru_scan=rglru_t)
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return [
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention/kernel.py:22",
+             launches=main_run["launches"]["flash_attention"],
+             max_abs_err=max(flash_worst.values()),
+             **{k: flash_t[k] for k in keys},
+             max_abs_err_by_dtype=flash_worst, shape=flash_t["shape"]),
+        dict(name="rglru_scan", route="cuda",
+             source="src/repro_torch/csrc/rglru_scan.cu",
+             replaces="src/repro/kernels/rglru_scan/kernel.py:20",
+             launches=main_run["launches"]["rglru_scan"],
+             max_abs_err=rglru_worst, **{k: rglru_t[k] for k in keys},
+             shape=rglru_t["shape"])]
+
+
 def timed(phase, *args):
     """Run one phase and report its wall seconds."""
     t0 = time.perf_counter()
@@ -881,11 +1303,12 @@ def timed(phase, *args):
     return out
 
 
-def main() -> int:
-    t_start = time.perf_counter()
+def setup():
+    """The device record and the build of every kernel; the card, or
+    None when torch sees no CUDA device."""
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
-        return 1
+        return None
     dev = torch.device("cuda")
     smi = smi_line()
     print(smi, flush=True)
@@ -897,16 +1320,26 @@ def main() -> int:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS)) as pool:    # one nvcc each
         builds = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
-    es_kernel._launcher()
-    cs_kernel._launcher()
+    for mod in (es_kernel, cs_kernel, fa_kernel, rg_kernel):
+        mod._launcher()
     emit(phase="build", seconds=time.perf_counter() - t0,
          libraries={k: Path(v["path"]).name for k, v in builds.items()},
          ptxas={k: [ln.strip() for ln in v["log"].splitlines()
                     if "registers" in ln or "spill" in ln]
                 for k, v in builds.items()})
+    return dev
+
+
+def main() -> int:
+    t_start = time.perf_counter()
+    dev = setup()
+    if dev is None:
+        return 1
+    smi = CARD["card"]
 
     worst = timed(phase_kernel, dev)
     scatter_worst = timed(phase_scatter_kernel, dev)
+    lm_kernels = lm_phases(dev)
     timed(phase_exact, dev)
     timed(phase_golden)
     main_run = timed(phase_main)
@@ -944,6 +1377,7 @@ def main() -> int:
         op_ms=head["op_ms"], max_abs_err_by_dtype=scatter_worst,
         shape=dict(t=head["t"], bins=head["bins"], d=head["d"],
                    dtype=head["dtype"])))
+    kernels += lm_kernels
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,0 +1,15 @@
+"""Streaming-softmax (flash) attention: a CUDA kernel and its plain
+version.
+
+Causal or full attention over the grouped-query layout (q ``(B, Sq, H,
+hd)``, k/v ``(B, Skv, KV, hd)``), the prefill attention of the LM's
+``attn`` and ``local`` layers.  CUDA tensors run the kernel
+(``csrc/flash_attention.cu``), CPU tensors the plain PyTorch version
+(``ref.flash_attention_ref``).  Launches are counted in
+``repro_torch.kernels.LAUNCHES["flash_attention"]``.
+"""
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import (attention_ref,
+                                                    flash_attention_ref)
+
+__all__ = ["attention_ref", "flash_attention", "flash_attention_ref"]

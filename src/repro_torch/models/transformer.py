@@ -1,0 +1,299 @@
+"""Decoder-only LM assembly of the port: the serving half of the
+reference's ``repro/models/transformer.py``.
+
+The reference groups layers into *segments* (maximal runs of the
+repeating block-pattern unit) and stacks each segment's params along a
+leading axis for ``lax.scan``.  PyTorch runs eagerly, so the port keeps
+one parameter dict per layer, in layer order (``params["layers"]``), and
+walks them in a Python loop; ``plan_segments`` stays for the conversion
+of stacked reference params (``repro_torch.convert.model_from_jax``).
+Each layer's params live in a ``Block`` module; ``model_zoo.Model`` owns
+the blocks in an ``nn.ModuleList``.
+
+Ported: the dense (``attn``), ``local`` and ``rglru`` layers with their
+MLPs, ``prefill`` and ``decode_step``.  MoE, MLA, RWKV, the encoder and
+the VLM frontend raise ``NotImplementedError`` when a model is built;
+``forward`` and ``loss_fn`` are training and not ported yet (ROADMAP A14).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.models import rglru as RG
+
+Params = Dict[str, Any]
+LayerSig = Tuple[str, str]          # (mix_kind, ffn_kind)
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """A config's dtype name (``"bfloat16"``, ``"float32"``) as a torch
+    dtype."""
+    return getattr(torch, name)
+
+
+# ---------------------------------------------------------------------------
+# Layer planning
+# ---------------------------------------------------------------------------
+
+def layer_sigs(cfg: ModelConfig) -> List[LayerSig]:
+    sigs = []
+    for i, kind in enumerate(cfg.layer_kinds()):
+        if kind == "rwkv":
+            ffn = "rwkv_cm"
+        elif cfg.moe is not None:
+            ffn = "moe" if i >= cfg.moe.moe_layer_start else "dense"
+        else:
+            ffn = "mlp"
+        sigs.append((kind, ffn))
+    return sigs
+
+
+def plan_segments(cfg: ModelConfig) -> List[Tuple[Tuple[LayerSig, ...], int]]:
+    """[(unit, repeats), ...] — maximal cyclic runs (the reference's
+    stacking of layer params)."""
+    sigs = layer_sigs(cfg)
+    p = len(cfg.block_pattern)
+    segs: List[Tuple[Tuple[LayerSig, ...], int]] = []
+    i, n = 0, len(sigs)
+    while i < n:
+        if p > 1 and n - i >= p:
+            unit = tuple(sigs[i: i + p])
+            k = 1
+            while i + (k + 1) * p <= n and tuple(sigs[i + k * p: i + (k + 1) * p]) == unit:
+                k += 1
+            if k > 1:
+                segs.append((unit, k))
+                i += k * p
+                continue
+        j = i
+        while j < n and sigs[j] == sigs[i]:
+            j += 1
+        segs.append(((sigs[i],), j - i))
+        i = j
+    return segs
+
+
+def mlp_kind(cfg: ModelConfig) -> str:
+    if cfg.act == "silu":
+        return "swiglu"
+    return "geglu" if cfg.norm == "rmsnorm" else "gelu"
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for what the port cannot build yet."""
+    missing = []
+    if cfg.encoder is not None:
+        missing.append("the encoder-decoder stack")
+    if cfg.frontend == "vlm":
+        missing.append("the VLM frontend")
+    if cfg.moe is not None:
+        missing.append("MoE layers")
+    if cfg.attn_kind == "mla":
+        missing.append("MLA attention")
+    if "rwkv" in cfg.layer_kinds():
+        missing.append("RWKV-6 layers")
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP A14); "
+            f"the port serves dense (attn), local and rglru layers")
+
+
+# ---------------------------------------------------------------------------
+# Per-block init / apply
+# ---------------------------------------------------------------------------
+
+def block_init(gen, cfg: ModelConfig, sig: LayerSig, dtype, device) -> Params:
+    mix, _ = sig
+    p: Params = {"norm1": L.norm_init(cfg.norm, cfg.d_model, dtype, device),
+                 "norm2": L.norm_init(cfg.norm, cfg.d_model, dtype, device)}
+    if mix in ("attn", "local"):
+        p["attn"] = A.gqa_init(gen, cfg, dtype, device)
+    else:
+        p["rglru"] = RG.rglru_init(gen, cfg, dtype, device)
+    act = "gelu" if mlp_kind(cfg) == "gelu" else "silu"
+    p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, act, dtype, device)
+    return p
+
+
+def _ffn_apply(cfg: ModelConfig, p: Params, h):
+    mk = mlp_kind(cfg)
+    if mk == "geglu":
+        return L.geglu_apply(p["mlp"], h)
+    return L.mlp_apply(p["mlp"], h, "silu" if mk == "swiglu" else "gelu")
+
+
+def block_cache_init(cfg: ModelConfig, sig: LayerSig, batch: int, seq: int,
+                     dtype, device) -> Params:
+    mix, _ = sig
+    if mix == "attn":
+        return {"attn": A.gqa_cache_init(cfg, batch, seq, dtype, device)}
+    if mix == "local":
+        return {"attn": A.gqa_cache_init(cfg, batch,
+                                         min(cfg.local_window, seq), dtype,
+                                         device)}
+    return {"rglru": RG.state_init(cfg, batch, device)}
+
+
+def _fill_attn_cache(cache: Params, kv, window: int = 0) -> Params:
+    """Write prefill K/V (B,S,KV,hd) into a fresh cache, in place
+    (ring-buffered for sliding-window layers)."""
+    k, v = kv
+    s = k.shape[1]
+    s_cache = cache["k"].shape[1]
+    if not window and s <= s_cache:
+        cache["k"][:, :s] = k.to(cache["k"].dtype)
+        cache["v"][:, :s] = v.to(cache["v"].dtype)
+        return cache
+    # ring buffer: keep the last s_cache positions at slot (pos % s_cache)
+    take = min(s, s_cache)
+    gpos = torch.arange(s - take, s, device=k.device)
+    slots = gpos % s_cache
+    cache["k"][:, slots] = k[:, gpos].to(cache["k"].dtype)
+    cache["v"][:, slots] = v[:, gpos].to(cache["v"].dtype)
+    return cache
+
+
+def apply_block_prefill(cfg: ModelConfig, sig: LayerSig, p: Params,
+                        cache: Params, x, positions):
+    """Full-sequence forward that also fills the decode cache."""
+    mix, _ = sig
+    h = L.norm_apply(cfg.norm, p["norm1"], x, cfg.norm_eps)
+    newc: Params = {}
+    if mix in ("attn", "local"):
+        window = cfg.local_window if mix == "local" else 0
+        a, kv = A.gqa_apply(cfg, p["attn"], h, positions, window=window,
+                            kv_out=True)
+        newc["attn"] = _fill_attn_cache(cache["attn"], kv, window)
+    else:
+        a, newc["rglru"] = RG.rglru_apply(
+            cfg, p["rglru"], h, RG.state_init(cfg, x.shape[0], x.device))
+    x = x + a
+    h = L.norm_apply(cfg.norm, p["norm2"], x, cfg.norm_eps)
+    return x + _ffn_apply(cfg, p, h), newc
+
+
+def apply_block_decode(cfg: ModelConfig, sig: LayerSig, p: Params,
+                       cache: Params, x, pos):
+    """One-token step. x: (B,1,d); pos: (B,). Returns (x, new_cache)."""
+    mix, _ = sig
+    h = L.norm_apply(cfg.norm, p["norm1"], x, cfg.norm_eps)
+    newc: Params = {}
+    if mix in ("attn", "local"):
+        window = cfg.local_window if mix == "local" else 0
+        a, newc["attn"] = A.gqa_decode(cfg, p["attn"], h, cache["attn"], pos,
+                                       window=window)
+    else:
+        a, newc["rglru"] = RG.rglru_decode(cfg, p["rglru"], h, cache["rglru"])
+    x = x + a
+    h = L.norm_apply(cfg.norm, p["norm2"], x, cfg.norm_eps)
+    return x + _ffn_apply(cfg, p, h), newc
+
+
+# ---------------------------------------------------------------------------
+# Parameters as modules
+# ---------------------------------------------------------------------------
+
+class ParamTree(nn.Module):
+    """A nested dict of tensors as a module: each tensor a frozen
+    ``nn.Parameter`` (inference only: no gradients), each dict a
+    submodule, under the dict's own keys."""
+
+    def __init__(self, tree: Params):
+        super().__init__()
+        self._keys = tuple(tree)
+        for k, v in tree.items():
+            if isinstance(v, torch.Tensor):
+                self.register_parameter(k, nn.Parameter(v, requires_grad=False))
+            else:
+                self.add_module(k, ParamTree(v))
+
+    def tree(self) -> Params:
+        """The parameters as the nested dict they were made from."""
+        return {k: v.tree() if isinstance(v, ParamTree) else v
+                for k, v in ((k, getattr(self, k)) for k in self._keys)}
+
+
+class Block(nn.Module):
+    """One layer's parameters, keyed as the reference keys them
+    (``norm1``, ``norm2``, ``attn`` or ``rglru``, ``mlp``)."""
+
+    def __init__(self, sig: LayerSig, params: Params):
+        super().__init__()
+        self.sig = sig
+        self.p = ParamTree(params)
+
+    def params(self) -> Params:
+        return self.p.tree()
+
+
+# ---------------------------------------------------------------------------
+# Whole-model init / prefill / decode
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: ModelConfig, gen: Optional[torch.Generator],
+                device) -> Params:
+    """``{"embed", "final_norm", ["lm_head"], "layers": [one dict per
+    layer]}`` drawn from ``gen`` (uninitialised when ``gen`` is None)."""
+    check_supported(cfg)
+    dtype = torch_dtype(cfg.param_dtype)
+    params: Params = {
+        "embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dtype, device),
+        "final_norm": L.norm_init(cfg.norm, cfg.d_model, dtype, device)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size,
+                                         dtype, device)
+    params["layers"] = [block_init(gen, cfg, sig, dtype, device)
+                        for sig in layer_sigs(cfg)]
+    return params
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq: int,
+               device) -> List[Params]:
+    """One cache dict per layer, in layer order, in the compute dtype."""
+    dtype = torch_dtype(cfg.compute_dtype)
+    return [block_cache_init(cfg, sig, batch, seq, dtype, device)
+            for sig in layer_sigs(cfg)]
+
+
+def _embed(cfg: ModelConfig, params: Params, tokens) -> torch.Tensor:
+    return F.embedding(tokens.long(), params["embed"]).to(
+        torch_dtype(cfg.compute_dtype))
+
+
+def prefill(cfg: ModelConfig, params: Params, tokens, cache: List[Params]):
+    """Process a prompt ``tokens`` (B,S) into the empty ``cache`` (of
+    ``init_cache``); return (hidden (B,S,d), filled cache)."""
+    s = tokens.shape[1]
+    x = _embed(cfg, params, tokens)
+    positions = torch.arange(s, device=tokens.device)
+    new_cache = []
+    for sig, lp, lc in zip(layer_sigs(cfg), params["layers"], cache):
+        x, nc = apply_block_prefill(cfg, sig, lp, lc, x, positions)
+        new_cache.append(nc)
+    x = L.norm_apply(cfg.norm, params["final_norm"], x, cfg.norm_eps)
+    return x, new_cache
+
+
+def logits(cfg: ModelConfig, params: Params, hidden) -> torch.Tensor:
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return (hidden @ head.to(hidden.dtype)).float()
+
+
+def decode_step(cfg: ModelConfig, params: Params, cache: List[Params],
+                tokens, pos):
+    """tokens: (B,1); pos: (B,). Returns (logits (B,1,V) float32,
+    new_cache)."""
+    x = _embed(cfg, params, tokens)
+    new_cache = []
+    for sig, lp, lc in zip(layer_sigs(cfg), params["layers"], cache):
+        x, nc = apply_block_decode(cfg, sig, lp, lc, x, pos)
+        new_cache.append(nc)
+    x = L.norm_apply(cfg.norm, params["final_norm"], x, cfg.norm_eps)
+    return logits(cfg, params, x), new_cache

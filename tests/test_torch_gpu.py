@@ -1,4 +1,5 @@
-"""The port on an NVIDIA GPU: the CUDA kernels and a run through them.
+"""The port on an NVIDIA GPU: the CUDA kernels and runs through them (the
+simulator's engine and recurrentgemma-2b-smoke served by ServeEngine).
 
 Every test here is marked ``gpu`` and skips without a CUDA device (the
 CUDA kernel has no CPU mode).  The file imports neither JAX nor the
@@ -20,7 +21,11 @@ import torch
 from repro_torch import convert
 from repro_torch.core import protocols
 from repro_torch.core.sim import SimParams
-from repro_torch.kernels import LAUNCHES, colibri_scatter, engine_step
+from repro_torch.configs import get_config
+from repro_torch.kernels import (LAUNCHES, colibri_scatter, engine_step,
+                                 flash_attention, rglru_scan)
+from repro_torch.models import build
+from repro_torch.serving import ServeEngine
 from repro_torch.sync import Spec, run
 
 PROTOS = ("amo", "lrsc", "lrscwait", "colibri")
@@ -99,3 +104,60 @@ def test_scatter_kernel_matches_plain_version(shape, cuda_device):
     assert out.dtype == vals.dtype
     assert torch.allclose(out.float(), ref.float(), rtol=rtol, atol=atol)
     assert torch.equal(hist, colibri_scatter.histogram_ref(keys, bins))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 200, 200, 4, 2, 32, True, "float32"),
+                                   (2, 64, 256, 2, 1, 64, False, "bfloat16"),
+                                   (4, 512, 512, 10, 1, 256, True,
+                                    "bfloat16")])
+def test_flash_kernel_matches_plain_version(shape, cuda_device):
+    cs = _chip_smoke()
+    b, sq, skv, h, kv, hd, causal, dtype = shape
+    q, k, v = cs.flash_inputs(cuda_device, b, sq, skv, h, kv, hd, dtype,
+                              seed=sq)
+    before = LAUNCHES["flash_attention"]
+    out = flash_attention.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == before + 1
+    ref = flash_attention.flash_attention_ref(q, k, v, causal=causal)
+    rtol, atol = cs.FLASH_TOL[dtype]
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert torch.allclose(out.float(), ref.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(100, 3, 60), (512, 4, 2560)])
+def test_rglru_kernel_matches_plain_version(shape, cuda_device):
+    cs = _chip_smoke()
+    a, x, h0 = cs.rglru_inputs(cuda_device, *shape, seed=shape[0])
+    before = LAUNCHES["rglru_scan"]
+    out = rglru_scan.rglru_scan(a, x, h0)
+    torch.cuda.synchronize()
+    assert LAUNCHES["rglru_scan"] == before + 1
+    rtol, atol = cs.RGLRU_TOL
+    assert torch.allclose(out, rglru_scan.rglru_scan_ref(a, x, h0),
+                          rtol=rtol, atol=atol)
+
+
+@pytest.mark.gpu
+def test_served_batch_goes_through_both_kernels(cuda_device):
+    """recurrentgemma-2b-smoke (4 rglru, 2 local layers): each prefill
+    launches 4 rglru_scan and 2 flash_attention kernels, decode none."""
+    cs = _chip_smoke()
+    cfg = get_config("recurrentgemma-2b-smoke")
+    model = build(cfg).init(0)
+    eng = ServeEngine(cfg, model, batch_size=2, cache_len=24)
+    probe = cs.Probe(model)
+    toks = cs.prompts(cfg.vocab_size, 2, 16, seed=1)
+    tokens = cs.serve(eng, toks, 4)
+    assert tokens.shape == (2, 4)
+    (pre,) = probe.calls["prefill"]
+    assert pre["finite"]
+    assert pre["launches"]["flash_attention"] == 2
+    assert pre["launches"]["rglru_scan"] == 4
+    assert len(probe.calls["decode_step"]) == 4
+    for call in probe.calls["decode_step"]:
+        assert call["finite"]
+        assert call["launches"]["flash_attention"] == 0
+        assert call["launches"]["rglru_scan"] == 0

@@ -149,7 +149,8 @@ def test_convert_round_trip_keeps_values_and_dtypes():
 
 
 def test_port_imports_neither_jax_nor_the_reference():
-    code = ("import sys, repro_torch.sync, repro_torch.convert; "
+    code = ("import sys, repro_torch.sync, repro_torch.convert, "
+            "repro_torch.serving, repro_torch.models, repro_torch.configs; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m.startswith('jaxlib') "
             "or m == 'repro' or m.startswith('repro.')); "

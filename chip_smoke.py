@@ -8,8 +8,8 @@ Phases, one JSON line each:
 1. device — needs ``torch.cuda.is_available()``; prints ``nvidia-smi``'s
    name and power limit of the card;
 2. build — compiles the ``engine_step``, ``colibri_scatter``,
-   ``flash_attention`` and ``rglru_scan`` CUDA kernels from the
-   checkout, one ``nvcc`` each, in parallel;
+   ``flash_attention``, ``rglru_scan`` and ``rwkv6_wkv`` CUDA kernels
+   from the checkout, one ``nvcc`` each, in parallel;
 3. kernel — the engine_step kernel against its plain PyTorch version on
    the card, for each protocol at every (cores, banks) shape the later
    phases give it, plus the reference's multi-tile case, over chained
@@ -20,7 +20,7 @@ Phases, one JSON line each:
    the trace path's shapes and two large ones: float sums within
    ``tests/test_kernels.py``'s tolerances, histograms exact (also
    against ``torch.bincount``), keys equal to ``bins`` dropped;
-5. the LM serve path (recurrentgemma-2b):
+5. the LM serve paths, recurrentgemma-2b and then rwkv6-1.6b:
    flash_kernel / rglru_kernel — each kernel against its plain version
    on the card at the reference tests' shapes and the serve shapes,
    within ``tests/test_kernels.py``'s tolerances;
@@ -28,21 +28,30 @@ Phases, one JSON line each:
    seeded on the card and copied to the CPU: the card's prefill and
    decode logits, teacher-forced on the CPU engine's greedy tokens,
    within ``SERVE_A_TOL`` of the port's CPU logits;
-   serve_b — the slice's main path: full width and depth, bf16, four
+   serve_b — a main path: full width and depth, bf16, four
    512-token requests and 16 new tokens each through ``ServeEngine``;
    exactly 8 flash_attention and 18 rglru_scan launches in the
    prefill and none in decode, finite logits, prefill ms, decode ms
    per token, peak memory, a profile of one prefill and one decode
-   step; lm_kernel_time — both kernels' device time at the serve
-   shapes beside their bounds, their plain versions and (flash)
+   step;
+   rwkv_kernel — the rwkv6_wkv kernel against its plain version on the
+   card, ``out`` and the final state, at the reference tests' shapes,
+   the serve shapes and a 4 096-step one, for four decay distributions,
+   within ``RWKV_TOL``; rwkv_serve_a — full width, 2 layers, f32, card
+   logits against the CPU's as serve_a; rwkv_serve_b — the newest main
+   path, as serve_b: full width and depth (24 layers, bf16), four
+   512-token requests and 16 new tokens each through ``ServeEngine``,
+   exactly 24 rwkv6_wkv launches per prefill and none in decode;
+   lm_kernel_time — the three kernels' device time at the serve shapes
+   beside their bounds, their plain versions and (flash)
    ``scaled_dot_product_attention``;
 6. exact — ``zipf_index`` (skew 0) and ``_hash`` on the card against the
    CPU over 2^24 inputs;
 7. golden — ``repro_torch.sync.run`` on the card reproduces the
    reference's golden values (``tests/test_protocols.py``), and one point
    per protocol equals the port's own CPU run key for key;
-8. main path — the paper's 256-core MemPool at 20 000 cycles (Fig. 3
-   histogram, uniform bins) for colibri and lrsc at 1 and 256 bins, and
+8. main path — the paper's 256-core MemPool (Fig. 3 histogram, uniform
+   bins) at 5 000 cycles for colibri and lrsc at 1 and 256 bins, and
    a 1024-core colibri point: summaries and metrics equal the
    reference's values below, and the kernel ran once per cycle;
 9. trace path — the four 256-core points again with ``record_trace``
@@ -67,6 +76,7 @@ when any phase fails, and its last line is the device record.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import hashlib
 import json
 import subprocess
@@ -90,8 +100,10 @@ import repro_torch.kernels.colibri_scatter.kernel as cs_kernel  # noqa: E402
 from repro_torch.kernels.engine_step import kernel as es_kernel  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import flash_attention, rglru_scan  # noqa: E402
+from repro_torch.kernels import rwkv6_wkv  # noqa: E402
 import repro_torch.kernels.flash_attention.kernel as fa_kernel  # noqa: E402
 import repro_torch.kernels.rglru_scan.kernel as rg_kernel  # noqa: E402
+import repro_torch.kernels.rwkv6_wkv.kernel as rw_kernel  # noqa: E402
 from repro_torch.models import build  # noqa: E402
 from repro_torch.obs import perfetto  # noqa: E402
 from repro_torch.serving import Request, ServeEngine  # noqa: E402
@@ -169,44 +181,48 @@ GOLDEN_EXTRA = {
 }
 
 # ---- the main path: Fig. 3 histogram at full width --------------------
-#: (protocol, cores, bins) at SimParams defaults (20 000 cycles),
+#: (protocol, cores, bins) at SimParams defaults but FULL_WIDTH_CYCLES,
 #: zipf_histogram with zipf_skew=0 (uniform bins)
 FULL_WIDTH_POINTS = (("colibri", 256, 1), ("colibri", 256, 256),
                      ("lrsc", 256, 1), ("lrsc", 256, 256),
                      ("colibri", 1024, 1))
+#: simulated cycles of those points: the depth of the simulator's paths,
+#: cut from the paper's 20 000 so that the whole script, which grows
+#: with each slice of the port, stays well inside its time limit on a
+#: slow host (the step loop is host-bound at 1.4-3.8 ms per cycle)
+FULL_WIDTH_CYCLES = 5_000
 #: the reference's values for those points (repro.sync.run, xla_cpu)
 FULL_WIDTH_REF = {
  "colibri/256/1": {
-    "ops": 1316, "msgs": 11546, "polls": 0, "sleep_cyc": 5047667,
-    "backoff_cyc": 0, "bank_ops": 2887, "net_stall": 0, "ops_min": 5,
-    "ops_max": 6, "lat_hist_sum": 1316, "lat_max": 4082, "throughput":
-    0.0658, "jain_fairness": 0.9954476898175397, "energy_pj_per_op":
-    121.97751835945519},
+    "ops": 316, "msgs": 3546, "polls": 0, "sleep_cyc": 1236667,
+    "backoff_cyc": 0, "bank_ops": 887, "net_stall": 0, "ops_min": 1,
+    "ops_max": 2, "lat_hist_sum": 316, "lat_max": 4082, "throughput":
+    0.0632, "jain_fairness": 0.8946387614678899, "energy_pj_per_op":
+    131.61526501141955},
  "colibri/256/256": {
-    "ops": 150414, "msgs": 603226, "polls": 0, "sleep_cyc": 3178,
-    "backoff_cyc": 0, "bank_ops": 301035, "net_stall": 535, "ops_min":
-    587, "ops_max": 588, "lat_hist_sum": 150414, "lat_max": 38,
-    "throughput": 7.5207, "jain_fairness": 0.9999992844889197,
-    "energy_pj_per_op": 3.006174464066015},
+    "ops": 37505, "msgs": 151440, "polls": 0, "sleep_cyc": 3178,
+    "backoff_cyc": 0, "bank_ops": 75142, "net_stall": 535, "ops_min": 146,
+    "ops_max": 147, "lat_hist_sum": 37505, "lat_max": 38, "throughput":
+    7.501, "jain_fairness": 0.9999883531083993, "energy_pj_per_op":
+    3.010395383266077},
  "lrsc/256/1": {
-    "ops": 202, "msgs": 39990, "polls": 9773, "sleep_cyc": 0,
-    "backoff_cyc": 3181329, "bank_ops": 19995, "net_stall": 0,
-    "ops_min": 0, "ops_max": 5, "lat_hist_sum": 202, "lat_max": 19917,
-    "throughput": 0.0101, "jain_fairness": 0.3777029028436019,
-    "energy_pj_per_op": 847.9332441822619},
+    "ops": 47, "msgs": 9990, "polls": 2426, "sleep_cyc": 0, "backoff_cyc":
+    739119, "bank_ops": 4995, "net_stall": 0, "ops_min": 0, "ops_max": 4,
+    "lat_hist_sum": 47, "lat_max": 4850, "throughput": 0.0094,
+    "jain_fairness": 0.10652970679012345, "energy_pj_per_op":
+    1016.7467341813934},
  "lrsc/256/256": {
-    "ops": 122101, "msgs": 504118, "polls": 3847, "sleep_cyc": 0,
-    "backoff_cyc": 873078, "bank_ops": 252059, "net_stall": 16,
-    "ops_min": 310, "ops_max": 576, "lat_hist_sum": 122101, "lat_max":
-    2730, "throughput": 6.10505, "jain_fairness": 0.9909470155320287,
-    "energy_pj_per_op": 3.0730100606274298},
+    "ops": 28716, "msgs": 120116, "polls": 1238, "sleep_cyc": 0,
+    "backoff_cyc": 271261, "bank_ops": 60058, "net_stall": 16, "ops_min":
+    51, "ops_max": 147, "lat_hist_sum": 28716, "lat_max": 2021,
+    "throughput": 5.7432, "jain_fairness": 0.9690935956611839,
+    "energy_pj_per_op": 3.1035860091922562},
  "colibri/1024/1": {
-    "ops": 1266, "msgs": 14218, "polls": 0, "sleep_cyc": 19913121,
-    "backoff_cyc": 0, "bank_ops": 3555, "net_stall": 11595, "ops_min":
-    1, "ops_max": 2, "lat_hist_sum": 1266, "lat_max": 16357,
-    "throughput": 0.0633, "jain_fairness": 0.8943950892857143,
-    "energy_pj_per_op": 519.8547404268566},
-}
+    "ops": 266, "msgs": 6218, "polls": 0, "sleep_cyc": 4582121,
+    "backoff_cyc": 0, "bank_ops": 1555, "net_stall": 11595, "ops_min": 0,
+    "ops_max": 1, "lat_hist_sum": 266, "lat_max": 4992, "throughput":
+    0.0532, "jain_fairness": 0.259765625, "energy_pj_per_op":
+    704.6543799399733}}
 
 
 #: (cores, banks) of the kernel-vs-plain phase: every shape the golden and
@@ -221,10 +237,10 @@ KERNEL_SHAPES = tuple(sorted(
 
 # ---- the trace path: the main path's 256-core points, traced ---------
 #: (protocol, cores, bins) of the trace phase, each with record_trace and
-#: 64 telemetry windows at 20 000 cycles
+#: 64 telemetry windows at FULL_WIDTH_CYCLES
 TRACE_POINTS = FULL_WIDTH_POINTS[:4]
-#: points whose Perfetto JSON is hashed (8 617 and 60 273 spans); at 256
-#: bins (~0.9 M spans) the span counts are compared instead
+#: points whose Perfetto JSON is hashed (2 617 and 15 276 spans); at 256
+#: bins (~0.2 M spans) the span counts are compared instead
 PERFETTO_HASHED = (("colibri", 256, 1), ("lrsc", 256, 1))
 #: result arrays hashed (sha256 of their bytes in this dtype, C order)
 TRACE_ARRAYS = {"trace_step": "<i4", "trace_wait": "<i4",
@@ -234,102 +250,91 @@ TRACE_ARRAYS = {"trace_step": "<i4", "trace_wait": "<i4",
 #: computes them
 TRACE_REF = {
  "colibri/256/1": {
-    "ops": 1316, "msgs": 11546, "polls": 0, "sleep_cyc": 5047667,
-    "backoff_cyc": 0, "bank_ops": 2887, "net_stall": 0, "ops_min": 5,
-    "ops_max": 6, "lat_hist_sum": 1316, "lat_max": 4082, "throughput":
-    0.0658, "jain_fairness": 0.9954476898175397, "energy_pj_per_op":
-    121.97751835945519, "lat_p50": 3830.0, "lat_p95": 3830.0,
+    "ops": 316, "msgs": 3546, "polls": 0, "sleep_cyc": 1236667,
+    "backoff_cyc": 0, "bank_ops": 887, "net_stall": 0, "ops_min": 1,
+    "ops_max": 2, "lat_hist_sum": 316, "lat_max": 4082, "throughput":
+    0.0632, "jain_fairness": 0.8946387614678899, "energy_pj_per_op":
+    131.61526501141955, "lat_p50": 2616.0, "lat_p95": 3857.0,
     "trace_step_sha256":
-        "0472fb9ba51890d1204a45ce08b86968ff13c5d81342ab8e338acddd533f8bf4",
+    "39a35ddb446a47c0deaba6f0c6783f37d4f03363a8978659062bc5c5703570e8",
     "trace_wait_sha256":
-        "e22a87a754792560c5f7357b031f9354de5696938d9f4f611e6088e8cab1c36a",
+    "dfec94dafb0b6269ef4130239b71cd2d23591305a7d3e418e7605220255ad91e",
     "trace_state_sha256":
-        "d677b874ff22e43f38428b69a60c4a3d44a5d8481e96cf2f5c4889b754e280ec",
+    "faf9260b13dc1a1cc81700b9cf2ad28cd6cd033a4ab8d5870785f973e5228c1f",
     "trace_qlen_sha256":
-        "744651736fa82604c2ae59556eb8d66ed5b894de5742acfe0f91052a589d33bf",
+    "2e4b56753e3f63b4d4d068039404d8c908f3ddef8c36ad5a63abf576c1695030",
     "tele_sha256":
-        "2db73807f512e4143718fcff946904ce260f6974285dacde97f6efc4b0f27cdb",
-    "trace_latency_hist": [
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 3, 4, 4, 6, 6, 8, 9, 11, 13, 15, 19, 21,
-        26, 31, 37, 1103, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
-    "spans": {
-        "WORK": 1525, "REQ": 2888, "SLEEP": 1570, "MOD": 1317, "BACKOFF": 0,
-        "RESP": 1317, "BARWAIT": 0},
-    "perfetto_sha256":
-        "715dd8c10d961d637e6d76d5413fc6ff1e3eac5e81c0aed336ab703f9cdd1364"},
+    "f697a4e476565d5bb7d8da711dc9d6f5f41f43a3e94b3806971e3121f230f5de",
+    "trace_latency_hist": [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 3, 4, 4, 6, 6, 8, 9, 11,
+    13, 15, 19, 21, 26, 31, 37, 103, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 0, 0], "spans": {"WORK": 525, "REQ": 888, "SLEEP": 570, "MOD": 317,
+    "BACKOFF": 0, "RESP": 317, "BARWAIT": 0}, "perfetto_sha256":
+    "5709789f7cee22c74bc0b14dc46b7d1f8cdb01344275e2585782ae830574b479"},
  "colibri/256/256": {
-    "ops": 150414, "msgs": 603226, "polls": 0, "sleep_cyc": 3178,
-    "backoff_cyc": 0, "bank_ops": 301035, "net_stall": 535, "ops_min": 587,
-    "ops_max": 588, "lat_hist_sum": 150414, "lat_max": 38, "throughput":
-    7.5207, "jain_fairness": 0.9999992844889197, "energy_pj_per_op":
-    3.006174464066015, "lat_p50": 24.0, "lat_p95": 24.0,
+    "ops": 37505, "msgs": 151440, "polls": 0, "sleep_cyc": 3178,
+    "backoff_cyc": 0, "bank_ops": 75142, "net_stall": 535, "ops_min": 146,
+    "ops_max": 147, "lat_hist_sum": 37505, "lat_max": 38, "throughput":
+    7.501, "jain_fairness": 0.9999883531083993, "energy_pj_per_op":
+    3.010395383266077, "lat_p50": 24.0, "lat_p95": 24.0,
     "trace_step_sha256":
-        "5ea0a2c42027bc3ca05ff92ea94cf0316b6f61c52c7c0eea582ea89d51ab2f6a",
+    "ab0d58af84d382d2d8c56f7dd79aa30ff0ee6b9ccf9e97eabdde92248ce5ce6f",
     "trace_wait_sha256":
-        "028ab26218e33ea9de1038afc236d5d01f5530dcc9a5fdfb7e037949122ce7cc",
+    "94076e50a15c38783ea30d100fc8cf52439146a87204ee57357c05f71524abbd",
     "trace_state_sha256":
-        "8b05f50cc8cd76387f7b6dbaa6a7ca93e5d44e31b973cdbc18646543a860696e",
+    "9d547cdf11e45e3da8f0500c7cfb03c6e97e331d34b0df0f3be235dc4095d6b2",
     "trace_qlen_sha256":
-        "504adf6635753e78041e533bb9ccf0003a9b31d0a82d6c6d4662b109a44c2434",
+    "2e3779ab3c9ce23fa8292d65a5cfc113cc3616f7014f149c5be6297bc752a4dc",
     "tele_sha256":
-        "7406384caa464eb3bbd61a3bf20356458fd54194df9818dd55bd636df3843df1",
-    "trace_latency_hist": [
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 150020, 257,
-        136, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
-    "spans": {
-        "WORK": 150623, "REQ": 301160, "SLEEP": 289, "MOD": 150528,
-        "BACKOFF": 0, "RESP": 300746, "BARWAIT": 0}},
+    "6cb86f999bc743d7095e3441ff732e77c7e8dd1792aff87f1b37e126aeec45af",
+    "trace_latency_hist": [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 0, 37111, 257, 136, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 0, 0], "spans": {"WORK": 37714, "REQ": 75199, "SLEEP": 289, "MOD":
+    37622, "BACKOFF": 0, "RESP": 74853, "BARWAIT": 0}},
  "lrsc/256/1": {
-    "ops": 202, "msgs": 39990, "polls": 9773, "sleep_cyc": 0, "backoff_cyc":
-    3181329, "bank_ops": 19995, "net_stall": 0, "ops_min": 0, "ops_max": 5,
-    "lat_hist_sum": 202, "lat_max": 19917, "throughput": 0.0101,
-    "jain_fairness": 0.3777029028436019, "energy_pj_per_op":
-    847.9332441822619, "lat_p50": 6978.0, "lat_p95": 17713.0,
+    "ops": 47, "msgs": 9990, "polls": 2426, "sleep_cyc": 0, "backoff_cyc":
+    739119, "bank_ops": 4995, "net_stall": 0, "ops_min": 0, "ops_max": 4,
+    "lat_hist_sum": 47, "lat_max": 4850, "throughput": 0.0094,
+    "jain_fairness": 0.10652970679012345, "energy_pj_per_op":
+    1016.7467341813934, "lat_p50": 2034.0, "lat_p95": 4644.0,
     "trace_step_sha256":
-        "3cb813ad0398380e0c05ff742e8df01799b1223bc7f30ac0a934ede3e3ac84f5",
+    "1c9212c36e84eb55a3ccdf55444d6d3265580e1e597063c23df23471728bb3a6",
     "trace_wait_sha256":
-        "e87103c805e61929829d71c35251765092083853850b8e67d4f24eda1806f18b",
+    "168c4424e3a1c0fc9839eb039f34c3ac605b16eba1e46bb02a4410162514b8a2",
     "trace_state_sha256":
-        "85e74384d71cbb448ba9a893bdbee51d0899cdc5c0aec0d2885c5183ac838af3",
+    "f49678a7a8291a941802e5ae9a443369e01aa2a8cf7d175ac62ae78de1c378c6",
     "trace_qlen_sha256":
-        "f8c784aa6b57396e7c5e094c34d079d8252473e46e2f60593a921dbebf941fcc",
+    "28b4f41a7f3ee6d8cc87272db6e09c6d3566551fd4d18702b041a21658272a85",
     "tele_sha256":
-        "83d730a3a1016ebf8105d4179b4f6f26ced0fce20360211f5391947f980e8fad",
-    "trace_latency_hist": [
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 1, 0, 5, 19, 0, 2, 1, 0, 2, 0, 0, 1, 1, 8, 2, 2, 4, 4,
-        6, 7, 7, 9, 6, 13, 18, 17, 18, 17, 17, 14, 1, 0, 0, 0, 0, 0, 0],
-    "spans": {
-        "WORK": 411, "REQ": 20079, "SLEEP": 0, "MOD": 10017, "BACKOFF":
-        9771, "RESP": 19995, "BARWAIT": 0},
-    "perfetto_sha256":
-        "540e540d0a5c41665f8aa90126716b1c7a0b8a0c72c542f9eefba84fdecdc030"},
+    "c946b755994148473a0346d68791fd52317f23299b54bdea895bae7b0d4d389c",
+    "trace_latency_hist": [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 0, 1, 6, 0, 2, 1, 0, 2, 0, 0, 1, 1,
+    2, 2, 1, 4, 3, 3, 5, 5, 7, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+    "spans": {"WORK": 256, "REQ": 5082, "SLEEP": 0, "MOD": 2518, "BACKOFF":
+    2425, "RESP": 4995, "BARWAIT": 0}, "perfetto_sha256":
+    "6d1482c05938ee0560c4157d829b2fb440b74c6b8f63add11a908ce3a0657ee9"},
  "lrsc/256/256": {
-    "ops": 122101, "msgs": 504118, "polls": 3847, "sleep_cyc": 0,
-    "backoff_cyc": 873078, "bank_ops": 252059, "net_stall": 16, "ops_min":
-    310, "ops_max": 576, "lat_hist_sum": 122101, "lat_max": 2730,
-    "throughput": 6.10505, "jain_fairness": 0.9909470155320287,
-    "energy_pj_per_op": 3.0730100606274298, "lat_p50": 24.0, "lat_p95": 24.0,
-    "trace_step_sha256":
-        "6a57e447d8fde94c1f89fc887854ff97bc264da84f647c3db5e0b86b62e88751",
+    "ops": 28716, "msgs": 120116, "polls": 1238, "sleep_cyc": 0,
+    "backoff_cyc": 271261, "bank_ops": 60058, "net_stall": 16, "ops_min":
+    51, "ops_max": 147, "lat_hist_sum": 28716, "lat_max": 2021,
+    "throughput": 5.7432, "jain_fairness": 0.9690935956611839,
+    "energy_pj_per_op": 3.1035860091922562, "lat_p50": 24.0, "lat_p95":
+    24.0, "trace_step_sha256":
+    "68d11886b059d482b8613994116af9f450e0d3477d863b9a864940472ccd170e",
     "trace_wait_sha256":
-        "83cf7fc7d9687a5bc65f74a5d80fc60c4fc8e0b61ef7415e555aa9b2bf6002c3",
+    "f4671f76ffe305630fe16a2035e92bf06cc722b3c12260232ed16563c05c353f",
     "trace_state_sha256":
-        "4de5fe6d6d6ddd77086f5695e3e513d9e7c54f5c2f74b7a069e4014e52beecc5",
+    "445b8dd0a737211d648236f32bdc6696e6d06077d1037901a9dc943099aa0997",
     "trace_qlen_sha256":
-        "99bc76fe79fcfd5e5baf554639fed136ae926dbc105e2e09e70e34f497af1dcb",
+    "ef462bde948ae6e5bceaa382442a3a579edf0be3aa416b54a536843798a13010",
     "tele_sha256":
-        "16bcffab30d539de5df811a84460d9d697e7ba6f331e3b904b6aea03b27a3942",
-    "trace_latency_hist": [
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 119585, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 400, 1266, 0, 0, 0, 0, 571, 11, 0, 188,
-        0, 49, 20, 8, 2, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0],
-    "spans": {
-        "WORK": 122310, "REQ": 252105, "SLEEP": 0, "MOD": 126030, "BACKOFF":
-        3847, "RESP": 252059, "BARWAIT": 0}}}
+    "0296e62f8caf0c0ac1fe4371123bb53a311a3dac637db7912cfa66e643ab1556",
+    "trace_latency_hist": [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 0, 27886, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 136, 446, 0, 0, 0, 0, 182,
+    1, 0, 48, 0, 11, 4, 2, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 0, 0, 0], "spans": {"WORK": 28925, "REQ": 60114, "SLEEP": 0, "MOD":
+    30037, "BACKOFF": 1238, "RESP": 60058, "BARWAIT": 0}}}
 
 # ---- the colibri_scatter kernel -----------------------------------------
 #: (T, bins, d, dtype) of the scatter_kernel phase: the reference tests'
@@ -340,12 +345,12 @@ SCATTER_SHAPES = tuple(
     [(t, b, d, dt) for dt in ("float32", "bfloat16")
      for t, b, d in ((100, 7, 1), (1000, 64, 8), (2048, 300, 16),
                      (513, 1, 4))]
-    + [(t, 64, 1, "float32") for t in (150_414, 122_101, 1_316, 202)]
+    + [(t, 64, 1, "float32") for t in (37_505, 28_716, 316, 47)]
     + [(1 << 20, 64, 1, "float32"), (1 << 16, 1024, 128, "float32")])
 #: dtype -> (rtol, atol), tests/test_kernels.py's
 SCATTER_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (0.15, 1.5)}
 #: the trace path's largest shape: the kernels line's times
-SCATTER_HEAD = (150_414, 64, 1, "float32")
+SCATTER_HEAD = (37_505, 64, 1, "float32")
 
 # ---- the LM serve path: recurrentgemma-2b through ServeEngine ---------
 SERVE_ARCH = "recurrentgemma-2b"
@@ -388,6 +393,8 @@ RGLRU_HEAD = RGLRU_SHAPES[-1]
 #: new; card logits (kernels) against the port's CPU logits (plain
 #: versions), teacher-forced on the CPU's tokens
 SERVE_A = dict(layers=3, requests=2, prompt=256, new=8, seed=13)
+#: kernel launches of one serve_a run (prefill and 8 decode steps)
+SERVE_A_LAUNCHES = {"flash_attention": 1, "rglru_scan": 2}
 #: prefill and decode logits, card vs CPU, both f32 with TF32 off: sums
 #: in other orders through 3 layers of width 2560 and a 2560 x 256 000
 #: head (the CPU tests hold the same model math to 2e-3 at smoke width)
@@ -402,7 +409,34 @@ SERVE_B_LAUNCHES = {"flash_attention": 8, "rglru_scan": 18}
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 
-KERNELS = ("engine_step", "colibri_scatter", "flash_attention", "rglru_scan")
+# ---- the LM serve path: rwkv6-1.6b through ServeEngine ----------------
+RWKV_ARCH = "rwkv6-1.6b"
+#: (B, T, H, hd) of the rwkv_kernel phase: the reference tests' (BH, T,
+#: hd) shapes (tests/test_kernels.py) with BH as (B, H), the serve path's
+#: (rwkv_serve_a: 2 x 256, rwkv_serve_b: 4 x 512, 32 heads of 64) and a
+#: long one
+RWKV_SHAPES = ((2, 64, 1, 32), (2, 130, 2, 64), (1, 32, 1, 16),
+               (2, 256, 32, 64), (4, 512, 32, 64), (1, 4096, 32, 64))
+#: means of x in the decay w = exp(-exp(x)), x ~ N(mean, 1): the model's
+#: init (w0 ~ N(-5, 1)), the reference tests' N(-1.5, 1), and two strong
+#: decays that pass the Pallas kernel's +-30 clamp inside one chunk
+RWKV_DECAYS = (-5.0, -1.5, 0.0, 1.0)
+#: tests/test_kernels.py's rtol and atol for the WKV (the sum order
+#: differs; both compute the exact recurrence)
+RWKV_TOL = (2e-3, 2e-3)
+RWKV_HEAD = RWKV_SHAPES[4]
+#: rwkv_serve_a: full width, 2 (rwkv, rwkv_cm) layers, f32, as serve_a
+RWKV_SERVE_A = dict(layers=2, requests=2, prompt=256, new=8, seed=23)
+RWKV_SERVE_A_LAUNCHES = {"rwkv6_wkv": 2}
+#: rwkv_serve_b: full width and depth (24 layers, bf16), as serve_b
+RWKV_SERVE_B = dict(requests=4, prompt=512, new=16, seed=29)
+RWKV_SERVE_B_LAUNCHES = {"rwkv6_wkv": 24}
+#: the LM path's kernels: a serve point must launch each exactly as often
+#: as its table says (0 where it names none)
+LM_KERNELS = ("flash_attention", "rglru_scan", "rwkv6_wkv")
+
+KERNELS = ("engine_step", "colibri_scatter", "flash_attention", "rglru_scan",
+           "rwkv6_wkv")
 
 
 def reset_launches() -> None:
@@ -412,7 +446,7 @@ def reset_launches() -> None:
 
 def full_width_spec(proto: str, n: int, bins: int) -> Spec:
     return Spec(protocol=proto, workload="zipf_histogram", zipf_skew=0,
-                n_cores=n, n_addrs=bins)
+                n_cores=n, n_addrs=bins, cycles=FULL_WIDTH_CYCLES)
 
 
 def observe(r) -> dict:
@@ -1012,6 +1046,53 @@ def phase_rglru_kernel(dev) -> float:
     return worst
 
 
+def rwkv_inputs(dev, b, t, h, hd, decay, seed):
+    """Seeded r, k, v, w ``(b, t, h, hd)`` and u ``(h, hd)`` on the card,
+    as the reference tests draw them: r, k ~ N(0, 0.25), v ~ N(0, 1),
+    w = exp(-exp(x)) with x ~ N(decay, 1), u ~ N(0, 0.01)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    r, k, v = randn(b, t, h, hd) * 0.5, randn(b, t, h, hd) * 0.5, \
+        randn(b, t, h, hd)
+    w = torch.exp(-torch.exp(randn(b, t, h, hd) + decay))
+    return r, k, v, w, randn(h, hd) * 0.1
+
+
+def phase_rwkv_kernel(dev) -> float:
+    """The kernel's output and final state against the plain version's,
+    for every shape and decay distribution."""
+    worst, cases = 0.0, []
+    rtol, atol = RWKV_TOL
+    for i, shape in enumerate(RWKV_SHAPES):
+        for decay in RWKV_DECAYS:
+            ins = rwkv_inputs(dev, *shape, decay, seed=i)
+            out, state = rwkv6_wkv.wkv(*ins)
+            ref_out, ref_state = rwkv6_wkv.wkv_ref(*ins)
+            torch.cuda.synchronize()
+            b, t, h, hd = shape
+            what = f"{shape} decay N({decay}, 1)"
+            require(tuple(out.shape) == shape
+                    and tuple(state.shape) == (b, h, hd, hd),
+                    f"{what}: out {tuple(out.shape)}, state "
+                    f"{tuple(state.shape)}")
+            err_o = float((out - ref_out).abs().max())
+            err_s = float((state - ref_state).abs().max())
+            require(torch.allclose(out, ref_out, rtol=rtol, atol=atol)
+                    and torch.allclose(state, ref_state, rtol=rtol,
+                                       atol=atol),
+                    f"{what}: kernel differs from plain by {err_o} (out), "
+                    f"{err_s} (state)")
+            cases.append(dict(shape=shape, decay=decay, out_err=err_o,
+                              state_err=err_s,
+                              out_max=float(ref_out.abs().max())))
+            worst = max(worst, err_o, err_s)
+    emit(phase="rwkv_kernel", cases=cases, max_abs_err=worst,
+         tolerance=RWKV_TOL, equal=True)
+    return worst
+
+
 def prompts(vocab: int, n: int, length: int, seed: int) -> np.ndarray:
     return np.random.default_rng(seed).integers(
         0, vocab, (n, length)).astype(np.int32)
@@ -1048,14 +1129,19 @@ def greedy_logits(model, toks: np.ndarray, new: int, cache_len: int,
     return [o.float().cpu() for o in out], np.stack(fed, axis=1)
 
 
-def phase_serve_a(dev) -> dict:
-    """Full width, one (rglru, rglru, local) unit, f32: the card's
-    prefill and decode logits against the port's on the CPU, on the
-    same weights, teacher-forced on the CPU's greedy tokens."""
+def lm_launches_ok(launches: dict, want: dict) -> bool:
+    """Each LM kernel launched exactly as often as ``want`` says (0 where
+    it names none)."""
+    return all(launches[k] == want.get(k, 0) for k in LM_KERNELS)
+
+
+def serve_a(dev, arch: str, sa: dict, want: dict, phase: str) -> dict:
+    """Full width, ``sa["layers"]`` layers, f32: the card's prefill and
+    decode logits against the port's on the CPU, on the same weights,
+    teacher-forced on the CPU's greedy tokens."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    sa = SERVE_A
-    cfg = dataclasses.replace(get_config(SERVE_ARCH),
+    cfg = dataclasses.replace(get_config(arch),
                               num_layers=sa["layers"],
                               param_dtype="float32", compute_dtype="float32")
     cache_len = sa["prompt"] + sa["new"]
@@ -1086,9 +1172,9 @@ def phase_serve_a(dev) -> dict:
         require(torch.allclose(g, c, rtol=rtol, atol=atol),
                 f"step {step}: card logits differ from the CPU's by "
                 f"{errs[-1]}")
-    require(launches["flash_attention"] == 1 and launches["rglru_scan"] == 2,
-            f"one unit's prefill launched {launches}")
-    emit(phase="serve_a", arch=SERVE_ARCH, layers=sa["layers"],
+    require(lm_launches_ok(launches, want),
+            f"the prefill and decode launched {launches}, want {want}")
+    emit(phase=phase, arch=arch, layers=sa["layers"],
          requests=sa["requests"], prompt=sa["prompt"], new=sa["new"],
          dtype="float32", max_abs_err_by_step=errs, max_abs_err=max(errs),
          tolerance=SERVE_A_TOL, launches=launches,
@@ -1096,6 +1182,17 @@ def phase_serve_a(dev) -> dict:
          tokens_agree=bool(np.array_equal(cpu_tokens, card_tokens)),
          cpu_seconds=cpu_s, equal=True)
     return dict(max_abs_err=max(errs))
+
+
+def phase_serve_a(dev) -> dict:
+    """recurrentgemma-2b, one (rglru, rglru, local) unit."""
+    return serve_a(dev, SERVE_ARCH, SERVE_A, SERVE_A_LAUNCHES, "serve_a")
+
+
+def phase_rwkv_serve_a(dev) -> dict:
+    """rwkv6-1.6b, two (rwkv, rwkv_cm) layers."""
+    return serve_a(dev, RWKV_ARCH, RWKV_SERVE_A, RWKV_SERVE_A_LAUNCHES,
+                   "rwkv_serve_a")
 
 
 class Probe:
@@ -1143,11 +1240,12 @@ def profile_call(fn) -> dict:
                      for k, c, t in rows[:8]])
 
 
-def phase_serve_b(dev) -> dict:
-    """The main path of the LM: recurrentgemma-2b at full width and depth
-    (bf16, seeded on the card) serving one batch through ServeEngine."""
-    sb = SERVE_B
-    cfg = get_config(SERVE_ARCH)
+def serve_b(dev, arch: str, sb: dict, want: dict, phase: str) -> dict:
+    """A main path of the LM: ``arch`` at full width and depth (bf16,
+    seeded on the card) serving one batch through ServeEngine."""
+    gc.collect()                       # earlier phases' models
+    torch.cuda.empty_cache()
+    cfg = get_config(arch)
     cache_len = sb["prompt"] + sb["new"]
     toks = prompts(cfg.vocab_size, sb["requests"], sb["prompt"], sb["seed"])
     t0 = time.perf_counter()
@@ -1155,6 +1253,8 @@ def phase_serve_b(dev) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
     eng = ServeEngine(cfg, model, batch_size=sb["requests"],
                       cache_len=cache_len)
     serve(eng, toks, sb["new"])                          # warm
@@ -1191,15 +1291,16 @@ def phase_serve_b(dev) -> dict:
             "non-finite hidden states or logits")
     require(tokens.shape == (sb["requests"], sb["new"]),
             f"tokens {tokens.shape}")
-    for k, n in SERVE_B_LAUNCHES.items():
-        require(pre["launches"][k] == n and launches[k] == n,
-                f"{k}: {pre['launches'][k]} launches in the prefill, "
-                f"{launches[k]} in the batch, want {n}")
-        require(all(c["launches"][k] == 0 for c in dec),
-                f"{k} launched in decode")
+    require(lm_launches_ok(pre["launches"], want)
+            and lm_launches_ok(launches, want),
+            f"{pre['launches']} launches in the prefill, {launches} in the "
+            f"batch, want {want}")
+    require(all(v == 0 for c in dec for v in c["launches"].values()),
+            "a kernel launched in decode")
     decode_s = sum(c["seconds"] for c in dec)
-    emit(phase="serve_b", arch=SERVE_ARCH, layers=cfg.num_layers,
-         params=n_params, dtype=cfg.param_dtype, requests=sb["requests"],
+    emit(phase=phase, arch=arch, layers=cfg.num_layers,
+         params=n_params, weight_bytes=weight_bytes, dtype=cfg.param_dtype,
+         requests=sb["requests"],
          prompt=sb["prompt"], new=sb["new"], init_s=init_s,
          launches=launches, prefill_launches=pre["launches"],
          decode_launches=sum(sum(c["launches"].values()) for c in dec),
@@ -1212,6 +1313,17 @@ def phase_serve_b(dev) -> dict:
          solo_agrees=bool(np.array_equal(solo[0], tokens[0])),
          logits_finite=True, profile=profiles)
     return dict(launches=launches)
+
+
+def phase_serve_b(dev) -> dict:
+    """recurrentgemma-2b, 26 layers."""
+    return serve_b(dev, SERVE_ARCH, SERVE_B, SERVE_B_LAUNCHES, "serve_b")
+
+
+def phase_rwkv_serve_b(dev) -> dict:
+    """rwkv6-1.6b, 24 layers."""
+    return serve_b(dev, RWKV_ARCH, RWKV_SERVE_B, RWKV_SERVE_B_LAUNCHES,
+                   "rwkv_serve_b")
 
 
 def flash_bound(b, sq, skv, h, kv, hd, causal, dtype) -> dict:
@@ -1268,16 +1380,45 @@ def time_rglru(dev) -> dict:
     return rec
 
 
+def rwkv_bound(b, t, h, hd) -> dict:
+    """The least time the card could take for one WKV call: r, k, v, w
+    and u read once, out and the final state written once, over 3.35
+    TB/s; the exact recurrence in its factored form, 5 * hd^2 + 4 * hd
+    flops per (b, h, t) (sum_i r_i S_ij, S_ij = w_i S_ij + k_i v_j, and
+    the bonus v_j * sum_i r_i u_i k_i), over the f32 CUDA-core peak."""
+    n_bytes = 4 * (5 * b * t * h * hd + h * hd + b * h * hd * hd)
+    flops = (5 * hd * hd + 4 * hd) * b * h * t
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return dict(bound_bytes=n_bytes, bound_flops=flops,
+                bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_rwkv(dev) -> dict:
+    ins = rwkv_inputs(dev, *RWKV_HEAD, RWKV_DECAYS[0], seed=5)
+    launches = LAUNCHES["rwkv6_wkv"]
+    rec = dict(shape=RWKV_HEAD,
+               ms=device_ms(lambda: rw_kernel.wkv_cuda(*ins), 50),
+               plain_ms=device_ms(lambda: rwkv6_wkv.wkv_ref(*ins), 2),
+               library_ms=None, **rwkv_bound(*RWKV_HEAD))
+    LAUNCHES["rwkv6_wkv"] = launches           # timing runs are not counted
+    return rec
+
+
 def lm_phases(dev) -> list:
-    """The serve path's phases; its entries of the kernels line."""
+    """The serve paths' phases; their entries of the kernels line."""
     flash_worst = timed(phase_flash_kernel, dev)
     rglru_worst = timed(phase_rglru_kernel, dev)
     timed(phase_serve_a, dev)
     main_run = timed(phase_serve_b, dev)
+    rwkv_worst = timed(phase_rwkv_kernel, dev)
+    timed(phase_rwkv_serve_a, dev)
+    rwkv_run = timed(phase_rwkv_serve_b, dev)
     t0 = time.perf_counter()
-    flash_t, rglru_t = time_flash(dev), time_rglru(dev)
+    flash_t, rglru_t, rwkv_t = time_flash(dev), time_rglru(dev), \
+        time_rwkv(dev)
     emit(phase="lm_kernel_time", seconds=time.perf_counter() - t0,
-         flash_attention=flash_t, rglru_scan=rglru_t)
+         flash_attention=flash_t, rglru_scan=rglru_t, rwkv6_wkv=rwkv_t)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return [
         dict(name="flash_attention", route="cuda",
@@ -1292,7 +1433,13 @@ def lm_phases(dev) -> list:
              replaces="src/repro/kernels/rglru_scan/kernel.py:20",
              launches=main_run["launches"]["rglru_scan"],
              max_abs_err=rglru_worst, **{k: rglru_t[k] for k in keys},
-             shape=rglru_t["shape"])]
+             shape=rglru_t["shape"]),
+        dict(name="rwkv6_wkv", route="cuda",
+             source="src/repro_torch/csrc/rwkv6_wkv.cu",
+             replaces="src/repro/kernels/rwkv6_wkv/kernel.py:24",
+             launches=rwkv_run["launches"]["rwkv6_wkv"],
+             max_abs_err=rwkv_worst, **{k: rwkv_t[k] for k in keys},
+             shape=rwkv_t["shape"])]
 
 
 def timed(phase, *args):
@@ -1320,7 +1467,7 @@ def setup():
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS)) as pool:    # one nvcc each
         builds = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
-    for mod in (es_kernel, cs_kernel, fa_kernel, rg_kernel):
+    for mod in (es_kernel, cs_kernel, fa_kernel, rg_kernel, rw_kernel):
         mod._launcher()
     emit(phase="build", seconds=time.perf_counter() - t0,
          libraries={k: Path(v["path"]).name for k, v in builds.items()},

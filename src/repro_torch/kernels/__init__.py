@@ -14,4 +14,5 @@ a wrapper adds one where it launches its kernel and nowhere else.
 from typing import Dict
 
 LAUNCHES: Dict[str, int] = {"engine_step": 0, "colibri_scatter": 0,
-                            "flash_attention": 0, "rglru_scan": 0}
+                            "flash_attention": 0, "rglru_scan": 0,
+                            "rwkv6_wkv": 0}

@@ -13,8 +13,8 @@ The twin of the reference's ``repro/models/layers.py``:
   numbers than ``jax.random`` from the same seed, so parity tests convert
   the reference's weights (``repro_torch.convert.model_from_jax``).
 
-The reference's ``groupnorm``, ``sinusoidal_positions`` and
-``cross_entropy`` are not ported yet: no ported path uses them.
+The reference's ``sinusoidal_positions`` and ``cross_entropy`` are not
+ported yet: no ported path uses them.
 """
 from __future__ import annotations
 
@@ -94,6 +94,18 @@ def norm_init(kind: str, d: int, dtype, device) -> Params:
 
 def norm_apply(kind: str, p: Params, x, eps: float = 1e-5):
     return rmsnorm(p, x, eps) if kind == "rmsnorm" else layernorm(p, x, eps)
+
+
+def groupnorm(x: torch.Tensor, scale, bias, num_groups: int,
+              eps: float = 64e-5) -> torch.Tensor:
+    """GroupNorm over the last dim (rwkv6 output norm; eps follows rwkv),
+    in float32, cast back to ``x``'s dtype."""
+    *lead, d = x.shape
+    xf = x.float().reshape(*lead, num_groups, d // num_groups)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    y = ((xf - mu) * torch.rsqrt(var + eps)).reshape(*lead, d)
+    return (y * scale.float() + bias.float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

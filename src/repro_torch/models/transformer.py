@@ -11,9 +11,10 @@ Each layer's params live in a ``Block`` module; ``model_zoo.Model`` owns
 the blocks in an ``nn.ModuleList``.
 
 Ported: the dense (``attn``), ``local`` and ``rglru`` layers with their
-MLPs, ``prefill`` and ``decode_step``.  MoE, MLA, RWKV, the encoder and
-the VLM frontend raise ``NotImplementedError`` when a model is built;
-``forward`` and ``loss_fn`` are training and not ported yet (ROADMAP A14).
+MLPs, the ``rwkv`` time-mix with its ``rwkv_cm`` channel-mix, ``prefill``
+and ``decode_step``.  MoE, MLA, the encoder and the VLM frontend raise
+``NotImplementedError`` when a model is built; ``forward`` and
+``loss_fn`` are training and not ported yet (ROADMAP A14).
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import rglru as RG
+from repro_torch.models import rwkv6 as RW
 
 Params = Dict[str, Any]
 LayerSig = Tuple[str, str]          # (mix_kind, ffn_kind)
@@ -97,12 +99,10 @@ def check_supported(cfg: ModelConfig) -> None:
         missing.append("MoE layers")
     if cfg.attn_kind == "mla":
         missing.append("MLA attention")
-    if "rwkv" in cfg.layer_kinds():
-        missing.append("RWKV-6 layers")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP A14); "
-            f"the port serves dense (attn), local and rglru layers")
+            f"the port serves dense (attn), local, rglru and rwkv layers")
 
 
 # ---------------------------------------------------------------------------
@@ -110,19 +110,25 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def block_init(gen, cfg: ModelConfig, sig: LayerSig, dtype, device) -> Params:
-    mix, _ = sig
+    mix, ffn = sig
     p: Params = {"norm1": L.norm_init(cfg.norm, cfg.d_model, dtype, device),
                  "norm2": L.norm_init(cfg.norm, cfg.d_model, dtype, device)}
     if mix in ("attn", "local"):
         p["attn"] = A.gqa_init(gen, cfg, dtype, device)
-    else:
+    elif mix == "rglru":
         p["rglru"] = RG.rglru_init(gen, cfg, dtype, device)
-    act = "gelu" if mlp_kind(cfg) == "gelu" else "silu"
-    p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, act, dtype, device)
+    else:
+        p["rwkv"] = RW.time_mix_init(gen, cfg, dtype, device)
+    if ffn == "rwkv_cm":
+        p["cm"] = RW.channel_mix_init(gen, cfg, dtype, device)
+    else:
+        act = "gelu" if mlp_kind(cfg) == "gelu" else "silu"
+        p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, act, dtype, device)
     return p
 
 
 def _ffn_apply(cfg: ModelConfig, p: Params, h):
+    """The layer's MLP (every FFN kind but ``rwkv_cm``)."""
     mk = mlp_kind(cfg)
     if mk == "geglu":
         return L.geglu_apply(p["mlp"], h)
@@ -131,6 +137,10 @@ def _ffn_apply(cfg: ModelConfig, p: Params, h):
 
 def block_cache_init(cfg: ModelConfig, sig: LayerSig, batch: int, seq: int,
                      dtype, device) -> Params:
+    """One layer's empty decode cache.  An ``rwkv`` layer's is ``{"rwkv":
+    {shift_tm, shift_cm, wkv}}`` in float32; the reference's cache also
+    holds a ``cm_shift`` key for the ``rwkv_cm`` FFN that nothing reads
+    (its decode reads ``shift_cm``), which the port leaves out."""
     mix, _ = sig
     if mix == "attn":
         return {"attn": A.gqa_cache_init(cfg, batch, seq, dtype, device)}
@@ -138,7 +148,9 @@ def block_cache_init(cfg: ModelConfig, sig: LayerSig, batch: int, seq: int,
         return {"attn": A.gqa_cache_init(cfg, batch,
                                          min(cfg.local_window, seq), dtype,
                                          device)}
-    return {"rglru": RG.state_init(cfg, batch, device)}
+    if mix == "rglru":
+        return {"rglru": RG.state_init(cfg, batch, device)}
+    return {"rwkv": RW.state_init(cfg, batch, device)}
 
 
 def _fill_attn_cache(cache: Params, kv, window: int = 0) -> Params:
@@ -162,38 +174,63 @@ def _fill_attn_cache(cache: Params, kv, window: int = 0) -> Params:
 
 def apply_block_prefill(cfg: ModelConfig, sig: LayerSig, p: Params,
                         cache: Params, x, positions):
-    """Full-sequence forward that also fills the decode cache."""
-    mix, _ = sig
+    """Full-sequence forward that also fills the decode cache.  Recurrent
+    states (rglru, rwkv time-mix and channel-mix) start at zero."""
+    mix, ffn = sig
     h = L.norm_apply(cfg.norm, p["norm1"], x, cfg.norm_eps)
+    b = x.shape[0]
     newc: Params = {}
     if mix in ("attn", "local"):
         window = cfg.local_window if mix == "local" else 0
         a, kv = A.gqa_apply(cfg, p["attn"], h, positions, window=window,
                             kv_out=True)
         newc["attn"] = _fill_attn_cache(cache["attn"], kv, window)
-    else:
+    elif mix == "rglru":
         a, newc["rglru"] = RG.rglru_apply(
-            cfg, p["rglru"], h, RG.state_init(cfg, x.shape[0], x.device))
+            cfg, p["rglru"], h, RG.state_init(cfg, b, x.device))
+    else:
+        st = RW.state_init(cfg, b, x.device)
+        a, shift, wkv = RW.time_mix_apply(cfg, p["rwkv"], h,
+                                          st["shift_tm"].to(h.dtype))
+        newc["rwkv"] = {"shift_tm": shift.float(),
+                        "shift_cm": st["shift_cm"], "wkv": wkv}
     x = x + a
     h = L.norm_apply(cfg.norm, p["norm2"], x, cfg.norm_eps)
-    return x + _ffn_apply(cfg, p, h), newc
+    if ffn != "rwkv_cm":
+        return x + _ffn_apply(cfg, p, h), newc
+    y, shift_cm = RW.channel_mix_apply(
+        p["cm"], h, newc["rwkv"]["shift_cm"].to(h.dtype))
+    newc["rwkv"]["shift_cm"] = shift_cm.float()
+    return x + y, newc
 
 
 def apply_block_decode(cfg: ModelConfig, sig: LayerSig, p: Params,
                        cache: Params, x, pos):
     """One-token step. x: (B,1,d); pos: (B,). Returns (x, new_cache)."""
-    mix, _ = sig
+    mix, ffn = sig
     h = L.norm_apply(cfg.norm, p["norm1"], x, cfg.norm_eps)
     newc: Params = {}
     if mix in ("attn", "local"):
         window = cfg.local_window if mix == "local" else 0
         a, newc["attn"] = A.gqa_decode(cfg, p["attn"], h, cache["attn"], pos,
                                        window=window)
-    else:
+    elif mix == "rglru":
         a, newc["rglru"] = RG.rglru_decode(cfg, p["rglru"], h, cache["rglru"])
+    else:
+        st = cache["rwkv"]
+        a, shift, wkv = RW.time_mix_decode(cfg, p["rwkv"], h,
+                                           st["shift_tm"].to(h.dtype),
+                                           st["wkv"])
+        newc["rwkv"] = {"shift_tm": shift.float(),
+                        "shift_cm": st["shift_cm"], "wkv": wkv}
     x = x + a
     h = L.norm_apply(cfg.norm, p["norm2"], x, cfg.norm_eps)
-    return x + _ffn_apply(cfg, p, h), newc
+    if ffn != "rwkv_cm":
+        return x + _ffn_apply(cfg, p, h), newc
+    y, shift_cm = RW.channel_mix_decode(
+        p["cm"], h, newc["rwkv"]["shift_cm"].to(h.dtype))
+    newc["rwkv"]["shift_cm"] = shift_cm.float()
+    return x + y, newc
 
 
 # ---------------------------------------------------------------------------
@@ -222,7 +259,8 @@ class ParamTree(nn.Module):
 
 class Block(nn.Module):
     """One layer's parameters, keyed as the reference keys them
-    (``norm1``, ``norm2``, ``attn`` or ``rglru``, ``mlp``)."""
+    (``norm1``, ``norm2``, ``attn``, ``rglru`` or ``rwkv``, and ``mlp``
+    or, for ``rwkv_cm``, ``cm``)."""
 
     def __init__(self, sig: LayerSig, params: Params):
         super().__init__()

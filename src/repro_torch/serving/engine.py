@@ -5,9 +5,10 @@ The request queue is event-driven (``EventCoordinator`` — the Mwait
 analogue): the engine thread sleeps until requests arrive instead of
 polling.  Each ``run_once`` drains up to ``batch_size`` requests, right-
 pads their prompts into one grid, prefills it (``Model.prefill``: the
-``rglru_scan`` and ``flash_attention`` kernels on the card), takes each
-sequence's logits at its own last position, and decodes greedily with a
-per-sequence position (``Model.decode_step``, plain torch).
+``rglru_scan``, ``flash_attention`` and ``rwkv6_wkv`` kernels on the
+card), takes each sequence's logits at its own last position, and
+decodes greedily with a per-sequence position (``Model.decode_step``,
+plain torch).
 
 The engine runs on the GPU unless the caller passes ``device="cpu"``;
 without a GPU the default raises.  The model must live on that device.

@@ -1,5 +1,6 @@
 """The port on an NVIDIA GPU: the CUDA kernels and runs through them (the
-simulator's engine and recurrentgemma-2b-smoke served by ServeEngine).
+simulator's engine, and recurrentgemma-2b-smoke and rwkv6-1.6b-smoke
+served by ServeEngine).
 
 Every test here is marked ``gpu`` and skips without a CUDA device (the
 CUDA kernel has no CPU mode).  The file imports neither JAX nor the
@@ -23,7 +24,7 @@ from repro_torch.core import protocols
 from repro_torch.core.sim import SimParams
 from repro_torch.configs import get_config
 from repro_torch.kernels import (LAUNCHES, colibri_scatter, engine_step,
-                                 flash_attention, rglru_scan)
+                                 flash_attention, rglru_scan, rwkv6_wkv)
 from repro_torch.models import build
 from repro_torch.serving import ServeEngine
 from repro_torch.sync import Spec, run
@@ -161,3 +162,41 @@ def test_served_batch_goes_through_both_kernels(cuda_device):
         assert call["finite"]
         assert call["launches"]["flash_attention"] == 0
         assert call["launches"]["rglru_scan"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("decay", [-5.0, 1.0])
+@pytest.mark.parametrize("shape", [(2, 130, 2, 64), (1, 32, 1, 16),
+                                   (4, 512, 32, 64)])
+def test_rwkv_kernel_matches_plain_version(shape, decay, cuda_device):
+    cs = _chip_smoke()
+    ins = cs.rwkv_inputs(cuda_device, *shape, decay, seed=shape[1])
+    before = LAUNCHES["rwkv6_wkv"]
+    out, state = rwkv6_wkv.wkv(*ins)
+    torch.cuda.synchronize()
+    assert LAUNCHES["rwkv6_wkv"] == before + 1
+    ref_out, ref_state = rwkv6_wkv.wkv_ref(*ins)
+    rtol, atol = cs.RWKV_TOL
+    assert torch.allclose(out, ref_out, rtol=rtol, atol=atol)
+    assert torch.allclose(state, ref_state, rtol=rtol, atol=atol)
+
+
+@pytest.mark.gpu
+def test_served_rwkv_batch_goes_through_the_kernel(cuda_device):
+    """rwkv6-1.6b-smoke (2 rwkv layers): each prefill launches 2
+    rwkv6_wkv kernels, decode none."""
+    cs = _chip_smoke()
+    cfg = get_config("rwkv6-1.6b-smoke")
+    model = build(cfg).init(0)
+    eng = ServeEngine(cfg, model, batch_size=2, cache_len=24)
+    probe = cs.Probe(model)
+    toks = cs.prompts(cfg.vocab_size, 2, 16, seed=1)
+    tokens = cs.serve(eng, toks, 4)
+    assert tokens.shape == (2, 4)
+    (pre,) = probe.calls["prefill"]
+    assert pre["finite"]
+    assert cs.lm_launches_ok(pre["launches"], {"rwkv6_wkv": 2})
+    assert len(probe.calls["decode_step"]) == 4
+    for call in probe.calls["decode_step"]:
+        assert call["finite"]
+        assert cs.lm_launches_ok(call["launches"], {})

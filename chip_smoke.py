@@ -8,8 +8,9 @@ Phases, one JSON line each:
 1. device — needs ``torch.cuda.is_available()``; prints ``nvidia-smi``'s
    name and power limit of the card;
 2. build — compiles the ``engine_step``, ``colibri_scatter``,
-   ``flash_attention``, ``rglru_scan`` and ``rwkv6_wkv`` CUDA kernels
-   from the checkout, one ``nvcc`` each, in parallel;
+   ``flash_attention``, ``rglru_scan``, ``rwkv6_wkv`` and
+   ``grouped_matmul`` CUDA kernels from the checkout, one ``nvcc`` each,
+   in parallel;
 3. kernel — the engine_step kernel against its plain PyTorch version on
    the card, for each protocol at every (cores, banks) shape the later
    phases give it, plus the reference's multi-tile case, over chained
@@ -20,7 +21,8 @@ Phases, one JSON line each:
    the trace path's shapes and two large ones: float sums within
    ``tests/test_kernels.py``'s tolerances, histograms exact (also
    against ``torch.bincount``), keys equal to ``bins`` dropped;
-5. the LM serve paths, recurrentgemma-2b and then rwkv6-1.6b:
+5. the LM serve paths, recurrentgemma-2b, rwkv6-1.6b and then
+   kimi-k2-1t-a32b's MoE layer:
    flash_kernel / rglru_kernel — each kernel against its plain version
    on the card at the reference tests' shapes and the serve shapes,
    within ``tests/test_kernels.py``'s tolerances;
@@ -42,9 +44,22 @@ Phases, one JSON line each:
    path, as serve_b: full width and depth (24 layers, bf16), four
    512-token requests and 16 new tokens each through ``ServeEngine``,
    exactly 24 rwkv6_wkv launches per prefill and none in decode;
-   lm_kernel_time — the three kernels' device time at the serve shapes
-   beside their bounds, their plain versions and (flash)
-   ``scaled_dot_product_attention``;
+   gmm_kernel — the grouped_matmul kernel against its plain version on
+   the card at the reference tests' shapes and an odd one (f32, bf16)
+   and the serve shapes (bf16; the plain f32 product a few experts at a
+   time), within ``GMM_TOL``; moe_serve_a — kimi-k2-1t-a32b at full
+   width, 2 layers (dense, MoE), experts cut to 32, f32, card logits
+   against the CPU's as serve_a, router picks that differ reported and
+   each held to be a near-tie; moe_serve_b — the newest main path: full
+   width with all 384 experts, 2 layers, bf16 (~40 GB of weights seeded
+   in place on the card), four 512-token requests and 16 new tokens each
+   through ``ServeEngine``: exactly 2 flash_attention and 3
+   grouped_matmul launches per prefill and 3 grouped_matmul launches per
+   decode step;
+   lm_kernel_time — the four kernels' device time at the serve shapes
+   beside their bounds, their plain versions and the library call
+   (flash: ``scaled_dot_product_attention``, also at head dim 112;
+   grouped_matmul: ``torch.bmm``);
 6. exact — ``zipf_index`` (skew 0) and ``_hash`` on the card against the
    CPU over 2^24 inputs;
 7. golden — ``repro_torch.sync.run`` on the card reproduces the
@@ -100,11 +115,13 @@ import repro_torch.kernels.colibri_scatter.kernel as cs_kernel  # noqa: E402
 from repro_torch.kernels.engine_step import kernel as es_kernel  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import flash_attention, rglru_scan  # noqa: E402
-from repro_torch.kernels import rwkv6_wkv  # noqa: E402
+from repro_torch.kernels import grouped_matmul, rwkv6_wkv  # noqa: E402
 import repro_torch.kernels.flash_attention.kernel as fa_kernel  # noqa: E402
+import repro_torch.kernels.grouped_matmul.kernel as gm_kernel  # noqa: E402
 import repro_torch.kernels.rglru_scan.kernel as rg_kernel  # noqa: E402
 import repro_torch.kernels.rwkv6_wkv.kernel as rw_kernel  # noqa: E402
 from repro_torch.models import build  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.obs import perfetto  # noqa: E402
 from repro_torch.serving import Request, ServeEngine  # noqa: E402
 from repro_torch.obs.schema import STATE_NAMES  # noqa: E402
@@ -359,7 +376,9 @@ SERVE_ARCH = "recurrentgemma-2b"
 #: sq == skv) in both dtypes, the smoke config's head dim 32, head dim
 #: 256 in f32, and the serve path's prefill shapes (phase serve_a: two
 #: 256-token prompts, f32; serve_b: four 512-token prompts, bf16, also
-#: in f32 to hold its long rows to the f32 tolerance)
+#: in f32 to hold its long rows to the f32 tolerance); then head dim 112
+#: (kimi-k2-1t-a32b's 64 heads on 8): an odd non-causal shape and the
+#: moe_serve_a (f32) and moe_serve_b (bf16) prefill shapes
 FLASH_SHAPES = tuple(
     [(b, sq, skv, h, kv, hd, c, dt) for dt in ("float32", "bfloat16")
      for b, sq, skv, h, kv, hd in ((2, 128, 128, 4, 4, 64),
@@ -370,7 +389,10 @@ FLASH_SHAPES = tuple(
        (1, 96, 96, 10, 1, 256, False, "float32"),
        (2, 256, 256, 10, 1, 256, True, "float32"),
        (4, 512, 512, 10, 1, 256, True, "float32"),
-       (4, 512, 512, 10, 1, 256, True, "bfloat16")])
+       (4, 512, 512, 10, 1, 256, True, "bfloat16"),
+       (1, 100, 100, 8, 2, 112, False, "bfloat16"),
+       (2, 256, 256, 64, 8, 112, True, "float32"),
+       (4, 512, 512, 64, 8, 112, True, "bfloat16")])
 #: dtype -> (rtol, atol) of the kernel against its plain version on the
 #: card.  f32: tests/test_kernels.py's.  bf16: both sum in f32 and round
 #: the output to bf16 once, so they differ by about one bf16 rounding of
@@ -380,7 +402,9 @@ FLASH_SHAPES = tuple(
 #: kernel keep tests/test_kernels.py's 2e-2 / 1e-1.)
 FLASH_TOL = {"float32": (2e-5, 1e-4), "bfloat16": (1e-2, 1e-2)}
 #: the serve path's full-depth prefill shape: the kernels line's times
-FLASH_HEAD = FLASH_SHAPES[-1]
+FLASH_HEAD = (4, 512, 512, 10, 1, 256, True, "bfloat16")
+#: moe_serve_b's prefill shape (head dim 112), timed beside it
+FLASH_MOE = FLASH_SHAPES[-1]
 #: (T, B, w) of the rglru_kernel phase: the reference tests' shapes and
 #: the serve path's (serve_a: 256 x 2, serve_b: 512 x 4, width 2560)
 RGLRU_SHAPES = ((64, 2, 128), (100, 3, 60), (256, 1, 256), (256, 2, 2560),
@@ -431,12 +455,53 @@ RWKV_SERVE_A_LAUNCHES = {"rwkv6_wkv": 2}
 #: rwkv_serve_b: full width and depth (24 layers, bf16), as serve_b
 RWKV_SERVE_B = dict(requests=4, prompt=512, new=16, seed=29)
 RWKV_SERVE_B_LAUNCHES = {"rwkv6_wkv": 24}
+
+# ---- the LM serve path: kimi-k2-1t-a32b's MoE layer through ServeEngine
+MOE_ARCH = "kimi-k2-1t-a32b"
+#: (E, C, d, f) of the serve path's expert GEMMs, bf16: gate/up (384, C,
+#: 7168) @ (384, 7168, 2048) and down (384, C, 2048) @ (384, 2048, 7168)
+#: at moe_serve_b's capacity, C = 56 in the prefill (4 x 512 tokens) and
+#: 8 in decode
+GMM_SERVE = tuple((384, c, d, f) for c in (56, 8)
+                  for d, f in ((7168, 2048), (2048, 7168)))
+#: (E, C, d, f) and dtype of the gmm_kernel phase: the reference tests'
+#: shapes (tests/test_kernels.py) and an odd one (no dimension a multiple
+#: of 8) in both dtypes, then the serve shapes
+GMM_SHAPES = tuple(
+    [(s, dt) for s in ((4, 64, 128, 256), (8, 100, 96, 64),
+                       (1, 256, 512, 128), (3, 37, 100, 70))
+     for dt in ("float32", "bfloat16")]
+    + [(s, "bfloat16") for s in GMM_SERVE])
+#: dtype -> (rtol, atol) of the kernel against its plain version:
+#: tests/test_kernels.py's (rtol 1e-4 / 3e-2, atol ten times it); both
+#: sum exact products in f32 and round once, so bf16 outputs differ by
+#: at most about one bf16 rounding
+GMM_TOL = {"float32": (1e-4, 1e-3), "bfloat16": (3e-2, 3e-1)}
+#: experts of the serve shapes' plain version per f32 product (a float32
+#: copy of a whole 384-expert stack is 22.5 GB)
+GMM_PLAIN_EXPERTS = 8
+#: the kernels line's times: moe_serve_b's prefill gate/up shape
+GMM_HEAD = GMM_SERVE[0]
+#: moe_serve_a: full width, 2 layers (dense, MoE), experts cut to 32 so
+#: that the CPU holds the f32 copy (~17.7 GB), f32, as serve_a
+MOE_SERVE_A = dict(layers=2, experts=32, requests=2, prompt=256, new=8,
+                   seed=31)
+MOE_SERVE_A_LAUNCHES = {"flash_attention": 2, "grouped_matmul": 3}
+MOE_DECODE_LAUNCHES = {"grouped_matmul": 3}
+#: a pick of the card's router that differs from the CPU's must be a
+#: near-tie: the k-th and (k+1)-th router probabilities within this
+NEAR_TIE = 1e-5
+#: moe_serve_b: full width with all 384 experts, depth cut to 2 layers
+#: (dense, MoE), bf16; 4 requests x 512 tokens, 16 new each
+MOE_SERVE_B = dict(layers=2, requests=4, prompt=512, new=16, seed=37)
+MOE_SERVE_B_LAUNCHES = {"flash_attention": 2, "grouped_matmul": 3}
+
 #: the LM path's kernels: a serve point must launch each exactly as often
 #: as its table says (0 where it names none)
-LM_KERNELS = ("flash_attention", "rglru_scan", "rwkv6_wkv")
+LM_KERNELS = ("flash_attention", "rglru_scan", "rwkv6_wkv", "grouped_matmul")
 
 KERNELS = ("engine_step", "colibri_scatter", "flash_attention", "rglru_scan",
-           "rwkv6_wkv")
+           "rwkv6_wkv", "grouped_matmul")
 
 
 def reset_launches() -> None:
@@ -737,6 +802,12 @@ def time_launches(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+#: rows the profiler records beside the device's work (CUPTI's own
+#: buffer requests and lazy module loading, up to milliseconds each):
+#: not device time
+NOT_DEVICE_WORK = ("Activity Buffer Request", "Lazy Function Loading")
+
+
 def device_rows(prof) -> list:
     """(name, count, device µs) of every device activity (kernels,
     memsets, copies) a ``torch.profiler`` run recorded."""
@@ -745,17 +816,25 @@ def device_rows(prof) -> list:
         dt = getattr(ev, "device_time_total", None)
         if dt is None:
             dt = getattr(ev, "cuda_time_total", 0)
-        if dt and ev.key and not ev.key.startswith(("aten::", "cuda")):
+        if dt and ev.key and ev.key not in NOT_DEVICE_WORK \
+                and not ev.key.startswith(("aten::", "cuda")):
             rows.append((ev.key, ev.count, dt))
     rows.sort(key=lambda r: -r[2])
     return rows
 
 
 def device_ms(fn, reps: int):
-    """Device time per call of ``fn``: the sum of the device activities
-    it launches, from ``torch.profiler``, over ``reps`` calls.  A
-    profile that recorded no device activity is taken again, up to three
-    times, and then reported as ``None`` (not measured)."""
+    """Device time per call of ``fn`` from ``torch.profiler`` over
+    ``reps`` calls: for each device activity, its mean recorded duration
+    times the number of times one call launches it.  Every call launches
+    the same activities, ``ceil(count / reps)`` times each: the profiler
+    can lose records (an H100 run lost 1-80 % of some kernels' records
+    after earlier profiles in the same process), so a row's count may
+    fall short of a multiple of ``reps``; the mean over the records kept
+    is the same, as every call runs on the same inputs.  Lost records
+    are reported (a ``device_ms_lost_records`` line).  A profile that
+    recorded no device activity is taken again, up to three times, and
+    then reported as ``None`` (not measured)."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(10):
         fn()
@@ -766,9 +845,15 @@ def device_ms(fn, reps: int):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        busy = sum(r[2] for r in device_rows(prof))
-        if busy > 0:
-            return busy / reps / 1e3
+        rows = device_rows(prof)
+        if not rows:
+            continue
+        per_call = [(-(-count // reps), count, us) for _, count, us in rows]
+        lost = sum(k * reps - count for k, count, _ in per_call)
+        if lost:
+            emit(phase="device_ms_lost_records", reps=reps, lost=lost,
+                 rows=[(name[:70], count) for name, count, _ in rows[:8]])
+        return sum(us / count * k for k, count, us in per_call) / 1e3
     return None
 
 
@@ -1135,15 +1220,74 @@ def lm_launches_ok(launches: dict, want: dict) -> bool:
     return all(launches[k] == want.get(k, 0) for k in LM_KERNELS)
 
 
-def serve_a(dev, arch: str, sa: dict, want: dict, phase: str) -> dict:
+class RouterLog:
+    """While open, records each call of the MoE router (``moe._route``):
+    its picks ``ids`` (T, k) and the k + 1 largest router probabilities
+    ``top`` (T, k + 1), on the CPU."""
+
+    def __init__(self):
+        self.calls = []
+        self._route = moe._route
+
+    def __enter__(self):
+        def route(cfg, router_w, x_flat):
+            out = self._route(cfg, router_w, x_flat)
+            probs = torch.softmax(x_flat.float() @ router_w.float(), dim=-1)
+            self.calls.append(dict(
+                ids=out[0].cpu(),
+                top=torch.topk(probs, cfg.moe.top_k + 1, dim=-1).values.cpu()))
+            return out
+        moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        moe._route = self._route
+
+
+def router_diffs(cpu: RouterLog, card: RouterLog, k: int) -> list:
+    """The tokens whose k picks (as a set) differ between the CPU's and
+    the card's router, call by call, with the gap between the k-th and
+    (k+1)-th router probabilities on each side."""
+    require(len(cpu.calls) == len(card.calls),
+            f"{len(cpu.calls)} router calls on the CPU, {len(card.calls)} "
+            f"on the card")
+    diffs = []
+    for i, (a, b) in enumerate(zip(cpu.calls, card.calls)):
+        rows = (a["ids"].sort(-1).values != b["ids"].sort(-1).values).any(-1)
+        for r in rows.nonzero().flatten().tolist():
+            diffs.append(dict(call=i, token=r,
+                              cpu_gap=float(a["top"][r, k - 1]
+                                            - a["top"][r, k]),
+                              card_gap=float(b["top"][r, k - 1]
+                                             - b["top"][r, k])))
+    return diffs
+
+
+def lm_cfg(arch: str, cut: dict, **kw):
+    """``arch``'s config cut as ``cut`` says (``layers``: depth;
+    ``experts``: the MoE layers' routed experts), with ``kw`` replaced."""
+    cfg = get_config(arch)
+    if "layers" in cut:
+        kw["num_layers"] = cut["layers"]
+    if "experts" in cut:
+        kw["moe"] = dataclasses.replace(cfg.moe, num_experts=cut["experts"])
+    return dataclasses.replace(cfg, **kw)
+
+
+def serve_a(dev, arch: str, sa: dict, want: dict, phase: str,
+            want_decode: dict = None, tokens_equal: bool = False) -> dict:
     """Full width, ``sa["layers"]`` layers, f32: the card's prefill and
     decode logits against the port's on the CPU, on the same weights,
-    teacher-forced on the CPU's greedy tokens."""
+    teacher-forced on the CPU's greedy tokens.  The card's prefill must
+    launch the LM kernels as ``want`` says, each decode step as
+    ``want_decode`` says (none by default).  Router picks that differ
+    between the two are reported, and each must be a near-tie."""
+    gc.collect()                       # earlier phases' models
+    torch.cuda.empty_cache()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_config(arch),
-                              num_layers=sa["layers"],
-                              param_dtype="float32", compute_dtype="float32")
+    want_decode = want_decode or {}
+    cfg = lm_cfg(arch, sa, param_dtype="float32", compute_dtype="float32")
     cache_len = sa["prompt"] + sa["new"]
     toks = prompts(cfg.vocab_size, sa["requests"], sa["prompt"], sa["seed"])
     card = build(cfg, dev).init(sa["seed"])
@@ -1152,17 +1296,23 @@ def serve_a(dev, arch: str, sa: dict, want: dict, phase: str) -> dict:
     cpu_tokens = serve(ServeEngine(cfg, cpu, batch_size=sa["requests"],
                                    cache_len=cache_len, device="cpu"),
                        toks, sa["new"])
-    cpu_logits, fed = greedy_logits(cpu, toks, sa["new"], cache_len)
+    with RouterLog() as cpu_routes:
+        cpu_logits, fed = greedy_logits(cpu, toks, sa["new"], cache_len)
     cpu_s = time.perf_counter() - t0
     require(np.array_equal(fed, cpu_tokens),
             f"CPU engine tokens {cpu_tokens} != its greedy steps {fed}")
     del cpu
+    probe = Probe(card)
     reset_launches()
-    card_logits, _ = greedy_logits(card, toks, sa["new"], cache_len,
-                                   forced=cpu_tokens)
+    with RouterLog() as card_routes:
+        card_logits, _ = greedy_logits(card, toks, sa["new"], cache_len,
+                                       forced=cpu_tokens)
     launches = dict(LAUNCHES)
+    pre, dec = probe.calls["prefill"][:], probe.calls["decode_step"][:]
     card_tokens = serve(ServeEngine(cfg, card, batch_size=sa["requests"],
                                     cache_len=cache_len), toks, sa["new"])
+    diffs = (router_diffs(cpu_routes, card_routes, cfg.moe.top_k)
+             if cfg.moe is not None else [])
     rtol, atol = SERVE_A_TOL
     errs = []
     for step, (c, g) in enumerate(zip(cpu_logits, card_logits)):
@@ -1171,13 +1321,24 @@ def serve_a(dev, arch: str, sa: dict, want: dict, phase: str) -> dict:
         errs.append(float((g - c).abs().max()))
         require(torch.allclose(g, c, rtol=rtol, atol=atol),
                 f"step {step}: card logits differ from the CPU's by "
-                f"{errs[-1]}")
-    require(lm_launches_ok(launches, want),
-            f"the prefill and decode launched {launches}, want {want}")
+                f"{errs[-1]} (router picks that differ: {diffs})")
+    require(all(d["cpu_gap"] <= NEAR_TIE for d in diffs),
+            f"router picks differ beyond a near-tie: {diffs}")
+    require(len(pre) == 1 and lm_launches_ok(pre[0]["launches"], want)
+            and len(dec) == sa["new"]
+            and all(lm_launches_ok(c["launches"], want_decode) for c in dec),
+            f"the prefill launched {[c['launches'] for c in pre]} and the "
+            f"decode steps {[c['launches'] for c in dec]}, want {want} and "
+            f"{want_decode} per step")
+    require(not tokens_equal or np.array_equal(cpu_tokens, card_tokens),
+            f"card tokens {card_tokens} != CPU tokens {cpu_tokens}")
     emit(phase=phase, arch=arch, layers=sa["layers"],
+         experts=cfg.moe.num_experts if cfg.moe is not None else None,
          requests=sa["requests"], prompt=sa["prompt"], new=sa["new"],
          dtype="float32", max_abs_err_by_step=errs, max_abs_err=max(errs),
          tolerance=SERVE_A_TOL, launches=launches,
+         prefill_launches=pre[0]["launches"],
+         router_calls=len(card_routes.calls), router_diffs=diffs,
          cpu_tokens=cpu_tokens.tolist(), card_tokens=card_tokens.tolist(),
          tokens_agree=bool(np.array_equal(cpu_tokens, card_tokens)),
          cpu_seconds=cpu_s, equal=True)
@@ -1240,18 +1401,25 @@ def profile_call(fn) -> dict:
                      for k, c, t in rows[:8]])
 
 
-def serve_b(dev, arch: str, sb: dict, want: dict, phase: str) -> dict:
-    """A main path of the LM: ``arch`` at full width and depth (bf16,
-    seeded on the card) serving one batch through ServeEngine."""
+def serve_b(dev, arch: str, sb: dict, want: dict, phase: str,
+            want_decode: dict = None) -> dict:
+    """A main path of the LM: ``arch`` at full width (bf16, seeded on the
+    card; at full depth unless ``sb["layers"]`` cuts it) serving one batch
+    through ServeEngine.  Each prefill must launch the LM kernels as
+    ``want`` says, each decode step as ``want_decode`` says (none by
+    default)."""
     gc.collect()                       # earlier phases' models
     torch.cuda.empty_cache()
-    cfg = get_config(arch)
+    want_decode = want_decode or {}
+    cfg = lm_cfg(arch, sb)
     cache_len = sb["prompt"] + sb["new"]
     toks = prompts(cfg.vocab_size, sb["requests"], sb["prompt"], sb["seed"])
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = build(cfg, dev).init(sb["seed"])
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
     n_params = sum(p.numel() for p in model.parameters())
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in model.parameters())
@@ -1291,17 +1459,22 @@ def serve_b(dev, arch: str, sb: dict, want: dict, phase: str) -> dict:
             "non-finite hidden states or logits")
     require(tokens.shape == (sb["requests"], sb["new"]),
             f"tokens {tokens.shape}")
+    batch_want = {k: want.get(k, 0) + sb["new"] * want_decode.get(k, 0)
+                  for k in LM_KERNELS}
     require(lm_launches_ok(pre["launches"], want)
-            and lm_launches_ok(launches, want),
+            and lm_launches_ok(launches, batch_want),
             f"{pre['launches']} launches in the prefill, {launches} in the "
-            f"batch, want {want}")
-    require(all(v == 0 for c in dec for v in c["launches"].values()),
-            "a kernel launched in decode")
+            f"batch, want {want} and {batch_want}")
+    require(all(c["launches"][k] == want_decode.get(k, 0)
+                for c in dec for k in LAUNCHES),
+            f"decode launched {[c['launches'] for c in dec]}, want "
+            f"{want_decode} per step")
     decode_s = sum(c["seconds"] for c in dec)
     emit(phase=phase, arch=arch, layers=cfg.num_layers,
          params=n_params, weight_bytes=weight_bytes, dtype=cfg.param_dtype,
          requests=sb["requests"],
          prompt=sb["prompt"], new=sb["new"], init_s=init_s,
+         init_peak_memory_bytes=init_peak,
          launches=launches, prefill_launches=pre["launches"],
          decode_launches=sum(sum(c["launches"].values()) for c in dec),
          prefill_ms=pre["seconds"] * 1e3,
@@ -1326,6 +1499,67 @@ def phase_rwkv_serve_b(dev) -> dict:
                    "rwkv_serve_b")
 
 
+def gmm_inputs(dev, e, c, d, f, dtype, seed):
+    """Seeded standard-normal x ``(e, c, d)`` and w ``(e, d, f)`` on the
+    card, drawn in ``dtype``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    return (torch.randn((e, c, d), generator=g, device=dev, dtype=dt),
+            torch.randn((e, d, f), generator=g, device=dev, dtype=dt))
+
+
+def gmm_plain(x, w):
+    """The plain version, ``GMM_PLAIN_EXPERTS`` experts at a time."""
+    out = torch.empty((x.shape[0], x.shape[1], w.shape[2]), dtype=x.dtype,
+                      device=x.device)
+    for e0 in range(0, x.shape[0], GMM_PLAIN_EXPERTS):
+        e1 = e0 + GMM_PLAIN_EXPERTS
+        out[e0:e1] = grouped_matmul.grouped_matmul_ref(x[e0:e1], w[e0:e1])
+    return out
+
+
+def phase_gmm_kernel(dev) -> dict:
+    """The grouped_matmul kernel against its plain version at every
+    shape of ``GMM_SHAPES``."""
+    gc.collect()                       # earlier phases' models
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    worst = dict.fromkeys(GMM_TOL, 0.0)
+    cases = []
+    for i, ((e, c, d, f), dtype) in enumerate(GMM_SHAPES):
+        x, w = gmm_inputs(dev, e, c, d, f, dtype, seed=i)
+        out = grouped_matmul.grouped_matmul(x, w)
+        ref = gmm_plain(x, w)
+        torch.cuda.synchronize()
+        what = f"{(e, c, d, f)} {dtype}"
+        require(out.dtype == x.dtype and tuple(out.shape) == (e, c, f),
+                f"{what}: output {out.dtype}{tuple(out.shape)}")
+        rtol, atol = GMM_TOL[dtype]
+        err = float((out.float() - ref.float()).abs().max())
+        require(torch.allclose(out.float(), ref.float(), rtol=rtol,
+                               atol=atol),
+                f"{what}: kernel differs from plain by {err}")
+        cases.append(dict(shape=(e, c, d, f), dtype=dtype, max_abs_err=err,
+                          ref_max=float(ref.float().abs().max())))
+        worst[dtype] = max(worst[dtype], err)
+        del x, w, out, ref
+    emit(phase="gmm_kernel", cases=cases, max_abs_err=worst,
+         tolerance=GMM_TOL, equal=True)
+    return worst
+
+
+def phase_moe_serve_a(dev) -> dict:
+    """kimi-k2-1t-a32b, 2 layers (dense, MoE), 32 experts, f32."""
+    return serve_a(dev, MOE_ARCH, MOE_SERVE_A, MOE_SERVE_A_LAUNCHES,
+                   "moe_serve_a", MOE_DECODE_LAUNCHES, tokens_equal=True)
+
+
+def phase_moe_serve_b(dev) -> dict:
+    """kimi-k2-1t-a32b, 2 layers (dense, MoE), all 384 experts, bf16."""
+    return serve_b(dev, MOE_ARCH, MOE_SERVE_B, MOE_SERVE_B_LAUNCHES,
+                   "moe_serve_b", MOE_DECODE_LAUNCHES)
+
+
 def flash_bound(b, sq, skv, h, kv, hd, causal, dtype) -> dict:
     """The least time the card could take for one flash call: q, k, v
     read once (KV heads not repeated), o written once, over 3.35 TB/s;
@@ -1343,22 +1577,22 @@ def flash_bound(b, sq, skv, h, kv, hd, causal, dtype) -> dict:
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_flash(dev) -> dict:
-    b, sq, skv, h, kv, hd, causal, dtype = FLASH_HEAD
+def time_flash(dev, shape=FLASH_HEAD) -> dict:
+    b, sq, skv, h, kv, hd, causal, dtype = shape
     q, k, v = flash_inputs(dev, b, sq, skv, h, kv, hd, dtype, seed=5)
     # the library call's layout: heads first, KV heads repeated
     qs, ks, vs = (t.repeat_interleave(h // t.shape[2], dim=2)
                   .transpose(1, 2).contiguous() for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     launches = LAUNCHES["flash_attention"]
-    rec = dict(shape=FLASH_HEAD,
+    rec = dict(shape=shape,
                ms=device_ms(lambda: fa_kernel.flash_attention_cuda(
                    q, k, v, causal=causal), 20),
                plain_ms=device_ms(lambda: flash_attention.flash_attention_ref(
                    q, k, v, causal=causal), 10),
                library_ms=device_ms(lambda: sdpa(qs, ks, vs,
                                                  is_causal=causal), 20),
-               **flash_bound(*FLASH_HEAD))
+               **flash_bound(*shape))
     LAUNCHES["flash_attention"] = launches     # timing runs are not counted
     return rec
 
@@ -1405,6 +1639,40 @@ def time_rwkv(dev) -> dict:
     return rec
 
 
+def gmm_bound(e, c, d, f, dtype) -> dict:
+    """The least time the card could take for one grouped_matmul call: x
+    and w read once, out written once, over 3.35 TB/s; 2 e c d f flops
+    over the type's peak."""
+    size = torch.tensor([], dtype=getattr(torch, dtype)).element_size()
+    n_bytes = (e * c * d + e * d * f + e * c * f) * size
+    flops = 2 * e * c * d * f
+    peak = BF16_FLOPS if dtype == "bfloat16" else F32_FLOPS
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
+    return dict(bound_bytes=n_bytes, bound_flops=flops,
+                bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_gmm(dev) -> list:
+    """The kernel, its plain version (a few experts at a time) and
+    ``torch.bmm`` on the same operands at each serve shape."""
+    gc.collect()                       # the serve phases' models
+    torch.cuda.empty_cache()
+    launches = LAUNCHES["grouped_matmul"]
+    recs = []
+    for shape in GMM_SERVE:
+        x, w = gmm_inputs(dev, *shape, "bfloat16", seed=5)
+        recs.append(dict(
+            shape=shape, dtype="bfloat16",
+            ms=device_ms(lambda: gm_kernel.grouped_matmul_cuda(x, w), 10),
+            plain_ms=device_ms(lambda: gmm_plain(x, w), 3),
+            library_ms=device_ms(lambda: torch.bmm(x, w), 10),
+            **gmm_bound(*shape, "bfloat16")))
+        del x, w
+    LAUNCHES["grouped_matmul"] = launches      # timing runs are not counted
+    return recs
+
+
 def lm_phases(dev) -> list:
     """The serve paths' phases; their entries of the kernels line."""
     flash_worst = timed(phase_flash_kernel, dev)
@@ -1414,11 +1682,17 @@ def lm_phases(dev) -> list:
     rwkv_worst = timed(phase_rwkv_kernel, dev)
     timed(phase_rwkv_serve_a, dev)
     rwkv_run = timed(phase_rwkv_serve_b, dev)
+    gmm_worst = timed(phase_gmm_kernel, dev)
+    timed(phase_moe_serve_a, dev)
+    moe_run = timed(phase_moe_serve_b, dev)
     t0 = time.perf_counter()
     flash_t, rglru_t, rwkv_t = time_flash(dev), time_rglru(dev), \
         time_rwkv(dev)
+    flash_moe_t, gmm_t = time_flash(dev, FLASH_MOE), time_gmm(dev)
     emit(phase="lm_kernel_time", seconds=time.perf_counter() - t0,
-         flash_attention=flash_t, rglru_scan=rglru_t, rwkv6_wkv=rwkv_t)
+         flash_attention=flash_t, flash_attention_hd112=flash_moe_t,
+         rglru_scan=rglru_t, rwkv6_wkv=rwkv_t, grouped_matmul=gmm_t)
+    gmm_head = next(r for r in gmm_t if r["shape"] == GMM_HEAD)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return [
         dict(name="flash_attention", route="cuda",
@@ -1427,7 +1701,8 @@ def lm_phases(dev) -> list:
              launches=main_run["launches"]["flash_attention"],
              max_abs_err=max(flash_worst.values()),
              **{k: flash_t[k] for k in keys},
-             max_abs_err_by_dtype=flash_worst, shape=flash_t["shape"]),
+             max_abs_err_by_dtype=flash_worst, shape=flash_t["shape"],
+             hd112={k: flash_moe_t[k] for k in keys + ("shape",)}),
         dict(name="rglru_scan", route="cuda",
              source="src/repro_torch/csrc/rglru_scan.cu",
              replaces="src/repro/kernels/rglru_scan/kernel.py:20",
@@ -1439,7 +1714,17 @@ def lm_phases(dev) -> list:
              replaces="src/repro/kernels/rwkv6_wkv/kernel.py:24",
              launches=rwkv_run["launches"]["rwkv6_wkv"],
              max_abs_err=rwkv_worst, **{k: rwkv_t[k] for k in keys},
-             shape=rwkv_t["shape"])]
+             shape=rwkv_t["shape"]),
+        dict(name="grouped_matmul", route="cuda",
+             source="src/repro_torch/csrc/grouped_matmul.cu",
+             replaces="src/repro/kernels/grouped_matmul/kernel.py:17",
+             launches=moe_run["launches"]["grouped_matmul"],
+             max_abs_err=max(gmm_worst.values()),
+             **{k: gmm_head[k] for k in keys},
+             max_abs_err_by_dtype=gmm_worst, shape=gmm_head["shape"],
+             dtype=gmm_head["dtype"],
+             other_shapes=[{k: r[k] for k in keys + ("shape",)}
+                           for r in gmm_t if r is not gmm_head])]
 
 
 def timed(phase, *args):
@@ -1467,7 +1752,8 @@ def setup():
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS)) as pool:    # one nvcc each
         builds = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
-    for mod in (es_kernel, cs_kernel, fa_kernel, rg_kernel, rw_kernel):
+    for mod in (es_kernel, cs_kernel, fa_kernel, rg_kernel, rw_kernel,
+                gm_kernel):
         mod._launcher()
     emit(phase="build", seconds=time.perf_counter() - t0,
          libraries={k: Path(v["path"]).name for k, v in builds.items()},

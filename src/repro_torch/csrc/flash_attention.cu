@@ -32,8 +32,10 @@
 // against them (16-byte loads of K, rows padded by 16 bytes so the 8
 // lanes of each quarter-warp hit distinct banks), the warp reduces the
 // running max and denominator with shuffles, and each lane accumulates
-// hd/32 adjacent output columns of its 8 rows from the broadcast
-// probabilities.  The running max, denominator and accumulator stay in
+// ceil(hd/32) adjacent output columns of its 8 rows from the broadcast
+// probabilities (at hd 112, kimi-k2-1t-a32b's, lanes 0-27 own 4 columns
+// each and lanes 28-31 none; the staging loops take the remainder of
+// 16-byte chunks that 128 threads do not divide).  The running max, denominator and accumulator stay in
 // registers across key tiles (the TPU kernel carries them in VMEM
 // scratch across its sequential grid axis).  Causal blocks stop at the
 // tile holding their last row's position and are launched longest
@@ -219,10 +221,12 @@ __device__ __forceinline__ void stage_kv(T* ks, T* vs, const T* kb,
   constexpr int EPC = 16 / static_cast<int>(sizeof(T));  // per 16 bytes
   constexpr int CPR = HD / EPC;                         // chunks per row
   constexpr int KS = kv_row<HD, T>();
-  static_assert(kBK * CPR % kThreads == 0, "whole chunks per thread");
+  static_assert(HD % EPC == 0, "whole 16-byte chunks per row");
+  constexpr int N = (kBK * CPR + kThreads - 1) / kThreads;
 #pragma unroll
-  for (int i = 0; i < kBK * CPR / kThreads; ++i) {
+  for (int i = 0; i < N; ++i) {
     const int c = tid + i * kThreads;
+    if (N * kThreads != kBK * CPR && c >= kBK * CPR) break;
     const int j = c / CPR, col = (c % CPR) * EPC;
     const bool ok = k0 + j < skv;
     const int64_t off = (ok ? k0 + j : 0) * kv_stride + col;
@@ -238,7 +242,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        int skv, int heads, int kv_heads, int causal,
                        float scale) {
   constexpr int KS = kv_row<HD, T>();
-  constexpr int DPL = HD / 32;            // output columns per lane
+  constexpr int DPL = (HD + 31) / 32;     // output columns per lane
+  static_assert(HD % DPL == 0, "lanes own whole column groups");
   constexpr int QC = 8;                   // query elements per load
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);             // kBQ x HD
@@ -247,6 +252,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int row0 = (tid >> 5) * kRows;           // this warp's first row
+  // lanes past HD / DPL own no column (HD not a multiple of 32: 112)
+  const bool col_ok = lane * DPL < HD;
   const int group = heads / kv_heads;
   const int rows = sq * group;                   // rows of this KV head
   const int f0 = (gridDim.x - 1 - blockIdx.x) * kBQ;   // longest first
@@ -269,10 +276,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   stage_kv<HD, T>(kvs, kvs + kBK * KS, kb, vb, 0, skv, kv_stride, tid);
   cp_async_commit();
 
-  static_assert(kBQ * HD / QC % kThreads == 0, "whole loads per thread");
+  static_assert(HD % QC == 0, "whole loads per row");
+  constexpr int NQ = (kBQ * HD / QC + kThreads - 1) / kThreads;
 #pragma unroll
-  for (int i = 0; i < kBQ * HD / QC / kThreads; ++i) {
+  for (int i = 0; i < NQ; ++i) {
     const int c = tid + i * kThreads;
+    if (NQ * kThreads != kBQ * HD / QC && c >= kBQ * HD / QC) break;
     const int r = c / (HD / QC), col = (c % (HD / QC)) * QC;
     float x[QC];
     if (f0 + r < rows) {
@@ -356,7 +365,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll 4
     for (int j = 0; j < kBK; ++j) {
       float vv[DPL];
-      load_f32<DPL>(vs + j * KS + lane * DPL, vv);
+      if (col_ok) {
+        load_f32<DPL>(vs + j * KS + lane * DPL, vv);
+      } else {
+#pragma unroll
+        for (int i = 0; i < DPL; ++i) vv[i] = 0.0f;
+      }
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         const float pj = __shfl_sync(kFull, s[r], j);
@@ -370,7 +384,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int f = f0 + row0 + r;
-    if (f < rows) {
+    if (f < rows && col_ok) {
       const float inv = 1.0f / fmaxf(l[r], 1e-30f);
 #pragma unroll
       for (int i = 0; i < DPL; ++i) acc[r][i] *= inv;
@@ -412,6 +426,9 @@ int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
     case 64:
       return launch<64, T>(q, k, v, o, batch, sq, skv, heads, kv_heads,
                            causal, scale, s);
+    case 112:
+      return launch<112, T>(q, k, v, o, batch, sq, skv, heads, kv_heads,
+                            causal, scale, s);
     case 128:
       return launch<128, T>(q, k, v, o, batch, sq, skv, heads, kv_heads,
                             causal, scale, s);
@@ -427,7 +444,7 @@ int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it).  q, o
 // (batch, sq, heads, hd) and k, v (batch, skv, kv_heads, hd), row-major;
-// hd in {32, 64, 128, 256}; heads a multiple of kv_heads; every pointer
+// hd in {32, 64, 112, 128, 256}; heads a multiple of kv_heads; every pointer
 // on a 16-byte boundary.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int batch,

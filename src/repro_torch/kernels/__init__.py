@@ -13,6 +13,15 @@ a wrapper adds one where it launches its kernel and nowhere else.
 """
 from typing import Dict
 
+import torch
+
 LAUNCHES: Dict[str, int] = {"engine_step": 0, "colibri_scatter": 0,
                             "flash_attention": 0, "rglru_scan": 0,
-                            "rwkv6_wkv": 0}
+                            "rwkv6_wkv": 0, "grouped_matmul": 0}
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and starting on a 16-byte boundary (the kernels'
+    16-byte loads need it): a copy only when it is not already."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()

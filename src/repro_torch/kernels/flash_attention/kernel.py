@@ -19,7 +19,7 @@ from repro_torch.kernels import LAUNCHES, _build
 #: q/k/v/o dtypes the kernel takes, with its dtype code
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims the kernel is instantiated for
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 112, 128, 256)
 
 
 @functools.lru_cache(maxsize=1)

@@ -13,15 +13,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import aligned
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-
-
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous and starting on a 16-byte boundary (the kernel's
-    16-byte loads need it): a copy only when the view starts off one."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -30,7 +24,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``H % KV == 0``.  Returns ``(B, Sq, H, hd)`` in q's dtype."""
     dev = q.device.type
     if dev == "cuda":
-        return flash_attention_cuda(_aligned(q), _aligned(k), _aligned(v),
+        return flash_attention_cuda(aligned(q), aligned(k), aligned(v),
                                     causal=causal)
     if dev == "cpu":
         return flash_attention_ref(q, k, v, causal=causal)

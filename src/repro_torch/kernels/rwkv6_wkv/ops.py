@@ -11,15 +11,9 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels import aligned
 from repro_torch.kernels.rwkv6_wkv.kernel import wkv_cuda
 from repro_torch.kernels.rwkv6_wkv.ref import wkv_ref
-
-
-def _aligned(x: torch.Tensor) -> torch.Tensor:
-    """``x`` contiguous and on a 16-byte boundary (a copy only when it is
-    not already)."""
-    x = x.contiguous()
-    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
@@ -29,7 +23,7 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     state starting at zero."""
     dev = r.device.type
     if dev == "cuda":
-        return wkv_cuda(*(_aligned(x.float()) for x in (r, k, v, w, u)))
+        return wkv_cuda(*(aligned(x.float()) for x in (r, k, v, w, u)))
     if dev == "cpu":
         return wkv_ref(r, k, v, w, u)
     raise ValueError(f"wkv runs on cuda or cpu tensors, not {dev}")

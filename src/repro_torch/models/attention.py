@@ -63,7 +63,7 @@ def gqa_init(gen, cfg: ModelConfig, dtype, device) -> Params:
          "wo": L.dense_init(gen, h * hd, d, dtype, device)}
     if cfg.qkv_bias:
         for name, n in (("bq", h), ("bk", kv), ("bv", kv)):
-            p[name] = torch.zeros((n * hd,), dtype=dtype, device=device)
+            p[name] = L.full(gen, (n * hd,), 0.0, dtype, device)
     return p
 
 

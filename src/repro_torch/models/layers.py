@@ -6,47 +6,96 @@ The twin of the reference's ``repro/models/layers.py``:
   so that a converted JAX parameter tree drops in unchanged.
 * Math runs in the config's ``compute_dtype``; norms, softmax and
   recurrent states run in float32.
-* Initialisers draw from an explicit ``torch.Generator`` on the device
-  the tensors are made on.  Given ``None`` in its place they allocate the
-  tensor uninitialised (shapes only): ``Model`` allocates that way and
-  then loads drawn or converted weights.  torch's generator gives other
-  numbers than ``jax.random`` from the same seed, so parity tests convert
-  the reference's weights (``repro_torch.convert.model_from_jax``).
+* Initialisers take ``gen``: ``None`` allocates each leaf (random ones
+  uninitialised, constant ones filled), a ``Draw`` draws into the
+  leaves of an existing model, in place, in the order the initialisers
+  create them.  ``Model`` allocates at build and draws at ``init``, so
+  seeding a model costs no second copy of its weights: a large leaf (an
+  expert stack, the embedding) is drawn ``DRAW_CHUNK`` elements at a
+  time along its leading axis.  torch's generator gives other numbers
+  than ``jax.random`` from the same seed, so parity tests convert the
+  reference's weights (``repro_torch.convert.model_from_jax``).
 
 The reference's ``sinusoidal_positions`` and ``cross_entropy`` are not
 ported yet: no ported path uses them.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Iterable, Optional
 
 import torch
 import torch.nn.functional as F
 
 Params = Dict[str, Any]
 
+#: float32 elements drawn at once into a leaf (256 MB)
+DRAW_CHUNK = 1 << 26
+
 
 # ---------------------------------------------------------------------------
 # Init helpers
 # ---------------------------------------------------------------------------
 
-def normal(gen: Optional[torch.Generator], shape, std: float, dtype,
-           device) -> torch.Tensor:
-    """float32 N(0, std^2) draws cast to ``dtype`` (uninitialised when
-    ``gen`` is None)."""
+class Draw:
+    """Draws from ``gen`` into existing tensors ``leaves``, which must
+    come in the order the initialisers ask for them (the order
+    ``transformer.init_params`` creates a model's leaves, which is the
+    order of its parameter tree)."""
+
+    def __init__(self, gen: torch.Generator, leaves: Iterable[torch.Tensor]):
+        self.gen = gen
+        self._leaves = iter(leaves)
+
+    def target(self, shape, dtype) -> torch.Tensor:
+        t = next(self._leaves, None)
+        if t is None or tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+            got = "none" if t is None else f"{t.dtype}{tuple(t.shape)}"
+            raise ValueError(f"the next leaf is {got}, the initialiser "
+                             f"draws {dtype}{tuple(shape)}")
+        return t
+
+    def done(self) -> None:
+        """Raise unless every leaf was drawn."""
+        if next(self._leaves, None) is not None:
+            raise ValueError("leaves left undrawn")
+
+
+def _draw(gen: Optional[Draw], shape, dtype, device,
+          sample: Callable[[tuple, Any], torch.Tensor]) -> torch.Tensor:
+    """The leaf of ``shape``: allocated uninitialised (``gen`` None) or
+    ``gen``'s next target, filled with ``sample(chunk shape, device)``
+    (float32 draws) a few leading rows at a time."""
     if gen is None:
         return torch.empty(shape, dtype=dtype, device=device)
-    return (torch.randn(shape, generator=gen, device=device,
-                        dtype=torch.float32) * std).to(dtype)
+    out = gen.target(shape, dtype)
+    rows = out.view(out.shape[0], -1)
+    step = max(1, DRAW_CHUNK // max(1, rows.shape[1]))
+    for i in range(0, rows.shape[0], step):
+        n = min(step, rows.shape[0] - i)
+        rows[i:i + n] = sample((n, rows.shape[1]), out.device)
+    return out
 
 
-def uniform(gen: Optional[torch.Generator], shape, lo: float, hi: float,
-            device) -> torch.Tensor:
-    """float32 U[lo, hi) draws (uninitialised when ``gen`` is None)."""
+def normal(gen: Optional[Draw], shape, std: float, dtype, device,
+           mean: float = 0.0) -> torch.Tensor:
+    """float32 N(mean, std^2) draws cast to ``dtype``."""
+    return _draw(gen, shape, dtype, device, lambda s, dev: torch.randn(
+        s, generator=gen.gen, device=dev) * std + mean)
+
+
+def uniform(gen: Optional[Draw], shape, lo: float, hi: float, device,
+            dtype=torch.float32) -> torch.Tensor:
+    """float32 U[lo, hi) draws cast to ``dtype``."""
+    return _draw(gen, shape, dtype, device, lambda s, dev: torch.rand(
+        s, generator=gen.gen, device=dev) * (hi - lo) + lo)
+
+
+def full(gen: Optional[Draw], shape, value: float, dtype,
+         device) -> torch.Tensor:
+    """A constant leaf (norm scales, biases), filled at allocation too."""
     if gen is None:
-        return torch.empty(shape, dtype=torch.float32, device=device)
-    return torch.rand(shape, generator=gen, device=device,
-                      dtype=torch.float32) * (hi - lo) + lo
+        return torch.full(shape, value, dtype=dtype, device=device)
+    return gen.target(shape, dtype).fill_(value)
 
 
 def dense_init(gen, d_in: int, d_out: int, dtype, device,
@@ -62,8 +111,8 @@ def embed_init(gen, vocab: int, d: int, dtype, device) -> torch.Tensor:
 # Norms
 # ---------------------------------------------------------------------------
 
-def rmsnorm_init(d: int, dtype, device) -> Params:
-    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+def rmsnorm_init(gen, d: int, dtype, device) -> Params:
+    return {"scale": full(gen, (d,), 1.0, dtype, device)}
 
 
 def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -73,9 +122,9 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (y * p["scale"].float()).to(x.dtype)
 
 
-def layernorm_init(d: int, dtype, device) -> Params:
-    return {"scale": torch.ones((d,), dtype=dtype, device=device),
-            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+def layernorm_init(gen, d: int, dtype, device) -> Params:
+    return {"scale": full(gen, (d,), 1.0, dtype, device),
+            "bias": full(gen, (d,), 0.0, dtype, device)}
 
 
 def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -86,10 +135,10 @@ def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
 
 
-def norm_init(kind: str, d: int, dtype, device) -> Params:
+def norm_init(gen, kind: str, d: int, dtype, device) -> Params:
     if kind == "rmsnorm":
-        return rmsnorm_init(d, dtype, device)
-    return layernorm_init(d, dtype, device)
+        return rmsnorm_init(gen, d, dtype, device)
+    return layernorm_init(gen, d, dtype, device)
 
 
 def norm_apply(kind: str, p: Params, x, eps: float = 1e-5):
@@ -123,9 +172,9 @@ def mlp_init(gen, d: int, d_ff: int, act: str, dtype, device) -> Params:
                 "w_up": dense_init(gen, d, d_ff, dtype, device),
                 "w_down": dense_init(gen, d_ff, d, dtype, device)}
     return {"w_up": dense_init(gen, d, d_ff, dtype, device),
-            "b_up": torch.zeros((d_ff,), dtype=dtype, device=device),
+            "b_up": full(gen, (d_ff,), 0.0, dtype, device),
             "w_down": dense_init(gen, d_ff, d, dtype, device),
-            "b_down": torch.zeros((d,), dtype=dtype, device=device)}
+            "b_down": full(gen, (d,), 0.0, dtype, device)}
 
 
 def mlp_apply(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:

@@ -6,9 +6,11 @@
 The model lives on one device, chosen when it is built: the GPU unless
 the caller passes ``device="cpu"`` (``repro_torch.core.sim.
 resolve_device``: without a GPU, the default raises).  ``build``
-allocates the weights uninitialised; ``init(seed)`` draws them from a
-``torch.Generator`` on that device, ``load_params`` loads given ones
-(``repro_torch.convert.model_from_jax`` loads the reference's).
+allocates the weights uninitialised; ``init(seed)`` draws them in place
+from a ``torch.Generator`` on that device, ``load_params`` copies given
+ones in (``repro_torch.convert.model_from_jax`` loads the reference's).
+Neither allocates a second copy of the weights: a model as large as
+half the card (kimi-k2-1t-a32b's MoE layer) seeds and loads in place.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sim import resolve_device
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as TF
 
 Params = TF.Params
@@ -50,9 +53,9 @@ class Model(nn.Module):
 
     @torch.no_grad()
     def load_params(self, tree: Params) -> "Model":
-        """Take ``tree`` (the layout of ``params()``) as the weights,
-        each cast to its parameter's dtype and moved to the model's
-        device; shapes must match."""
+        """Copy ``tree`` (the layout of ``params()``) into the weights,
+        in place, each leaf cast to its parameter's dtype and moved to
+        the model's device; shapes must match."""
         own = self.params()
 
         def load(mine, theirs, path):
@@ -60,7 +63,7 @@ class Model(nn.Module):
                 if tuple(theirs.shape) != tuple(mine.shape):
                     raise ValueError(f"{path}: shape {tuple(theirs.shape)}, "
                                      f"the model has {tuple(mine.shape)}")
-                mine.data = theirs.to(device=self.device, dtype=mine.dtype)
+                mine.copy_(theirs)
                 return
             if isinstance(mine, list):
                 if len(theirs) != len(mine):
@@ -77,11 +80,16 @@ class Model(nn.Module):
         load(own, tree, "")
         return self
 
+    @torch.no_grad()
     def init(self, seed: int = 0) -> "Model":
-        """Draw the weights from ``torch.Generator(device).manual_seed
-        (seed)``, with the reference's initialisers."""
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        return self.load_params(TF.init_params(self.cfg, gen, self.device))
+        """Draw the weights in place from ``torch.Generator(device).
+        manual_seed(seed)``, with the reference's initialisers, one leaf
+        at a time (a large leaf ``L.DRAW_CHUNK`` elements at a time)."""
+        draw = L.Draw(torch.Generator(device=self.device).manual_seed(seed),
+                      _leaves(self.params()))
+        TF.init_params(self.cfg, draw, self.device)
+        draw.done()
+        return self
 
     # ---- serving ----
     def init_cache(self, batch: int, seq: int) -> List[Params]:
@@ -104,6 +112,15 @@ class Model(nn.Module):
     @torch.no_grad()
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         return TF.logits(self.cfg, self.top.tree(), hidden)
+
+
+def _leaves(tree):
+    """The tensors of a params tree, in its order."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    else:
+        for v in tree.values() if isinstance(tree, dict) else tree:
+            yield from _leaves(v)
 
 
 def build(cfg: ModelConfig, device=None) -> Model:

@@ -36,12 +36,12 @@ def rglru_init(gen, cfg: ModelConfig, dtype, device) -> Params:
     cw = cfg.recurrent.conv1d_width
 
     def zeros():
-        return torch.zeros((w,), dtype=torch.float32, device=device)
+        return L.full(gen, (w,), 0.0, torch.float32, device)
     return {
         "w_in": L.dense_init(gen, d, w, dtype, device),
         "w_gate": L.dense_init(gen, d, w, dtype, device),
         "conv_w": L.normal(gen, (cw, w), 0.1, dtype, device),
-        "conv_b": torch.zeros((w,), dtype=dtype, device=device),
+        "conv_b": L.full(gen, (w,), 0.0, dtype, device),
         "alpha_r": zeros(), "beta_r": zeros(),
         "alpha_i": zeros(), "beta_i": zeros(),
         # Λ init so a ≈ 0.9..0.999 at r=1

@@ -31,26 +31,26 @@ def time_mix_init(gen, cfg: ModelConfig, dtype, device) -> Params:
     hd = cfg.recurrent.head_dim
     h = d // hd
     return {
-        "mu": L.uniform(gen, (5, d), 0.0, 1.0, device).to(dtype),
+        "mu": L.uniform(gen, (5, d), 0.0, 1.0, device, dtype),
         "w_r": L.dense_init(gen, d, d, dtype, device),
         "w_k": L.dense_init(gen, d, d, dtype, device),
         "w_v": L.dense_init(gen, d, d, dtype, device),
         "w_g": L.dense_init(gen, d, d, dtype, device),
         "w_o": L.dense_init(gen, d, d, dtype, device),
-        "w0": L.normal(gen, (d,), 1.0, torch.float32, device) - 5.0,
+        "w0": L.normal(gen, (d,), 1.0, torch.float32, device, mean=-5.0),
         "w_lora_a": L.dense_init(gen, d, LORA_RANK, dtype, device),
         "w_lora_b": L.dense_init(gen, LORA_RANK, d, dtype, device,
                                  scale=0.1),
         "u": L.normal(gen, (h, hd), 0.1, torch.float32, device),
-        "gn_scale": torch.ones((d,), dtype=dtype, device=device),
-        "gn_bias": torch.zeros((d,), dtype=dtype, device=device),
+        "gn_scale": L.full(gen, (d,), 1.0, dtype, device),
+        "gn_bias": L.full(gen, (d,), 0.0, dtype, device),
     }
 
 
 def channel_mix_init(gen, cfg: ModelConfig, dtype, device) -> Params:
     d, f = cfg.d_model, cfg.d_ff
     return {
-        "mu": L.uniform(gen, (2, d), 0.0, 1.0, device).to(dtype),
+        "mu": L.uniform(gen, (2, d), 0.0, 1.0, device, dtype),
         "w_k": L.dense_init(gen, d, f, dtype, device),
         "w_v": L.dense_init(gen, f, d, dtype, device),
         "w_r": L.dense_init(gen, d, d, dtype, device),

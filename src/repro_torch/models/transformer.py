@@ -11,10 +11,12 @@ Each layer's params live in a ``Block`` module; ``model_zoo.Model`` owns
 the blocks in an ``nn.ModuleList``.
 
 Ported: the dense (``attn``), ``local`` and ``rglru`` layers with their
-MLPs, the ``rwkv`` time-mix with its ``rwkv_cm`` channel-mix, ``prefill``
-and ``decode_step``.  MoE, MLA, the encoder and the VLM frontend raise
-``NotImplementedError`` when a model is built; ``forward`` and
-``loss_fn`` are training and not ported yet (ROADMAP A14).
+MLPs, the ``rwkv`` time-mix with its ``rwkv_cm`` channel-mix, the MoE
+models' FFNs (``dense`` for the leading layers, ``moe``: routed experts
+plus the shared expert), ``prefill`` and ``decode_step``.  MLA, the
+encoder and the VLM frontend raise ``NotImplementedError`` when a model
+is built; ``forward`` and ``loss_fn`` are training and not ported yet
+(ROADMAP A14).
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MoE
 from repro_torch.models import rglru as RG
 from repro_torch.models import rwkv6 as RW
 
@@ -95,14 +98,13 @@ def check_supported(cfg: ModelConfig) -> None:
         missing.append("the encoder-decoder stack")
     if cfg.frontend == "vlm":
         missing.append("the VLM frontend")
-    if cfg.moe is not None:
-        missing.append("MoE layers")
     if cfg.attn_kind == "mla":
         missing.append("MLA attention")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP A14); "
-            f"the port serves dense (attn), local, rglru and rwkv layers")
+            f"the port serves dense (attn), local, rglru and rwkv layers "
+            f"and MoE FFNs")
 
 
 # ---------------------------------------------------------------------------
@@ -111,8 +113,10 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def block_init(gen, cfg: ModelConfig, sig: LayerSig, dtype, device) -> Params:
     mix, ffn = sig
-    p: Params = {"norm1": L.norm_init(cfg.norm, cfg.d_model, dtype, device),
-                 "norm2": L.norm_init(cfg.norm, cfg.d_model, dtype, device)}
+    p: Params = {"norm1": L.norm_init(gen, cfg.norm, cfg.d_model, dtype,
+                                      device),
+                 "norm2": L.norm_init(gen, cfg.norm, cfg.d_model, dtype,
+                                      device)}
     if mix in ("attn", "local"):
         p["attn"] = A.gqa_init(gen, cfg, dtype, device)
     elif mix == "rglru":
@@ -121,14 +125,25 @@ def block_init(gen, cfg: ModelConfig, sig: LayerSig, dtype, device) -> Params:
         p["rwkv"] = RW.time_mix_init(gen, cfg, dtype, device)
     if ffn == "rwkv_cm":
         p["cm"] = RW.channel_mix_init(gen, cfg, dtype, device)
+    elif ffn == "dense":
+        p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.moe.dense_d_ff, "silu",
+                              dtype, device)
+    elif ffn == "moe":
+        p["moe"] = MoE.moe_init(gen, cfg, dtype, device)
+        p["shared"] = MoE.shared_init(gen, cfg, dtype, device)
     else:
         act = "gelu" if mlp_kind(cfg) == "gelu" else "silu"
         p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, act, dtype, device)
     return p
 
 
-def _ffn_apply(cfg: ModelConfig, p: Params, h):
-    """The layer's MLP (every FFN kind but ``rwkv_cm``)."""
+def _ffn_apply(cfg: ModelConfig, ffn: str, p: Params, h):
+    """The layer's FFN (every kind but ``rwkv_cm``): the MLP, or the
+    routed experts plus the shared one (the aux loss is training's and
+    is dropped, as in the reference's serving path)."""
+    if ffn == "moe":
+        y, _ = MoE.moe_apply(cfg, p["moe"], h)
+        return y + L.mlp_apply(p["shared"], h, "silu")
     mk = mlp_kind(cfg)
     if mk == "geglu":
         return L.geglu_apply(p["mlp"], h)
@@ -197,7 +212,7 @@ def apply_block_prefill(cfg: ModelConfig, sig: LayerSig, p: Params,
     x = x + a
     h = L.norm_apply(cfg.norm, p["norm2"], x, cfg.norm_eps)
     if ffn != "rwkv_cm":
-        return x + _ffn_apply(cfg, p, h), newc
+        return x + _ffn_apply(cfg, ffn, p, h), newc
     y, shift_cm = RW.channel_mix_apply(
         p["cm"], h, newc["rwkv"]["shift_cm"].to(h.dtype))
     newc["rwkv"]["shift_cm"] = shift_cm.float()
@@ -226,7 +241,7 @@ def apply_block_decode(cfg: ModelConfig, sig: LayerSig, p: Params,
     x = x + a
     h = L.norm_apply(cfg.norm, p["norm2"], x, cfg.norm_eps)
     if ffn != "rwkv_cm":
-        return x + _ffn_apply(cfg, p, h), newc
+        return x + _ffn_apply(cfg, ffn, p, h), newc
     y, shift_cm = RW.channel_mix_decode(
         p["cm"], h, newc["rwkv"]["shift_cm"].to(h.dtype))
     newc["rwkv"]["shift_cm"] = shift_cm.float()
@@ -259,8 +274,8 @@ class ParamTree(nn.Module):
 
 class Block(nn.Module):
     """One layer's parameters, keyed as the reference keys them
-    (``norm1``, ``norm2``, ``attn``, ``rglru`` or ``rwkv``, and ``mlp``
-    or, for ``rwkv_cm``, ``cm``)."""
+    (``norm1``, ``norm2``, ``attn``, ``rglru`` or ``rwkv``, and ``mlp``,
+    or ``cm`` for ``rwkv_cm``, or ``moe`` and ``shared`` for ``moe``)."""
 
     def __init__(self, sig: LayerSig, params: Params):
         super().__init__()
@@ -275,15 +290,17 @@ class Block(nn.Module):
 # Whole-model init / prefill / decode
 # ---------------------------------------------------------------------------
 
-def init_params(cfg: ModelConfig, gen: Optional[torch.Generator],
+def init_params(cfg: ModelConfig, gen: Optional[L.Draw],
                 device) -> Params:
     """``{"embed", "final_norm", ["lm_head"], "layers": [one dict per
-    layer]}`` drawn from ``gen`` (uninitialised when ``gen`` is None)."""
+    layer]}``, allocated (``gen`` None; constants filled) or drawn in
+    place into ``gen``'s leaves, in this order."""
     check_supported(cfg)
     dtype = torch_dtype(cfg.param_dtype)
     params: Params = {
         "embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dtype, device),
-        "final_norm": L.norm_init(cfg.norm, cfg.d_model, dtype, device)}
+        "final_norm": L.norm_init(gen, cfg.norm, cfg.d_model, dtype,
+                                  device)}
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size,
                                          dtype, device)

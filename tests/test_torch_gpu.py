@@ -1,6 +1,6 @@
 """The port on an NVIDIA GPU: the CUDA kernels and runs through them (the
-simulator's engine, and recurrentgemma-2b-smoke and rwkv6-1.6b-smoke
-served by ServeEngine).
+simulator's engine, and recurrentgemma-2b-smoke, rwkv6-1.6b-smoke and
+kimi-k2-1t-a32b-smoke served by ServeEngine).
 
 Every test here is marked ``gpu`` and skips without a CUDA device (the
 CUDA kernel has no CPU mode).  The file imports neither JAX nor the
@@ -24,7 +24,8 @@ from repro_torch.core import protocols
 from repro_torch.core.sim import SimParams
 from repro_torch.configs import get_config
 from repro_torch.kernels import (LAUNCHES, colibri_scatter, engine_step,
-                                 flash_attention, rglru_scan, rwkv6_wkv)
+                                 flash_attention, grouped_matmul, rglru_scan,
+                                 rwkv6_wkv)
 from repro_torch.models import build
 from repro_torch.serving import ServeEngine
 from repro_torch.sync import Spec, run
@@ -111,7 +112,10 @@ def test_scatter_kernel_matches_plain_version(shape, cuda_device):
 @pytest.mark.parametrize("shape", [(1, 200, 200, 4, 2, 32, True, "float32"),
                                    (2, 64, 256, 2, 1, 64, False, "bfloat16"),
                                    (4, 512, 512, 10, 1, 256, True,
-                                    "bfloat16")])
+                                    "bfloat16"),
+                                   (1, 100, 100, 8, 2, 112, False,
+                                    "bfloat16"),
+                                   (2, 64, 64, 64, 8, 112, True, "float32")])
 def test_flash_kernel_matches_plain_version(shape, cuda_device):
     cs = _chip_smoke()
     b, sq, skv, h, kv, hd, causal, dtype = shape
@@ -200,3 +204,46 @@ def test_served_rwkv_batch_goes_through_the_kernel(cuda_device):
     for call in probe.calls["decode_step"]:
         assert call["finite"]
         assert cs.lm_launches_ok(call["launches"], {})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype", [((4, 64, 128, 256), "float32"),
+                                         ((8, 100, 96, 64), "bfloat16"),
+                                         ((1, 256, 512, 128), "bfloat16"),
+                                         ((3, 37, 100, 70), "float32"),
+                                         ((3, 37, 100, 70), "bfloat16"),
+                                         ((16, 8, 7168, 2048), "bfloat16")])
+def test_gmm_kernel_matches_plain_version(shape, dtype, cuda_device):
+    cs = _chip_smoke()
+    x, w = cs.gmm_inputs(cuda_device, *shape, dtype, seed=shape[1])
+    before = LAUNCHES["grouped_matmul"]
+    out = grouped_matmul.grouped_matmul(x, w)
+    torch.cuda.synchronize()
+    assert LAUNCHES["grouped_matmul"] == before + 1
+    ref = grouped_matmul.grouped_matmul_ref(x, w)
+    rtol, atol = cs.GMM_TOL[dtype]
+    assert out.dtype == x.dtype
+    assert tuple(out.shape) == (shape[0], shape[1], shape[3])
+    assert torch.allclose(out.float(), ref.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.gpu
+def test_served_moe_batch_goes_through_the_kernels(cuda_device):
+    """kimi-k2-1t-a32b-smoke (a dense and an MoE layer): each prefill
+    launches 2 flash_attention and 3 grouped_matmul kernels, each decode
+    step 3 grouped_matmul kernels."""
+    cs = _chip_smoke()
+    cfg = get_config("kimi-k2-1t-a32b-smoke")
+    model = build(cfg).init(0)
+    eng = ServeEngine(cfg, model, batch_size=2, cache_len=24)
+    probe = cs.Probe(model)
+    toks = cs.prompts(cfg.vocab_size, 2, 16, seed=1)
+    tokens = cs.serve(eng, toks, 4)
+    assert tokens.shape == (2, 4)
+    (pre,) = probe.calls["prefill"]
+    assert pre["finite"]
+    assert cs.lm_launches_ok(pre["launches"], cs.MOE_SERVE_B_LAUNCHES)
+    assert len(probe.calls["decode_step"]) == 4
+    for call in probe.calls["decode_step"]:
+        assert call["finite"]
+        assert cs.lm_launches_ok(call["launches"], cs.MOE_DECODE_LAUNCHES)

@@ -4,9 +4,10 @@ weights and prompts: the greedy tokens must be equal.
 Twins of ``tests/test_runtime.py``'s ``test_serve_engine_batched_requests``
 and ``test_serve_engine_event_driven``, for ``smollm-135m-smoke`` (dense
 ``attn`` layers, prompts of three lengths), ``recurrentgemma-2b-smoke``
-(``rglru`` and ``local`` layers) and ``rwkv6-1.6b-smoke`` (``rwkv``
-layers); the recurrent ones with equal-length prompts, as the engine
-requires for recurrent layers.  Both run float32 on the CPU; the port's
+(``rglru`` and ``local`` layers), ``rwkv6-1.6b-smoke`` (``rwkv``
+layers) and ``kimi-k2-1t-a32b-smoke`` (a dense and an MoE layer, prompts
+of three lengths); the recurrent ones with equal-length prompts, as the
+engine requires for recurrent layers.  Both run float32 on the CPU; the port's
 prefill goes through the plain versions of its kernels.
 """
 import threading
@@ -28,7 +29,8 @@ from repro_torch.serving import Request, ServeEngine
 #: name -> prompt lengths of one batch
 PROMPTS = {"smollm-135m-smoke": (5, 6, 7),
            "recurrentgemma-2b-smoke": (12, 12, 12),
-           "rwkv6-1.6b-smoke": (12, 12, 12)}
+           "rwkv6-1.6b-smoke": (12, 12, 12),
+           "kimi-k2-1t-a32b-smoke": (5, 6, 7)}
 
 
 def _engines(name, batch_size, cache_len):

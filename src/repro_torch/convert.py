@@ -2,7 +2,8 @@
 
 ``to_torch`` turns a tree of numpy arrays (bank state, per-core arrays, a
 result dict — nested dicts, lists and tuples) into tensors of the same
-dtype on a given device; ``to_numpy`` turns a tree of tensors back.
+dtype on a given device (the GPU by default); ``to_numpy`` turns a tree
+of tensors back.
 Values that are neither arrays nor tensors (the float metrics of a
 result dict, strings) pass through unchanged.  The tests use it to feed
 the reference's state to the port and to compare the two.
@@ -24,8 +25,10 @@ from repro_torch.models import Model, build
 from repro_torch.models.transformer import plan_segments
 
 
-def to_torch(tree: Any, device="cpu") -> Any:
-    """numpy arrays and numpy scalars -> tensors on ``device``."""
+def to_torch(tree: Any, device=None) -> Any:
+    """numpy arrays and numpy scalars -> tensors on ``device`` (the GPU by
+    default: without one it raises, as ``build`` does)."""
+    device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: to_torch(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -17,52 +17,98 @@
 // repeats each KV head H/KV times before its kernel; this kernel reads
 // query head h's KV head g in place instead, which is the same function.
 //
-// Design: one block of 4 warps per (32-row tile, b * KV + g).  The rows
-// of a KV head are its query heads at each position, flattened as
-// (position, head in the group): rows f = i * G + r of head g * G + r,
-// G = H / KV.  So every K/V tile a block stages serves all G query heads
-// that read it (ten at recurrentgemma-2b's 10-on-1 GQA), and the rows of
-// a block span few positions, so a causal block masks little.  The block
-// holds its query rows (pre-scaled, f32) in shared memory and walks the
-// key axis in 32-key tiles.  K/V tiles stay in the inputs' type in shared
-// memory, two stages deep: `cp.async` copies 16 bytes a request into one
-// stage while the block computes on the other (the TPU kernel overlaps
-// its copies through the BlockSpec pipeline; here the stages take that
-// place).  Each warp owns 8 rows; lane j scores key j of the tile
-// against them (16-byte loads of K, rows padded by 16 bytes so the 8
-// lanes of each quarter-warp hit distinct banks), the warp reduces the
-// running max and denominator with shuffles, and each lane accumulates
-// ceil(hd/32) adjacent output columns of its 8 rows from the broadcast
-// probabilities (at hd 112, kimi-k2-1t-a32b's, lanes 0-27 own 4 columns
-// each and lanes 28-31 none; the staging loops take the remainder of
-// 16-byte chunks that 128 threads do not divide).  The running max, denominator and accumulator stay in
-// registers across key tiles (the TPU kernel carries them in VMEM
-// scratch across its sequential grid axis).  Causal blocks stop at the
-// tile holding their last row's position and are launched longest
-// first; keys past the diagonal and past Skv are masked to probability
-// 0.  The products run on the CUDA cores in f32 (no tensor cores yet:
-// wgmma/TMA are later work).
+// Both designs pack the rows of a KV head as its query heads at each
+// position, flattened as (position, head in the group): rows f = i * G +
+// r of head g * G + r, G = H / KV.  So every K/V tile a block stages
+// serves all G query heads that read it (ten at recurrentgemma-2b's
+// 10-on-1 GQA, eight at kimi-k2-1t-a32b's 64-on-8), and the rows of a
+// block span few positions, so a causal block masks little; the causal
+// mask is by row position i = f / G.  A block walks the key axis in
+// tiles, with K/V tiles staged in shared memory two stages deep by
+// 16-byte `cp.async` copies (the TPU kernel overlaps its copies through
+// the BlockSpec pipeline; the stages take that place), and keeps the
+// running max, denominator and accumulator in f32 registers across tiles
+// (the TPU kernel carries them in VMEM scratch across its sequential
+// grid axis).  Causal blocks stop at the tile holding their last row's
+// position and are launched longest first.  The launcher picks the
+// design by dtype, in this one library, one launch per call:
 //
-// Bound on an NVIDIA H100 SXM (data-sheet rates, 700 W power limit): at
-// the serve path's (B 4, S 512, H 10, KV 1, hd 256) bf16 causal shape the
-// function must read q, k, v once and write o once, 23.1 MB (6.9 us at
-// 3.35 TB/s), and do 5.38 GFLOP of causal products (5.4 us at the bf16
-// tensor rate of 989 TFLOP/s): bytes bound it, barely.  This form does
-// its products at the f32 CUDA-core rate (67 TFLOP/s, 80 us for that
-// work), so it runs well above the bound (PERF.md has its measured
+// bfloat16 -> tensor cores (namespace tc).  One block of 4 warps per
+// (64-row tile, b * KV + g), 16 rows a warp, 32-key K/V tiles.  S = Q K^T
+// by `mma.sync.m16n8k16` (bf16 x bf16 -> f32), Q and K read from shared
+// memory by `ldmatrix` (rows padded by 16 bytes, so conflict-free at
+// every head dim).  The online softmax runs in f32 on the accumulator
+// registers (quad shuffles for the row max); `scale` multiplies the f32
+// scores after the product, folded with log2(e) into the exponent's fma
+// (exp(scale s - max) = 2^(s scale log2e - max scale log2e), one MUFU
+// ex2 each), never into a bf16 q.  P is rounded to bf16 once -- the one
+// rounding the plain version does not have; the denominator sums the
+// rounded values -- and O += P V by `mma.sync` with P straight from
+// registers (S's accumulator layout is the A operand's) and V transposed
+// out of shared memory by `ldmatrix.trans`.  o = O / max(l, 1e-30),
+// staged through shared memory for 16-byte stores.  At hd <= 128 an SM
+// holds four blocks (at most 128 registers a thread), at hd 256 two
+// (the 16 x 256 f32 accumulator alone takes 128 registers a thread).
+// Bound on an NVIDIA H100 SXM (data-sheet rates, 700 W): at
+// kimi-k2-1t-a32b's (B 4, S 512, H 64, KV 8, hd 112) causal shape the
+// call reads q, k, v once and writes o once, 66.1 MB (19.7 us at 3.35
+// TB/s), and does 15.1 GFLOP of products (15.2 us at 989 TFLOP/s); at
+// recurrentgemma-2b's (4, 512, 512, H 10, KV 1, hd 256), 23.1 MB (6.9 us)
+// and 5.4 GFLOP (5.4 us): bytes bound both, barely, so the products have
+// to run near the tensor rate.  `mma.sync` is Hopper's older tensor-core
+// path and this form stays well below that rate (`wgmma` with TMA is the
+// faster one: PERF.md says why this form landed and has its measured
 // time).
 //
-// Dynamic shared memory: 32 hd floats of queries and 2 stages of K and V
-// tiles, 32 (hd + 16 / sizeof(T)) elements each: 100 352 bytes at hd 256
-// in bf16, 165 888 in f32, above the 48 KB default: the launcher raises
-// the kernel's limit once per instantiation.  q, k, v and o must start
-// on 16-byte boundaries.
+// float32 -> CUDA cores (namespace cc), the design of the first port:
+// tensor cores cannot meet the f32 tolerance (tf32 keeps 10 mantissa
+// bits).  One block of 4 warps per (32-row tile, b * KV + g), 32-key
+// tiles.  The block holds its query rows (pre-scaled) in shared memory;
+// each warp owns 8 rows, lane j scores key j of the tile against them
+// (16-byte loads of K, rows padded by 16 bytes so the 8 lanes of each
+// quarter-warp hit distinct banks), the warp reduces the running max and
+// denominator with shuffles, and each lane accumulates ceil(hd/32)
+// adjacent output columns of its 8 rows from the broadcast probabilities
+// (at hd 112 lanes 0-27 own 4 columns each and lanes 28-31 none).  Keys
+// past the diagonal and past Skv are masked to probability 0.  Bound: the
+// products at the f32 CUDA-core rate, 67 TFLOP/s (80 us for the hd-256
+// shape's 5.4 GFLOP).
+//
+// Dynamic shared memory, above the 48 KB default at most head dims (the
+// launcher raises each instantiation's limit once): tc, 64 query rows and
+// 2 stages of 32-key K and V tiles, (hd + 8) bf16 a row: 101 376 bytes
+// at hd 256, 46 080 at hd 112; cc, 32 hd floats of queries and 2 stages
+// of 32 (hd + 4) floats of K and V: 165 888 bytes at hd 256.  q, k, v
+// and o must start on 16-byte boundaries.
 
+#include <cmath>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
+
+// 16 bytes global -> shared without passing through registers; zeros
+// instead when !valid (the source is then not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// ---- float32: the CUDA-core design ----------------------------------
+
+namespace cc {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
@@ -86,7 +132,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // N adjacent elements at p -> f32, in the widest loads their alignment
-// allows (16 bytes when N * sizeof(T) is a multiple of 16).
+// allows (16 bytes when N * sizeof(float) is a multiple of 16).
 template <int N>
 __device__ __forceinline__ void load_f32(const float* p, float* out) {
   if constexpr (N % 4 == 0) {
@@ -111,34 +157,6 @@ __device__ __forceinline__ void load_f32(const float* p, float* out) {
   }
 }
 
-template <int N>
-__device__ __forceinline__ void load_f32(const __nv_bfloat16* p, float* out) {
-  if constexpr (N % 8 == 0) {
-#pragma unroll
-    for (int i = 0; i < N; i += 8) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(p + i);
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 x = __bfloat1622float2(h[j]);
-        out[i + 2 * j] = x.x;
-        out[i + 2 * j + 1] = x.y;
-      }
-    }
-  } else if constexpr (N % 2 == 0) {
-#pragma unroll
-    for (int i = 0; i < N; i += 2) {
-      const float2 x =
-          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p + i));
-      out[i] = x.x;
-      out[i + 1] = x.y;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) out[i] = __bfloat162float(p[i]);
-  }
-}
-
 // f32 -> N adjacent elements at p, widest stores first.
 template <int N>
 __device__ __forceinline__ void store_f32(float* p, const float* x) {
@@ -159,68 +177,25 @@ __device__ __forceinline__ void store_f32(float* p, const float* x) {
   }
 }
 
-template <int N>
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, const float* x) {
-  if constexpr (N % 8 == 0) {
-#pragma unroll
-    for (int i = 0; i < N; i += 8) {
-      uint4 raw;
-      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        h[j] = __floats2bfloat162_rn(x[i + 2 * j], x[i + 2 * j + 1]);
-      }
-      *reinterpret_cast<uint4*>(p + i) = raw;
-    }
-  } else if constexpr (N % 2 == 0) {
-#pragma unroll
-    for (int i = 0; i < N; i += 2) {
-      *reinterpret_cast<__nv_bfloat162*>(p + i) =
-          __floats2bfloat162_rn(x[i], x[i + 1]);
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) p[i] = __float2bfloat16_rn(x[i]);
-  }
-}
-
-// 16 bytes global -> shared without passing through registers; zeros
-// instead when !valid (the source is then not read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-template <int HD, typename T>
+template <int HD>
 __host__ __device__ constexpr int kv_row() {   // padded K/V row, in elements
-  return HD + 16 / static_cast<int>(sizeof(T));
+  return HD + 16 / static_cast<int>(sizeof(float));
 }
 
-template <int HD, typename T>
+template <int HD>
 constexpr int smem_bytes() {
   return kBQ * HD * static_cast<int>(sizeof(float)) +
-         kStages * 2 * kBK * kv_row<HD, T>() * static_cast<int>(sizeof(T));
+         kStages * 2 * kBK * kv_row<HD>() * static_cast<int>(sizeof(float));
 }
 
 // Start copying keys [k0, k0 + kBK) of K and V into one stage (ks, vs).
-template <int HD, typename T>
-__device__ __forceinline__ void stage_kv(T* ks, T* vs, const T* kb,
-                                         const T* vb, int k0, int skv,
+template <int HD>
+__device__ __forceinline__ void stage_kv(float* ks, float* vs, const float* kb,
+                                         const float* vb, int k0, int skv,
                                          int64_t kv_stride, int tid) {
-  constexpr int EPC = 16 / static_cast<int>(sizeof(T));  // per 16 bytes
+  constexpr int EPC = 16 / static_cast<int>(sizeof(float));  // per 16 bytes
   constexpr int CPR = HD / EPC;                         // chunks per row
-  constexpr int KS = kv_row<HD, T>();
+  constexpr int KS = kv_row<HD>();
   static_assert(HD % EPC == 0, "whole 16-byte chunks per row");
   constexpr int N = (kBK * CPR + kThreads - 1) / kThreads;
 #pragma unroll
@@ -235,19 +210,20 @@ __device__ __forceinline__ void stage_kv(T* ks, T* vs, const T* kb,
   }
 }
 
-template <int HD, typename T>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int sq,
-                       int skv, int heads, int kv_heads, int causal,
+flash_attention_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o,
+                       int sq, int skv, int heads, int kv_heads, int causal,
                        float scale) {
-  constexpr int KS = kv_row<HD, T>();
+  constexpr int KS = kv_row<HD>();
   constexpr int DPL = (HD + 31) / 32;     // output columns per lane
   static_assert(HD % DPL == 0, "lanes own whole column groups");
   constexpr int QC = 8;                   // query elements per load
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);             // kBQ x HD
-  T* kvs = reinterpret_cast<T*>(qs + kBQ * HD);  // [stage][K, V][kBK][KS]
+  float* kvs = qs + kBQ * HD;  // [stage][K, V][kBK][KS]
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -263,8 +239,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t kv_stride = static_cast<int64_t>(kv_heads) * HD;
   const int64_t qo_base =
       (static_cast<int64_t>(b) * sq * heads + g * group) * HD;
-  const T* kb = k + (static_cast<int64_t>(b) * skv * kv_heads + g) * HD;
-  const T* vb = v + (static_cast<int64_t>(b) * skv * kv_heads + g) * HD;
+  const float* kb = k + (static_cast<int64_t>(b) * skv * kv_heads + g) * HD;
+  const float* vb = v + (static_cast<int64_t>(b) * skv * kv_heads + g) * HD;
   // row f (< rows) -> its element offset in q and o from qo_base
   auto row_off = [&](int f) {
     return (f / group) * pos_stride + (f % group) * HD;
@@ -273,7 +249,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int last = min(f0 + kBQ, rows) - 1;
   const int kv_end = causal ? min(skv, last / group + 1) : skv;
   const int n_tiles = (kv_end + kBK - 1) / kBK;
-  stage_kv<HD, T>(kvs, kvs + kBK * KS, kb, vb, 0, skv, kv_stride, tid);
+  stage_kv<HD>(kvs, kvs + kBK * KS, kb, vb, 0, skv, kv_stride, tid);
   cp_async_commit();
 
   static_assert(HD % QC == 0, "whole loads per row");
@@ -308,8 +284,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int t = 0; t < n_tiles; ++t) {
     if (t + 1 < n_tiles) {     // the next tile's stage was freed last pass
-      T* nk = kvs + ((t + 1) % kStages) * 2 * kBK * KS;
-      stage_kv<HD, T>(nk, nk + kBK * KS, kb, vb, (t + 1) * kBK, skv,
+      float* nk = kvs + ((t + 1) % kStages) * 2 * kBK * KS;
+      stage_kv<HD>(nk, nk + kBK * KS, kb, vb, (t + 1) * kBK, skv,
                       kv_stride, tid);
       cp_async_commit();
       cp_async_wait<1>();      // all but the newest group: tile t is in
@@ -317,14 +293,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       cp_async_wait<0>();
     }
     __syncthreads();
-    const T* ks = kvs + (t % kStages) * 2 * kBK * KS;
-    const T* vs = ks + kBK * KS;
+    const float* ks = kvs + (t % kStages) * 2 * kBK * KS;
+    const float* vs = ks + kBK * KS;
 
     // scores of key t * kBK + lane against this warp's rows
     float s[kRows];
 #pragma unroll
     for (int r = 0; r < kRows; ++r) s[r] = 0.0f;
-    const T* krow = ks + lane * KS;
+    const float* krow = ks + lane * KS;
 #pragma unroll 2
     for (int d = 0; d < HD; d += 8) {
       float kk[8];
@@ -393,48 +369,402 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <int HD, typename T>
+template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int batch,
            int sq, int skv, int heads, int kv_heads, int causal, float scale,
            cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<HD, T>();
+  constexpr int bytes = smem_bytes<HD>();
   static bool attr_set = false;    // per instantiation
   if (!attr_set) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<HD, T>,
+        flash_attention_kernel<HD>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     attr_set = true;
   }
   const int rows = sq * (heads / kv_heads);
   const dim3 grid((rows + kBQ - 1) / kBQ, batch * kv_heads);
-  flash_attention_kernel<HD, T><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, skv, heads, kv_heads,
-      causal, scale);
+  flash_attention_kernel<HD><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), sq, skv, heads,
+      kv_heads, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
-              int batch, int sq, int skv, int heads, int kv_heads, int causal,
-              float scale, cudaStream_t s) {
+}  // namespace cc
+
+// ---- bfloat16: the tensor-core design --------------------------------
+
+namespace tc {
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBQ = 16 * kWarps;          // query rows per block, 16 a warp
+constexpr int kBK = 32;                   // keys per K/V tile
+constexpr int kStages = 2;                // K/V tiles in the ring
+
+// The shapes of head dim HD.
+template <int HD>
+struct Cfg {
+  // a shared-memory row of hd elements, padded by 16 bytes: hd / 8 + 1
+  // chunks of 16 bytes is odd for every head dim, so the 8 rows that one
+  // ldmatrix reads fall on distinct banks
+  static constexpr int kRow = HD + 8;
+  static constexpr int kSmemBytes = (kBQ + kStages * 2 * kBK) * kRow *
+                                    static_cast<int>(sizeof(__nv_bfloat16));
+  // blocks an SM must hold: four at hd <= 128 (at most 128 registers a
+  // thread; 52 KB of shared memory at hd 128), one at hd 256, where the
+  // (16 x hd) f32 accumulator alone takes 128 registers a thread
+  static constexpr int kMinBlocks = HD > 128 ? 1 : 4;
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// four 8x8 b16 matrices from shared memory; lanes 8i..8i+7 give the row
+// addresses of matrix i, and each thread receives row lane / 4, elements
+// 2 (lane % 4), +1 of every matrix (of its transpose with `trans`)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+// d += a (16 x 16, row-major) . b (16 x 8, column-major), bf16 operands,
+// f32 sums
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (lo, hi) -> one register of two bf16, lo in the low half, each rounded
+// to nearest even
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t r) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&r));
+}
+
+// 2^x in one MUFU instruction (results below 2^-126 flush to 0: a
+// probability that small is 0 in bf16 P and in the f32 sums alike)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Start copying the kBK keys from kt, vt (key k0's rows; n_keys = Skv - k0
+// of them exist) into one stage (ks, vs).
+template <int HD>
+__device__ __forceinline__ void stage_kv(__nv_bfloat16* ks,
+                                         __nv_bfloat16* vs,
+                                         const __nv_bfloat16* kt,
+                                         const __nv_bfloat16* vt, int n_keys,
+                                         int kv_stride, int tid) {
+  constexpr int RS = Cfg<HD>::kRow, CPR = HD / 8;
+  constexpr int N = (kBK * CPR + kThreads - 1) / kThreads;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int c = tid + i * kThreads;
+    if (N * kThreads != kBK * CPR && c >= kBK * CPR) break;
+    const int j = c / CPR, col = (c % CPR) * 8;
+    const bool ok = j < n_keys;
+    const int off = ok ? j * kv_stride + col : 0;   // < 2^31: j < BK
+    cp_async16(ks + j * RS + col, kt + off, ok);
+    cp_async16(vs + j * RS + col, vt + off, ok);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, Cfg<HD>::kMinBlocks)
+flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v,
+                       __nv_bfloat16* __restrict__ o, int sq, int skv,
+                       int heads, int kv_heads, int causal, float scale) {
+  constexpr int BK = kBK, RS = Cfg<HD>::kRow, CPR = HD / 8, BQ = kBQ;
+  constexpr int NS = BK / 8;              // 8-key column tiles of S
+  constexpr int NO = HD / 8;              // 8-column tiles of O
+  static_assert(HD % 16 == 0 && NO % 2 == 0, "whole k-steps and pairs");
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem4);  // BQ x RS
+  __nv_bfloat16* kvs = qs + BQ * RS;     // [stage][K, V][BK][RS]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int group = heads / kv_heads;
+  const int rows = sq * group;                   // rows of this KV head
+  const int f0 = (gridDim.x - 1 - blockIdx.x) * BQ;    // longest first
+  const int b = blockIdx.y / kv_heads;
+  const int g = blockIdx.y % kv_heads;
+  const int64_t pos_stride = static_cast<int64_t>(heads) * HD;
+  const int kv_stride = kv_heads * HD;
+  const int64_t qo_base =
+      (static_cast<int64_t>(b) * sq * heads + g * group) * HD;
+  const __nv_bfloat16* kb =
+      k + (static_cast<int64_t>(b) * skv * kv_heads + g) * HD;
+  const __nv_bfloat16* vb =
+      v + (static_cast<int64_t>(b) * skv * kv_heads + g) * HD;
+  // row f (< rows) -> its element offset in q and o from qo_base
+  auto row_off = [&](int f) {
+    return (f / group) * pos_stride + (f % group) * HD;
+  };
+
+  const int last = min(f0 + BQ, rows) - 1;
+  const int kv_end = causal ? min(skv, last / group + 1) : skv;
+  const int n_tiles = (kv_end + BK - 1) / BK;
+
+  // the block's query rows (zeros past `rows`) and K/V tile 0: group 0
+  static_assert(BQ * CPR % kThreads == 0, "whole copies per thread");
+#pragma unroll
+  for (int i = 0; i < BQ * CPR / kThreads; ++i) {
+    const int c = tid + i * kThreads;
+    const int r = c / CPR, col = (c % CPR) * 8;
+    const bool ok = f0 + r < rows;
+    cp_async16(qs + r * RS + col,
+               q + (ok ? qo_base + row_off(f0 + r) : 0) + col, ok);
+  }
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {  // a group per stage, empty or not
+    if (t < n_tiles) {
+      __nv_bfloat16* st = kvs + t * 2 * BK * RS;
+      const int64_t at = static_cast<int64_t>(t) * BK * kv_stride;
+      stage_kv<HD>(st, st + BK * RS, kb + at, vb + at, skv - t * BK,
+                   kv_stride, tid);
+    }
+    cp_async_commit();
+  }
+
+  // this thread's two rows of the warp's 16: fr and fr + 8
+  const int wrow = warp * 16;
+  const int fr = f0 + wrow + (lane >> 2);
+  const int pos[2] = {fr / group, (fr + 8) / group};
+  const int warp_pos = (f0 + wrow) / group;      // the warp's first position
+  const float sl = scale * kLog2e;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.0f, 0.0f};                     // this thread's share
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int next = t + kStages - 1;   // its stage was consumed at t - 1
+    if (next < n_tiles) {
+      __nv_bfloat16* st = kvs + (next % kStages) * 2 * BK * RS;
+      const int64_t at = static_cast<int64_t>(next) * BK * kv_stride;
+      stage_kv<HD>(st, st + BK * RS, kb + at, vb + at, skv - next * BK,
+                   kv_stride, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();       // all but the newest: tile t is in
+    __syncthreads();
+    const __nv_bfloat16* ks = kvs + (t % kStages) * 2 * BK * RS;
+    const __nv_bfloat16* vs = ks + BK * RS;
+
+    // S = Q K^T over the tile: 16 rows x BK keys a warp, f32
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t a[4];
+      ldsm_x4(a, qs + (wrow + (lane & 15)) * RS + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int j = 0; j < NS; j += 2) {
+        uint32_t bk[4];
+        ldsm_x4(bk, ks + (j * 8 + (lane & 7) + (lane >> 4) * 8) * RS +
+                        kk * 16 + ((lane >> 3) & 1) * 8);
+        mma(s[j], a, bk[0], bk[1]);
+        mma(s[j + 1], a, bk[2], bk[3]);
+      }
+    }
+
+    // mask keys past Skv and past the diagonal (the scores stay unscaled:
+    // `scale` enters the exponent below, on the f32 scores)
+    const int k0 = t * BK;
+    if (k0 + BK > skv || (causal && k0 + BK - 1 > warp_pos)) {
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + j * 8 + (lane & 3) * 2 + (e & 1);
+          if (key >= skv || (causal && key > pos[e >> 1])) {
+            s[j][e] = -INFINITY;
+          }
+        }
+      }
+    }
+
+    // online softmax in f32 on the scaled scores: exp(scale s - max) =
+    // 2^(s sl - max sl), sl = scale log2(e), with the running max kept
+    // unscaled.  P is rounded to bf16 once, and the denominator sums the
+    // rounded values, so the weights applied are the weights summed
+    uint32_t p[NS][2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = m[r];
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float base = mx == -INFINITY ? 0.0f : mx * sl;
+      const float corr = ex2(fmaf(m[r], sl, -base));
+      m[r] = mx;
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const uint32_t pr = pack_bf16(ex2(fmaf(s[j][2 * r], sl, -base)),
+                                      ex2(fmaf(s[j][2 * r + 1], sl, -base)));
+        const float2 pf = unpack_bf16(pr);
+        sum += pf.x + pf.y;
+        p[j][r] = pr;
+      }
+      l[r] = l[r] * corr + sum;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        acc[n][2 * r] *= corr;
+        acc[n][2 * r + 1] *= corr;
+      }
+    }
+
+    // O += P V: P from registers (S's accumulator layout is the A
+    // operand's), V transposed out of shared memory by ldmatrix
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t a[4] = {p[2 * kk][0], p[2 * kk][1], p[2 * kk + 1][0],
+                             p[2 * kk + 1][1]};
+#pragma unroll
+      for (int n = 0; n < NO; n += 2) {
+        uint32_t bv[4];
+        ldsm_x4_trans(bv, vs + (kk * 16 + (lane & 7) +
+                                ((lane >> 3) & 1) * 8) * RS +
+                              n * 8 + (lane >> 4) * 8);
+        mma(acc[n], a, bv[0], bv[1]);
+        mma(acc[n + 1], a, bv[2], bv[3]);
+      }
+    }
+    __syncthreads();           // this stage is consumed
+  }
+
+  // o = acc / l in bf16, staged through this warp's own query rows (no
+  // other warp reads them) so that each row leaves in 16-byte stores
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = 1.0f / fmaxf(l[r], 1e-30f);
+  }
+  __nv_bfloat16* orow = qs + (wrow + (lane >> 2)) * RS + (lane & 3) * 2;
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    *reinterpret_cast<uint32_t*>(orow + n * 8) =
+        pack_bf16(acc[n][0] * l[0], acc[n][1] * l[0]);
+    *reinterpret_cast<uint32_t*>(orow + 8 * RS + n * 8) =
+        pack_bf16(acc[n][2] * l[1], acc[n][3] * l[1]);
+  }
+  __syncwarp();
+  for (int c = lane; c < 16 * CPR; c += 32) {
+    const int r = c / CPR, col = (c % CPR) * 8;
+    const int f = f0 + wrow + r;
+    if (f < rows) {
+      *reinterpret_cast<uint4*>(o + qo_base + row_off(f) + col) =
+          *reinterpret_cast<const uint4*>(qs + (wrow + r) * RS + col);
+    }
+  }
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* o, int batch,
+           int sq, int skv, int heads, int kv_heads, int causal, float scale,
+           cudaStream_t stream) {
+  constexpr int bytes = Cfg<HD>::kSmemBytes;
+  static bool attr_set = false;    // per instantiation
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_attention_kernel<HD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attr_set = true;
+  }
+  const int rows = sq * (heads / kv_heads);
+  const dim3 grid((rows + kBQ - 1) / kBQ, batch * kv_heads);
+  flash_attention_kernel<HD><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      sq, skv, heads, kv_heads, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
+// The design by dtype: 0 (float32) -> CUDA cores, 1 (bfloat16) -> tensor
+// cores.
+template <int HD>
+int launch_dtype(int dtype, const void* q, const void* k, const void* v,
+                 void* o, int batch, int sq, int skv, int heads, int kv_heads,
+                 int causal, float scale, cudaStream_t s) {
+  if (dtype == 0) {
+    return cc::launch<HD>(q, k, v, o, batch, sq, skv, heads, kv_heads, causal,
+                          scale, s);
+  }
+  if (dtype == 1) {
+    return tc::launch<HD>(q, k, v, o, batch, sq, skv, heads, kv_heads, causal,
+                          scale, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int launch_hd(int hd, int dtype, const void* q, const void* k, const void* v,
+              void* o, int batch, int sq, int skv, int heads, int kv_heads,
+              int causal, float scale, cudaStream_t s) {
   switch (hd) {
     case 32:
-      return launch<32, T>(q, k, v, o, batch, sq, skv, heads, kv_heads,
-                           causal, scale, s);
+      return launch_dtype<32>(dtype, q, k, v, o, batch, sq, skv, heads,
+                              kv_heads, causal, scale, s);
     case 64:
-      return launch<64, T>(q, k, v, o, batch, sq, skv, heads, kv_heads,
-                           causal, scale, s);
+      return launch_dtype<64>(dtype, q, k, v, o, batch, sq, skv, heads,
+                              kv_heads, causal, scale, s);
     case 112:
-      return launch<112, T>(q, k, v, o, batch, sq, skv, heads, kv_heads,
-                            causal, scale, s);
+      return launch_dtype<112>(dtype, q, k, v, o, batch, sq, skv, heads,
+                               kv_heads, causal, scale, s);
     case 128:
-      return launch<128, T>(q, k, v, o, batch, sq, skv, heads, kv_heads,
-                            causal, scale, s);
+      return launch_dtype<128>(dtype, q, k, v, o, batch, sq, skv, heads,
+                               kv_heads, causal, scale, s);
     case 256:
-      return launch<256, T>(q, k, v, o, batch, sq, skv, heads, kv_heads,
-                            causal, scale, s);
+      return launch_dtype<256>(dtype, q, k, v, o, batch, sq, skv, heads,
+                               kv_heads, causal, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -459,14 +789,6 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
        15) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return launch_hd<float>(hd, q, k, v, o, batch, sq, skv, heads, kv_heads,
-                            causal, scale, s);
-  }
-  if (dtype == 1) {
-    return launch_hd<__nv_bfloat16>(hd, q, k, v, o, batch, sq, skv, heads,
-                                    kv_heads, causal, scale, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_hd(hd, dtype, q, k, v, o, batch, sq, skv, heads, kv_heads,
+                   causal, scale, static_cast<cudaStream_t>(stream));
 }

@@ -7,12 +7,12 @@ op: the CUDA kernel on the card, its plain version on the CPU.  For the
 For the ``local`` layers the reference takes ``sliding_window_attention``;
 for a prompt no longer than the window the window masks nothing and the
 two are the same function, and a longer prompt raises
-``NotImplementedError`` (the windowed kernel is ROADMAP B4's remainder).
+``NotImplementedError`` (windowed prefill is ROADMAP A9.1).
 Decode (``gqa_decode``, with the ring buffer of the ``local`` layers) is
 plain torch, as in the reference.  All softmax math in float32.
 
 MLA, cross-attention and the reference's sharded paths (``_cp_attention``,
-``_head_shard``) are not ported yet (ROADMAP A14).
+``_head_shard``) are not ported yet (ROADMAP A9.2, A9.3, A9.6).
 """
 from __future__ import annotations
 
@@ -91,7 +91,7 @@ def gqa_apply(cfg: ModelConfig, p: Params, x, positions, *, window: int = 0,
         raise NotImplementedError(
             f"a {s}-token prompt through a local-attention layer of window "
             f"{window}: the windowed flash-attention kernel is not ported "
-            f"yet (ROADMAP B4); prompts of at most {window} tokens are "
+            f"yet (ROADMAP A9.1); prompts of at most {window} tokens are "
             f"served")
     q, k, v = _qkv(cfg, p, x)
     if cfg.partial_rotary_factor > 0:

@@ -15,7 +15,7 @@ renormalised gates.
 
 The router weight is float32 in every model (a bf16 model included), as
 in the reference.  The sharded path (experts over the data axis, an
-``all_to_all`` each way) is not ported yet (ROADMAP A14).
+``all_to_all`` each way) is not ported yet (ROADMAP A9.6).
 """
 from __future__ import annotations
 

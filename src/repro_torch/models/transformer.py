@@ -16,7 +16,7 @@ models' FFNs (``dense`` for the leading layers, ``moe``: routed experts
 plus the shared expert), ``prefill`` and ``decode_step``.  MLA, the
 encoder and the VLM frontend raise ``NotImplementedError`` when a model
 is built; ``forward`` and ``loss_fn`` are training and not ported yet
-(ROADMAP A14).
+(ROADMAP A9).
 """
 from __future__ import annotations
 
@@ -102,7 +102,7 @@ def check_supported(cfg: ModelConfig) -> None:
         missing.append("MLA attention")
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP A14); "
+            f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP A9); "
             f"the port serves dense (attn), local, rglru and rwkv layers "
             f"and MoE FFNs")
 

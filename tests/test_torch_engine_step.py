@@ -112,7 +112,7 @@ def test_fused_step_ref_leaves_its_inputs_untouched():
     bank = convert.to_torch(_random_bank(proto, p, 4, 64, 64, rng), "cpu")
     before = {k: v.clone() for k, v in bank.items()}
     shift, inp = _random_step(64, 4, 100, rng)
-    engine_step.fused_step_ref(proto, p, bank, **convert.to_torch(inp),
+    engine_step.fused_step_ref(proto, p, bank, **convert.to_torch(inp, "cpu"),
                                core={}, cyc=100, shift=shift, lat=5, n=64,
                                a=4, q_cap=64, cycles=20000)
     for k in bank:

@@ -113,7 +113,13 @@ def test_scatter_kernel_matches_plain_version(shape, cuda_device):
                                    (2, 64, 256, 2, 1, 64, False, "bfloat16"),
                                    (4, 512, 512, 10, 1, 256, True,
                                     "bfloat16"),
+                                   (4, 512, 512, 10, 1, 256, False,
+                                    "bfloat16"),
                                    (1, 100, 100, 8, 2, 112, False,
+                                    "bfloat16"),
+                                   (4, 512, 512, 64, 8, 112, True,
+                                    "bfloat16"),
+                                   (4, 512, 512, 64, 8, 112, False,
                                     "bfloat16"),
                                    (2, 64, 64, 64, 8, 112, True, "float32")])
 def test_flash_kernel_matches_plain_version(shape, cuda_device):
@@ -212,7 +218,9 @@ def test_served_rwkv_batch_goes_through_the_kernel(cuda_device):
                                          ((1, 256, 512, 128), "bfloat16"),
                                          ((3, 37, 100, 70), "float32"),
                                          ((3, 37, 100, 70), "bfloat16"),
-                                         ((16, 8, 7168, 2048), "bfloat16")])
+                                         ((16, 8, 7168, 2048), "bfloat16"),
+                                         ((16, 8, 2048, 7168), "bfloat16"),
+                                         ((16, 56, 7168, 2048), "bfloat16")])
 def test_gmm_kernel_matches_plain_version(shape, dtype, cuda_device):
     cs = _chip_smoke()
     x, w = cs.gmm_inputs(cuda_device, *shape, dtype, seed=shape[1])
@@ -247,3 +255,38 @@ def test_served_moe_batch_goes_through_the_kernels(cuda_device):
     for call in probe.calls["decode_step"]:
         assert call["finite"]
         assert cs.lm_launches_ok(call["launches"], cs.MOE_DECODE_LAUNCHES)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(4, 512, 512, 64, 8, 112, True),
+                                   (4, 512, 512, 10, 1, 256, False)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_result_does_not_depend_on_the_batch(shape, dtype,
+                                                          cuda_device):
+    """A request's rows are the same bits alone as in its batch, in both
+    designs (serve_b and moe_serve_b report ``solo_agrees``)."""
+    cs = _chip_smoke()
+    b, sq, skv, h, kv, hd, causal = shape
+    q, k, v = cs.flash_inputs(cuda_device, b, sq, skv, h, kv, hd, dtype,
+                              seed=hd)
+    out = flash_attention.flash_attention(q, k, v, causal=causal)
+    one = flash_attention.flash_attention(q[1:2].contiguous(),
+                                          k[1:2].contiguous(),
+                                          v[1:2].contiguous(), causal=causal)
+    assert torch.equal(one, out[1:2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(16, 56, 7168, 2048), (16, 8, 2048, 7168)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gmm_kernel_result_does_not_depend_on_the_slots(shape, dtype,
+                                                        cuda_device):
+    """An expert's slots give the same bits in a smaller buffer, at other
+    positions (a smaller batch routes them so): the sum over d runs in
+    one order whatever C is."""
+    cs = _chip_smoke()
+    x, w = cs.gmm_inputs(cuda_device, *shape, dtype, seed=shape[1])
+    out = grouped_matmul.grouped_matmul(x, w)
+    some = torch.arange(shape[1] // 4 - 1, -1, -1, device=cuda_device)
+    assert torch.equal(grouped_matmul.grouped_matmul(x[:, some].contiguous(),
+                                                     w), out[:, some])

@@ -61,6 +61,16 @@ def test_model_from_jax_without_a_gpu_raises(pair, monkeypatch):
         model_from_jax(cfg, _np(params))
 
 
+def test_to_torch_without_a_gpu_raises(monkeypatch):
+    """``to_torch`` defaults to the GPU too: with none visible and no
+    ``device``, it raises instead of putting the tensors on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        to_torch({"w": np.zeros(3, np.float32)})
+    got = to_torch({"w": np.zeros(3, np.float32)}, "cpu")["w"]
+    assert got.device.type == "cpu"
+
+
 def _layer(pair, i):
     """Layer ``i``'s weights: (reference tree, port tree)."""
     cfg, _, _, params, model = pair
@@ -92,7 +102,7 @@ def test_rglru_apply_and_decode_match(pair):
     want, wst = JRG.rglru_apply(jcfg, jp["rglru"], jnp.asarray(x),
                                 jax.tree.map(jnp.asarray, st))
     got, gst = RG.rglru_apply(cfg, p["rglru"], torch.from_numpy(x),
-                              to_torch(st))
+                              to_torch(st, "cpu"))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **BLOCK_TOL)
     for k in ("h", "conv"):
         np.testing.assert_allclose(gst[k].numpy(), np.asarray(wst[k]),
@@ -101,7 +111,7 @@ def test_rglru_apply_and_decode_match(pair):
     want, wst = JRG.rglru_decode(jcfg, jp["rglru"], jnp.asarray(x1),
                                  jax.tree.map(jnp.asarray, st))
     got, gst = RG.rglru_decode(cfg, p["rglru"], torch.from_numpy(x1),
-                               to_torch(st))
+                               to_torch(st, "cpu"))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **BLOCK_TOL)
     for k in ("h", "conv"):
         np.testing.assert_allclose(gst[k].numpy(), np.asarray(wst[k]),
@@ -143,7 +153,7 @@ def test_gqa_decode_matches(pair, window):
                              jax.tree.map(jnp.asarray, cache),
                              jnp.asarray(pos), window=window)
     got, gc = A.gqa_decode(cfg, p["attn"], torch.from_numpy(x),
-                           to_torch(cache), torch.from_numpy(pos),
+                           to_torch(cache, "cpu"), torch.from_numpy(pos),
                            window=window)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **BLOCK_TOL)
     for k in ("k", "v"):
@@ -216,7 +226,7 @@ def test_local_attention_ring_buffer():
 def test_local_prompt_longer_than_the_window_is_refused(pair):
     cfg, model = pair[0], pair[4]
     toks = torch.zeros((1, cfg.local_window + 1), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP B4"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A9.1"):
         model.prefill(toks, 2 * cfg.local_window)
     hidden, _ = model.prefill(toks[:, :cfg.local_window],
                               2 * cfg.local_window)
@@ -226,7 +236,7 @@ def test_local_prompt_longer_than_the_window_is_refused(pair):
 @pytest.mark.parametrize("name", ["deepseek-v3-671b", "whisper-large-v3",
                                   "phi-3-vision-4.2b"])
 def test_unported_architectures_are_refused_at_build(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         build(get_config(name + "-smoke"), device="cpu")
 
 
@@ -243,7 +253,7 @@ def test_bfloat16_reference_arrays_convert():
     """Full-size configs keep their weights in bfloat16; numpy holds those
     as ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` does not take."""
     vals = jnp.asarray([[-1.5, 0.1], [3.0, 2.0 ** -9]], jnp.bfloat16)
-    got = to_torch({"w": np.asarray(vals)})["w"]
+    got = to_torch({"w": np.asarray(vals)}, "cpu")["w"]
     assert got.dtype == torch.bfloat16
     np.testing.assert_array_equal(got.float().numpy(),
                                   np.asarray(vals, np.float32))

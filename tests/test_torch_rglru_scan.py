@@ -63,7 +63,7 @@ def test_rglru_block_matches_the_reference_block():
                                    (2, 40, cfg.d_model)) * 0.5)
     out_model, st_model = JRG.rglru_apply(jcfg, jp, jnp.asarray(x),
                                           JRG.state_init(jcfg, 2))
-    p = to_torch(jax.tree.map(np.asarray, jp))
+    p = to_torch(jax.tree.map(np.asarray, jp), "cpu")
     tx = torch.from_numpy(x)
     state = RG.state_init(cfg, 2, "cpu")
     out, st = RG.rglru_apply(cfg, p, tx, state)

@@ -218,7 +218,7 @@ def test_rwkv_state_init_is_float32_zeros():
     st = RW.state_init(cfg, 3, "cpu")
     hd = cfg.recurrent.head_dim
     assert tuple(st["wkv"].shape) == (3, cfg.d_model // hd, hd, hd)
-    want = to_torch(_np(JRW.state_init(j_get_config(NAME), 3)))
+    want = to_torch(_np(JRW.state_init(j_get_config(NAME), 3)), "cpu")
     assert st.keys() == want.keys()
     for k in st:
         assert st[k].dtype == torch.float32 and torch.equal(st[k], want[k])

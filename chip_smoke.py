@@ -7,15 +7,25 @@ Phases, one JSON line each:
 
 1. device — needs ``torch.cuda.is_available()``; prints ``nvidia-smi``'s
    name and power limit of the card;
-2. build — compiles the ``engine_step``, ``colibri_scatter``,
+2. build — compiles the ``engine_step`` (the per-cycle ``engine_step``
+   and the whole-run ``engine_run`` kernels), ``colibri_scatter``,
    ``flash_attention``, ``rglru_scan``, ``rwkv6_wkv`` and
-   ``grouped_matmul`` CUDA kernels from the checkout, one ``nvcc`` each,
-   in parallel;
+   ``grouped_matmul`` CUDA libraries from the checkout, one ``nvcc``
+   each, in parallel, and reports each kernel's ``ptxas`` line;
 3. kernel — the engine_step kernel against its plain PyTorch version on
    the card, for each protocol at every (cores, banks) shape the later
-   phases give it, plus the reference's multi-tile case, over chained
+   phases run, plus the reference's multi-tile case, over chained
    cycles from seeded random states: every output and bank array must
    be equal;
+   run_kernel — the engine_run kernel (one launch per run) against the
+   plain loop (``sim._simulate_plain``, one engine_step launch per
+   cycle) on the card, for each protocol at every such shape over
+   ``RUN_KERNEL_CYCLES`` cycles, untraced and with ``record_trace`` and
+   64 telemetry windows, plus the colibri_workers point and, for each
+   protocol, one traced run with per-core state in device memory (more
+   than 2 048 cores) and one with per-bank state in the scratch buffer
+   (more banks than shared memory holds): every key of the result dict
+   equal, traces included;
 4. scatter_kernel — the colibri_scatter kernel against its plain
    version on the card at the reference tests' shapes (f32 and bf16),
    the trace path's shapes and two large ones: float sums within
@@ -65,26 +75,34 @@ Phases, one JSON line each:
    (flash: ``scaled_dot_product_attention``, also at head dim 112;
    grouped_matmul: ``torch.bmm``);
 6. exact — ``zipf_index`` (skew 0) and ``_hash`` on the card against the
-   CPU over 2^24 inputs;
+   CPU over 2^24 inputs, and the engine_run kernel's own device code
+   (``_hash``, the backoff jitter, the uniform and skew-0 Zipf address of
+   every 24-bit hash) through the library's probe entry;
 7. golden — ``repro_torch.sync.run`` on the card reproduces the
-   reference's golden values (``tests/test_protocols.py``), and one point
-   per protocol equals the port's own CPU run key for key;
+   reference's golden values (``tests/test_protocols.py``), each point
+   one engine_run launch and no engine_step launch, and one point per
+   protocol equals the port's own CPU run key for key;
 8. main path — the paper's 256-core MemPool (Fig. 3 histogram, uniform
-   bins) at 5 000 cycles for colibri and lrsc at 1 and 256 bins, and
-   a 1024-core colibri point: summaries and metrics equal the
-   reference's values below, and the kernel ran once per cycle;
-9. trace path — the four 256-core points again with ``record_trace``
-   and 64 telemetry windows: the traces, telemetry, exact-waits latency
-   percentiles, ``trace_latency_hist`` (one colibri_scatter launch),
-   span counts and, at one bin, the Perfetto JSON equal the reference's
-   values below; colibri shows no BACKOFF span and no poll, lrsc shows
-   BACKOFF spans; wall time beside the same point untraced;
-10. profile — device time by kernel over 300 cycles of the main path
-   (``torch.profiler``), untraced and traced: kernels per cycle, device
-   busy share;
-11. kernel times — each kernel's device time per call (profiler) beside
-   its bound, its plain version's and the PyTorch library call's, at
-   the shapes the paths give it; the kernels line.
+   bins) at the paper's 20 000 cycles for colibri and lrsc at 1 and 256
+   bins, and a 1024-core colibri point: summaries and metrics equal the
+   reference's values below, one engine_run launch per point;
+9. trace path — the four 256-core points with ``record_trace`` and 64
+   telemetry windows at 5 000 cycles: the traces, telemetry, exact-waits
+   latency percentiles, ``trace_latency_hist`` (one colibri_scatter
+   launch), span counts and, at one bin, the Perfetto JSON equal the
+   reference's values below; colibri shows no BACKOFF span and no poll,
+   lrsc shows BACKOFF spans; ms per cycle beside the same point
+   untraced, and the run's byte bound; one engine_run launch per point;
+10. profile — device time by kernel over a whole run of the 256-core
+   colibri point (``torch.profiler``), untraced and traced: the card's
+   busy share of the run's wall, engine_run's share of the busy time;
+11. kernel times — engine_run's device time per run at the five
+   main-path points beside its byte bound and the barrier-only floor of
+   its chain of cycles, and the plain loop's time at the first, whose
+   20 000-cycle result must equal the kernel's on every key; each
+   other kernel's device time per call (profiler) beside its bound, its
+   plain version's and the PyTorch library call's, at the shapes the
+   paths give it; the kernels line.
 
 The reference values below were computed with the JAX package
 (``repro``); ``tests/test_torch_sync.py`` and
@@ -94,6 +112,7 @@ when any phase fails, and its last line is the device record.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import gc
 import hashlib
@@ -111,8 +130,9 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import convert  # noqa: E402
-from repro_torch.core import metrics, protocols, sim  # noqa: E402
-from repro_torch.core.workloads.base import zipf_index  # noqa: E402
+from repro_torch.core import metrics, protocols, sim, workloads  # noqa: E402
+from repro_torch.core.workloads.base import (ADDR_ZIPF,  # noqa: E402
+                                             zipf_factors, zipf_index)
 from repro_torch.kernels import LAUNCHES, _build  # noqa: E402
 from repro_torch.kernels import colibri_scatter, engine_step  # noqa: E402
 import repro_torch.kernels.colibri_scatter.kernel as cs_kernel  # noqa: E402
@@ -207,48 +227,46 @@ GOLDEN_EXTRA = {
 FULL_WIDTH_POINTS = (("colibri", 256, 1), ("colibri", 256, 256),
                      ("lrsc", 256, 1), ("lrsc", 256, 256),
                      ("colibri", 1024, 1))
-#: simulated cycles of those points: the depth of the simulator's paths,
-#: cut from the paper's 20 000 so that the whole script, which grows
-#: with each slice of the port, stays well inside its time limit on a
-#: slow host (the step loop is host-bound at 1.4-3.8 ms per cycle)
-FULL_WIDTH_CYCLES = 5_000
+#: simulated cycles of those points: the paper's 20 000 (one launch of
+#: the engine_run kernel runs a point in tens of milliseconds)
+FULL_WIDTH_CYCLES = 20_000
 #: the reference's values for those points (repro.sync.run, xla_cpu)
 FULL_WIDTH_REF = {
  "colibri/256/1": {
-    "ops": 316, "msgs": 3546, "polls": 0, "sleep_cyc": 1236667,
-    "backoff_cyc": 0, "bank_ops": 887, "net_stall": 0, "ops_min": 1,
-    "ops_max": 2, "lat_hist_sum": 316, "lat_max": 4082, "throughput":
-    0.0632, "jain_fairness": 0.8946387614678899, "energy_pj_per_op":
-    131.61526501141955},
+    "ops": 1316, "msgs": 11546, "polls": 0, "sleep_cyc": 5047667,
+    "backoff_cyc": 0, "bank_ops": 2887, "net_stall": 0, "ops_min": 5,
+    "ops_max": 6, "lat_hist_sum": 1316, "lat_max": 4082, "throughput":
+    0.0658, "jain_fairness": 0.9954476898175397, "energy_pj_per_op":
+    121.97751835945519},
  "colibri/256/256": {
-    "ops": 37505, "msgs": 151440, "polls": 0, "sleep_cyc": 3178,
-    "backoff_cyc": 0, "bank_ops": 75142, "net_stall": 535, "ops_min": 146,
-    "ops_max": 147, "lat_hist_sum": 37505, "lat_max": 38, "throughput":
-    7.501, "jain_fairness": 0.9999883531083993, "energy_pj_per_op":
-    3.010395383266077},
+    "ops": 150414, "msgs": 603226, "polls": 0, "sleep_cyc": 3178,
+    "backoff_cyc": 0, "bank_ops": 301035, "net_stall": 535, "ops_min": 587,
+    "ops_max": 588, "lat_hist_sum": 150414, "lat_max": 38, "throughput":
+    7.5207, "jain_fairness": 0.9999992844889197, "energy_pj_per_op":
+    3.006174464066015},
  "lrsc/256/1": {
-    "ops": 47, "msgs": 9990, "polls": 2426, "sleep_cyc": 0, "backoff_cyc":
-    739119, "bank_ops": 4995, "net_stall": 0, "ops_min": 0, "ops_max": 4,
-    "lat_hist_sum": 47, "lat_max": 4850, "throughput": 0.0094,
-    "jain_fairness": 0.10652970679012345, "energy_pj_per_op":
-    1016.7467341813934},
+    "ops": 202, "msgs": 39990, "polls": 9773, "sleep_cyc": 0, "backoff_cyc":
+    3181329, "bank_ops": 19995, "net_stall": 0, "ops_min": 0, "ops_max": 5,
+    "lat_hist_sum": 202, "lat_max": 19917, "throughput": 0.0101,
+    "jain_fairness": 0.3777029028436019, "energy_pj_per_op":
+    847.9332441822619},
  "lrsc/256/256": {
-    "ops": 28716, "msgs": 120116, "polls": 1238, "sleep_cyc": 0,
-    "backoff_cyc": 271261, "bank_ops": 60058, "net_stall": 16, "ops_min":
-    51, "ops_max": 147, "lat_hist_sum": 28716, "lat_max": 2021,
-    "throughput": 5.7432, "jain_fairness": 0.9690935956611839,
-    "energy_pj_per_op": 3.1035860091922562},
+    "ops": 122101, "msgs": 504118, "polls": 3847, "sleep_cyc": 0,
+    "backoff_cyc": 873078, "bank_ops": 252059, "net_stall": 16, "ops_min":
+    310, "ops_max": 576, "lat_hist_sum": 122101, "lat_max": 2730,
+    "throughput": 6.10505, "jain_fairness": 0.9909470155320287,
+    "energy_pj_per_op": 3.0730100606274298},
  "colibri/1024/1": {
-    "ops": 266, "msgs": 6218, "polls": 0, "sleep_cyc": 4582121,
-    "backoff_cyc": 0, "bank_ops": 1555, "net_stall": 11595, "ops_min": 0,
-    "ops_max": 1, "lat_hist_sum": 266, "lat_max": 4992, "throughput":
-    0.0532, "jain_fairness": 0.259765625, "energy_pj_per_op":
-    704.6543799399733}}
+    "ops": 1266, "msgs": 14218, "polls": 0, "sleep_cyc": 19913121,
+    "backoff_cyc": 0, "bank_ops": 3555, "net_stall": 11595, "ops_min": 1,
+    "ops_max": 2, "lat_hist_sum": 1266, "lat_max": 16357, "throughput":
+    0.0633, "jain_fairness": 0.8943950892857143, "energy_pj_per_op":
+    519.8547404268566}}
 
 
-#: (cores, banks) of the kernel-vs-plain phase: every shape the golden and
-#: main-path phases launch the kernel at, plus (256, 64), (1024, 256) and
-#: the reference's multi-tile case (2048, 512)
+#: (cores, banks) of the kernel-vs-plain phases: every shape the golden
+#: and main-path phases run, plus (256, 64), (1024, 256) and the
+#: reference's multi-tile case (2048, 512)
 KERNEL_SHAPES = tuple(sorted(
     {(c["n_cores"], c["n_addrs"]) for c in GOLDEN_CONFIGS}
     | {(c["n_cores"], c["n_addrs"]) for c, _ in GOLDEN_EXTRA.values()}
@@ -258,8 +276,12 @@ KERNEL_SHAPES = tuple(sorted(
 
 # ---- the trace path: the main path's 256-core points, traced ---------
 #: (protocol, cores, bins) of the trace phase, each with record_trace and
-#: 64 telemetry windows at FULL_WIDTH_CYCLES
+#: 64 telemetry windows at TRACE_CYCLES
 TRACE_POINTS = FULL_WIDTH_POINTS[:4]
+#: simulated cycles of the traced points: kept at 5 000, so the host-side
+#: views (events, spans, the Perfetto JSON) and the reference values
+#: below stay as they were
+TRACE_CYCLES = 5_000
 #: points whose Perfetto JSON is hashed (2 617 and 15 276 spans); at 256
 #: bins (~0.2 M spans) the span counts are compared instead
 PERFETTO_HASHED = (("colibri", 256, 1), ("lrsc", 256, 1))
@@ -513,6 +535,15 @@ LM_KERNELS = ("flash_attention", "rglru_scan", "rwkv6_wkv", "grouped_matmul")
 KERNELS = ("engine_step", "colibri_scatter", "flash_attention", "rglru_scan",
            "rwkv6_wkv", "grouped_matmul")
 
+#: simulated cycles of each run_kernel case
+RUN_KERNEL_CYCLES = 300
+#: (cores, banks) of the run_kernel cases in the kernel's two other
+#: layouts: per-core state in device memory (more than 2 048 cores) and
+#: per-bank state in the scratch buffer (more banks than shared memory
+#: holds), each run over LAYOUT_CASE_CYCLES cycles
+LAYOUT_CASES = ((2100, 64), (300, 7000))
+LAYOUT_CASE_CYCLES = 48
+
 
 def reset_launches() -> None:
     for k in LAUNCHES:
@@ -548,8 +579,8 @@ def full_width_summary(r) -> dict:
 
 
 def trace_spec(proto: str, n: int, bins: int) -> Spec:
-    return full_width_spec(proto, n, bins).replace(record_trace=True,
-                                                   telemetry_windows=64)
+    return full_width_spec(proto, n, bins).replace(
+        cycles=TRACE_CYCLES, record_trace=True, telemetry_windows=64)
 
 
 def trace_record(stats, log, hist, perfetto_json=None) -> dict:
@@ -683,6 +714,88 @@ def phase_kernel(dev) -> int:
     return worst
 
 
+def result_diff(got: dict, want: dict) -> list:
+    """Keys where two ``sim.simulate`` result dicts differ: key order,
+    dtype, shape or any value."""
+    if list(got) != list(want):
+        return [f"keys {list(got)} != {list(want)}"]
+    return [k for k, w in want.items()
+            if got[k].dtype != w.dtype or got[k].shape != w.shape
+            or not torch.equal(got[k], w)]
+
+
+def result_err(got: dict, want: dict) -> float:
+    """Largest absolute difference over the keys of two result dicts of
+    equal layout (0.0 when every value is equal)."""
+    return max((float((got[k].double() - w.double()).abs().max())
+                for k, w in want.items() if w.numel()), default=0.0)
+
+
+def run_case(p, dev) -> tuple:
+    """The engine_run kernel against the plain loop on the card for one
+    point, every key equal; returns the plain loop's engine_step
+    launches (one per cycle, counted from 0) and the largest absolute
+    difference over the keys."""
+    what = (f"{p.protocol} n={p.n_cores} a={p.n_addrs} {p.workload} "
+            f"seed={p.seed} trace={p.record_trace}")
+    reset_launches()
+    want = sim._simulate_plain(p, dev)
+    torch.cuda.synchronize()
+    plain = dict(LAUNCHES)
+    require(plain["engine_step"] == p.cycles and plain["engine_run"] == 0,
+            f"{what}: the plain loop made {plain['engine_step']} engine_step "
+            f"and {plain['engine_run']} engine_run launches")
+    got = engine_step.run_cuda(p, protocols.get(p.protocol),
+                               workloads.get(p.workload).program(p), dev)
+    torch.cuda.synchronize()
+    require(LAUNCHES["engine_run"] == 1, f"{what}: no engine_run launch")
+    bad = result_diff(got, want)
+    require(not bad, f"{what}: kernel differs from the plain loop on {bad}")
+    return plain["engine_step"], result_err(got, want)
+
+
+def phase_run_kernel(dev) -> dict:
+    """engine_run against the plain loop (``sim._simulate_plain``, whose
+    bank side is the per-cycle engine_step kernel) on the card, for each
+    protocol at every KERNEL_SHAPES entry over RUN_KERNEL_CYCLES cycles,
+    untraced and with record_trace and 64 telemetry windows (uniform and
+    Zipf streams in turn, seeds past the int32 range), plus the
+    colibri_workers point and each protocol at the LAYOUT_CASES."""
+    params = []
+    for i, name in enumerate(PROTOS):
+        for j, (n, a) in enumerate(KERNEL_SHAPES):
+            for traced in (False, True):
+                params.append(sim.SimParams(
+                    protocol=name, n_cores=n, n_addrs=a,
+                    workload="zipf_histogram" if j % 2 else "rmw_loop",
+                    zipf_skew=0, cycles=RUN_KERNEL_CYCLES,
+                    seed=100 * i + j - (2**33 if traced else 0),
+                    record_trace=traced, telemetry_windows=64 * traced))
+        for j, (n, a) in enumerate(LAYOUT_CASES):
+            params.append(sim.SimParams(
+                protocol=name, n_cores=n, n_addrs=a,
+                workload="zipf_histogram", zipf_skew=0,
+                cycles=LAYOUT_CASE_CYCLES, seed=9 + 10 * i + j,
+                record_trace=True, telemetry_windows=8))
+    cfg, _ = GOLDEN_EXTRA["colibri_workers"]
+    for traced in (False, True):
+        params.append(sim.SimParams(
+            **cfg, record_trace=traced, telemetry_windows=64 * traced))
+    plain_launches, worst = 0, 0.0
+    for p in params:
+        launches, err = run_case(p, dev)
+        plain_launches += launches
+        worst = max(worst, err)
+    reset_launches()                   # comparison runs: no path's count
+    emit(phase="run_kernel", cases=len(params), shapes=KERNEL_SHAPES,
+         layout_cases=LAYOUT_CASES, protocols=PROTOS,
+         cycles=RUN_KERNEL_CYCLES, layout_case_cycles=LAYOUT_CASE_CYCLES,
+         plain_engine_step_launches=plain_launches, max_abs_err=worst,
+         equal=True)
+    return dict(cases=len(params), plain_launches=plain_launches,
+                max_abs_err=worst)
+
+
 def scatter_inputs(dev, t: int, bins: int, d: int, dtype: str, seed: int):
     """Seeded keys in [0, bins) and standard-normal values on the card."""
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -750,8 +863,39 @@ def phase_exact(dev) -> None:
     require(np.array_equal(got_cpu, want.astype(np.int64)),
             "_hash on the CPU differs from uint32 arithmetic")
     require(np.array_equal(got_gpu, got_cpu), "_hash differs on the card")
+    # the engine_run kernel's own device code (engine_probe_launch)
+    xu = torch.from_numpy(x.astype(np.uint32).view(np.int32)).to(dev)
+    require(np.array_equal(probe(xu, 0).cpu().numpy(), got_cpu),
+            "the kernel's _hash differs from the CPU's")
+    require(np.array_equal(probe(xu, 1).cpu().numpy(), got_cpu % 32),
+            "the kernel's backoff jitter differs from the CPU's")
+    hu = h.to(torch.int32).to(dev)
+    for b in bins:
+        _, c, _ = zipf_factors(b, 0)
+        zipf = probe(hu, 2, ADDR_ZIPF, b, c).cpu()
+        require(torch.equal(zipf, zipf_index(h, b, 0)),
+                f"the kernel's zipf stream differs at {b} bins")
+        uni = probe(hu, 2, 0, b).cpu()
+        require(torch.equal(uni, (h % b).to(torch.int32)),
+                f"the kernel's uniform stream differs at {b} bins")
     emit(phase="exact", zipf_bins=bins, zipf_inputs=1 << 24,
-         hash_inputs=int(x.size), equal=True)
+         hash_inputs=int(x.size), kernel_probe=True, equal=True)
+
+
+def probe(x: torch.Tensor, what: int, mode: int = 0, n_addrs: int = 1,
+          zipf_c: float = 0.0) -> torch.Tensor:
+    """The engine_run kernel's device functions on the int32 card tensor
+    ``x`` (read as uint32): ``what`` 0 is ``_hash``, 1 the backoff jitter,
+    2 the address of hash ``x`` in address mode ``mode``."""
+    fn = _build.library("engine_step").engine_probe_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_int] * 3 \
+        + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+    out = torch.empty_like(x)
+    err = fn(x.data_ptr(), x.numel(), what, mode, n_addrs, zipf_c,
+             out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    require(err == 0, f"engine_probe launch: CUDA error {err}")
+    torch.cuda.synchronize()
+    return out
 
 
 INT_KINDS = ("i", "u", "b")
@@ -769,14 +913,21 @@ def int_keys_equal(r_gpu, r_cpu) -> list:
     return bad
 
 
+def require_one_run(what: str) -> None:
+    """The point since the last reset_launches was one engine_run launch
+    and no per-cycle engine_step launch."""
+    require(LAUNCHES["engine_run"] == 1 and LAUNCHES["engine_step"] == 0,
+            f"{what}: {LAUNCHES['engine_run']} engine_run and "
+            f"{LAUNCHES['engine_step']} engine_step launches")
+
+
 def phase_golden() -> None:
     n_points = 0
     for name in PROTOS:
         for i, cfg in enumerate(GOLDEN_CONFIGS):
             reset_launches()
             r = run(Spec(protocol=name, **cfg))
-            require(LAUNCHES["engine_step"] == cfg["cycles"],
-                    f"{name}/{i}: {LAUNCHES['engine_step']} launches")
+            require_one_run(f"{name}/{i}")
             want = GOLDEN[f"{name}/{i}"]
             got = observe(r.stats)
             require({k: got[k] for k in want} == want,
@@ -789,7 +940,9 @@ def phase_golden() -> None:
     for key, (cfg, want) in GOLDEN_EXTRA.items():
         cfg = dict(cfg)
         proto = cfg.pop("protocol", "lrscwait")
+        reset_launches()
         r = run(Spec(protocol=proto, **cfg))
+        require_one_run(key)
         got = observe(r.stats)
         require({k: got[k] for k in want} == want, f"{key}: {got} != {want}")
         n_points += 1
@@ -833,7 +986,7 @@ def device_rows(prof) -> list:
     return rows
 
 
-def device_ms(fn, reps: int):
+def device_ms(fn, reps: int, name: str = ""):
     """Device time per call of ``fn`` from ``torch.profiler`` over
     ``reps`` calls: for each device activity, its mean recorded duration
     times the number of times one call launches it.  Every call launches
@@ -844,7 +997,8 @@ def device_ms(fn, reps: int):
     is the same, as every call runs on the same inputs.  Lost records
     are reported (a ``device_ms_lost_records`` line).  A profile that
     recorded no device activity is taken again, up to three times, and
-    then reported as ``None`` (not measured)."""
+    then reported as ``None`` (not measured).  With ``name``, only the
+    activities whose name holds it count."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(10):
         fn()
@@ -855,7 +1009,7 @@ def device_ms(fn, reps: int):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        rows = device_rows(prof)
+        rows = [r for r in device_rows(prof) if name in r[0]]
         if not rows:
             continue
         per_call = [(-(-count // reps), count, us) for _, count, us in rows]
@@ -918,22 +1072,103 @@ def time_kernel(dev, name: str, n: int, a: int) -> dict:
     return out
 
 
+def barrier_floor_ms(threads: int, cycles: int, per_cycle: int) -> float:
+    """Device ms of engine_barrier_kernel: one block of ``threads``,
+    ``cycles`` cycles of ``per_cycle`` barriers and no other work (CUDA
+    events, one launch after a warm one)."""
+    fn = _build.library("engine_step").engine_barrier_launch
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    sink = torch.zeros(1, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    require(fn(threads, cycles, per_cycle, sink.data_ptr(), stream) == 0,
+            "engine_barrier launch failed")                  # warm
+    t0.record()
+    require(fn(threads, cycles, per_cycle, sink.data_ptr(), stream) == 0,
+            "engine_barrier launch failed")
+    t1.record()
+    torch.cuda.synchronize()
+    require(int(sink) == cycles, "engine_barrier ran short")
+    return t0.elapsed_time(t1)
+
+
+def run_block(protocol: str, n: int) -> tuple:
+    """engine_run's block for a run of ``n`` cores: (threads, block
+    barriers per simulated cycle: 4 for the queue protocols, 2 for amo
+    and lrsc)."""
+    threads = _build.library("engine_step").engine_run_threads(n)
+    return threads, 4 if protocols.get(protocol).uses_queue else 2
+
+
+def run_bound(p) -> dict:
+    """The least time the card could take for one engine run: the bytes
+    it must move (the initial bank state read once, every result tensor
+    written once) over 3.35 TB/s, beside the serial floor of its chain
+    of cycles, ``barrier_floor_ms`` at the kernel's block size and
+    barriers per cycle (``run_block``)."""
+    proto = protocols.get(p.protocol)
+    out = sim.simulate(p, "cuda")
+    bank = proto.init_bank_state(p, p.n_addrs, p.n_cores,
+                                 proto.q_cap(p, p.n_cores), "cuda")
+    n_bytes = sum(t.numel() * t.element_size()
+                  for t in list(out.values()) + list(bank.values()))
+    threads, per_cycle = run_block(p.protocol, p.n_cores)
+    return dict(bound_bytes=n_bytes,
+                bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                barriers_per_cycle=per_cycle, threads=threads,
+                barrier_floor_ms=barrier_floor_ms(threads, p.cycles,
+                                                  per_cycle))
+
+
+def time_run(spec, plain: bool) -> dict:
+    """One engine run at a main-path point: the engine_run kernel's
+    device time (profiler, the kernel alone), the bounds and the barrier
+    floor; with ``plain``, the plain loop's time too (CUDA events around
+    one run of ``sim._simulate_plain`` on the card: it is host-bound, so
+    its time is its wall), and its result must equal the kernel's on
+    every key."""
+    p = spec.to_params()
+    launches = dict(LAUNCHES)
+    ms = device_ms(lambda: sim.simulate(p, "cuda"), 5, name="engine_run")
+    plain_ms, err = None, None
+    if plain:
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        t0.record()
+        want = sim._simulate_plain(p, "cuda")
+        t1.record()
+        torch.cuda.synchronize()
+        plain_ms = t0.elapsed_time(t1)
+        got = sim.simulate(p, "cuda")
+        bad = result_diff(got, want)
+        require(not bad, f"{p.protocol}/{p.n_cores}/{p.n_addrs} at "
+                f"{p.cycles} cycles: kernel differs from the plain loop "
+                f"on {bad}")
+        err = result_err(got, want)
+    rec = dict(protocol=p.protocol, n=p.n_cores, a=p.n_addrs,
+               cycles=p.cycles, ms=ms, us_per_cycle=ms / p.cycles * 1e3,
+               plain_ms=plain_ms, max_abs_err=err, library_ms=None,
+               **run_bound(p))
+    LAUNCHES.update(launches)                 # timing runs are not counted
+    return rec
+
+
 def phase_main() -> dict:
-    points, by, total = [], {}, 0
+    points, by, total, step_total = [], {}, 0, 0
     for name, n, bins in FULL_WIDTH_POINTS:
         spec = full_width_spec(name, n, bins)
         reset_launches()
         t0 = time.perf_counter()
         r = run(spec)
         wall = time.perf_counter() - t0
-        launches = LAUNCHES["engine_step"]
+        launches = LAUNCHES["engine_run"]
         total += launches
+        step_total += LAUNCHES["engine_step"]
         cycles = spec.costs.cycles
         got = full_width_summary(r.stats)
         want = FULL_WIDTH_REF[f"{name}/{n}/{bins}"]
         require(got == want, f"{name}/{n}/{bins}: {got} != {want}")
-        require(launches == cycles,
-                f"{name}/{n}/{bins}: {launches} launches, {cycles} cycles")
+        require_one_run(f"{name}/{n}/{bins}")
         by[(name, n, bins)] = r
         rec = dict(protocol=name, cores=n, bins=bins, cycles=cycles,
                    launches=launches, wall_s=wall,
@@ -944,14 +1179,16 @@ def phase_main() -> dict:
     ratio = (by[("colibri", 256, 1)].throughput
              / by[("lrsc", 256, 1)].throughput)
     emit(phase="main", points=len(points), launches=total,
+         engine_step_launches=step_total,
          colibri_over_lrsc_1bin=ratio, equal=True)
-    return dict(launches=total, points=points)
+    return dict(launches=total, step_launches=step_total, points=points)
 
 
 def phase_trace(main_points: list) -> dict:
     """The trace path at full width, each point beside its untraced run
-    of the main phase (same call, same card)."""
-    untraced = {(r["protocol"], r["cores"], r["bins"]): r["wall_s"]
+    of the main phase (same call, same card; per cycle, as the main
+    points run FULL_WIDTH_CYCLES and the traced ones TRACE_CYCLES)."""
+    untraced = {(r["protocol"], r["cores"], r["bins"]): r["ms_per_cycle"]
                 for r in main_points}
     out_dir = ROOT / "build" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -969,9 +1206,7 @@ def phase_trace(main_points: list) -> dict:
         for k, v in launches.items():
             total[k] += v
         cycles = spec.costs.cycles
-        require(launches["engine_step"] == cycles,
-                f"{key}: {launches['engine_step']} engine_step launches, "
-                f"{cycles} cycles")
+        require_one_run(key)
         require(launches["colibri_scatter"] == 1,
                 f"{key}: {launches['colibri_scatter']} colibri_scatter "
                 f"launches for one trace_latency_hist")
@@ -985,11 +1220,13 @@ def phase_trace(main_points: list) -> dict:
                 f"{[k for k in want if got.get(k) != want[k]]}")
         by[(name, bins)] = got
         base = untraced[(name, n, bins)]
+        bound = run_bound(spec.to_params())     # not counted: the phase's
+        LAUNCHES.update(launches)               # counts were read above
         emit(phase="trace_point", equal=True, protocol=name, cores=n,
              bins=bins, cycles=cycles, launches=launches, wall_s=wall,
-             ms_per_cycle=wall / cycles * 1e3, untraced_wall_s=base,
-             untraced_ms_per_cycle=base / cycles * 1e3,
-             overhead_ms_per_cycle=(wall - base) / cycles * 1e3,
+             ms_per_cycle=wall / cycles * 1e3, untraced_ms_per_cycle=base,
+             overhead_ms_per_cycle=wall / cycles * 1e3 - base,
+             bound_bytes=bound["bound_bytes"], bound_ms=bound["bound_ms"],
              polls=got["polls"], lat_p50=got["lat_p50"],
              lat_p95=got["lat_p95"], spans=got["spans"],
              perfetto_bytes=None if doc is None else len(doc))
@@ -1026,27 +1263,26 @@ def profile_run(spec) -> dict:
     LAUNCHES.update(launches)                  # not a path's counted run
     rows = device_rows(prof)
     busy = sum(r[2] for r in rows)
-    kern = [r for r in rows if "engine_step" in r[0]]
+    kern = [r for r in rows if "engine_run" in r[0]]
     return dict(cycles=cycles, wall_s=wall, wall_s_profiled=wall_prof,
                 ms_per_cycle=wall / cycles * 1e3, device_busy_us=busy,
                 device_busy_share=busy / 1e6 / wall,
                 device_activities_per_cycle=sum(r[1] for r in rows) / cycles,
-                engine_step_us=sum(r[2] for r in kern),
-                engine_step_launches=sum(r[1] for r in kern),
-                engine_step_share_of_busy=sum(r[2] for r in kern) / busy,
+                engine_run_us=sum(r[2] for r in kern),
+                engine_run_launches=sum(r[1] for r in kern),
+                engine_run_share_of_busy=sum(r[2] for r in kern) / busy,
                 top=[dict(kernel=k[:80], count=c, us=t)
                      for k, c, t in rows[:12]])
 
 
 def phase_profile() -> None:
-    """Device time by kernel over 300 cycles of the 256-core colibri
-    point, untraced and with the trace and telemetry on: how busy the
-    card is, and the engine_step kernel's share of it."""
-    spec = Spec(protocol="colibri", workload="zipf_histogram", zipf_skew=0,
-                n_cores=256, n_addrs=1, cycles=300)
-    emit(phase="profile", **profile_run(spec))
-    emit(phase="profile_traced", **profile_run(
-        spec.replace(record_trace=True, telemetry_windows=64)))
+    """Device time by kernel over a whole run of the 256-core colibri
+    point at one bin (the main path's FULL_WIDTH_CYCLES, untraced) and of
+    its traced point (TRACE_CYCLES, 64 telemetry windows): the card's
+    busy share of the run's wall, and the engine_run kernel's share of
+    the busy time."""
+    emit(phase="profile", **profile_run(full_width_spec("colibri", 256, 1)))
+    emit(phase="profile_traced", **profile_run(trace_spec("colibri", 256, 1)))
 
 
 def time_scatter(dev, t: int, bins: int, d: int, dtype: str) -> dict:
@@ -1790,7 +2026,8 @@ def setup():
     emit(phase="build", seconds=time.perf_counter() - t0,
          libraries={k: Path(v["path"]).name for k, v in builds.items()},
          ptxas={k: [ln.strip() for ln in v["log"].splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if "entry function" in ln or "registers" in ln
+                    or "spill" in ln]
                 for k, v in builds.items()})
     return dev
 
@@ -1803,6 +2040,7 @@ def main() -> int:
     smi = CARD["card"]
 
     worst = timed(phase_kernel, dev)
+    run_check = timed(phase_run_kernel, dev)
     scatter_worst = timed(phase_scatter_kernel, dev)
     lm_kernels = lm_phases(dev)
     timed(phase_exact, dev)
@@ -1811,20 +2049,39 @@ def main() -> int:
     trace_run = timed(phase_trace, main_run["points"])
     timed(phase_profile)
 
+    t0 = time.perf_counter()
+    runs = [time_run(full_width_spec(*pt), plain=i == 0)
+            for i, pt in enumerate(FULL_WIDTH_POINTS)]
+    emit(phase="run_time", seconds=time.perf_counter() - t0, points=runs)
+    head = runs[0]
+    kernels = [dict(
+        name="engine_run", route="cuda",
+        source="src/repro_torch/csrc/engine_step.cu",
+        replaces="src/repro/kernels/engine_step/kernel.py:45",
+        launches=main_run["launches"],
+        max_abs_err=max(run_check["max_abs_err"], head["max_abs_err"]),
+        **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "us_per_cycle",
+                                "barrier_floor_ms", "barriers_per_cycle",
+                                "threads")},
+        shape=dict(protocol=head["protocol"], n=head["n"], a=head["a"],
+                   cycles=head["cycles"]))]
     timing = [time_kernel(dev, "colibri", 256, 1),
               time_kernel(dev, "lrsc", 256, 256),
               time_kernel(dev, "colibri", 1024, 1)]
     head = timing[0]
     emit(phase="kernel_time", shapes=timing)
-    kernels = [dict(
+    kernels.append(dict(
         name="engine_step", route="cuda",
         source="src/repro_torch/csrc/engine_step.cu",
         replaces="src/repro/kernels/engine_step/kernel.py:45",
-        launches=main_run["launches"], max_abs_err=worst,
+        launches=main_run["step_launches"],
+        plain_loop_launches=run_check["plain_launches"],
+        max_abs_err=worst,
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by="bytes", library_ms=None, call_ms=head["call_ms"],
         plain_call_ms=head["plain_call_ms"],
-        shape=dict(protocol=head["protocol"], n=head["n"], a=head["a"]))]
+        shape=dict(protocol=head["protocol"], n=head["n"], a=head["a"])))
     t0 = time.perf_counter()
     scatter_times = [time_scatter(dev, *shape) for shape in SCATTER_SHAPES]
     emit(phase="scatter_time", seconds=time.perf_counter() - t0,

@@ -53,6 +53,7 @@ from repro_torch.core.workloads.base import (ADDR_FIXED, ADDR_ZIPF,
                                              K_BARRIER, zipf_index)
 from repro_torch.faults import FaultPlan
 from repro_torch.kernels import engine_step
+from repro_torch.kernels.engine_step.kernel import shl32
 from repro_torch.obs.schema import TELE_K, TELE_NSUM, window_len
 
 #: the protocols the port covers (the reference's Fig. 3 set)
@@ -203,14 +204,6 @@ def accept_rotating_fair(all_req: torch.Tensor, budget,
     return all_req & (rank < budget)
 
 
-def _shl32(v: int, k: int) -> int:
-    """int32 ``v << k`` with the reference's wrap (0 once k >= 32)."""
-    if k >= 32:
-        return 0
-    r = (v << k) & _MASK32
-    return r - (1 << 32) if r >= 1 << 31 else r
-
-
 def resolve_device(device=None) -> torch.device:
     """The run's device: ``None`` means ``"cuda"``, and a CUDA run
     without a visible GPU raises instead of falling back."""
@@ -225,7 +218,23 @@ def resolve_device(device=None) -> torch.device:
 def simulate(p: SimParams, device) -> Dict[str, torch.Tensor]:
     """One engine run on ``device``: the reference's flat result dict
     (per-core and per-bank arrays, scalar counters, the protocol's bank
-    state), as tensors on that device."""
+    state), as tensors on that device.  On a GPU the whole run is one
+    launch of the ``engine_run`` CUDA kernel (``engine_step.run_cuda``);
+    elsewhere it is the plain loop, :func:`_simulate_plain`."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return engine_step.run_cuda(p, proto_registry.get(p.protocol),
+                                    wl_registry.get(p.workload).program(p),
+                                    dev)
+    return _simulate_plain(p, dev)
+
+
+def _simulate_plain(p: SimParams, device) -> Dict[str, torch.Tensor]:
+    """The plain version of a run: one pass of an eager loop per
+    simulated cycle, its bank side through ``engine_step.fused_step``
+    (one launch of the per-cycle CUDA kernel a cycle on a GPU, its plain
+    version on the CPU).  It is what ``simulate`` runs on the CPU, and
+    what the ``engine_run`` kernel is held against on the card."""
     dev = torch.device(device)
     i32 = torch.int32
     proto = proto_registry.get(p.protocol)
@@ -252,7 +261,7 @@ def simulate(p: SimParams, device) -> Dict[str, torch.Tensor]:
                                  device=dev)) % 32).to(i32)
     ba = torch.arange(a, dtype=i32, device=dev)
     # backoff base per failure streak: backoff << max(streak - 1, 0)
-    bo_tab = torch.tensor([_shl32(p.backoff, max(k - 1, 0))
+    bo_tab = torch.tensor([shl32(p.backoff, max(k - 1, 0))
                            for k in range(exp_cap + 1)], dtype=i32,
                           device=dev)
     has_workers = p.n_workers > 0

@@ -92,18 +92,29 @@ def zipf_index(h24: torch.Tensor, n_addrs: int, skew_pct: int
     reference's there.
     """
     u = h24.to(torch.float32) * float(np.float32(1.0 / (1 << 24)))
-    top = np.float32(n_addrs) + np.float32(1.0)
-    s = np.float32(skew_pct) * np.float32(0.01)
-    om = np.float32(1.0) - s
-    if abs(om) < 1e-3:
-        x = torch.pow(float(top), u)
+    top, c, inv = zipf_factors(n_addrs, skew_pct)
+    if c is None:
+        x = torch.pow(top, u)
     else:
-        c = float(np.float32(top ** om) - np.float32(1.0))
-        inv = float(np.float32(1.0) / om)
         x = u * c + 1.0
         if inv != 1.0:
             x = torch.pow(x, inv)
     return (torch.floor(x).to(torch.int32) - 1).clamp_(0, n_addrs - 1)
+
+
+def zipf_factors(n_addrs: int, skew_pct: int):
+    """``zipf_index``'s scalar factors, folded in float32 on the host:
+    ``(top, c, inv)`` with ``x = (u*c + 1)^inv``, or ``c = None`` in the
+    log-uniform limit ``x = top^u`` (skew within 1e-3 of 1).  At skew 0,
+    ``c`` is ``n_addrs`` and ``inv`` is 1: the stream is ``u*c + 1``,
+    two rounded float32 ops."""
+    top = np.float32(n_addrs) + np.float32(1.0)
+    s = np.float32(skew_pct) * np.float32(0.01)
+    om = np.float32(1.0) - s
+    if abs(om) < 1e-3:
+        return float(top), None, None
+    c = float(np.float32(top ** om) - np.float32(1.0))
+    return float(top), c, float(np.float32(1.0) / om)
 
 
 class Workload:

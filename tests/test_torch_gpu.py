@@ -1,5 +1,6 @@
 """The port on an NVIDIA GPU: the CUDA kernels and runs through them (the
-simulator's engine, and recurrentgemma-2b-smoke, rwkv6-1.6b-smoke and
+simulator's engine, one engine_run launch per run held against the
+per-cycle loop, and recurrentgemma-2b-smoke, rwkv6-1.6b-smoke and
 kimi-k2-1t-a32b-smoke served by ServeEngine).
 
 Every test here is marked ``gpu`` and skips without a CUDA device (the
@@ -77,14 +78,36 @@ def test_cuda_kernel_matches_plain_version(name, cuda_device):
 def test_run_on_gpu_matches_golden_and_cpu(cuda_device):
     cs = _chip_smoke()
     cfg = cs.GOLDEN_CONFIGS[1]
-    before = LAUNCHES["engine_step"]
+    before = dict(LAUNCHES)
     gpu = run(Spec(protocol="colibri", **cfg))
-    assert LAUNCHES["engine_step"] == before + cfg["cycles"]
+    assert LAUNCHES["engine_run"] == before["engine_run"] + 1
+    assert LAUNCHES["engine_step"] == before["engine_step"]
     cpu = run(Spec(protocol="colibri", **cfg), device="cpu")
     want = cs.GOLDEN["colibri/1"]
     obs = cs.observe(gpu.stats)
     assert {k: obs[k] for k in want} == want
     assert cs.int_keys_equal(gpu.stats, cpu.stats) == []
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("traced", [False, True])
+@pytest.mark.parametrize("name", PROTOS)
+def test_run_kernel_matches_the_plain_loop(name, traced, cuda_device):
+    """One engine_run launch equals the plain loop (one engine_step
+    launch a cycle) on every key, traces and telemetry included, in the
+    kernel's register and shared-memory layouts and in its two others
+    (chip_smoke.LAYOUT_CASES)."""
+    cs = _chip_smoke()
+    points = [(256, 64, 200), (2048, 512, 200)] + [
+        (n, a, cs.LAYOUT_CASE_CYCLES) for n, a in cs.LAYOUT_CASES]
+    for n, a, cycles in points:
+        p = SimParams(protocol=name, workload="zipf_histogram", zipf_skew=0,
+                      n_cores=n, n_addrs=a, cycles=cycles, seed=-(2**33) - 3,
+                      record_trace=traced, telemetry_windows=16 * traced)
+        before = dict(LAUNCHES)
+        assert cs.run_case(p, cuda_device) == (p.cycles, 0.0)
+        assert LAUNCHES["engine_run"] == 1
+        LAUNCHES.update(before)
 
 
 @pytest.mark.gpu

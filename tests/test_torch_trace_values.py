@@ -56,15 +56,21 @@ def test_chip_smoke_trace_values_match_the_reference(point, tmp_path):
 
 def test_trace_ref_covers_the_trace_points_and_agrees_untraced():
     """Tracing changes no result: each traced point's summary equals the
-    untraced main-path value of the same point."""
+    reference's untraced run of the same point (TRACE_CYCLES)."""
     cs = CS
     assert set(cs.TRACE_REF) == {f"{p}/{n}/{b}"
                                  for p, n, b in cs.TRACE_POINTS}
     assert set(cs.PERFETTO_HASHED) <= set(cs.TRACE_POINTS)
     hashed = {f"{p}/{n}/{b}" for p, n, b in cs.PERFETTO_HASHED}
-    for key, rec in cs.TRACE_REF.items():
-        assert {k: rec[k] for k in cs.FULL_WIDTH_REF[key]} \
-            == cs.FULL_WIDTH_REF[key]
+    for name, n, bins in cs.TRACE_POINTS:
+        key = f"{name}/{n}/{bins}"
+        rec = cs.TRACE_REF[key]
+        spec = cs.full_width_spec(name, n, bins).replace(
+            cycles=cs.TRACE_CYCLES)
+        untraced = cs.full_width_summary(jsync.run(
+            jsync.Spec.from_json(spec.to_json()).replace(
+                backend="xla_cpu")).stats)
+        assert {k: rec[k] for k in untraced} == untraced
         assert sum(rec["trace_latency_hist"]) == rec["ops"]
         assert ("perfetto_sha256" in rec) == (key in hashed)
 

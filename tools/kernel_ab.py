@@ -1,23 +1,37 @@
 #!/usr/bin/env python3
-"""Time two builds of the port's flash_attention and grouped_matmul
-kernels on one card, in turns.
+"""Time this checkout's kernels against another checkout's on one card,
+in turns.
 
-    python3 tools/kernel_ab.py --base DIR
+    python3 tools/kernel_ab.py --base DIR            # flash, grouped_matmul
+    python3 tools/kernel_ab.py --base DIR --engine   # the simulator
 
 DIR is another checkout of this repository (for instance ``git archive
-<commit>`` unpacked under ``build/``).  Its
-``src/repro_torch/csrc/flash_attention.cu`` and ``grouped_matmul.cu`` are
-compiled with this checkout's ``nvcc`` flags and bound through the same
-C interface as this checkout's own.  At each serve shape (the bf16
-shapes of ``chip_smoke.FLASH_HEAD``, ``FLASH_MOE`` and ``GMM_SERVE``, and
-the hd-256 shape in f32) the script times base, this, this, base with
-``chip_smoke.device_ms`` (device time per call, ``torch.profiler``) and
-checks both against the plain version within ``FLASH_TOL``/``GMM_TOL``.
-It prints the card's ``nvidia-smi`` name and power limit, then one JSON
-line per shape: both builds' times (each the mean of its two turns, and
-the turns), the bound and the PyTorch library call
-(``scaled_dot_product_attention``, ``torch.bmm``).  It needs a CUDA
-card and ``nvcc``.
+<commit>`` unpacked under ``build/``).  It needs a CUDA card and
+``nvcc``.  Both modes print the card's ``nvidia-smi`` name and power
+limit first and last.
+
+Default mode: DIR's ``src/repro_torch/csrc/flash_attention.cu`` and
+``grouped_matmul.cu`` are compiled with this checkout's ``nvcc`` flags
+and bound through the same C interface as this checkout's own.  At each
+serve shape (the bf16 shapes of ``chip_smoke.FLASH_HEAD``, ``FLASH_MOE``
+and ``GMM_SERVE``, and the hd-256 shape in f32) the script times base,
+this, this, base with ``chip_smoke.device_ms`` (device time per call,
+``torch.profiler``) and checks both against the plain version within
+``FLASH_TOL``/``GMM_TOL``.  It prints one JSON line per shape: both
+builds' times (each the mean of its two turns, and the turns), the
+bound and the PyTorch library call (``scaled_dot_product_attention``,
+``torch.bmm``).
+
+``--engine``: the five main-path points of ``chip_smoke``
+(``FULL_WIDTH_POINTS``) at ``AB_ENGINE_CYCLES`` simulated cycles, run by
+``tools/engine_points.py`` in a process of their own for each turn
+(base, this, this, base), so each checkout runs its own engine: the
+parent's per-cycle loop or this tree's one launch per run.  It prints
+one JSON line per point: wall seconds and ms per simulated cycle of
+both (mean of two turns, and the turns), core-cycles per second, the
+ratio, whether the four runs' counters agree, and the barrier-only
+calibration kernel's time per cycle at this tree's block size and
+barriers per cycle (``chip_smoke.barrier_floor_ms``).
 """
 from __future__ import annotations
 
@@ -40,6 +54,11 @@ from repro_torch.kernels.grouped_matmul import kernel as gm  # noqa: E402
 
 #: (b, sq, skv, h, kv, hd, causal, dtype) of the flash shapes timed
 FLASH = (cs.FLASH_MOE, cs.FLASH_HEAD, cs.FLASH_HEAD[:-1] + ("float32",))
+#: simulated cycles of each --engine point: below the main path's
+#: FULL_WIDTH_CYCLES because the per-cycle loop of a parent checkout
+#: takes 8-11 s a point at 5 000 cycles on an H100 (1.6-2.1 ms a
+#: cycle), and it runs twice at each of the five points
+AB_ENGINE_CYCLES = 5_000
 
 
 def build_base(base: Path, name: str):
@@ -90,16 +109,61 @@ def agrees(out, ref, tol) -> float:
     return err
 
 
+def engine_turn(root: Path) -> list:
+    """One turn: ``tools/engine_points.py`` with the checkout ``root``."""
+    pts = json.dumps([list(p) for p in cs.FULL_WIDTH_POINTS])
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "engine_points.py"),
+         str(root), str(AB_ENGINE_CYCLES), pts], capture_output=True,
+        text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"engine_points.py {root}:\n{proc.stderr}")
+    return [json.loads(ln) for ln in proc.stdout.splitlines()
+            if ln.startswith("{")]
+
+
+def engine_main(base: Path) -> None:
+    """The simulator's points, base against this tree, in turns."""
+    cycles = AB_ENGINE_CYCLES
+    base_a, this_a, this_b, base_b = (
+        engine_turn(r) for r in (base, ROOT, ROOT, base))
+    for i, (name, n, bins) in enumerate(cs.FULL_WIDTH_POINTS):
+        runs = (base_a[i], this_a[i], this_b[i], base_b[i])
+        walls = [r["wall_s"] for r in runs]
+        base_s, this_s = (walls[0] + walls[3]) / 2, (walls[1] + walls[2]) / 2
+        threads, per_cycle = cs.run_block(name, n)
+        floor = cs.barrier_floor_ms(threads, cycles, per_cycle)
+        print(json.dumps(dict(
+            kernel="engine_run", protocol=name, cores=n, bins=bins,
+            cycles=cycles, base_wall_s=base_s, this_wall_s=this_s,
+            base_turns=(walls[0], walls[3]), this_turns=(walls[1], walls[2]),
+            base_ms_per_cycle=base_s / cycles * 1e3,
+            this_ms_per_cycle=this_s / cycles * 1e3,
+            base_core_cycles_per_s=n * cycles / base_s,
+            this_core_cycles_per_s=n * cycles / this_s,
+            speedup=base_s / this_s,
+            counters_agree=all(r["summary"] == runs[0]["summary"]
+                               for r in runs),
+            threads=threads, barriers_per_cycle=per_cycle,
+            barrier_floor_ms_per_cycle=floor / cycles)), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--base", type=Path, required=True,
                     help="root of the checkout to compare against")
+    ap.add_argument("--engine", action="store_true",
+                    help="time the simulator's main-path points instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab: torch sees no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
     print(cs.smi_line(), flush=True)
+    if args.engine:
+        engine_main(args.base.resolve())
+        print(cs.smi_line(), flush=True)
+        return 0
     base_fa = build_base(args.base, "flash_attention")
     base_gm = build_base(args.base, "grouped_matmul")
     base_fa.argtypes = fa._launcher().argtypes

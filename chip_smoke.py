@@ -37,7 +37,9 @@ Phases, one JSON line each:
    on the card at the reference tests' shapes and the serve shapes,
    within ``FLASH_TOL`` / ``RGLRU_TOL`` (flash: bf16 through the
    tensor-core design, f32 through the CUDA-core one, and one request
-   alone gives the same bits as in its batch);
+   alone gives the same bits as in its batch; rglru: also at its tile
+   edges, on contiguous inputs and on the model's strided views, h with
+   a's strides);
    serve_a — full width, one (rglru, rglru, local) unit, f32 weights
    seeded on the card and copied to the CPU: the card's prefill and
    decode logits, teacher-forced on the CPU engine's greedy tokens,
@@ -50,8 +52,8 @@ Phases, one JSON line each:
    step;
    rwkv_kernel — the rwkv6_wkv kernel against its plain version on the
    card, ``out`` and the final state, at the reference tests' shapes,
-   the serve shapes and a 4 096-step one, for four decay distributions,
-   within ``RWKV_TOL``; rwkv_serve_a — full width, 2 layers, f32, card
+   the serve shapes, a 4 096-step one and its edges (T = 1, 63, 65),
+   for four decay distributions, within ``RWKV_TOL``; rwkv_serve_a — full width, 2 layers, f32, card
    logits against the CPU's as serve_a; rwkv_serve_b — the newest main
    path, as serve_b: full width and depth (24 layers, bf16), four
    512-token requests and 16 new tokens each through ``ServeEngine``,
@@ -437,13 +439,19 @@ FLASH_TOL = {"float32": (2e-5, 1e-4), "bfloat16": (1e-2, 1e-2)}
 FLASH_HEAD = (4, 512, 512, 10, 1, 256, True, "bfloat16")
 #: moe_serve_b's prefill shape (head dim 112), timed beside it
 FLASH_MOE = FLASH_SHAPES[-1]
-#: (T, B, w) of the rglru_kernel phase: the reference tests' shapes and
-#: the serve path's (serve_a: 256 x 2, serve_b: 512 x 4, width 2560)
+#: (T, B, w) of the rglru_kernel phase: the reference tests' shapes, the
+#: serve path's (serve_a: 256 x 2, serve_b: 512 x 4, width 2560) and the
+#: kernel's edges: one step, T a 64-step tile +- 1, widths that are not a
+#: multiple of the 128-lane tile (60, 200) or of 4 (6: rows staged by the
+#: threads, not by TMA), and 70 tiles of steps (a look-back over up to 69
+#: earlier tiles).  Each runs on contiguous (T, B, w) inputs and on
+#: the model's (T, B, w) views of (B, T, w) tensors
 RGLRU_SHAPES = ((64, 2, 128), (100, 3, 60), (256, 1, 256), (256, 2, 2560),
-                (512, 4, 2560))
+                (512, 4, 2560), (1, 2, 60), (63, 2, 200), (65, 3, 6),
+                (4480, 1, 256))
 #: tests/test_kernels.py's rtol and atol (the sum order differs)
 RGLRU_TOL = (1e-4, 1e-4)
-RGLRU_HEAD = RGLRU_SHAPES[-1]
+RGLRU_HEAD = (512, 4, 2560)
 #: serve_a: full width, one (rglru, rglru, local) unit, f32 weights
 #: seeded on the card and copied to the CPU; 2 requests x 256 tokens, 8
 #: new; card logits (kernels) against the port's CPU logits (plain
@@ -469,10 +477,11 @@ F32_FLOPS = 67e12
 RWKV_ARCH = "rwkv6-1.6b"
 #: (B, T, H, hd) of the rwkv_kernel phase: the reference tests' (BH, T,
 #: hd) shapes (tests/test_kernels.py) with BH as (B, H), the serve path's
-#: (rwkv_serve_a: 2 x 256, rwkv_serve_b: 4 x 512, 32 heads of 64) and a
-#: long one
+#: (rwkv_serve_a: 2 x 256, rwkv_serve_b: 4 x 512, 32 heads of 64), a
+#: long one and the kernel's edges: one step, T its 64-step chunk +- 1
 RWKV_SHAPES = ((2, 64, 1, 32), (2, 130, 2, 64), (1, 32, 1, 16),
-               (2, 256, 32, 64), (4, 512, 32, 64), (1, 4096, 32, 64))
+               (2, 256, 32, 64), (4, 512, 32, 64), (1, 4096, 32, 64),
+               (1, 1, 2, 64), (2, 63, 2, 32), (1, 65, 2, 64))
 #: means of x in the decay w = exp(-exp(x)), x ~ N(mean, 1): the model's
 #: init (w0 ~ N(-5, 1)), the reference tests' N(-1.5, 1), and two strong
 #: decays that pass the Pallas kernel's +-30 clamp inside one chunk
@@ -480,7 +489,7 @@ RWKV_DECAYS = (-5.0, -1.5, 0.0, 1.0)
 #: tests/test_kernels.py's rtol and atol for the WKV (the sum order
 #: differs; both compute the exact recurrence)
 RWKV_TOL = (2e-3, 2e-3)
-RWKV_HEAD = RWKV_SHAPES[4]
+RWKV_HEAD = (4, 512, 32, 64)
 #: rwkv_serve_a: full width, 2 (rwkv, rwkv_cm) layers, f32, as serve_a
 RWKV_SERVE_A = dict(layers=2, requests=2, prompt=256, new=8, seed=23)
 RWKV_SERVE_A_LAUNCHES = {"rwkv6_wkv": 2}
@@ -1367,20 +1376,36 @@ def rglru_inputs(dev, t, b, w, seed):
     return a, x, torch.randn((b, w), generator=g, device=dev)
 
 
+def batch_major(x: torch.Tensor) -> torch.Tensor:
+    """The same (T, B, w) values as the model hands them to the scan: a
+    (T, B, w) view of a contiguous (B, T, w) tensor."""
+    return x.transpose(0, 1).contiguous().transpose(0, 1)
+
+
 def phase_rglru_kernel(dev) -> float:
+    """The kernel against the plain version at every shape, on contiguous
+    inputs and on the model's strided views (where h must come back with
+    a's strides)."""
     worst = 0.0
     rtol, atol = RGLRU_TOL
     for i, (t, b, w) in enumerate(RGLRU_SHAPES):
         a, x, h0 = rglru_inputs(dev, t, b, w, i)
-        out = rglru_scan.rglru_scan(a, x, h0)
         ref = rglru_scan.rglru_scan_ref(a, x, h0)
-        torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        require(out.dtype == torch.float32 and tuple(out.shape) == (t, b, w)
-                and torch.allclose(out, ref, rtol=rtol, atol=atol),
-                f"{(t, b, w)}: kernel differs from plain by {err}")
-        worst = max(worst, err)
-    emit(phase="rglru_kernel", cases=len(RGLRU_SHAPES), shapes=RGLRU_SHAPES,
+        for layout, (aa, xx) in (("contiguous", (a, x)),
+                                 ("batch_major", (batch_major(a),
+                                                  batch_major(x)))):
+            out = rglru_scan.rglru_scan(aa, xx, h0)
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            require(out.dtype == torch.float32
+                    and tuple(out.shape) == (t, b, w)
+                    and out.stride() == aa.stride()
+                    and torch.allclose(out, ref, rtol=rtol, atol=atol),
+                    f"{(t, b, w)} {layout}: kernel differs from plain by "
+                    f"{err} (strides {out.stride()}, a's {aa.stride()})")
+            worst = max(worst, err)
+    emit(phase="rglru_kernel", cases=2 * len(RGLRU_SHAPES),
+         shapes=RGLRU_SHAPES, layouts=["contiguous", "batch_major"],
          max_abs_err=worst, tolerance=RGLRU_TOL, equal=True)
     return worst
 
@@ -1865,19 +1890,34 @@ def time_flash(dev, shape=FLASH_HEAD) -> dict:
     return rec
 
 
-def time_rglru(dev) -> dict:
-    t, b, w = RGLRU_HEAD
-    a, x, h0 = rglru_inputs(dev, t, b, w, seed=5)
+def rglru_bound(t, b, w) -> dict:
+    """The least time the card could take for one scan: a and x read
+    once, h0 read once, h written once, over 3.35 TB/s; 2 flops per
+    element over the f32 CUDA-core peak."""
     n_bytes = 12 * t * b * w + 4 * b * w
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, 2 * t * b * w / F32_FLOPS
+    return dict(bound_bytes=n_bytes, bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_rglru(dev) -> dict:
+    """The wrapper on the model's (T, B, w) views (``ms``: the kernel and
+    the zeroing of its look-back flags; ``kernel_ms``: the kernel alone),
+    and on contiguous inputs."""
+    t, b, w = RGLRU_HEAD
+    a, x, h0 = rglru_inputs(dev, t, b, w, seed=5)
+    am, xm = batch_major(a), batch_major(x)
     launches = LAUNCHES["rglru_scan"]
     rec = dict(shape=RGLRU_HEAD,
-               ms=device_ms(lambda: rg_kernel.rglru_scan_cuda(a, x, h0), 50),
+               ms=device_ms(lambda: rg_kernel.rglru_scan_cuda(am, xm, h0), 50),
+               kernel_ms=device_ms(
+                   lambda: rg_kernel.rglru_scan_cuda(am, xm, h0), 50,
+                   "rglru_scan_kernel"),
+               contiguous_ms=device_ms(
+                   lambda: rg_kernel.rglru_scan_cuda(a, x, h0), 50),
                plain_ms=device_ms(lambda: rglru_scan.rglru_scan_ref(a, x, h0),
                                   3),
-               library_ms=None, bound_bytes=n_bytes,
-               bound_ms=max(t_bytes, t_ops) * 1e3,
-               bound_by="bytes" if t_bytes >= t_ops else "operations")
+               library_ms=None, **rglru_bound(t, b, w))
     LAUNCHES["rglru_scan"] = launches          # timing runs are not counted
     return rec
 
@@ -1976,7 +2016,8 @@ def lm_phases(dev) -> list:
              replaces="src/repro/kernels/rglru_scan/kernel.py:20",
              launches=main_run["launches"]["rglru_scan"],
              max_abs_err=rglru_worst, **{k: rglru_t[k] for k in keys},
-             shape=rglru_t["shape"]),
+             shape=rglru_t["shape"], kernel_ms=rglru_t["kernel_ms"],
+             contiguous_ms=rglru_t["contiguous_ms"]),
         dict(name="rwkv6_wkv", route="cuda",
              source="src/repro_torch/csrc/rwkv6_wkv.cu",
              replaces="src/repro/kernels/rwkv6_wkv/kernel.py:24",

@@ -19,22 +19,29 @@ from repro_torch.kernels import LAUNCHES, _build
 
 @functools.lru_cache(maxsize=1)
 def _launcher():
-    fn = _build.library("rglru_scan").rglru_scan_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 \
-        + [ctypes.c_void_p]
+    lib = _build.library("rglru_scan")
+    for name in ("rglru_scan_scratch_ints", "rglru_scan_scratch_floats"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_longlong] * 3
+        fn.restype = ctypes.c_longlong
+    fn = lib.rglru_scan_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 10 \
+        + [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
     return fn
 
 
+def unit_along_w(x: torch.Tensor) -> bool:
+    """Whether ``x``'s last axis (w) has unit stride, as the kernel needs."""
+    return x.shape[-1] == 1 or x.stride(-1) == 1
+
+
 def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor,
                     h0: torch.Tensor) -> torch.Tensor:
-    """a, b ``(T, B, w)`` and h0 ``(B, w)``, float32 and contiguous, on
-    one CUDA device -> h ``(T, B, w)`` float32.  Raises on anything the
-    kernel does not take."""
-    dev = a.device
-    if dev.type != "cuda" or b.device != dev or h0.device != dev:
-        raise ValueError(f"rglru_scan_cuda needs CUDA tensors on one device, "
-                         f"got {a.device}, {b.device}, {h0.device}")
+    """a, b ``(T, B, w)`` and h0 ``(B, w)``, float32 with unit stride
+    along w (any strides along T and B), on one CUDA device -> h ``(T, B,
+    w)`` float32 with a's strides.  Raises on anything the kernel does
+    not take."""
     if not all(t.dtype == torch.float32 for t in (a, b, h0)):
         raise ValueError(f"a, b, h0 must be float32, got {a.dtype}, "
                          f"{b.dtype}, {h0.dtype}")
@@ -42,15 +49,30 @@ def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"need a, b (T, B, w) and h0 (B, w), got "
                          f"{tuple(a.shape)}, {tuple(b.shape)}, "
                          f"{tuple(h0.shape)}")
-    if not (a.is_contiguous() and b.is_contiguous() and h0.is_contiguous()):
-        raise ValueError("a, b and h0 must be contiguous")
     t, bdim, w = a.shape
-    if bdim * w < 1:
-        raise ValueError(f"need B * w >= 1, got {bdim} * {w}")
+    if min(t, bdim, w) < 1:
+        raise ValueError(f"need T, B, w >= 1, got {t}, {bdim}, {w}")
+    if not all(unit_along_w(x) for x in (a, b, h0)):
+        raise ValueError(f"a, b and h0 need unit stride along w, got "
+                         f"{a.stride()}, {b.stride()}, {h0.stride()}")
+    dev = a.device
+    if dev.type != "cuda" or b.device != dev or h0.device != dev:
+        raise ValueError(f"rglru_scan_cuda needs CUDA tensors on one device, "
+                         f"got {a.device}, {b.device}, {h0.device}")
+    launch = _launcher()
+    lib = _build.library("rglru_scan")
     out = torch.empty_like(a)
-    err = _launcher()(a.data_ptr(), b.data_ptr(), h0.data_ptr(),
-                      out.data_ptr(), t, bdim * w,
-                      torch.cuda.current_stream(dev).cuda_stream)
+    if out.stride(-1) != 1:
+        out = torch.empty((t, bdim, w), dtype=torch.float32, device=dev)
+    ints = torch.zeros(lib.rglru_scan_scratch_ints(t, bdim, w),
+                       dtype=torch.int32, device=dev)
+    floats = torch.empty(lib.rglru_scan_scratch_floats(t, bdim, w),
+                         dtype=torch.float32, device=dev)
+    err = launch(a.data_ptr(), b.data_ptr(), h0.data_ptr(), out.data_ptr(),
+                 t, bdim, w, a.stride(0), a.stride(1), b.stride(0),
+                 b.stride(1), out.stride(0), out.stride(1), h0.stride(0),
+                 ints.data_ptr(), floats.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rglru_scan kernel launch failed: CUDA error "
                            f"{err}")

@@ -175,6 +175,51 @@ def test_rglru_kernel_matches_plain_version(shape, cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["batch_major", "offset"])
+@pytest.mark.parametrize("shape", [(1, 2, 60), (65, 3, 6), (130, 2, 200),
+                                   (512, 4, 2560)])
+def test_rglru_kernel_takes_strided_and_unaligned_inputs(shape, layout,
+                                                         cuda_device):
+    """The model's (T, B, w) views of (B, T, w) tensors, and inputs off
+    16-byte boundaries (staged by the threads, not by TMA): one launch
+    each, h with a's strides, the plain version's values."""
+    cs = _chip_smoke()
+    a, x, h0 = cs.rglru_inputs(cuda_device, *shape, seed=shape[0] + 1)
+    if layout == "batch_major":
+        aa, xx = cs.batch_major(a), cs.batch_major(x)
+    else:
+        def offset(y):
+            flat = torch.empty(y.numel() + 1, device=cuda_device)
+            flat[1:] = y.reshape(-1)
+            return flat[1:].view(y.shape)
+        aa, xx = offset(a), offset(x)
+    before = LAUNCHES["rglru_scan"]
+    out = rglru_scan.rglru_scan(aa, xx, h0)
+    torch.cuda.synchronize()
+    assert LAUNCHES["rglru_scan"] == before + 1
+    assert out.stride() == aa.stride()
+    rtol, atol = cs.RGLRU_TOL
+    assert torch.allclose(out, rglru_scan.rglru_scan_ref(a, x, h0),
+                          rtol=rtol, atol=atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("decay", [-5.0, 1.0])
+@pytest.mark.parametrize("shape", [(1, 1, 2, 64), (2, 63, 2, 32),
+                                   (1, 65, 2, 64), (2, 17, 1, 16)])
+def test_rwkv_kernel_at_its_chunk_edges(shape, decay, cuda_device):
+    """One step, T a 64-step chunk +- 1 and a ragged 16-step sub-tile,
+    each head dim: out and the final state within RWKV_TOL."""
+    cs = _chip_smoke()
+    ins = cs.rwkv_inputs(cuda_device, *shape, decay, seed=shape[1] + 3)
+    out, state = rwkv6_wkv.wkv(*ins)
+    ref_out, ref_state = rwkv6_wkv.wkv_ref(*ins)
+    rtol, atol = cs.RWKV_TOL
+    assert torch.allclose(out, ref_out, rtol=rtol, atol=atol)
+    assert torch.allclose(state, ref_state, rtol=rtol, atol=atol)
+
+
+@pytest.mark.gpu
 def test_served_batch_goes_through_both_kernels(cuda_device):
     """recurrentgemma-2b-smoke (4 rglru, 2 local layers): each prefill
     launches 4 rglru_scan and 2 flash_attention kernels, decode none."""

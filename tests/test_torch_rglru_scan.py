@@ -96,3 +96,52 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         rglru_scan_cuda(a, x, h0)
     assert _build.source("rglru_scan").is_file()
+
+
+@pytest.mark.parametrize("t,b,w", [(1, 2, 60), (130, 2, 200), (65, 3, 6)])
+def test_rglru_scan_takes_the_models_strided_views(t, b, w):
+    """The (T, B, w) views of (B, T, w) tensors that ``rglru_apply`` hands
+    the op give the values of contiguous copies and of the reference
+    oracle, and h comes back with a's strides, so the model's transpose
+    back to (B, T, w) is contiguous."""
+    a, x, h0 = _inputs(t, b, w, seed=[t, b, w, 1])
+    a_bt, x_bt = (torch.from_numpy(np.ascontiguousarray(v.transpose(1, 0, 2)))
+                  for v in (a, x))
+    a_view, x_view = a_bt.transpose(0, 1), x_bt.transpose(0, 1)
+    got = rglru_scan(a_view, x_view, torch.from_numpy(h0))
+    want = rglru_scan(a_view.contiguous(), x_view.contiguous(),
+                      torch.from_numpy(h0))
+    assert torch.equal(got, want)
+    assert got.stride() == a_view.stride()
+    assert got.transpose(0, 1).is_contiguous()
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(j_ref(jnp.asarray(a), jnp.asarray(x),
+                                      jnp.asarray(h0))),
+        rtol=1e-4, atol=1e-4)
+
+
+def _refused(kind):
+    a, x, h0 = (torch.from_numpy(v) for v in _inputs(8, 2, 4, 0))
+    if kind == "stride along w":
+        return (torch.from_numpy(np.ascontiguousarray(
+            a.numpy().transpose(0, 2, 1))).transpose(1, 2), x, h0), "unit stride"
+    if kind == "dtype":
+        return (a.double(), x, h0), "float32"
+    if kind == "shape":
+        return (a, x[:, :1], h0), "need a, b"
+    if kind == "empty":
+        return (a[:0], x[:0], h0), "T, B, w >= 1"
+    return (a, x, h0), "CUDA"
+
+
+@pytest.mark.parametrize("kind", ["stride along w", "dtype", "shape",
+                                  "empty", "cpu tensors"])
+def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(kind):
+    """The wrapper's checks raise before it builds or launches anything:
+    a non-unit stride along w (the op copies such inputs first), another
+    dtype, mismatched shapes, an empty scan, CPU tensors."""
+    args, match = _refused(kind)
+    before = LAUNCHES["rglru_scan"]
+    with pytest.raises(ValueError, match=match):
+        rglru_scan_cuda(*args)
+    assert LAUNCHES["rglru_scan"] == before

@@ -2,7 +2,8 @@
 """Time this checkout's kernels against another checkout's on one card,
 in turns.
 
-    python3 tools/kernel_ab.py --base DIR            # flash, grouped_matmul
+    python3 tools/kernel_ab.py --base DIR            # the four LM kernels
+    python3 tools/kernel_ab.py --base DIR --only rglru,rwkv
     python3 tools/kernel_ab.py --base DIR --engine   # the simulator
 
 DIR is another checkout of this repository (for instance ``git archive
@@ -10,17 +11,26 @@ DIR is another checkout of this repository (for instance ``git archive
 ``nvcc``.  Both modes print the card's ``nvidia-smi`` name and power
 limit first and last.
 
-Default mode: DIR's ``src/repro_torch/csrc/flash_attention.cu`` and
-``grouped_matmul.cu`` are compiled with this checkout's ``nvcc`` flags
-and bound through the same C interface as this checkout's own.  At each
-serve shape (the bf16 shapes of ``chip_smoke.FLASH_HEAD``, ``FLASH_MOE``
-and ``GMM_SERVE``, and the hd-256 shape in f32) the script times base,
-this, this, base with ``chip_smoke.device_ms`` (device time per call,
-``torch.profiler``) and checks both against the plain version within
-``FLASH_TOL``/``GMM_TOL``.  It prints one JSON line per shape: both
-builds' times (each the mean of its two turns, and the turns), the
-bound and the PyTorch library call (``scaled_dot_product_attention``,
-``torch.bmm``).
+Default mode: DIR's ``src/repro_torch/csrc/flash_attention.cu``,
+``grouped_matmul.cu``, ``rglru_scan.cu`` and ``rwkv6_wkv.cu`` are
+compiled with this checkout's ``nvcc`` flags and bound through their C
+interfaces (``rglru_scan_launch`` through the one of DIR's own source:
+``BASE_RGLRU_ARGS``, the PR 13 design's (a, x, h0, h, T, B*w, stream) on
+contiguous inputs; the others through this checkout's).  At each serve
+shape (the bf16 shapes of ``chip_smoke.FLASH_HEAD``, ``FLASH_MOE`` and
+``GMM_SERVE``, the hd-256 shape in f32, ``RGLRU_HEAD`` and
+``RWKV_HEAD``) the script times base, this, this, base with
+``chip_smoke.device_ms`` (device time per call, ``torch.profiler``) and
+checks both against the plain version within their ``chip_smoke``
+tolerances.  It prints one JSON line per shape: both builds' times (each
+the mean of its two turns, and the turns), the bound and the PyTorch
+library call where there is one (``scaled_dot_product_attention``,
+``torch.bmm``; none computes a linear recurrence).  The rglru row times
+both builds on contiguous ``(T, B, w)`` inputs and this one also on the
+model's ``(T, B, w)`` views of ``(B, T, w)`` tensors (``this_model_ms``;
+the base design took those only through two ``.contiguous()`` copies,
+which its row adds as ``base_copies_ms``).  ``--only`` picks the
+kernels: ``flash``, ``gmm``, ``rglru``, ``rwkv``.
 
 ``--engine``: the five main-path points of ``chip_smoke``
 (``FULL_WIDTH_POINTS``) at ``AB_ENGINE_CYCLES`` simulated cycles, run by
@@ -51,6 +61,8 @@ import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa  # noqa: E402
 from repro_torch.kernels.grouped_matmul import kernel as gm  # noqa: E402
+from repro_torch.kernels.rglru_scan import kernel as rg  # noqa: E402
+from repro_torch.kernels.rwkv6_wkv import kernel as rw  # noqa: E402
 
 #: (b, sq, skv, h, kv, hd, causal, dtype) of the flash shapes timed
 FLASH = (cs.FLASH_MOE, cs.FLASH_HEAD, cs.FLASH_HEAD[:-1] + ("float32",))
@@ -59,6 +71,11 @@ FLASH = (cs.FLASH_MOE, cs.FLASH_HEAD, cs.FLASH_HEAD[:-1] + ("float32",))
 #: takes 8-11 s a point at 5 000 cycles on an H100 (1.6-2.1 ms a
 #: cycle), and it runs twice at each of the five points
 AB_ENGINE_CYCLES = 5_000
+#: the C signature of the base checkout's ``rglru_scan_launch`` (PR 13's
+#: design): a, x, h0, h, T, B * w, stream
+BASE_RGLRU_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 \
+    + [ctypes.c_void_p]
+KERNELS = ("flash", "gmm", "rglru", "rwkv")
 
 
 def build_base(base: Path, name: str):
@@ -93,6 +110,78 @@ def gmm_call(fn, x, w):
     if err:
         raise RuntimeError(f"grouped_matmul launch: CUDA error {err}")
     return out
+
+
+def base_rglru_call(fn, a, x, h0):
+    t, b, w = a.shape
+    out = torch.empty_like(a)
+    err = fn(a.data_ptr(), x.data_ptr(), h0.data_ptr(), out.data_ptr(), t,
+             b * w, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"base rglru_scan launch: CUDA error {err}")
+    return out
+
+
+def wkv_call(fn, r, k, v, w, u):
+    b, t, h, hd = r.shape
+    out = torch.empty_like(r)
+    state = torch.empty((b, h, hd, hd), device=r.device)
+    sb, st, sh, _ = rw._axis_strides(r)
+    err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+             u.data_ptr(), out.data_ptr(), state.data_ptr(), b, t, h, hd, sb,
+             st, sh, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"rwkv6_wkv launch: CUDA error {err}")
+    return out, state
+
+
+def rglru_rows(base: Path, dev) -> None:
+    """The RG-LRU scan at ``RGLRU_HEAD``: base against this tree."""
+    base_fn = build_base(base, "rglru_scan")
+    base_fn.argtypes = BASE_RGLRU_ARGS
+    base_fn.restype = ctypes.c_int
+    shape = cs.RGLRU_HEAD
+    t, b, w = shape
+    a, x, h0 = cs.rglru_inputs(dev, *shape, seed=5)
+    ref = cs.rglru_scan.rglru_scan_ref(a, x, h0)
+    errs = [agrees(f(), ref, cs.RGLRU_TOL)
+            for f in (lambda: base_rglru_call(base_fn, a, x, h0),
+                      lambda: rg.rglru_scan_cuda(a, x, h0))]
+    am, xm = (y.transpose(0, 1).contiguous().transpose(0, 1) for y in (a, x))
+    errs.append(agrees(cs.rglru_scan.rglru_scan(am, xm, h0), ref,
+                       cs.RGLRU_TOL))
+    rec = dict(kernel="rglru_scan", shape=shape,
+               **turns(lambda: base_rglru_call(base_fn, a, x, h0),
+                       lambda: rg.rglru_scan_cuda(a, x, h0), 50),
+               this_model_ms=cs.device_ms(
+                   lambda: cs.rglru_scan.rglru_scan(am, xm, h0), 50),
+               base_copies_ms=cs.device_ms(
+                   lambda: (am.contiguous(), xm.contiguous()), 50),
+               library_ms=None, base_err=errs[0], this_err=errs[1],
+               this_model_err=errs[2], **cs.rglru_bound(*shape))
+    print(json.dumps(rec), flush=True)
+
+
+def rwkv_rows(base: Path, dev) -> None:
+    """The WKV at ``RWKV_HEAD``, at the model's init decay: base against
+    this tree."""
+    base_fn = build_base(base, "rwkv6_wkv")
+    base_fn.argtypes = rw._launcher().argtypes
+    this_fn = rw._launcher()
+    shape = cs.RWKV_HEAD
+    ins = cs.rwkv_inputs(dev, *shape, cs.RWKV_DECAYS[0], seed=5)
+    ref_out, ref_state = cs.rwkv6_wkv.wkv_ref(*ins)
+    errs = []
+    for fn in (base_fn, this_fn):
+        out, state = wkv_call(fn, *ins)
+        errs.append(max(agrees(out, ref_out, cs.RWKV_TOL),
+                        agrees(state, ref_state, cs.RWKV_TOL)))
+    rec = dict(kernel="rwkv6_wkv", shape=shape, decay=cs.RWKV_DECAYS[0],
+               **turns(lambda: wkv_call(base_fn, *ins),
+                       lambda: wkv_call(this_fn, *ins), 50),
+               library_ms=None, base_err=errs[0], this_err=errs[1],
+               **cs.rwkv_bound(*shape))
+    print(json.dumps(rec), flush=True)
 
 
 def turns(base_fn, this_fn, reps: int) -> dict:
@@ -154,7 +243,13 @@ def main() -> int:
                     help="root of the checkout to compare against")
     ap.add_argument("--engine", action="store_true",
                     help="time the simulator's main-path points instead")
+    ap.add_argument("--only", default=",".join(KERNELS),
+                    help="comma-separated kernels of the default mode: "
+                         + ", ".join(KERNELS))
     args = ap.parse_args()
+    only = set(args.only.split(","))
+    if not only <= set(KERNELS):
+        ap.error(f"--only takes {', '.join(KERNELS)}")
     if not torch.cuda.is_available():
         print("kernel_ab: torch sees no CUDA device", file=sys.stderr)
         return 1
@@ -164,11 +259,23 @@ def main() -> int:
         engine_main(args.base.resolve())
         print(cs.smi_line(), flush=True)
         return 0
-    base_fa = build_base(args.base, "flash_attention")
-    base_gm = build_base(args.base, "grouped_matmul")
+    if "flash" in only:
+        flash_rows(args.base, dev)
+    if "gmm" in only:
+        gmm_rows(args.base, dev)
+    if "rglru" in only:
+        rglru_rows(args.base, dev)
+    if "rwkv" in only:
+        rwkv_rows(args.base, dev)
+    print(cs.smi_line(), flush=True)
+    return 0
+
+
+def flash_rows(base: Path, dev) -> None:
+    """flash_attention at its serve shapes: base against this tree."""
+    base_fa = build_base(base, "flash_attention")
     base_fa.argtypes = fa._launcher().argtypes
-    base_gm.argtypes = gm._launcher().argtypes
-    this_fa, this_gm = fa._launcher(), gm._launcher()
+    this_fa = fa._launcher()
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for shape in FLASH:
         b, sq, skv, h, kv, hd, causal, dtype = shape
@@ -188,6 +295,13 @@ def main() -> int:
                    **cs.flash_bound(*shape))
         print(json.dumps(rec), flush=True)
         del q, k, v, qs, ks, vs, ref
+
+
+def gmm_rows(base: Path, dev) -> None:
+    """grouped_matmul at its serve shapes: base against this tree."""
+    base_gm = build_base(base, "grouped_matmul")
+    base_gm.argtypes = gm._launcher().argtypes
+    this_gm = gm._launcher()
     for shape in cs.GMM_SERVE:
         x, w = cs.gmm_inputs(dev, *shape, "bfloat16", seed=5)
         ref = cs.gmm_plain(x, w)
@@ -203,8 +317,6 @@ def main() -> int:
         print(json.dumps(rec), flush=True)
         del x, w
         torch.cuda.empty_cache()
-    print(cs.smi_line(), flush=True)
-    return 0
 
 
 if __name__ == "__main__":

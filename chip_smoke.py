@@ -28,9 +28,12 @@ Phases, one JSON line each:
    equal, traces included;
 4. scatter_kernel — the colibri_scatter kernel against its plain
    version on the card at the reference tests' shapes (f32 and bf16),
-   the trace path's shapes and two large ones: float sums within
-   ``tests/test_kernels.py``'s tolerances, histograms exact (also
-   against ``torch.bincount``), keys equal to ``bins`` dropped;
+   the trace path's shapes and two large ones, on uniform keys and with
+   keys dropped at both ends (equal to ``bins``, and negative), then on
+   a skewed 2^20-key stream (Zipf, exponent 2, 64 bins), one key over
+   2^20 rows and T = 0: float sums within ``tests/test_kernels.py``'s
+   tolerances, histograms exact (also against ``torch.bincount``), two
+   calls bit for bit;
 5. the LM serve paths, recurrentgemma-2b, rwkv6-1.6b and then
    kimi-k2-1t-a32b's MoE layer:
    flash_kernel / rglru_kernel — each kernel against its plain version
@@ -104,7 +107,10 @@ Phases, one JSON line each:
    20 000-cycle result must equal the kernel's on every key; each
    other kernel's device time per call (profiler) beside its bound, its
    plain version's and the PyTorch library call's, at the shapes the
-   paths give it; the kernels line.
+   paths give it (colibri_scatter also on the trace phase's own four
+   streams beside uniform keys of their length, on the skewed stream,
+   and beside the launch floor: one elementwise add on one element);
+   the kernels line.
 
 The reference values below were computed with the JAX package
 (``repro``); ``tests/test_torch_sync.py`` and
@@ -396,6 +402,12 @@ SCATTER_SHAPES = tuple(
 SCATTER_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (0.15, 1.5)}
 #: the trace path's largest shape: the kernels line's times
 SCATTER_HEAD = (37_505, 64, 1, "float32")
+#: (T, bins) of the skewed stream: keys from a Zipf law with exponent 2
+#: over the bins (``skewed_keys``: 61 % of the rows in bin 0), d 1, f32
+SCATTER_SKEW = (1 << 20, 64)
+#: the trace points whose streams (37 505 and 28 716 keys, 98.9 % and
+#: 97.1 % in one bin) tools/kernel_ab.py times, parent against this tree
+SCATTER_TRACE_TIMED = ("colibri/256/256", "lrsc/256/256")
 
 # ---- the LM serve path: recurrentgemma-2b through ServeEngine ---------
 SERVE_ARCH = "recurrentgemma-2b"
@@ -814,39 +826,86 @@ def scatter_inputs(dev, t: int, bins: int, d: int, dtype: str, seed: int):
     return keys, vals.to(getattr(torch, dtype))
 
 
+def skewed_keys(t: int, bins: int, seed: int,
+                exponent: float = 2.0) -> np.ndarray:
+    """``t`` sorted int32 keys drawn (numpy, seeded) from a Zipf law
+    over ``bins``: p(b) proportional to (b + 1)^-exponent."""
+    p = 1.0 / np.arange(1, bins + 1) ** exponent
+    rng = np.random.default_rng(seed)
+    return np.sort(rng.choice(bins, size=t, p=p / p.sum())).astype(np.int32)
+
+
+def scatter_check(keys, vals, bins: int, what: str) -> float:
+    """The op (sort + commit kernel) against its plain version on one
+    stream: float sums within ``SCATTER_TOL``, histograms exact (also
+    against ``torch.bincount``), a second call's output bit for bit the
+    first's, 1-D values the 2-D ones' column.  Returns the worst
+    difference."""
+    dtype = str(vals.dtype).removeprefix("torch.")
+    t, d = vals.shape
+    out = colibri_scatter.colibri_scatter_add(keys, vals, bins)
+    again = colibri_scatter.colibri_scatter_add(keys, vals, bins)
+    ref = colibri_scatter.scatter_add_ref(keys, vals, bins)
+    hist = colibri_scatter.colibri_histogram(keys, bins)
+    torch.cuda.synchronize()
+    require(out.dtype == vals.dtype and tuple(out.shape) == (bins, d),
+            f"{what}: output {out.dtype}{tuple(out.shape)}")
+    require(torch.equal(out.view(torch.int16 if dtype == "bfloat16"
+                                 else torch.int32),
+                        again.view(torch.int16 if dtype == "bfloat16"
+                                   else torch.int32)),
+            f"{what}: two calls differ in their bits")
+    rtol, atol = SCATTER_TOL[dtype]
+    err = float((out.float() - ref.float()).abs().max())
+    require(torch.allclose(out.float(), ref.float(), rtol=rtol, atol=atol),
+            f"{what}: kernel differs from plain by {err}")
+    kept = keys[(keys >= 0) & (keys < bins)]
+    require(torch.equal(hist, colibri_scatter.histogram_ref(keys, bins))
+            and torch.equal(hist, torch.bincount(
+                kept, minlength=bins).int()),
+            f"{what}: histogram differs")
+    if d == 1:
+        flat = colibri_scatter.colibri_scatter_add(keys, vals[:, 0], bins)
+        require(torch.equal(flat, out[:, 0]), f"{what}: 1-D vals differ")
+    return err
+
+
 def phase_scatter_kernel(dev) -> dict:
+    """The colibri_scatter op against its plain version at every
+    ``SCATTER_SHAPES`` shape on uniform keys and with keys dropped at both
+    ends (every 7th key set to ``bins``, every 11th to -1 or -3), on the
+    skewed stream (``SCATTER_SKEW``), one key spanning the whole stream
+    and T = 0."""
     worst = dict.fromkeys(SCATTER_TOL, 0.0)
+    cases = 0
     for i, (t, bins, d, dtype) in enumerate(SCATTER_SHAPES):
         keys, vals = scatter_inputs(dev, t, bins, d, dtype, i)
         dropped = keys.clone()
         dropped[::7] = bins                      # out of range: dropped
+        dropped[3::11] = -1
+        dropped[5::11] = -3
         for k in (keys, dropped):
-            out = colibri_scatter.colibri_scatter_add(k, vals, bins)
-            ref = colibri_scatter.scatter_add_ref(k, vals, bins)
-            hist = colibri_scatter.colibri_histogram(k, bins)
-            torch.cuda.synchronize()
-            what = f"T={t} bins={bins} d={d} {dtype}"
-            require(out.dtype == vals.dtype
-                    and tuple(out.shape) == (bins, d), f"{what}: output "
-                    f"{out.dtype}{tuple(out.shape)}")
-            rtol, atol = SCATTER_TOL[dtype]
-            err = float((out.float() - ref.float()).abs().max())
-            require(torch.allclose(out.float(), ref.float(), rtol=rtol,
-                                   atol=atol),
-                    f"{what}: kernel differs from plain by {err}")
+            err = scatter_check(k, vals, bins,
+                                f"T={t} bins={bins} d={d} {dtype}")
             worst[dtype] = max(worst[dtype], err)
-            require(torch.equal(hist, colibri_scatter.histogram_ref(k, bins))
-                    and torch.equal(hist, torch.bincount(
-                        k[k < bins], minlength=bins).int()),
-                    f"{what}: histogram differs")
-            if d == 1:
-                flat = colibri_scatter.colibri_scatter_add(k, vals[:, 0],
-                                                           bins)
-                require(torch.equal(flat, out[:, 0]),
-                        f"{what}: 1-D vals differ")
-    emit(phase="scatter_kernel", cases=2 * len(SCATTER_SHAPES),
-         shapes=SCATTER_SHAPES, max_abs_err=worst, tolerance=SCATTER_TOL,
-         histograms_exact=True, equal=True)
+            cases += 1
+    t, bins = SCATTER_SKEW
+    g = torch.Generator(device=dev).manual_seed(41)
+    vals = torch.randn((t, 1), generator=g, device=dev)
+    extra = {"skewed": torch.from_numpy(skewed_keys(t, bins, seed=41)),
+             "one_key": torch.full((t,), 17, dtype=torch.int32)}
+    for name, keys in extra.items():
+        err = scatter_check(keys.to(dev), vals, bins, f"{name} T={t}")
+        worst["float32"] = max(worst["float32"], err)
+        cases += 1
+    for dtype in SCATTER_TOL:
+        empty = torch.zeros((0, 3), device=dev, dtype=getattr(torch, dtype))
+        scatter_check(torch.zeros(0, dtype=torch.int32, device=dev), empty,
+                      5, f"T=0 {dtype}")
+        cases += 1
+    emit(phase="scatter_kernel", cases=cases, shapes=SCATTER_SHAPES,
+         skewed=SCATTER_SKEW, max_abs_err=worst, tolerance=SCATTER_TOL,
+         histograms_exact=True, deterministic=True, equal=True)
     return worst
 
 
@@ -1202,7 +1261,7 @@ def phase_trace(main_points: list) -> dict:
     out_dir = ROOT / "build" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
     total = dict.fromkeys(LAUNCHES, 0)
-    by = {}
+    by, streams = {}, {}
     for name, n, bins in TRACE_POINTS:
         key = f"{name}/{n}/{bins}"
         spec = trace_spec(name, n, bins)
@@ -1228,6 +1287,7 @@ def phase_trace(main_points: list) -> dict:
         require(got == want, f"{key}: differs from the reference on "
                 f"{[k for k in want if got.get(k) != want[k]]}")
         by[(name, bins)] = got
+        streams[key] = got["trace_latency_hist"]
         base = untraced[(name, n, bins)]
         bound = run_bound(spec.to_params())     # not counted: the phase's
         LAUNCHES.update(launches)               # counts were read above
@@ -1251,7 +1311,7 @@ def phase_trace(main_points: list) -> dict:
          lrsc_backoff_spans={b: by[("lrsc", b)]["spans"]["BACKOFF"]
                              for b in bin_counts},
          colibri_backoff_spans=0, equal=True)
-    return dict(launches=total)
+    return dict(launches=total, streams=streams)
 
 
 def profile_run(spec) -> dict:
@@ -1294,17 +1354,39 @@ def phase_profile() -> None:
     emit(phase="profile_traced", **profile_run(trace_spec("colibri", 256, 1)))
 
 
-def time_scatter(dev, t: int, bins: int, d: int, dtype: str) -> dict:
+def launch_floor_ms(dev) -> float:
+    """Device time of the least launch: one elementwise add on a
+    one-element tensor (``add_(1)``), as ``device_ms`` reads it."""
+    one = torch.ones(1, device=dev)
+    return device_ms(lambda: one.add_(1), 100)
+
+
+def scatter_bound(t: int, bins: int, d: int, size: int) -> dict:
+    """The commit's byte bound: keys (4T) and values read once, the
+    output written once."""
+    n_bytes = 4 * t + (t + bins) * d * size
+    return dict(bound_bytes=n_bytes, bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3)
+
+
+def time_scatter(dev, t: int, bins: int, d: int, dtype: str,
+                 keys=None) -> dict:
     """Device time per call of the commit kernel (on pre-sorted
     inputs), the whole op (sort + commit), the plain version and
     ``index_add_`` (and, for histograms, ``colibri_histogram`` and
-    ``torch.bincount``), beside the commit's bound."""
-    keys, vals = scatter_inputs(dev, t, bins, d, dtype, seed=t + bins + d)
+    ``torch.bincount``), beside the commit's bound; on seeded uniform
+    keys, or on ``keys`` (int32, on the card) with standard-normal
+    values."""
+    if keys is None:
+        keys, vals = scatter_inputs(dev, t, bins, d, dtype,
+                                    seed=t + bins + d)
+    else:
+        g = torch.Generator(device=dev).manual_seed(t + bins + d)
+        vals = torch.randn((t, d), generator=g, device=dev).to(
+            getattr(torch, dtype))
     order = torch.argsort(keys, stable=True)
     sk, sv = keys[order].contiguous(), vals[order].contiguous()
     buf = torch.zeros((bins, d), dtype=vals.dtype, device=dev)
     reps = 20 if t * d >= 1 << 20 else 100
-    n_bytes = 4 * t + (t + bins) * d * vals.element_size()
     launches = LAUNCHES["colibri_scatter"]
     rec = dict(
         t=t, bins=bins, d=d, dtype=dtype,
@@ -1315,7 +1397,7 @@ def time_scatter(dev, t: int, bins: int, d: int, dtype: str) -> dict:
         plain_ms=device_ms(lambda: colibri_scatter.scatter_add_ref(
             keys, vals, bins), reps),
         library_ms=device_ms(lambda: buf.index_add_(0, keys, vals), reps),
-        bound_bytes=n_bytes, bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3)
+        **scatter_bound(t, bins, d, vals.element_size()))
     if d == 1 and dtype == "float32":
         lk = keys.long()
         rec["histogram_op_ms"] = device_ms(
@@ -1324,6 +1406,33 @@ def time_scatter(dev, t: int, bins: int, d: int, dtype: str) -> dict:
             lambda: torch.bincount(lk, minlength=bins), reps)
     LAUNCHES["colibri_scatter"] = launches     # timing runs are not counted
     return rec
+
+
+def time_trace_streams(dev, streams: dict) -> list:
+    """The commit kernel on the trace path's own sorted streams (the
+    bins repeated by their counts, ones as values: what
+    ``trace_latency_hist`` hands it), beside uniform keys of the same
+    length; the skew costs nothing if the two times agree."""
+    launches = LAUNCHES["colibri_scatter"]
+    rows = []
+    for key, hist in streams.items():
+        bins = len(hist)
+        sk = torch.from_numpy(np.repeat(np.arange(bins, dtype=np.int32),
+                                        hist)).to(dev)
+        t = sk.numel()
+        ones = torch.ones((t, 1), device=dev)
+        uk = torch.sort(torch.randint(0, bins, (t,), device=dev,
+                                      dtype=torch.int32)).values
+        rows.append(dict(
+            point=key, t=t, bins=bins,
+            top_bin_share=max(hist) / t,
+            ms=device_ms(lambda: cs_kernel.scatter_commit_cuda(sk, ones,
+                                                               bins), 100),
+            uniform_ms=device_ms(lambda: cs_kernel.scatter_commit_cuda(
+                uk, ones, bins), 100),
+            **scatter_bound(t, bins, 1, 4)))
+    LAUNCHES["colibri_scatter"] = launches     # timing runs are not counted
+    return rows
 
 
 # ---- the LM serve path ---------------------------------------------------
@@ -2125,8 +2234,14 @@ def main() -> int:
         shape=dict(protocol=head["protocol"], n=head["n"], a=head["a"])))
     t0 = time.perf_counter()
     scatter_times = [time_scatter(dev, *shape) for shape in SCATTER_SHAPES]
+    t, bins = SCATTER_SKEW
+    skew = time_scatter(dev, t, bins, 1, "float32", keys=torch.from_numpy(
+        skewed_keys(t, bins, seed=41)).to(dev))
+    streams = time_trace_streams(dev, trace_run["streams"])
+    floor = launch_floor_ms(dev)
     emit(phase="scatter_time", seconds=time.perf_counter() - t0,
-         shapes=scatter_times)
+         shapes=scatter_times, skewed=skew, trace_streams=streams,
+         floor_ms=floor)
     head = next(r for r in scatter_times
                 if (r["t"], r["bins"], r["d"], r["dtype"]) == SCATTER_HEAD)
     kernels.append(dict(
@@ -2137,7 +2252,10 @@ def main() -> int:
         max_abs_err=max(scatter_worst.values()),
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by="bytes", library_ms=head["library_ms"],
-        op_ms=head["op_ms"], max_abs_err_by_dtype=scatter_worst,
+        bincount_ms=head["bincount_ms"], op_ms=head["op_ms"],
+        floor_ms=floor,
+        trace_stream_ms={r["point"]: r["ms"] for r in streams},
+        skewed_ms=skew["ms"], max_abs_err_by_dtype=scatter_worst,
         shape=dict(t=head["t"], bins=head["bins"], d=head["d"],
                    dtype=head["dtype"])))
     kernels += lm_kernels

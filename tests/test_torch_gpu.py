@@ -131,6 +131,80 @@ def test_scatter_kernel_matches_plain_version(shape, cuda_device):
     assert torch.equal(hist, colibri_scatter.histogram_ref(keys, bins))
 
 
+def _scatter_keys(kind, dev):
+    """Keys of the scatter kernel's edge cases, on the card."""
+    cs = _chip_smoke()
+    if kind == "skewed":                   # Zipf, exponent 2: 61 % in bin 0
+        keys = torch.from_numpy(cs.skewed_keys(*cs.SCATTER_SKEW, seed=3))
+    elif kind == "both_ends":              # negative and >= bins, dropped
+        g = torch.Generator().manual_seed(5)
+        keys = torch.randint(-4, 68, (100_003,), generator=g,
+                             dtype=torch.int32)
+    elif kind == "none_in_range":
+        keys = torch.tensor([-2] * 5000 + [64] * 7000, dtype=torch.int32)
+    else:                                  # "empty"
+        keys = torch.zeros(0, dtype=torch.int32)
+    return keys.to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["skewed", "both_ends", "none_in_range",
+                                  "empty"])
+def test_scatter_kernel_edge_streams(kind, dtype, cuda_device):
+    """The skewed 2^20-key stream, keys out of range at both ends, none
+    in range, and T = 0, against ``scatter_add_ref`` and
+    ``histogram_ref``; two calls give the same bits."""
+    cs = _chip_smoke()
+    bins = 64
+    keys = _scatter_keys(kind, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    vals = torch.randn((keys.numel(), 3), generator=g,
+                       device=cuda_device).to(getattr(torch, dtype))
+    before = LAUNCHES["colibri_scatter"]
+    out = colibri_scatter.colibri_scatter_add(keys, vals, bins)
+    again = colibri_scatter.colibri_scatter_add(keys, vals, bins)
+    hist = colibri_scatter.colibri_histogram(keys, bins)
+    torch.cuda.synchronize()
+    assert LAUNCHES["colibri_scatter"] == before + 3
+    bits = torch.int16 if dtype == "bfloat16" else torch.int32
+    assert torch.equal(out.view(bits), again.view(bits))
+    ref = colibri_scatter.scatter_add_ref(keys, vals, bins)
+    rtol, atol = cs.SCATTER_TOL[dtype]
+    assert out.dtype == vals.dtype and tuple(out.shape) == (bins, 3)
+    assert torch.allclose(out.float(), ref.float(), rtol=rtol, atol=atol)
+    assert torch.equal(hist, colibri_scatter.histogram_ref(keys, bins))
+    if kind in ("none_in_range", "empty"):
+        assert not out.float().any() and not hist.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 8])
+def test_scatter_commit_is_deterministic(d, cuda_device):
+    """Every float sum's order is fixed by chunk and lane: repeated
+    commits of one skewed stream (its long segment summed across ~160
+    chunks) give the same bits, on one stream and on another."""
+    from repro_torch.kernels.colibri_scatter.kernel import \
+        scatter_commit_cuda
+    cs = _chip_smoke()
+    t, bins = cs.SCATTER_SKEW
+    keys = _scatter_keys("skewed", cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    vals = torch.randn((t, d), generator=g, device=cuda_device)
+    first = scatter_commit_cuda(keys, vals, bins)
+    runs = [scatter_commit_cuda(keys, vals, bins) for _ in range(5)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        runs.append(scatter_commit_cuda(keys, vals, bins))
+    torch.cuda.synchronize()
+    for r in runs:
+        assert torch.equal(r.view(torch.int32), first.view(torch.int32))
+    ref = colibri_scatter.scatter_add_ref(keys, vals, bins)
+    rtol, atol = cs.SCATTER_TOL["float32"]
+    assert torch.allclose(first, ref, rtol=rtol, atol=atol)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(1, 200, 200, 4, 2, 32, True, "float32"),
                                    (2, 64, 256, 2, 1, 64, False, "bfloat16"),

@@ -4,6 +4,7 @@ in turns.
 
     python3 tools/kernel_ab.py --base DIR            # the four LM kernels
     python3 tools/kernel_ab.py --base DIR --only rglru,rwkv
+    python3 tools/kernel_ab.py --base DIR --only scatter
     python3 tools/kernel_ab.py --base DIR --engine   # the simulator
 
 DIR is another checkout of this repository (for instance ``git archive
@@ -30,7 +31,19 @@ both builds on contiguous ``(T, B, w)`` inputs and this one also on the
 model's ``(T, B, w)`` views of ``(B, T, w)`` tensors (``this_model_ms``;
 the base design took those only through two ``.contiguous()`` copies,
 which its row adds as ``base_copies_ms``).  ``--only`` picks the
-kernels: ``flash``, ``gmm``, ``rglru``, ``rwkv``.
+kernels: ``flash``, ``gmm``, ``rglru``, ``rwkv``, ``scatter``.
+
+``scatter`` (not in the default set): DIR's ``colibri_scatter.cu``
+against this tree's, on pre-sorted streams, at every
+``chip_smoke.SCATTER_SHAPES`` shape (uniform keys), on the skewed stream
+(``SCATTER_SKEW``) and on the trace streams of
+``SCATTER_TRACE_TIMED`` (rebuilt from ``TRACE_REF``'s histograms, ones
+as values).  DIR's ``colibri_commit_launch`` is bound with the C
+signature of the one-block-per-bin design (``BASE_SCATTER_ARGS``: keys,
+vals, out, T, d, bins, dtype, stream; this tree's takes a scratch and an
+epoch besides).
+Each row holds both builds' times, the byte bound and both builds'
+worst difference from the plain version.
 
 ``--engine``: the five main-path points of ``chip_smoke``
 (``FULL_WIDTH_POINTS``) at ``AB_ENGINE_CYCLES`` simulated cycles, run by
@@ -55,6 +68,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
@@ -75,11 +89,17 @@ AB_ENGINE_CYCLES = 5_000
 #: design): a, x, h0, h, T, B * w, stream
 BASE_RGLRU_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 \
     + [ctypes.c_void_p]
+#: the C signature of the one-block-per-bin design's
+#: ``colibri_commit_launch``: keys, vals, out, T, d, bins, dtype, stream
+BASE_SCATTER_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] \
+    + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 KERNELS = ("flash", "gmm", "rglru", "rwkv")
+#: kinds --only also takes, outside the default set
+EXTRA = ("scatter",)
 
 
-def build_base(base: Path, name: str):
-    """``name``'s C entry point built from the checkout ``base``."""
+def base_library(base: Path, name: str) -> ctypes.CDLL:
+    """``name``'s library built from the checkout ``base``."""
     src = base / "src" / "repro_torch" / "csrc" / f"{name}.cu"
     out = ROOT / "build" / "kernel_ab" / f"lib{name}_base.so"
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -87,8 +107,12 @@ def build_base(base: Path, name: str):
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"{' '.join(cmd)}:\n{proc.stdout}{proc.stderr}")
-    fn = getattr(ctypes.CDLL(str(out)), f"{name}_launch")
-    return fn
+    return ctypes.CDLL(str(out))
+
+
+def build_base(base: Path, name: str):
+    """``name``'s C entry point built from the checkout ``base``."""
+    return getattr(base_library(base, name), f"{name}_launch")
 
 
 def flash_call(fn, q, k, v, causal):
@@ -244,12 +268,12 @@ def main() -> int:
     ap.add_argument("--engine", action="store_true",
                     help="time the simulator's main-path points instead")
     ap.add_argument("--only", default=",".join(KERNELS),
-                    help="comma-separated kernels of the default mode: "
-                         + ", ".join(KERNELS))
+                    help="comma-separated kernels: "
+                         + ", ".join(KERNELS + EXTRA))
     args = ap.parse_args()
     only = set(args.only.split(","))
-    if not only <= set(KERNELS):
-        ap.error(f"--only takes {', '.join(KERNELS)}")
+    if not only <= set(KERNELS + EXTRA):
+        ap.error(f"--only takes {', '.join(KERNELS + EXTRA)}")
     if not torch.cuda.is_available():
         print("kernel_ab: torch sees no CUDA device", file=sys.stderr)
         return 1
@@ -267,6 +291,8 @@ def main() -> int:
         rglru_rows(args.base, dev)
     if "rwkv" in only:
         rwkv_rows(args.base, dev)
+    if "scatter" in only:
+        scatter_rows(args.base, dev)
     print(cs.smi_line(), flush=True)
     return 0
 
@@ -317,6 +343,59 @@ def gmm_rows(base: Path, dev) -> None:
         print(json.dumps(rec), flush=True)
         del x, w
         torch.cuda.empty_cache()
+
+
+def base_scatter_call(base: Path, dev):
+    """DIR's commit as ``f(sorted_keys, sorted_vals, bins) -> out``,
+    bound with ``BASE_SCATTER_ARGS``."""
+    fn = base_library(base, "colibri_scatter").colibri_commit_launch
+    fn.argtypes = BASE_SCATTER_ARGS
+    fn.restype = ctypes.c_int
+
+    def call(sk, sv, bins):
+        t, d = sv.shape
+        out = torch.empty((bins, d), dtype=sv.dtype, device=dev)
+        err = fn(sk.data_ptr(), sv.data_ptr(), out.data_ptr(), t, d, bins,
+                 cs.cs_kernel.DTYPES[sv.dtype],
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"base colibri_scatter: CUDA error {err}")
+        return out
+    return call
+
+
+def scatter_rows(base: Path, dev) -> None:
+    """The commit kernel on sorted streams: base against this tree."""
+    base_fn = base_scatter_call(base, dev)
+    this_fn = cs.cs_kernel.scatter_commit_cuda
+    cases = []
+    for shape in cs.SCATTER_SHAPES:
+        keys, vals = cs.scatter_inputs(dev, *shape, seed=sum(shape[:3]))
+        cases.append(("uniform", shape, keys, vals))
+    t, bins = cs.SCATTER_SKEW
+    g = torch.Generator(device=dev).manual_seed(41)
+    cases.append(("skewed", (t, bins, 1, "float32"),
+                  torch.from_numpy(cs.skewed_keys(t, bins, seed=41)).to(dev),
+                  torch.randn((t, 1), generator=g, device=dev)))
+    for point in cs.SCATTER_TRACE_TIMED:
+        hist = cs.TRACE_REF[point]["trace_latency_hist"]
+        keys = torch.from_numpy(np.repeat(np.arange(len(hist), dtype=np.int32),
+                                          hist)).to(dev)
+        cases.append((point, (keys.numel(), len(hist), 1, "float32"), keys,
+                      torch.ones((keys.numel(), 1), device=dev)))
+    for name, (t, bins, d, dtype), keys, vals in cases:
+        order = torch.argsort(keys, stable=True)
+        sk, sv = keys[order].contiguous(), vals[order].contiguous()
+        ref = cs.colibri_scatter.scatter_add_ref(sk, sv, bins)
+        tol = cs.SCATTER_TOL[dtype]
+        errs = [agrees(f(sk, sv, bins), ref, tol) for f in (base_fn, this_fn)]
+        reps = 20 if t * d >= 1 << 20 else 100
+        rec = dict(kernel="colibri_scatter", keys=name, shape=(t, bins, d, dtype),
+                   **turns(lambda: base_fn(sk, sv, bins),
+                           lambda: this_fn(sk, sv, bins), reps),
+                   base_err=errs[0], this_err=errs[1],
+                   **cs.scatter_bound(t, bins, d, sv.element_size()))
+        print(json.dumps(rec), flush=True)
 
 
 if __name__ == "__main__":

@@ -101,7 +101,24 @@ Phases, one JSON line each:
 10. profile — device time by kernel over a whole run of the 256-core
    colibri point (``torch.profiler``), untraced and traced: the card's
    busy share of the run's wall, engine_run's share of the busy time;
-11. kernel times — engine_run's device time per run at the five
+11. sweep — the batched sweep (``repro_torch.sync.Study`` → one launch
+   of the engine_run kernel per core count, a grid of run blocks): the
+   Fig. 3 uniform lines (``SWEEP_LINES`` × ``SWEEP_BINS``, 256 cores,
+   ``FULL_WIDTH_CYCLES``; the skewed companion lines are refused by the
+   port) and the 1024-core colibri point as one Study of 2 launches,
+   then the mixed grid (``SWEEP_MIXED``: one launch whose blocks differ
+   in every ``DYN_FIELDS`` field but ``zipf_skew``, banks padded to the
+   bucket, the Fig. 5 workers, one traced point): every point bit for
+   bit equal to its own single ``run`` (padded bank rows at the initial
+   state), every ``Result.ok``, the full-width points equal to
+   ``FULL_WIDTH_REF``; the Study's wall against the sum of its single
+   runs' walls and its busy share (the chunks' card time from CUDA
+   events over the wall; the profiler's reading beside it), ms per
+   launch and per point for ``SWEEP_B`` seeds of colibri 256 × 1 (CUDA
+   events) beside the barrier floor of a grid of as many blocks and the
+   byte bound, and the blocks resident per SM with the registers a
+   thread;
+12. kernel times — engine_run's device time per run at the five
    main-path points beside its byte bound and the barrier-only floor of
    its chain of cycles, and the plain loop's time at the first, whose
    20 000-cycle result must equal the kernel's on every key; each
@@ -272,14 +289,19 @@ FULL_WIDTH_REF = {
     519.8547404268566}}
 
 
-#: (cores, banks) of the kernel-vs-plain phases: every shape the golden
-#: and main-path phases run, plus (256, 64), (1024, 256) and the
-#: reference's multi-tile case (2048, 512)
+#: the Fig. 3 histogram's bin counts (benchmarks/bench_histogram.py)
+SWEEP_BINS = (1, 4, 16, 64, 256, 1024)
+
+#: (cores, banks) of the kernel-vs-plain phases: every shape the golden,
+#: main-path and sweep phases run (a swept point's banks are its
+#: power-of-two bucket), plus (1024, 256) and the reference's multi-tile
+#: case (2048, 512)
 KERNEL_SHAPES = tuple(sorted(
     {(c["n_cores"], c["n_addrs"]) for c in GOLDEN_CONFIGS}
     | {(c["n_cores"], c["n_addrs"]) for c, _ in GOLDEN_EXTRA.values()}
     | {(n, bins) for _, n, bins in FULL_WIDTH_POINTS}
-    | {(256, 64), (1024, 256), (2048, 512)}))
+    | {(256, bins) for bins in SWEEP_BINS}
+    | {(1024, 256), (2048, 512)}))
 
 
 # ---- the trace path: the main path's 256-core points, traced ---------
@@ -564,6 +586,49 @@ RUN_KERNEL_CYCLES = 300
 #: holds), each run over LAYOUT_CASE_CYCLES cycles
 LAYOUT_CASES = ((2100, 64), (300, 7000))
 LAYOUT_CASE_CYCLES = 48
+
+
+# ---- the sweep: the paper's grids through Study, a launch per core count
+#: the Fig. 3 uniform lines (benchmarks/bench_histogram.py): four
+#: protocols and lrscwait with 8 queue slots, at these bin counts, 256
+#: cores, FULL_WIDTH_CYCLES; the skewed companion lines (zipf_skew=150)
+#: are left out: the port refuses skew (ROADMAP A3)
+SWEEP_LINES = (("amo", 256), ("lrsc", 256), ("lrscwait", 256),
+               ("colibri", 256), ("lrscwait", 8))
+#: launch groups of the Fig. 3 Study (one per core count: 256, and the
+#: 1024-core colibri point added to it)
+SWEEP_FIG3_LAUNCHES = 2
+#: the mixed grid: 256 cores, one launch, every DYN_FIELDS field but
+#: zipf_skew differing between its blocks (n_addrs off the power-of-two
+#: buckets, so the banks are padded, each bucket a KERNEL_SHAPES entry),
+#: the Fig. 5 regime (lrscwait, net_bw 13, hol_block 16, 0/64/128
+#: workers) and one traced point
+SWEEP_MIXED = (
+    dict(protocol="lrscwait", n_addrs=1, net_bw=13, hol_block=16,
+         n_workers=0, seed=1),
+    dict(protocol="lrscwait", n_addrs=1, net_bw=13, hol_block=16,
+         n_workers=64, seed=2),
+    dict(protocol="lrscwait", n_addrs=1, net_bw=13, hol_block=16,
+         n_workers=128, seed=3),
+    dict(protocol="colibri", n_addrs=3, lat=3, work=6, modify=2, seed=-7),
+    dict(protocol="lrsc", n_addrs=13, backoff=128, backoff_exp=1,
+         seed=2**40 + 11),
+    dict(protocol="lrsc", n_addrs=200, lat=8, backoff=64, backoff_exp=3,
+         net_bw=32, hol_block=0, n_workers=16, seed=5),
+    dict(protocol="amo", n_addrs=48, work=20, modify=1, net_bw=9, seed=6),
+    dict(protocol="lrscwait", q_slots=8, n_addrs=600, lat=2, work=3,
+         modify=6, hol_block=4, seed=7),
+    dict(protocol="colibri", n_addrs=33, cycles=5_000, record_trace=True,
+         telemetry_windows=64, seed=8),
+)
+#: batch sizes timed: B seeds of colibri 256 x 1 at FULL_WIDTH_CYCLES in
+#: one launch (132 = the H100's SMs)
+SWEEP_B = (1, 8, 32, 132, 264)
+#: per-bank result arrays of a swept point padded to the bucket, with
+#: their bank axis
+BANK_AXIS = {"addr_ops": 0, "qbuf": 0, "qhead": 0, "qlen": 0,
+             "wake_tmr": 0, "resv_core": 0, "resv_valid": 0,
+             "trace_qlen": 1}
 
 
 def reset_launches() -> None:
@@ -1140,23 +1205,24 @@ def time_kernel(dev, name: str, n: int, a: int) -> dict:
     return out
 
 
-def barrier_floor_ms(threads: int, cycles: int, per_cycle: int) -> float:
-    """Device ms of engine_barrier_kernel: one block of ``threads``,
-    ``cycles`` cycles of ``per_cycle`` barriers and no other work (CUDA
-    events, one launch after a warm one)."""
+def barrier_floor_ms(threads: int, cycles: int, per_cycle: int,
+                     blocks: int = 1) -> float:
+    """Device ms of engine_barrier_kernel: a grid of ``blocks`` blocks of
+    ``threads``, each ``cycles`` cycles of ``per_cycle`` barriers and no
+    other work (CUDA events, one launch after a warm one)."""
     fn = _build.library("engine_step").engine_barrier_launch
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
-    sink = torch.zeros(1, dtype=torch.int32, device="cuda")
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    sink = torch.zeros(blocks, dtype=torch.int32, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
     t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    require(fn(threads, cycles, per_cycle, sink.data_ptr(), stream) == 0,
-            "engine_barrier launch failed")                  # warm
+    require(fn(blocks, threads, cycles, per_cycle, sink.data_ptr(),
+               stream) == 0, "engine_barrier launch failed")  # warm
     t0.record()
-    require(fn(threads, cycles, per_cycle, sink.data_ptr(), stream) == 0,
-            "engine_barrier launch failed")
+    require(fn(blocks, threads, cycles, per_cycle, sink.data_ptr(),
+               stream) == 0, "engine_barrier launch failed")
     t1.record()
     torch.cuda.synchronize()
-    require(int(sink) == cycles, "engine_barrier ran short")
+    require(bool((sink == cycles).all()), "engine_barrier ran short")
     return t0.elapsed_time(t1)
 
 
@@ -1316,7 +1382,10 @@ def phase_trace(main_points: list) -> dict:
 
 def profile_run(spec) -> dict:
     """Device activity of one run of ``spec`` under ``torch.profiler``,
-    after a warm run and an unprofiled timed run."""
+    after a warm run and an unprofiled timed run.  A profile that kept no
+    record of the engine_run kernel (the profiler can lose records: see
+    ``device_ms``) is taken again, up to three times, and then reported
+    with its shares as ``None`` (not measured)."""
     from torch.profiler import ProfilerActivity, profile
     cycles = spec.costs.cycles
     launches = dict(LAUNCHES)
@@ -1324,22 +1393,27 @@ def profile_run(spec) -> dict:
     t0 = time.perf_counter()
     run(spec)
     wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run(spec)
-        wall_prof = time.perf_counter() - t0
+    for taken in range(1, 4):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run(spec)
+            wall_prof = time.perf_counter() - t0
+        rows = device_rows(prof)
+        kern = [r for r in rows if "engine_run" in r[0]]
+        if kern:
+            break
     LAUNCHES.update(launches)                  # not a path's counted run
-    rows = device_rows(prof)
     busy = sum(r[2] for r in rows)
-    kern = [r for r in rows if "engine_run" in r[0]]
+    kern_us = sum(r[2] for r in kern)
     return dict(cycles=cycles, wall_s=wall, wall_s_profiled=wall_prof,
-                ms_per_cycle=wall / cycles * 1e3, device_busy_us=busy,
-                device_busy_share=busy / 1e6 / wall,
+                ms_per_cycle=wall / cycles * 1e3, profiles_taken=taken,
+                device_busy_us=busy if kern else None,
+                device_busy_share=busy / 1e6 / wall if kern else None,
                 device_activities_per_cycle=sum(r[1] for r in rows) / cycles,
-                engine_run_us=sum(r[2] for r in kern),
+                engine_run_us=kern_us,
                 engine_run_launches=sum(r[1] for r in kern),
-                engine_run_share_of_busy=sum(r[2] for r in kern) / busy,
+                engine_run_share_of_busy=kern_us / busy if kern else None,
                 top=[dict(kernel=k[:80], count=c, us=t)
                      for k, c, t in rows[:12]])
 
@@ -1352,6 +1426,208 @@ def phase_profile() -> None:
     the busy time."""
     emit(phase="profile", **profile_run(full_width_spec("colibri", 256, 1)))
     emit(phase="profile_traced", **profile_run(trace_spec("colibri", 256, 1)))
+
+
+def sweep_fig3_specs() -> list:
+    """The Fig. 3 Study's points, and the 1024-core colibri point."""
+    specs = [full_width_spec(proto, 256, bins).replace(q_slots=q)
+             for proto, q in SWEEP_LINES for bins in SWEEP_BINS]
+    return specs + [full_width_spec("colibri", 1024, 1)]
+
+
+def sweep_mixed_specs() -> list:
+    return [Spec(workload="zipf_histogram", zipf_skew=0, n_cores=256,
+                 cycles=FULL_WIDTH_CYCLES).replace(**kw)
+            for kw in SWEEP_MIXED]
+
+
+def swept_diff(swept: dict, one: dict, p) -> list:
+    """Keys where a swept point differs from its single run: every key
+    of the single run, bank arrays on their live rows and the padded
+    rows past them at the protocol's initial bank state."""
+    from repro_torch.core.sweep import _bucket_a
+    if list(swept) != list(one):
+        return [f"keys {list(swept)} != {list(one)}"]
+    bucket = _bucket_a(p.n_addrs)
+    proto = protocols.get(p.protocol)
+    init = convert.to_numpy(proto.init_bank_state(
+        p, bucket, p.n_cores, proto.q_cap(p, p.n_cores), "cpu"))
+    bad = []
+    for k, w in one.items():
+        g, w = np.asarray(swept[k]), np.asarray(w)
+        if k in BANK_AXIS:
+            ax = BANK_AXIS[k]
+            pad = np.take(g, range(p.n_addrs, bucket), axis=ax)
+            want_pad = (np.take(init[k], range(p.n_addrs, bucket), axis=ax)
+                        if k in init else np.zeros_like(pad))
+            if g.shape[ax] != bucket or not np.array_equal(pad, want_pad):
+                bad.append(f"{k} (padding)")
+                continue
+            g = np.take(g, range(p.n_addrs), axis=ax)
+        if g.dtype != w.dtype or g.shape != w.shape or not np.array_equal(
+                g, w, equal_nan=g.dtype.kind == "f"):
+            bad.append(k)
+    return bad
+
+
+def sweep_check(name: str, specs: list, launches_want: int) -> dict:
+    """One Study over ``specs`` on the card: its launches, then every
+    point against its own single ``run`` (one launch each), bit for bit.
+    Returns the Study's results and walls beside the single runs'."""
+    from repro_torch import obs
+    from repro_torch.sync import Study
+    study = Study.from_specs(specs)
+    reset_launches()
+    t0 = time.perf_counter()
+    with obs.collect() as report:
+        got = study.run()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    require(launches["engine_run"] == launches_want
+            and launches["engine_step"] == 0,
+            f"sweep {name}: {launches['engine_run']} engine_run and "
+            f"{launches['engine_step']} engine_step launches, want "
+            f"{launches_want} and 0")
+    require(report.n_chunks == launches_want
+            and report.n_points == len(specs),
+            f"sweep {name}: report {report.summary()}")
+    singles = []
+    for spec, r in zip(specs, got):
+        key = (f"{spec.protocol.name}/q{spec.protocol.q_slots}/"
+               f"{spec.topology.n_cores}/{spec.topology.n_addrs}")
+        require(r.ok, f"sweep {name} {key}: error record {r.error}")
+        reset_launches()
+        t1 = time.perf_counter()
+        one = run(spec)
+        singles.append(time.perf_counter() - t1)
+        require_one_run(f"sweep {name} {key} single")
+        bad = swept_diff(r.stats, one.stats, spec.to_params())
+        require(not bad, f"sweep {name} {key}: differs from its single "
+                         f"run on {bad}")
+    LAUNCHES.update(launches)
+    return dict(results=got, wall_s=wall, single_wall_s=singles,
+                launches=launches["engine_run"], report=report.to_dict())
+
+
+def time_batch(b: int) -> dict:
+    """B seeds of colibri 256 x 1 at FULL_WIDTH_CYCLES in one launch:
+    the card's time from the launch's first copy to the end of the
+    kernel (CUDA events; the host has packed the launch before the first
+    event), the host wall of the whole call, the barrier-only floor of a
+    grid of B blocks and the byte bound, B times one run's; best of 3."""
+    base = full_width_spec("colibri", 256, 1).to_params()
+    pts = [dataclasses.replace(base, seed=s) for s in range(b)]
+    launches = dict(LAUNCHES)
+    sim.simulate_batch(pts, "cuda")                           # warm
+    torch.cuda.synchronize()
+    walls, card = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        sim.simulate_batch(pts, "cuda")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        sim.simulate_batch(pts, "cuda", started=e0)
+        e1.record()
+        torch.cuda.synchronize()
+        card.append(e0.elapsed_time(e1))
+    threads, per_cycle = run_block("colibri", 256)
+    one = run_bound(base)
+    LAUNCHES.update(launches)                 # timing runs are not counted
+    floor = barrier_floor_ms(threads, base.cycles, per_cycle, blocks=b)
+    ms, wall_ms = min(card), min(walls) * 1e3
+    return dict(b=b, ms=ms, ms_per_point=ms / b, wall_ms=wall_ms,
+                wall_ms_per_point=wall_ms / b,
+                us_per_cycle=ms / base.cycles * 1e3, ms_turns=card,
+                barrier_floor_ms=floor, bound_bytes=b * one["bound_bytes"],
+                bound_ms=b * one["bound_ms"])
+
+
+def occupancy(n: int, a: int) -> dict:
+    """What the card gives engine_run blocks of ``n`` cores and ``a``
+    banks: blocks resident per SM, registers and local bytes a thread."""
+    lib = _build.library("engine_step")
+    lib.engine_run_occupancy.argtypes = [ctypes.c_int, ctypes.c_longlong,
+                                         ctypes.c_void_p]
+    lib.engine_run_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.engine_run_smem_bytes.restype = ctypes.c_longlong
+    smem = lib.engine_run_smem_bytes(n, a)
+    out = (ctypes.c_int * 4)()
+    require(lib.engine_run_occupancy(n, smem, out) == 0,
+            "engine_run_occupancy failed")
+    return dict(n=n, a=a, smem=smem, blocks_per_sm=out[0],
+                registers=out[1], threads=out[2], local_bytes=out[3],
+                sms=torch.cuda.get_device_properties(0).multi_processor_count)
+
+
+def phase_sweep() -> dict:
+    """The batched sweep on the card: the Fig. 3 Study (30 uniform
+    points and the 1024-core colibri point, 2 launches) and the mixed
+    grid (1 launch), every point bit for bit equal to its single run,
+    every Result ok, the full-width points equal to FULL_WIDTH_REF; then
+    the Study's wall against its single runs', its busy share, ms per
+    launch and per point at each SWEEP_B beside the grid's barrier floor
+    and byte bound, and the blocks resident per SM."""
+    fig3 = sweep_check("fig3", sweep_fig3_specs(), SWEEP_FIG3_LAUNCHES)
+    by = {(r.spec.protocol.name, r.spec.protocol.q_slots,
+           r.spec.topology.n_cores, r.spec.topology.n_addrs): r
+          for r in fig3["results"]}
+    for name, n, bins in FULL_WIDTH_POINTS:
+        got = full_width_summary(by[(name, 256, n, bins)].stats)
+        want = FULL_WIDTH_REF[f"{name}/{n}/{bins}"]
+        require(got == want, f"sweep {name}/{n}/{bins}: {got} != {want}")
+    mixed = sweep_check("mixed", sweep_mixed_specs(), 1)
+    emit(phase="sweep_check", fig3_points=len(fig3["results"]),
+         fig3_launches=fig3["launches"], mixed_points=len(SWEEP_MIXED),
+         mixed_launches=mixed["launches"],
+         full_width_ref_points=len(FULL_WIDTH_POINTS), equal=True,
+         fig3_report=fig3["report"])
+
+    from repro_torch import obs
+    from repro_torch.sync import Study
+    from torch.profiler import ProfilerActivity, profile
+    study = Study.from_specs(sweep_fig3_specs())
+    launches = dict(LAUNCHES)
+    walls, card = [], []
+    for _ in range(3):
+        with obs.collect() as report:
+            t0 = time.perf_counter()
+            study.run()
+            walls.append(time.perf_counter() - t0)
+        card.append(report.to_dict())
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        study.run()
+        wall_prof = time.perf_counter() - t0
+    LAUNCHES.update(launches)                 # timing runs are not counted
+    rows = device_rows(prof)
+    busy = sum(r[2] for r in rows)
+    kern = [r for r in rows if "engine_run" in r[0]]
+    single = sum(fig3["single_wall_s"])
+    best = min(range(len(walls)), key=walls.__getitem__)
+    fig3_time = dict(
+        points=len(fig3["results"]), launches=SWEEP_FIG3_LAUNCHES,
+        study_wall_s=fig3["wall_s"], study_wall_s_repeat=walls,
+        single_walls_sum_s=single,
+        single_wall_max_s=max(fig3["single_wall_s"]),
+        single_walls_s=fig3["single_wall_s"],
+        speedup=single / walls[best],
+        chunk_execute_s=[c["execute_s"] for c in card[best]["chunks"]],
+        device_busy_share=card[best]["execute_s"] / walls[best],
+        wall_s_profiled=wall_prof, profiler_busy_us=busy,
+        profiler_busy_share=busy / 1e6 / wall_prof,
+        profiler_engine_run_us=sum(r[2] for r in kern),
+        profiler_engine_run_launches=sum(r[1] for r in kern),
+        top=[dict(kernel=k[:80], count=c, us=t) for k, c, t in rows[:8]])
+    emit(phase="sweep_fig3_time", **fig3_time)
+    batches = [time_batch(b) for b in SWEEP_B]
+    emit(phase="sweep_batch_time", batches=batches)
+    occ = [occupancy(256, 1), occupancy(1024, 1)]
+    emit(phase="sweep_occupancy", shapes=occ)
+    return dict(fig3_launches=fig3["launches"],
+                mixed_launches=mixed["launches"], fig3=fig3_time,
+                batches=batches, occupancy=occ)
 
 
 def launch_floor_ms(dev) -> float:
@@ -2198,6 +2474,7 @@ def main() -> int:
     main_run = timed(phase_main)
     trace_run = timed(phase_trace, main_run["points"])
     timed(phase_profile)
+    sweep_run = timed(phase_sweep)
 
     t0 = time.perf_counter()
     runs = [time_run(full_width_spec(*pt), plain=i == 0)
@@ -2215,7 +2492,18 @@ def main() -> int:
                                 "barrier_floor_ms", "barriers_per_cycle",
                                 "threads")},
         shape=dict(protocol=head["protocol"], n=head["n"], a=head["a"],
-                   cycles=head["cycles"]))]
+                   cycles=head["cycles"]),
+        batched=dict(
+            sweep_fig3_launches=sweep_run["fig3_launches"],
+            sweep_mixed_launches=sweep_run["mixed_launches"],
+            fig3_study_wall_s=min(sweep_run["fig3"]["study_wall_s_repeat"]),
+            fig3_single_walls_sum_s=sweep_run["fig3"]["single_walls_sum_s"],
+            fig3_busy_share=sweep_run["fig3"]["device_busy_share"],
+            by_b=[{k: r[k] for k in ("b", "ms", "ms_per_point", "wall_ms",
+                                     "wall_ms_per_point", "barrier_floor_ms",
+                                     "bound_ms")}
+                  for r in sweep_run["batches"]],
+            occupancy=sweep_run["occupancy"]))]
     timing = [time_kernel(dev, "colibri", 256, 1),
               time_kernel(dev, "lrsc", 256, 256),
               time_kernel(dev, "colibri", 1024, 1)]

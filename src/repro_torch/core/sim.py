@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Dict
+from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -62,6 +62,12 @@ PROTOCOLS = ("amo", "lrsc", "lrscwait", "colibri")
 #: execution backends.  The port keeps the field so reference JSON loads;
 #: the device of the run (``device=``) picks kernel or plain code.
 BACKENDS = ("auto",)
+
+#: SimParams fields that may differ between the runs of one sweep chunk
+#: (the reference's traced sweep axes, ``repro.core.sim.DYN_FIELDS``)
+DYN_FIELDS = ("seed", "n_addrs", "lat", "work", "modify", "backoff",
+              "backoff_exp", "net_bw", "hol_block", "n_workers",
+              "zipf_skew")
 
 #: int32 sentinel for "no request" in the arbitration
 _BIG = 2**31 - 1
@@ -229,18 +235,61 @@ def simulate(p: SimParams, device) -> Dict[str, torch.Tensor]:
     return _simulate_plain(p, dev)
 
 
-def _simulate_plain(p: SimParams, device) -> Dict[str, torch.Tensor]:
+def _bucket_a(n_addrs: int) -> int:
+    """Bank-allocation bucket of a swept point: the next power of two
+    ≥ ``n_addrs`` (the reference's ``repro.core.sweep._bucket_a``, so a
+    swept point's bank arrays have its shapes)."""
+    return 1 << max(n_addrs - 1, 0).bit_length()
+
+
+def simulate_batch(points: Sequence[SimParams], device, started=None
+                   ) -> List[Dict[str, torch.Tensor]]:
+    """Many engine runs on ``device``: one result dict per point, in
+    order, each what :func:`simulate` gives for that point except that
+    its bank arrays (``addr_ops``, the protocol's bank state and
+    ``trace_qlen``'s columns) have the power-of-two bucket of its
+    ``n_addrs`` (:func:`_bucket_a`) as rows, as in the
+    reference's sweep: the padded banks see no request and keep their
+    initial state.  On a GPU the points of one core count are ONE
+    launch of the ``engine_run`` kernel (``engine_step.run_cuda_batch``,
+    every tensor of a launch a view of one flat buffer); on the CPU each
+    point is the plain loop, :func:`_simulate_plain`, at the bucket.
+    ``started``, a CUDA event, is recorded when the host has packed the
+    first launch, before the card's work (GPU only)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return [_simulate_plain(p, dev, banks=_bucket_a(p.n_addrs))
+                for p in points]
+    groups: Dict[int, List[int]] = {}
+    for i, p in enumerate(points):
+        groups.setdefault(p.n_cores, []).append(i)
+    out: List[Dict[str, torch.Tensor]] = [None] * len(points)  # type: ignore
+    for idxs in groups.values():
+        runs = [(points[i], proto_registry.get(points[i].protocol),
+                 wl_registry.get(points[i].workload).program(points[i]),
+                 _bucket_a(points[i].n_addrs)) for i in idxs]
+        for i, res in zip(idxs, engine_step.run_cuda_batch(runs, dev,
+                                                           started)):
+            out[i] = res
+        started = None
+    return out
+
+
+def _simulate_plain(p: SimParams, device, banks=None
+                    ) -> Dict[str, torch.Tensor]:
     """The plain version of a run: one pass of an eager loop per
     simulated cycle, its bank side through ``engine_step.fused_step``
     (one launch of the per-cycle CUDA kernel a cycle on a GPU, its plain
     version on the CPU).  It is what ``simulate`` runs on the CPU, and
-    what the ``engine_run`` kernel is held against on the card."""
+    what the ``engine_run`` kernel is held against on the card.
+    ``banks`` (default ``p.n_addrs``) is the number of banks allocated;
+    addresses are drawn over ``p.n_addrs``."""
     dev = torch.device(device)
     i32 = torch.int32
     proto = proto_registry.get(p.protocol)
     prog = wl_registry.get(p.workload).program(p)
     pt = prog.tables()
-    n, a = p.n_cores, p.n_addrs
+    n, a = p.n_cores, (p.n_addrs if banks is None else banks)
     q_cap = proto.q_cap(p, n)
     exp_cap = 1 if proto.fixed_backoff else p.backoff_exp
     # one-step programs (SimParams refuses others): every per-step table
@@ -485,6 +534,85 @@ def _simulate_plain(p: SimParams, device) -> Dict[str, torch.Tensor]:
     return out
 
 
+#: numpy dtype of each result dtype (the host copy's views)
+_NP_DTYPE = {torch.int32: np.dtype(np.int32), torch.int8: np.dtype(np.int8),
+             torch.bool: np.dtype(np.bool_)}
+
+
+class HostCopy:
+    """Result dicts' copy to the host, maybe still in flight; :meth:`wait`
+    gives them as numpy dicts (views of the copy)."""
+
+    def __init__(self, outs, where=None, done=None, started=None):
+        self.outs, self.where = outs, where
+        self.done, self.started = done, started
+
+    def wait(self) -> List[Dict[str, np.ndarray]]:
+        if self.where is None:                      # CPU tensors
+            return [{k: t.numpy() for k, t in out.items()}
+                    for out in self.outs]
+        if self.done is not None:
+            self.done.synchronize()
+        res = []
+        for out, where in zip(self.outs, self.where):
+            row = {}
+            for k, t in out.items():
+                host, lo = where[k]
+                dt = _NP_DTYPE[t.dtype]
+                row[k] = host[lo:lo + t.numel() * dt.itemsize].view(
+                    dt).reshape(t.shape)
+            res.append(row)
+        return res
+
+    def seconds(self) -> float:
+        """Card seconds from ``started`` to the end of the copy (0.0
+        without both events)."""
+        if self.done is None or self.started is None:
+            return 0.0
+        return self.started.elapsed_time(self.done) / 1e3
+
+
+def to_host(outs: List[Dict[str, torch.Tensor]], started=None,
+            pinned: bool = False) -> HostCopy:
+    """Copy result dicts of GPU tensors to the host in ONE copy per
+    distinct buffer they are views of (``simulate_batch``'s, and a
+    single run's, are views of one flat buffer): the span from the first
+    to the last byte they hold.  With ``pinned`` the copy goes into
+    pinned memory, queued on the stream behind the work before it, and
+    the host waits only in :meth:`HostCopy.wait` (``started``, a CUDA
+    event recorded before that work, times it); else it is a plain
+    synchronous copy.  CPU tensors are already on the host."""
+    if not outs or next(iter(outs[0].values())).device.type != "cuda":
+        return HostCopy(outs)
+    spans: Dict[int, list] = {}
+    for out in outs:
+        for t in out.values():
+            base = t if t._base is None else t._base
+            lo = t.data_ptr() - base.data_ptr()
+            span = spans.setdefault(base.data_ptr(), [base, lo, lo, None])
+            span[1] = min(span[1], lo)
+            span[2] = max(span[2], lo + t.numel() * t.element_size())
+    for span in spans.values():
+        base, lo, hi, _ = span
+        host = torch.empty(hi - lo, dtype=torch.uint8, pin_memory=pinned)
+        host.copy_(base.reshape(-1).view(torch.uint8)[lo:hi],
+                   non_blocking=pinned)
+        span[3] = host.numpy()
+    where = []
+    for out in outs:
+        w = {}
+        for k, t in out.items():
+            base = t if t._base is None else t._base
+            _, lo, _, host = spans[base.data_ptr()]
+            w[k] = (host, t.data_ptr() - base.data_ptr() - lo)
+        where.append(w)
+    done = None
+    if pinned:
+        done = torch.cuda.Event(enable_timing=started is not None)
+        done.record()
+    return HostCopy(outs, where, done, started)
+
+
 def derive_metrics(res: Dict[str, np.ndarray], n_workers: int, cycles: int,
                    energy_fit=None) -> Dict[str, np.ndarray]:
     """Attach the paper's metric set to a raw numpy result dict (alias
@@ -497,8 +625,7 @@ def execute(p: SimParams, energy_fit=None, device=None
     """Run one configuration on ``device`` (default ``"cuda"``) and
     return the metric-annotated result dict as numpy arrays.  Internal
     entry point: the public surface is :func:`repro_torch.sync.run`."""
-    out = simulate(p, resolve_device(device))
-    res = {k: v.cpu().numpy() for k, v in out.items()}
+    res = to_host([simulate(p, resolve_device(device))]).wait()[0]
     return derive_metrics(res, min(p.n_workers, p.n_cores), p.cycles,
                           energy_fit=energy_fit)
 

@@ -42,8 +42,13 @@
 // census, the windowed telemetry and the per-cycle traces, bit for bit.
 // Hopper's counterpart of the reference's lax.scan is a persistent block:
 //
-//   * one thread block per run (a batch of runs becomes a grid of blocks);
-//     the cycles loop inside the kernel;
+//   * one thread block per run, the cycles looping inside the kernel; a
+//     batch of runs of one core count (core/sweep.py's launch group) is
+//     a grid of such blocks, one launch.  Block b stages its own run's
+//     parameter words and output pointers in shared memory once (blocks
+//     of at most 256 threads copy the scalars on into registers);
+//     nothing is shared between blocks but the read-only kLatThr table,
+//     so the blocks may run in any order;
 //   * per-core state in registers: thread t owns cores t + k * blockDim
 //     (k < K, K = 1 up to 1024 cores, 2 up to 2048); above that the
 //     state lives in the output arrays in device memory;
@@ -79,6 +84,12 @@
 // chain of cycles (the barrier floor, measured by engine_barrier_kernel),
 // not by bytes: an untraced run reads and writes tens of KB, a traced
 // 256 x 256 run of 5 000 cycles about 11.5 MB (3.4 µs at 3.35 TB/s).
+//
+// A batch allocates each run's banks at the power-of-two bucket of its
+// address count (core/sim.py::_bucket_a) and hashes addresses over the
+// live count (RunParams.n_addrs), as the reference's sweep does: the
+// padded banks see no request and keep their initial state.  A single
+// run has n_addrs == a.
 //
 // Bit-exactness: int32 counters wrap as torch's do (unsigned adds);
 // _hash is a native uint32 multiply; the skew-0 Zipf stream is two
@@ -283,8 +294,8 @@ engine_step_kernel(const int32_t* __restrict__ cand,
 // them into an int32 array; zipf_c travels as its float32 bits, seed as
 // its uint32 bits)
 enum Param {
-  P_N, P_A, P_CYCLES, P_PROTO, P_Q_CAP, P_LAT, P_WAKE_DELAY, P_SUCC,
-  P_PRE_DUR, P_MOD_DUR, P_ADDR_MODE, P_FIX_ADDR, P_ZIPF_C, P_EXP_CAP,
+  P_N, P_A, P_N_ADDRS, P_CYCLES, P_PROTO, P_Q_CAP, P_LAT, P_WAKE_DELAY,
+  P_SUCC, P_PRE_DUR, P_MOD_DUR, P_ADDR_MODE, P_FIX_ADDR, P_ZIPF_C, P_EXP_CAP,
   P_SEED, P_NET_BW, P_HOL_BLOCK, P_N_WORKERS, P_N_ATOMIC, P_STAGGER,
   P_TRACE, P_TELE_WINDOWS, P_TELE_CW, P_BO_TAB
 };
@@ -293,19 +304,51 @@ enum Param {
 constexpr int kBoTab = 34;
 constexpr int kNumParams = P_BO_TAB + kBoTab;
 
+// a run's scalars, unpacked from its words (the backoff table stays in
+// the words, in shared memory)
 struct RunParams {
-  int n, a, cycles, proto, q_cap, lat, wake_delay, succ, pre_dur, mod_dur,
-      addr_mode, fix_addr;
+  int n, a, n_addrs, cycles, proto, q_cap, lat, wake_delay, succ, pre_dur,
+      mod_dur, addr_mode, fix_addr;
   float zipf_c;
   int exp_cap;
   uint32_t seed;
   int net_bw, hol_block, n_workers, n_atomic, stagger, trace, tele_windows,
       tele_cw;
-  int32_t bo_tab[kBoTab];
 };
 
+__host__ __device__ inline RunParams unpack_params(const int32_t* w) {
+  RunParams rp;
+  rp.n = w[P_N];
+  rp.a = w[P_A];
+  rp.n_addrs = w[P_N_ADDRS];
+  rp.cycles = w[P_CYCLES];
+  rp.proto = w[P_PROTO];
+  rp.q_cap = w[P_Q_CAP];
+  rp.lat = w[P_LAT];
+  rp.wake_delay = w[P_WAKE_DELAY];
+  rp.succ = w[P_SUCC];
+  rp.pre_dur = w[P_PRE_DUR];
+  rp.mod_dur = w[P_MOD_DUR];
+  rp.addr_mode = w[P_ADDR_MODE];
+  rp.fix_addr = w[P_FIX_ADDR];
+  static_assert(sizeof(float) == sizeof(int32_t), "float bits");
+  memcpy(&rp.zipf_c, w + P_ZIPF_C, sizeof(float));
+  rp.exp_cap = w[P_EXP_CAP];
+  rp.seed = static_cast<uint32_t>(w[P_SEED]);
+  rp.net_bw = w[P_NET_BW];
+  rp.hol_block = w[P_HOL_BLOCK];
+  rp.n_workers = w[P_N_WORKERS];
+  rp.n_atomic = w[P_N_ATOMIC];
+  rp.stagger = w[P_STAGGER];
+  rp.trace = w[P_TRACE];
+  rp.tele_windows = w[P_TELE_WINDOWS];
+  rp.tele_cw = w[P_TELE_CW];
+  return rp;
+}
+
 // device pointers, in the order of kernel.RUN_PTRS (null where a key is
-// absent: another protocol's bank arrays, telemetry or traces off)
+// absent: another protocol's bank arrays, telemetry or traces off); a
+// launch takes an array of RunPtrs, one per block, as kNumPtrs words
 enum Ptr {
   R_ST, R_TMR, R_ADDR, R_PHASE, R_NXT, R_OPC, R_OPS, R_ARR_CYC, R_STREAK,
   R_PARKED, R_ACQ_START, R_W_TMR, R_W_SERVED, R_ADDR_OPS, R_LAT_HIST,
@@ -325,6 +368,7 @@ struct RunPtrs {
   int32_t* trace_qlen;
   unsigned char* scratch;
 };
+static_assert(sizeof(RunPtrs) == kNumPtrs * sizeof(void*), "RunPtrs words");
 
 // the run's scalar outputs, in the order of kernel.RUN_SCALARS
 enum Scalar {
@@ -385,7 +429,7 @@ __device__ __forceinline__ int32_t step_addr(const RunParams& rp, int i,
   if (rp.addr_mode == kAddrFixed) return rp.fix_addr;
   const uint32_t x = static_cast<uint32_t>(i) * 7919u + rp.seed +
                      static_cast<uint32_t>(opc) * 104729u;
-  return addr_of_hash(hash24(x), rp.addr_mode, rp.a, rp.zipf_c);
+  return addr_of_hash(hash24(x), rp.addr_mode, rp.n_addrs, rp.zipf_c);
 }
 
 struct Core {
@@ -417,7 +461,7 @@ struct RegCores {
 
 // per-core state in the output arrays (more cores than registers hold)
 struct GlobalCores {
-  RunPtrs o;
+  const RunPtrs& o;
   int kc;
   __device__ __forceinline__ GlobalCores(const RunPtrs& p, int k)
       : o(p), kc(k) {}
@@ -451,21 +495,41 @@ __device__ __forceinline__ void warp_add(int32_t* dst, int32_t v) {
 
 template <class Cores, int kMaxThreads>
 __global__ void __launch_bounds__(kMaxThreads)
-engine_run_kernel(RunParams rp, RunPtrs o, int kc, int use_smem) {
+engine_run_kernel(const int32_t* __restrict__ params,
+                  const RunPtrs* __restrict__ ptrs, int kc) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int32_t s_hist[kLatBins];
   __shared__ int32_t s_cnt[2][kNumCounts];
   __shared__ int32_t s_lat_max;
+  __shared__ int32_t s_par[kNumParams];
+  __shared__ RunParams s_rp;
+  __shared__ RunPtrs s_o;
 
   const int T = blockDim.x, tid = threadIdx.x;
   const int lane = tid & 31, wid = tid >> 5;
+  // this block's run, staged once in shared memory: its parameter words
+  // (the backoff table is indexed at run time), its scalars and its
+  // pointers.  A block of at most 256 threads keeps its scalars in
+  // registers; a larger one (64 registers a thread) reads them from
+  // shared memory, as it does the pointers, rather than spill.
+  for (int j = tid; j < kNumParams; j += T) {
+    s_par[j] = params[static_cast<size_t>(blockIdx.x) * kNumParams + j];
+  }
+  if (tid == 0) s_o = ptrs[blockIdx.x];
+  __syncthreads();
+  if (tid == 0) s_rp = unpack_params(s_par);
+  __syncthreads();
+  const RunParams rp_regs = s_rp;
+  const RunParams& rp = kMaxThreads <= 256 ? rp_regs : s_rp;
+  const int32_t* bo_tab = s_par + P_BO_TAB;
+  const RunPtrs& o = s_o;
   const int n = rp.n, a = rp.a, cycles = rp.cycles;
   const bool lrsc = rp.proto == kLrsc, queue = rp.proto == kQueue;
   const bool workers = rp.n_workers > 0, tele = rp.tele_windows > 0;
   const bool trace = rp.trace != 0;
 
-  unsigned char* base = use_smem ? smem_raw : o.scratch;
   const Layout L = run_layout(n, a);
+  unsigned char* base = L.total <= kMaxDynSmem ? smem_raw : o.scratch;
   unsigned long long* keys = reinterpret_cast<unsigned long long*>(base);
   int32_t* ints = reinterpret_cast<int32_t*>(base + L.ints);
   int32_t* addr_ops = ints;
@@ -604,7 +668,7 @@ engine_run_kernel(RunParams rp, RunPtrs o, int kc, int use_smem) {
         if (ra && c.nxt == kNxtBackoff) {
           c.st = kBackoff;
           c.streak = min(c.streak + 1, rp.exp_cap);
-          c.tmr = wadd(rp.bo_tab[min(c.streak, kBoTab - 1)],
+          c.tmr = wadd(bo_tab[min(c.streak, kBoTab - 1)],
                        jitter(static_cast<uint32_t>(cyc + i)));
         }
         if (trace) {
@@ -877,6 +941,7 @@ __global__ void engine_probe_kernel(const uint32_t* __restrict__ x,
 }
 
 // the serial floor: `per_cycle` block barriers a cycle and no other work
+// (each block of a grid on its own)
 __global__ void engine_barrier_kernel(int cycles, int per_cycle,
                                       int32_t* sink) {
   __shared__ int32_t s;
@@ -886,21 +951,20 @@ __global__ void engine_barrier_kernel(int cycles, int per_cycle,
     for (int j = 0; j < per_cycle; ++j) __syncthreads();
     if (threadIdx.x == 0) s += 1;
   }
-  if (threadIdx.x == 0) sink[0] = s;
+  if (threadIdx.x == 0) sink[blockIdx.x] = s;
 }
 
-template <class Cores, int kMaxThreads>
-cudaError_t launch_run(const RunParams& rp, const RunPtrs& o, int threads,
-                       int kc, size_t smem, cudaStream_t stream) {
-  auto kern = engine_run_kernel<Cores, kMaxThreads>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  kern<<<1, threads, smem, stream>>>(rp, o, kc, smem > 0 ? 1 : 0);
-  return cudaGetLastError();
+using RunKernel = void (*)(const int32_t*, const RunPtrs*, int);
+
+// the kernel instance, block size and cores a thread of runs of n cores
+// (a block of at most 256 threads may use up to 255 registers a thread)
+RunKernel run_kernel_for(int n, int* threads, int* kc) {
+  *threads = n <= kRunThreads ? ((n + 31) / 32) * 32 : kRunThreads;
+  *kc = (n + *threads - 1) / *threads;
+  if (*kc > 2) return engine_run_kernel<GlobalCores, kRunThreads>;
+  if (*kc == 2) return engine_run_kernel<RegCores<2>, kRunThreads>;
+  if (*threads <= 256) return engine_run_kernel<RegCores<1>, 256>;
+  return engine_run_kernel<RegCores<1>, kRunThreads>;
 }
 
 }  // namespace
@@ -934,95 +998,78 @@ extern "C" long long engine_run_scratch_bytes(int n, int a) {
   return total <= kMaxDynSmem ? 0 : static_cast<long long>(total);
 }
 
+// Bytes of dynamic shared memory a run of n cores and a banks uses: 0
+// when its per-bank state lives in the scratch.  A launch's dynamic
+// shared memory is the largest of its runs'.
+extern "C" long long engine_run_smem_bytes(int n, int a) {
+  const size_t total = run_layout(n, a).total;
+  return total <= kMaxDynSmem ? static_cast<long long>(total) : 0;
+}
+
 // Threads per block of a run of n cores (the barrier floor's block size).
 extern "C" int engine_run_threads(int n) {
-  return n <= kRunThreads ? ((n + 31) / 32) * 32 : kRunThreads;
+  int threads, kc;
+  run_kernel_for(n, &threads, &kc);
+  return threads;
 }
 
-// One launch for a whole run.  `params` holds kNumParams int32 values,
-// `ptrs` kNumPtrs device pointers.  Returns a CUDA error code, or -1 when
-// the caller's layout does not match this library's.
-extern "C" int engine_run_launch(const int32_t* params, int n_params,
-                                 void* const* ptrs, int n_ptrs,
-                                 void* stream) {
-  if (n_params != kNumParams || n_ptrs != kNumPtrs) return -1;
-  RunParams rp;
-  rp.n = params[P_N];
-  rp.a = params[P_A];
-  rp.cycles = params[P_CYCLES];
-  rp.proto = params[P_PROTO];
-  rp.q_cap = params[P_Q_CAP];
-  rp.lat = params[P_LAT];
-  rp.wake_delay = params[P_WAKE_DELAY];
-  rp.succ = params[P_SUCC];
-  rp.pre_dur = params[P_PRE_DUR];
-  rp.mod_dur = params[P_MOD_DUR];
-  rp.addr_mode = params[P_ADDR_MODE];
-  rp.fix_addr = params[P_FIX_ADDR];
-  const int32_t zc = params[P_ZIPF_C];
-  static_assert(sizeof(float) == sizeof(int32_t), "float bits");
-  std::memcpy(&rp.zipf_c, &zc, sizeof(float));
-  rp.exp_cap = params[P_EXP_CAP];
-  rp.seed = static_cast<uint32_t>(params[P_SEED]);
-  rp.net_bw = params[P_NET_BW];
-  rp.hol_block = params[P_HOL_BLOCK];
-  rp.n_workers = params[P_N_WORKERS];
-  rp.n_atomic = params[P_N_ATOMIC];
-  rp.stagger = params[P_STAGGER];
-  rp.trace = params[P_TRACE];
-  rp.tele_windows = params[P_TELE_WINDOWS];
-  rp.tele_cw = params[P_TELE_CW];
-  for (int j = 0; j < kBoTab; ++j) rp.bo_tab[j] = params[P_BO_TAB + j];
-
-  RunPtrs o;
-  o.st = static_cast<int32_t*>(ptrs[R_ST]);
-  o.tmr = static_cast<int32_t*>(ptrs[R_TMR]);
-  o.addr = static_cast<int32_t*>(ptrs[R_ADDR]);
-  o.phase = static_cast<int32_t*>(ptrs[R_PHASE]);
-  o.nxt = static_cast<int32_t*>(ptrs[R_NXT]);
-  o.opc = static_cast<int32_t*>(ptrs[R_OPC]);
-  o.ops = static_cast<int32_t*>(ptrs[R_OPS]);
-  o.arr = static_cast<int32_t*>(ptrs[R_ARR_CYC]);
-  o.streak = static_cast<int32_t*>(ptrs[R_STREAK]);
-  o.parked = static_cast<bool*>(ptrs[R_PARKED]);
-  o.acq = static_cast<int32_t*>(ptrs[R_ACQ_START]);
-  o.wtmr = static_cast<int32_t*>(ptrs[R_W_TMR]);
-  o.wserved = static_cast<int32_t*>(ptrs[R_W_SERVED]);
-  o.addr_ops = static_cast<int32_t*>(ptrs[R_ADDR_OPS]);
-  o.hist = static_cast<int32_t*>(ptrs[R_LAT_HIST]);
-  o.scalars = static_cast<int32_t*>(ptrs[R_SCALARS]);
-  o.resv_core = static_cast<int32_t*>(ptrs[R_RESV_CORE]);
-  o.resv_valid = static_cast<bool*>(ptrs[R_RESV_VALID]);
-  o.qbuf = static_cast<int32_t*>(ptrs[R_QBUF]);
-  o.qhead = static_cast<int32_t*>(ptrs[R_QHEAD]);
-  o.qlen = static_cast<int32_t*>(ptrs[R_QLEN]);
-  o.wake_tmr = static_cast<int32_t*>(ptrs[R_WAKE_TMR]);
-  o.tele = static_cast<int32_t*>(ptrs[R_TELE]);
-  o.trace_step = static_cast<int32_t*>(ptrs[R_TRACE_STEP]);
-  o.trace_wait = static_cast<int32_t*>(ptrs[R_TRACE_WAIT]);
-  o.trace_state = static_cast<int8_t*>(ptrs[R_TRACE_STATE]);
-  o.trace_qlen = static_cast<int32_t*>(ptrs[R_TRACE_QLEN]);
-  o.scratch = static_cast<unsigned char*>(ptrs[R_SCRATCH]);
-
-  const size_t total = run_layout(rp.n, rp.a).total;
-  const size_t smem = total <= kMaxDynSmem ? total : 0;
-  if (smem == 0 && o.scratch == nullptr) return -1;
-  const int threads = engine_run_threads(rp.n);
-  const int kc = (rp.n + threads - 1) / threads;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // a block of at most 256 threads may use up to 255 registers a thread
-  cudaError_t err;
-  if (kc > 2) {
-    err = launch_run<GlobalCores, kRunThreads>(rp, o, threads, kc, smem, s);
-  } else if (kc == 2) {
-    err = launch_run<RegCores<2>, kRunThreads>(rp, o, threads, kc, smem, s);
-  } else if (threads <= 256) {
-    err = launch_run<RegCores<1>, 256>(rp, o, threads, kc, smem, s);
-  } else {
-    err = launch_run<RegCores<1>, kRunThreads>(rp, o, threads, kc, smem, s);
+// One launch for `n_runs` runs of n cores each, one block per run.
+// `params` is a device array of n_runs x kNumParams int32 words (run b's
+// words at b * kNumParams), `ptrs` a device array of n_runs x kNumPtrs
+// pointers (run b's RunPtrs); every run's P_N word must be n, and a run
+// whose per-bank state does not fit in shared memory must have its own
+// scratch (engine_run_scratch_bytes).  `smem` is the launch's dynamic
+// shared memory, the largest engine_run_smem_bytes of its runs.  Returns
+// a CUDA error code, or -1 when the caller's layout does not match this
+// library's (n_params, n_ptrs per run) or smem is out of range.
+extern "C" int engine_run_launch(int n_runs, int n, const void* params,
+                                 int n_params, const void* ptrs, int n_ptrs,
+                                 long long smem, void* stream) {
+  if (n_params != kNumParams || n_ptrs != kNumPtrs || n_runs < 1 || n < 1 ||
+      smem < 0 || smem > static_cast<long long>(kMaxDynSmem)) {
+    return -1;
   }
-  return static_cast<int>(err);
+  int threads, kc;
+  const RunKernel kern = run_kernel_for(n, &threads, &kc);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kern<<<n_runs, threads, static_cast<size_t>(smem),
+         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(params),
+      static_cast<const RunPtrs*>(ptrs), kc);
+  return static_cast<int>(cudaGetLastError());
 }
+
+#ifndef CUDA_CPU_MOCK
+// What the card gives a launch of runs of n cores with `smem` bytes of
+// dynamic shared memory: out[0] blocks resident per SM, out[1] registers
+// a thread, out[2] threads a block, out[3] local (spill) bytes a thread.
+extern "C" int engine_run_occupancy(int n, long long smem, int* out) {
+  int threads, kc;
+  const RunKernel kern = run_kernel_for(n, &threads, &kc);
+  cudaError_t err;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kern,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[0], kern, threads, static_cast<size_t>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kern);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[1] = attr.numRegs;
+  out[2] = threads;
+  out[3] = static_cast<int>(attr.localSizeBytes);
+  return 0;
+}
+#endif
 
 // what: 0 -> _hash(x), 1 -> the backoff jitter _hash(x) % 32, 2 -> the
 // address of hash x in address mode `mode` over n_addrs (skew-0 factor
@@ -1036,10 +1083,13 @@ extern "C" int engine_probe_launch(const void* x, long long count, int what,
   return static_cast<int>(cudaGetLastError());
 }
 
-// `cycles` cycles of `per_cycle` barriers in one block of `threads`.
-extern "C" int engine_barrier_launch(int threads, int cycles, int per_cycle,
-                                     void* sink, void* stream) {
-  engine_barrier_kernel<<<1, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+// `blocks` blocks of `threads`, each `cycles` cycles of `per_cycle`
+// barriers; block b writes its cycle count to sink[b].
+extern "C" int engine_barrier_launch(int blocks, int threads, int cycles,
+                                     int per_cycle, void* sink,
+                                     void* stream) {
+  engine_barrier_kernel<<<blocks, threads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
       cycles, per_cycle, static_cast<int32_t*>(sink));
   return static_cast<int>(cudaGetLastError());
 }

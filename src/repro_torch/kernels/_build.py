@@ -58,14 +58,24 @@ def _nvcc(name: str) -> str:
                        f"it is needed to build the {name} CUDA kernel")
 
 
+def _library_path(name: str) -> Path:
+    digest = hashlib.sha256(source(name).read_bytes()).hexdigest()[:16]
+    return build_dir() / f"lib{name}_{digest}.so"
+
+
+def built(name: str) -> bool:
+    """Whether kernel ``name``'s library for this source is on disk
+    already (a load that needs no ``nvcc``)."""
+    return _library_path(name).exists()
+
+
 def build(name: str) -> Dict[str, str]:
     """Compile kernel ``name``'s library if this source has not been
     built yet.  Returns ``{"path": ..., "log": ...}`` (the log holds
     ``ptxas -v``'s register/shared-memory report when a build ran, else
     is empty)."""
     src = source(name)
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    out = build_dir() / f"lib{name}_{digest}.so"
+    out = _library_path(name)
     if out.exists():
         return {"path": str(out), "log": ""}
     out.parent.mkdir(parents=True, exist_ok=True)

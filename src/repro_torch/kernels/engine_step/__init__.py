@@ -10,12 +10,15 @@ completion-latency histogram.  CUDA tensors run the per-cycle kernel
 
 ``run_cuda``: a whole run in one launch of the ``engine_run`` kernel (same
 source), ``core.sim.simulate``'s path on a GPU; its plain version is the
-loop ``core.sim._simulate_plain``.  Launches are counted in
+loop ``core.sim._simulate_plain``.  ``run_cuda_batch``: many runs of one
+core count in one launch, one thread block each
+(``core.sim.simulate_batch``'s path on a GPU).  Launches are counted in
 ``LAUNCHES["engine_run"]``.
 """
-from repro_torch.kernels.engine_step.kernel import run_cuda, run_scalars
+from repro_torch.kernels.engine_step.kernel import (run_cuda, run_cuda_batch,
+                                                    run_scalars)
 from repro_torch.kernels.engine_step.ops import fused_step, outcome_counts
 from repro_torch.kernels.engine_step.ref import fused_step_ref
 
 __all__ = ["fused_step", "fused_step_ref", "outcome_counts", "run_cuda",
-           "run_scalars"]
+           "run_cuda_batch", "run_scalars"]

@@ -9,17 +9,21 @@ hash; nothing runs at import time).  It holds two kernels:
   ``LAUNCHES["engine_step"]`` per launch.  It updates the bank-state
   tensors in place and returns them in the result dict.  The plain loop
   (``core.sim._simulate_plain``) calls it once per cycle on the card.
-* ``run_cuda`` launches ``engine_run_kernel``, a whole run of the
-  engine in one launch, and adds one to ``LAUNCHES["engine_run"]``.  It
-  returns ``core.sim.simulate``'s result dict.  ``run_scalars`` is the
+* ``run_cuda_batch`` launches ``engine_run_kernel`` once for a batch of
+  runs of one core count, one thread block per run, and adds one to
+  ``LAUNCHES["engine_run"]`` per launch (not per run).  It returns each
+  run's ``core.sim.simulate`` result dict, every tensor a view of ONE
+  flat device buffer per launch, so a batch comes back to the host in
+  one copy.  ``run_cuda`` is its one-run case.  ``run_scalars`` is the
   pure function that derives every per-run scalar it passes.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from pathlib import Path
-from typing import Any, Dict
+from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -74,12 +78,14 @@ def _require_branch(proto, kernel: str, core=None) -> None:
             f"{kernel} CUDA kernel does not take yet")
 
 
-#: bank-state arrays each protocol family carries, with their dtypes
+#: bank-state arrays each protocol family carries: (dtype, the value
+#: every element starts at, as ``init_bank_state`` gives it)
 _BANK_LAYOUT = {
     KERNEL_AMO: {},
-    KERNEL_LRSC: {"resv_core": torch.int32, "resv_valid": torch.bool},
-    KERNEL_QUEUE: {"qbuf": torch.int32, "qhead": torch.int32,
-                   "qlen": torch.int32, "wake_tmr": torch.int32},
+    KERNEL_LRSC: {"resv_core": (torch.int32, -1),
+                  "resv_valid": (torch.bool, False)},
+    KERNEL_QUEUE: {"qbuf": (torch.int32, -1), "qhead": (torch.int32, 0),
+                   "qlen": (torch.int32, 0), "wake_tmr": (torch.int32, 0)},
 }
 
 
@@ -100,7 +106,7 @@ def fused_step_cuda(proto, p, bank: Dict, *, cand_cyc, rot, addr, phase,
     if set(bank) != set(layout):
         raise ValueError(f"bank state keys {sorted(bank)} do not match "
                          f"protocol {proto.name!r} ({sorted(layout)})")
-    for k, dt in layout.items():
+    for k, (dt, _) in layout.items():
         shape = (a, q_cap) if k == "qbuf" else (a,)
         _check(k, bank[k], shape, dt, dev)
 
@@ -136,11 +142,11 @@ def fused_step_cuda(proto, p, bank: Dict, *, cand_cyc, rot, addr, phase,
 
 #: ``engine_run_launch``'s int32 parameters, in the order of the source's
 #: ``Param`` enum; ``bo_tab`` is the last and spans ``BO_TAB`` entries
-RUN_PARAMS = ("n", "a", "cycles", "proto", "q_cap", "lat", "wake_delay",
-              "succ", "pre_dur", "mod_dur", "addr_mode", "fix_addr",
-              "zipf_c", "exp_cap", "seed", "net_bw", "hol_block",
-              "n_workers", "n_atomic", "stagger", "trace", "tele_windows",
-              "tele_cw", "bo_tab")
+RUN_PARAMS = ("n", "a", "n_addrs", "cycles", "proto", "q_cap", "lat",
+              "wake_delay", "succ", "pre_dur", "mod_dur", "addr_mode",
+              "fix_addr", "zipf_c", "exp_cap", "seed", "net_bw",
+              "hol_block", "n_workers", "n_atomic", "stagger", "trace",
+              "tele_windows", "tele_cw", "bo_tab")
 #: backoff bases passed: streak k reads entry min(k, BO_TAB - 1), and
 #: ``backoff << 32`` and beyond is 0 (``shl32``)
 BO_TAB = 34
@@ -165,35 +171,49 @@ def shl32(v: int, k: int) -> int:
     return r - (1 << 32) if r >= 1 << 31 else r
 
 
-def run_scalars(p, proto, prog) -> Dict[str, Any]:
+@functools.lru_cache(maxsize=None)
+def _bo_tab(backoff: int, exp_cap: int) -> tuple:
+    """Backoff base by failure streak: ``backoff << max(k - 1, 0)``,
+    streaks capped at ``exp_cap``."""
+    return tuple(shl32(backoff, max(min(k, exp_cap) - 1, 0))
+                 for k in range(BO_TAB))
+
+
+def run_scalars(p, proto, prog, banks=None) -> Dict[str, Any]:
     """Every per-run scalar ``run_cuda`` passes to the kernel, derived from
     ``SimParams`` ``p``, the protocol and the workload's one-step program
     as ``core.sim._simulate_plain`` derives them: Python ints (the seed
     reduced mod 2^32), ``zipf_c`` a float (the skew-0 Zipf factor, 0.0
-    for other streams) and ``bo_tab`` a tuple of ``BO_TAB`` ints."""
+    for other streams) and ``bo_tab`` a tuple of ``BO_TAB`` ints.
+
+    ``a`` is the banks allocated, ``banks`` (default ``p.n_addrs``; a
+    sweep passes the power-of-two bucket), and ``n_addrs`` the live
+    address count the stream hashes over."""
     pt = prog.tables()
-    n, a = p.n_cores, p.n_addrs
+    n, n_addrs = p.n_cores, p.n_addrs
+    a = n_addrs if banks is None else banks
+    if a < n_addrs:
+        raise ValueError(f"banks={a} is below n_addrs={n_addrs}")
     exp_cap = 1 if proto.fixed_backoff else p.backoff_exp
     wake_delay, succ = proto.kernel_args(p)
     addr_mode = int(pt["addr_mode"][0])
     zipf_c = 0.0
     if addr_mode == ADDR_ZIPF:
-        _, c, inv = zipf_factors(a, p.zipf_skew)
+        _, c, inv = zipf_factors(n_addrs, p.zipf_skew)
         if c is None or inv != 1.0:
             raise NotImplementedError(
                 f"the engine_run kernel computes the zipf stream at skew 0 "
                 f"only (got zipf_skew={p.zipf_skew})")
         zipf_c = c
-    bo_tab = tuple(shl32(p.backoff, max(min(k, exp_cap) - 1, 0))
-                   for k in range(BO_TAB))
     return dict(
-        n=n, a=a, cycles=p.cycles, proto=proto.kernel_code,
+        n=n, a=a, n_addrs=n_addrs, cycles=p.cycles,
+        proto=proto.kernel_code,
         q_cap=proto.q_cap(p, n), lat=p.lat, wake_delay=wake_delay,
         succ=succ,
         pre_dur=int(pt["pre_mult"][0]) * p.work + int(pt["pre_add"][0]),
         mod_dur=int(pt["mod_mult"][0]) * p.modify + int(pt["mod_add"][0]),
         addr_mode=addr_mode,
-        fix_addr=(int(pt["addr_arg"][0]) & _MASK32) % a,
+        fix_addr=(int(pt["addr_arg"][0]) & _MASK32) % n_addrs,
         zipf_c=zipf_c, exp_cap=exp_cap, seed=int(p.seed) & _MASK32,
         net_bw=p.net_bw, hol_block=p.hol_block, n_workers=p.n_workers,
         n_atomic=n - min(p.n_workers, n), stagger=p.work + 1,
@@ -201,7 +221,7 @@ def run_scalars(p, proto, prog) -> Dict[str, Any]:
         tele_windows=p.telemetry_windows,
         tele_cw=(window_len(p.cycles, p.telemetry_windows)
                  if p.telemetry_windows else 0),
-        bo_tab=bo_tab)
+        bo_tab=_bo_tab(p.backoff, exp_cap))
 
 
 def _pack_params(sc: Dict[str, Any]) -> list:
@@ -225,84 +245,270 @@ def _pack_params(sc: Dict[str, Any]) -> list:
 def _run_library():
     lib = _build.library("engine_step")
     lib.engine_run_launch.argtypes = [
-        ctypes.POINTER(ctypes.c_int32), ctypes.c_int,
-        ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
     lib.engine_run_launch.restype = ctypes.c_int
-    lib.engine_run_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.engine_run_scratch_bytes.restype = ctypes.c_longlong
+    for fn in (lib.engine_run_scratch_bytes, lib.engine_run_smem_bytes):
+        fn.argtypes = [ctypes.c_int, ctypes.c_int]
+        fn.restype = ctypes.c_longlong
     return lib
 
 
-def run_outputs(p, proto, sc: Dict[str, Any], dev) -> Dict[str, Any]:
-    """The run's result tensors on ``dev``, in ``simulate``'s key order
-    (the bank state initialised, the rest to be written by the kernel),
-    and the run scalars' buffer under ``"scalars"``."""
-    n, a, cycles = sc["n"], sc["a"], sc["cycles"]
-    i32 = torch.int32
+#: marks a 0-d output of ``result_arrays``: a view of the run's
+#: ``RUN_SCALARS`` buffer
+SCALAR = "scalar"
 
-    def e(shape, dtype=i32):
-        return torch.empty(shape, dtype=dtype, device=dev)
 
-    def z(shape=()):
-        return torch.zeros(shape, dtype=i32, device=dev)
+def result_arrays(p, proto, sc: Dict[str, Any]) -> Dict[str, Any]:
+    """The run's result arrays in ``simulate``'s key order, each as
+    ``(dtype, shape, init)``: ``init`` is None for what the kernel
+    writes, else the value every element starts at (0, or the protocol's
+    initial bank state); the 0-d outputs of ``RUN_SCALARS`` are
+    ``SCALAR``.  The bank state's values are ``_BANK_LAYOUT``'s, held
+    against the protocol's own ``init_bank_state`` at one bank and one
+    queue slot (not built at full size on the host)."""
+    _check_bank_layout(proto, p, sc["n"])
+    return dict(_layout(sc["proto"], sc["n"], sc["a"], sc["q_cap"],
+                        sc["cycles"], sc["tele_windows"], sc["trace"]))
 
-    scal = e(len(RUN_SCALARS))
-    s = dict(zip(RUN_SCALARS, scal.unbind()))
-    out = dict(st=e(n), tmr=e(n), addr=e(n), phase=e(n), nxt=e(n),
-               pc=z(n), bar_cnt=z(n), opc=e(n), arr_cyc=e(n), streak=e(n),
-               parked=e(n, torch.bool), resp_prev=s["resp_prev"], ops=e(n),
-               acq_start=e(n), msgs=s["msgs"], polls=s["polls"],
-               addr_ops=e(a), sleep_cyc=s["sleep_cyc"], bar_cyc=z(),
-               lat_hist=e(LAT_BINS), lat_max=s["lat_max"],
-               active_cyc=s["active_cyc"], backoff_cyc=s["backoff_cyc"],
-               bank_ops=s["bank_ops"], net_stall=s["net_stall"],
-               w_tmr=e(n), w_served=e(n))
-    if sc["tele_windows"]:
-        out["tele"] = z((sc["tele_windows"], TELE_K))
-    bank = proto.init_bank_state(p, a, n, sc["q_cap"], dev)
-    layout = _BANK_LAYOUT[sc["proto"]]
-    if set(bank) != set(layout):
-        raise ValueError(f"bank state keys {sorted(bank)} do not match "
+
+#: protocols whose initial bank state is held to ``_BANK_LAYOUT``
+_LAYOUT_CHECKED = set()
+
+
+def _check_bank_layout(proto, p, n: int) -> None:
+    """Raise unless ``proto``'s initial bank state has ``_BANK_LAYOUT``'s
+    keys, dtypes and values (once per protocol) and it has no per-core
+    state."""
+    if proto.name in _LAYOUT_CHECKED:
+        return
+    probe = proto.init_bank_state(p, 1, n, 1, "cpu")
+    layout = _BANK_LAYOUT[proto.kernel_code]
+    if set(probe) != set(layout):
+        raise ValueError(f"bank state keys {sorted(probe)} do not match "
                          f"protocol {proto.name!r} ({sorted(layout)})")
-    for k, dt in layout.items():
-        shape = (a, sc["q_cap"]) if k == "qbuf" else (a,)
-        _check(k, bank[k], shape, dt, dev)
-    out.update(bank)
-    xc = proto.init_core_state(p, n, dev)
-    if xc:
+    for k, (dt, value) in layout.items():
+        if probe[k].dtype != dt or not bool((probe[k] == value).all()):
+            raise ValueError(f"protocol {proto.name!r} starts {k} at "
+                             f"{probe[k].tolist()}, the kernel at {value}")
+    if proto.init_core_state(p, n, "cpu"):
         raise NotImplementedError(
             f"protocol {proto.name!r} has per-core state, which the "
             f"engine_run kernel does not carry yet")
-    if sc["trace"]:
-        out.update(trace_step=e((cycles, n)), trace_wait=e((cycles, n)),
-                   trace_state=e((cycles, n), torch.int8),
-                   trace_qlen=e((cycles, a)))
-    return dict(out, scalars=scal)
+    _LAYOUT_CHECKED.add(proto.name)
 
 
-def run_cuda(p, proto, prog, device) -> Dict[str, torch.Tensor]:
-    """One engine run of ``SimParams`` ``p`` in one launch of
-    ``engine_run_kernel`` on the CUDA ``device``: the result dict of
-    ``core.sim.simulate``, bit for bit, as tensors on the card."""
+@functools.lru_cache(maxsize=4096)
+def _layout(code: int, n: int, a: int, q_cap: int, cycles: int,
+            tele_windows: int, trace: int) -> tuple:
+    """``result_arrays``' items for a run of this shape (hashable: a
+    launch groups its runs by it)."""
+    i32 = torch.int32
+
+    def w(shape, dtype=i32):
+        return (dtype, shape, None)
+
+    def z(shape=()):
+        return (i32, shape, 0)
+
+    out = dict(st=w((n,)), tmr=w((n,)), addr=w((n,)), phase=w((n,)),
+               nxt=w((n,)), pc=z((n,)), bar_cnt=z((n,)), opc=w((n,)),
+               arr_cyc=w((n,)), streak=w((n,)),
+               parked=w((n,), torch.bool), resp_prev=SCALAR, ops=w((n,)),
+               acq_start=w((n,)), msgs=SCALAR, polls=SCALAR,
+               addr_ops=w((a,)), sleep_cyc=SCALAR, bar_cyc=z(),
+               lat_hist=w((LAT_BINS,)), lat_max=SCALAR,
+               active_cyc=SCALAR, backoff_cyc=SCALAR, bank_ops=SCALAR,
+               net_stall=SCALAR, w_tmr=w((n,)), w_served=w((n,)))
+    if tele_windows:
+        out["tele"] = z((tele_windows, TELE_K))
+    for k, (dt, value) in _BANK_LAYOUT[code].items():
+        out[k] = (dt, (a, q_cap) if k == "qbuf" else (a,), value)
+    if trace:
+        out.update(trace_step=w((cycles, n)), trace_wait=w((cycles, n)),
+                   trace_state=w((cycles, n), torch.int8),
+                   trace_qlen=w((cycles, a)))
+    return tuple(out.items())
+
+
+def _nbytes(dtype, shape) -> int:
+    return math.prod(shape) * dtype.itemsize
+
+
+@functools.lru_cache(maxsize=None)
+def _strides(shape) -> tuple:
+    """Contiguous strides of ``shape``, in elements."""
+    out, step = [], 1
+    for d in reversed(shape):
+        out.append(step)
+        step *= d
+    return tuple(reversed(out))
+
+
+@functools.lru_cache(maxsize=None)
+def _fill_byte(dtype, value):
+    """The byte every byte of an array of ``value`` holds (0 for zeros and
+    False, 255 for -1), or None when they differ."""
+    raw = torch.tensor(value, dtype=dtype).numpy().reshape(-1).view(np.uint8)
+    return int(raw[0]) if (raw == raw[0]).all() else None
+
+
+def pack_runs(runs: Sequence[Tuple[Any, Any, Dict[str, Any]]], dev,
+              scratch_bytes=None, started=None) -> Dict[str, Any]:
+    """Lay out a launch of ``runs`` (``(p, proto, run_scalars)`` each) in
+    ONE flat uint8 buffer on ``dev``: the runs' parameter words and
+    pointer tables (``RUN_PTRS``), then their result arrays (first those
+    with an initial value, grouped by it, then those the kernel writes),
+    then each run's scratch (``scratch_bytes(n, a)`` bytes, 0 without).
+    Runs with the same ``result_arrays`` layout form a group, and each of
+    a group's arrays is one region holding its runs' arrays back to back
+    (16-byte aligned), so one call makes the views of all of them.  The
+    words and pointers (and any initial value that is not one repeated
+    byte) are filled on the host and copied in one copy (from pinned
+    memory on a GPU); the arrays of one repeated byte (zeros, -1, False)
+    are set by one fill per byte value.  ``started``, a CUDA event, is
+    recorded on the stream before the first of these copies (after the
+    host's work).  Returns ``flat``, the device addresses ``params`` and
+    ``ptrs``, and ``outs``: each run's result dict of views, with its
+    scalars buffer under ``"scalars"``."""
+    dev = torch.device(dev)
+    size = 0
+
+    def take(nbytes: int) -> int:
+        nonlocal size
+        at = size
+        size = (size + nbytes + 15) & ~15
+        return at
+
+    words = np.array([_pack_params(sc) for _, _, sc in runs],
+                     dtype=np.int32)
+    w_at = take(words.nbytes)
+    p_at = take(8 * len(RUN_PTRS) * len(runs))
+    groups: Dict[tuple, list] = {}           # layout -> [run indices]
+    for b, (p, proto, sc) in enumerate(runs):
+        _check_bank_layout(proto, p, sc["n"])
+        groups.setdefault(_layout(sc["proto"], sc["n"], sc["a"],
+                                  sc["q_cap"], sc["cycles"],
+                                  sc["tele_windows"], sc["trace"]),
+                          []).append(b)
+    # regions: (group, key, dtype, shape, stride) -> offset
+    fills: Dict[int, list] = {}
+    staged, written = [], []
+    for sig, idxs in groups.items():
+        written.append((sig, "scalars", torch.int32, (len(RUN_SCALARS),)))
+        for k, v in sig:
+            if v is SCALAR:
+                continue
+            dtype, shape, init = v
+            if init is None:
+                written.append((sig, k, dtype, shape))
+                continue
+            fill = _fill_byte(dtype, init)
+            (staged if fill is None else fills.setdefault(fill, [])).append(
+                (sig, k, dtype, shape))
+    at = {}
+
+    def place(region):
+        sig, k, dtype, shape = region
+        stride = (_nbytes(dtype, shape) + 15) & ~15
+        at[(sig, k)] = (take(stride * len(groups[sig])), stride)
+
+    for region in staged:
+        place(region)
+    host_end = size                          # words, pointers, staged
+    spans = {}
+    for fill, regions in fills.items():      # one contiguous span a byte
+        lo = size
+        for region in regions:
+            place(region)
+        spans[fill] = (lo, size)
+    for region in written:
+        place(region)
+    scratch = {}
+    for b, (_, _, sc) in enumerate(runs):
+        n_scratch = scratch_bytes(sc["n"], sc["a"]) if scratch_bytes else 0
+        if n_scratch:
+            scratch[b] = take(n_scratch)
+    flat = torch.empty(size, dtype=torch.uint8, device=dev)
+    host = torch.empty(host_end, dtype=torch.uint8,
+                       pin_memory=dev.type == "cuda")
+    hn = host.numpy()
+    base = flat.data_ptr()
+    hn[w_at:w_at + words.nbytes] = words.reshape(-1).view(np.uint8)
+    typed = {}                     # flat as each dtype, for the views
+    outs: List[Dict[str, Any]] = [None] * len(runs)  # type: ignore
+    ptrs = np.zeros((len(runs), len(RUN_PTRS)), dtype=np.int64)
+    col = {k: j for j, k in enumerate(RUN_PTRS)}
+    for sig, idxs in groups.items():
+        g = len(idxs)
+        views = {}
+        for k, dtype, shape in [("scalars", torch.int32,
+                                 (len(RUN_SCALARS),))] + [
+                (k, v[0], v[1]) for k, v in sig if v is not SCALAR]:
+            off, stride = at[(sig, k)]
+            if dtype not in typed:
+                typed[dtype] = flat.view(dtype)
+            size_t = dtype.itemsize
+            views[k] = typed[dtype].as_strided(
+                (g,) + shape, (stride // size_t,) + _strides(shape),
+                off // size_t).unbind(0)
+            if k in col:
+                ptrs[idxs, col[k]] = base + off + stride * np.arange(g)
+            if off < host_end:                           # staged
+                raw = torch.full(shape, dict(sig)[k][2], dtype=dtype
+                                 ).numpy().reshape(-1).view(np.uint8)
+                for i in range(g):
+                    hn[off + i * stride:off + i * stride + raw.size] = raw
+        # each scalar output of each run: a 0-d view of its scalars row
+        rows = typed[torch.int32].as_strided(
+            (g, len(RUN_SCALARS)), (at[(sig, "scalars")][1] // 4, 1),
+            at[(sig, "scalars")][0] // 4)
+        zero_d = {k: c.unbind(0) for k, c in zip(RUN_SCALARS, rows.unbind(1))}
+        for i, b in enumerate(idxs):
+            outs[b] = dict({k: zero_d[k][i] if v is SCALAR else views[k][i]
+                            for k, v in sig}, scalars=views["scalars"][i])
+    for b, off in scratch.items():
+        ptrs[b, col["scratch"]] = base + off
+    hn[p_at:p_at + ptrs.nbytes] = ptrs.reshape(-1).view(np.uint8)
+    if started is not None:
+        started.record()
+    flat[:host_end].copy_(host, non_blocking=True)
+    for fill, (lo, hi) in spans.items():
+        flat[lo:hi].fill_(fill)
+    return dict(flat=flat, params=base + w_at, ptrs=base + p_at, outs=outs)
+
+
+def run_cuda_batch(runs: Sequence[Tuple[Any, Any, Any, int]], device,
+                   started=None) -> List[Dict[str, torch.Tensor]]:
+    """Runs of one core count in ONE launch of ``engine_run_kernel`` on
+    the CUDA ``device``, one thread block each: ``runs`` holds
+    ``(p, proto, prog, banks)`` per run, ``banks`` the banks allocated
+    (``p.n_addrs``, or a sweep's bucket above it).  Returns each run's
+    ``core.sim.simulate`` result dict, bit for bit, with its bank arrays
+    at ``banks`` rows; every tensor is a view of the launch's one flat
+    buffer.  ``started``, a CUDA event, is recorded on the stream when
+    the host has packed the launch, before its copies and the kernel."""
     dev = torch.device(device)
     if dev.type != "cuda":
         raise ValueError(f"run_cuda needs a CUDA device, got {dev}")
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    _require_branch(proto, "engine_run")
-    sc = run_scalars(p, proto, prog)
-    out = run_outputs(p, proto, sc, dev)
+    if not runs:
+        raise ValueError("run_cuda_batch needs at least one run")
+    n = runs[0][0].n_cores
+    scalars = []
+    for p, proto, prog, banks in runs:
+        if p.n_cores != n:
+            raise ValueError(f"one launch runs one core count: {n} and "
+                             f"{p.n_cores}")
+        _require_branch(proto, "engine_run")
+        scalars.append((p, proto, run_scalars(p, proto, prog, banks)))
     lib = _run_library()
-    n_scratch = lib.engine_run_scratch_bytes(sc["n"], sc["a"])
-    scratch = (torch.empty(n_scratch, dtype=torch.uint8, device=dev)
-               if n_scratch else None)
-    tensors = dict(out, scratch=scratch)
-    ptrs = [tensors[k].data_ptr() if tensors.get(k) is not None else None
-            for k in RUN_PTRS]
-    words = _pack_params(sc)
+    packed = pack_runs(scalars, dev, lib.engine_run_scratch_bytes, started)
+    smem = max(lib.engine_run_smem_bytes(n, sc["a"]) for _, _, sc in scalars)
     err = lib.engine_run_launch(
-        (ctypes.c_int32 * len(words))(*words), len(words),
-        (ctypes.c_void_p * len(ptrs))(*ptrs), len(ptrs),
+        len(runs), n, packed["params"], len(RUN_PARAMS) - 1 + BO_TAB,
+        packed["ptrs"], len(RUN_PTRS), smem,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(
@@ -310,5 +516,14 @@ def run_cuda(p, proto, prog, device) -> Dict[str, torch.Tensor]:
             + ("the library's parameter layout differs from kernel.py's"
                if err < 0 else f"CUDA error {err}"))
     LAUNCHES["engine_run"] += 1
-    del out["scalars"]
-    return out
+    outs = packed["outs"]
+    for out in outs:
+        del out["scalars"]
+    return outs
+
+
+def run_cuda(p, proto, prog, device) -> Dict[str, torch.Tensor]:
+    """One engine run of ``SimParams`` ``p`` in one launch of
+    ``engine_run_kernel`` on the CUDA ``device``: the result dict of
+    ``core.sim.simulate``, bit for bit, as tensors on the card."""
+    return run_cuda_batch([(p, proto, prog, p.n_addrs)], device)[0]

@@ -13,21 +13,27 @@ end-of-run aggregates cannot:
   per-cycle state and queue-depth traces; ``Result.events()`` gives the
   span/completion view and :func:`perfetto.export` writes a Chrome trace
   JSON loadable at https://ui.perfetto.dev.
+* **runner instrumentation** (:class:`RunReport`, :func:`collect`) —
+  where a sweep's time goes: one record per launched chunk (library
+  build or load, the card's time to the end of the chunk's host copy),
+  collected explicitly or ambiently with ``with obs.collect() as
+  report:``.
 
-The reference's third layer, the sweep runner's ``RunReport``, comes
-with the port of the sweep.  Submodules import lazily (PEP 562), so the
-engine's dependency on ``repro_torch.obs.schema`` stays one light leaf
-module.
+Submodules import lazily (PEP 562), so the engine's dependency on
+``repro_torch.obs.schema`` stays one light leaf module.
 """
 from __future__ import annotations
 
 from typing import TYPE_CHECKING
 
-__all__ = ["schema", "Timeseries", "EventLog", "Span", "perfetto"]
+__all__ = ["schema", "Timeseries", "EventLog", "Span", "RunReport",
+           "ChunkRecord", "collect", "current", "perfetto"]
 
 if TYPE_CHECKING:                     # pragma: no cover - typing only
     from repro_torch.obs import perfetto, schema
     from repro_torch.obs.events import EventLog, Span
+    from repro_torch.obs.runreport import (ChunkRecord, RunReport, collect,
+                                           current)
     from repro_torch.obs.timeseries import Timeseries
 
 #: attribute -> (submodule, member or None for the module itself)
@@ -37,6 +43,10 @@ _LAZY = {
     "Timeseries": ("repro_torch.obs.timeseries", "Timeseries"),
     "EventLog": ("repro_torch.obs.events", "EventLog"),
     "Span": ("repro_torch.obs.events", "Span"),
+    "RunReport": ("repro_torch.obs.runreport", "RunReport"),
+    "ChunkRecord": ("repro_torch.obs.runreport", "ChunkRecord"),
+    "collect": ("repro_torch.obs.runreport", "collect"),
+    "current": ("repro_torch.obs.runreport", "current"),
 }
 
 

@@ -5,6 +5,10 @@ The same nouns as the reference's ``repro.sync``:
 * :class:`Spec` — a frozen, validated description of one simulation
   point (the reference's groups, fields and JSON).
 * :class:`Result` — the typed result of one point.
+* :class:`Study` — a declarative multi-point experiment
+  (``Study(base).grid(lat=[1, 4, 16]).zip(seed=range(4))``) run through
+  the batched sweep: on the GPU the points of one core count are one
+  launch of the engine kernel, a grid of run blocks.
 
 Quickstart (on a machine with an NVIDIA GPU)::
 
@@ -17,7 +21,7 @@ Quickstart (on a machine with an NVIDIA GPU)::
 ``run`` computes on the GPU unless the caller asks for the CPU with
 ``device="cpu"``; without a visible GPU and without that request it
 raises.  Results are bit-identical to ``repro.sync.run`` for every point
-the port covers.  ``Study`` and the batched sweep are not ported yet.
+the port covers, and ``Study(...).run()`` to the reference's ``Study``.
 """
 from __future__ import annotations
 
@@ -27,12 +31,15 @@ from repro_torch.core import protocols as _protocols
 from repro_torch.core import sim as _sim
 from repro_torch.core import workloads as _workloads
 from repro_torch.core.metrics import METRIC_TRIPLE
+from repro_torch.core.sweep import enable_persistent_cache
 from repro_torch.sync.result import Result
 from repro_torch.sync.spec import Costs, Protocol, Spec, Topology, Workload
+from repro_torch.sync.study import Study
 
-__all__ = ["Spec", "Result", "run",
+__all__ = ["Spec", "Result", "Study", "run",
            "Protocol", "Workload", "Topology", "Costs",
-           "protocols", "workloads", "scenario", "METRIC_TRIPLE"]
+           "protocols", "workloads", "scenario", "METRIC_TRIPLE",
+           "enable_persistent_cache"]
 
 
 def run(spec: Optional[Spec] = None, *, device=None, energy_fit=None,

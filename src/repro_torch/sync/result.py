@@ -118,6 +118,20 @@ class Result:
         v = self.stats.get("worker_rate")
         return None if v is None else float(v)
 
+    # ---- sweep isolation ------------------------------------------------
+    @property
+    def ok(self) -> bool:
+        """``False`` when this point is a sweep-isolation error record
+        (its launch raised and the bisected retry failed too, or its
+        metrics were non-finite)."""
+        return "error" not in self.stats
+
+    @property
+    def error(self) -> Optional[str]:
+        """The isolated failure (``"ExcType: message"``) or ``None``."""
+        v = self.stats.get("error")
+        return None if v is None else str(v)
+
     # ---- observability views --------------------------------------------
     def timeseries(self):
         """The windowed telemetry of this point as a typed
@@ -166,6 +180,10 @@ class Result:
             out["atomics"] = int(self.stats["atomics"])
         if self.worker_rate is not None:
             out["worker_rate"] = self.worker_rate
+        if "error" in self.stats:
+            out["error"] = str(self.stats["error"])
+            if "error_stage" in self.stats:
+                out["error_stage"] = str(self.stats["error_stage"])
         return out
 
     def to_row(self, **extra: Any) -> Dict[str, Any]:

@@ -3,9 +3,9 @@
 // of a block is a std::thread, __syncthreads is a std::barrier over the
 // block, the warp votes and reductions exchange values through a
 // std::barrier over each warp of 32 threads, atomics are std::atomic_ref.
-// Blocks of a grid run one after another.  It checks what the kernels
-// compute and in which order, not how fast, and nothing about the GPU's
-// compiler.
+// Blocks of a grid run one after another, in index order or reversed
+// (mock_set_block_order).  It checks what the kernels compute and in
+// which order, not how fast, and nothing about the GPU's compiler.
 #pragma once
 #include <algorithm>
 #include <atomic>
@@ -122,13 +122,18 @@ inline int __popc(unsigned v) { return __builtin_popcount(v); }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 
+// the order the blocks of a grid run in: 0 in index order, 1 reversed
+inline int mock_block_order = 0;
+extern "C" void mock_set_block_order(int order) { mock_block_order = order; }
+
 // kernel<<<grid, block, smem, stream>>>(args...), rewritten by the test
 template <class K, class... A>
 void mock_launch(long long grid, int block, size_t smem, cudaStream_t,
                  K kern, A... args) {
   blockDim = {static_cast<unsigned>(block), 1, 1};
   gridDim = {static_cast<unsigned>(grid), 1, 1};
-  for (long long b = 0; b < grid; ++b) {
+  for (long long j = 0; j < grid; ++j) {
+    const long long b = mock_block_order == 1 ? grid - 1 - j : j;
     mock_block_barrier = std::make_unique<std::barrier<>>(block);
     mock_warps.clear();
     for (int w = 0; w < (block + 31) / 32; ++w)

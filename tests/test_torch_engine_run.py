@@ -10,7 +10,7 @@ runs on the CPU against the plain loop through a g++ build
   derives, for the four protocols, with and without workers, for
   negative and large seeds;
 * ``RUN_PARAMS``/``RUN_PTRS``/``RUN_SCALARS`` name the source's enums in
-  order, and ``run_outputs`` lays out what the plain loop returns;
+  order, and ``pack_runs`` lays out what the plain loop returns;
 * ``run_cuda`` refuses a CPU device, and ``simulate`` on a CUDA device
   goes to ``run_cuda`` (with a stand-in launcher: no card needed).
 """
@@ -151,7 +151,7 @@ def test_run_outputs_lay_out_the_plain_result(proto, traced):
     p = _params(proto, cycles=20, record_trace=traced,
                 telemetry_windows=3 * traced)
     pr = tprotocols.get(proto)
-    out = es_kernel.run_outputs(p, pr, _scalars(p), torch.device("cpu"))
+    out = es_kernel.pack_runs([(p, pr, _scalars(p))], "cpu")["outs"][0]
     scal = out.pop("scalars")
     assert scal.shape == (len(es_kernel.RUN_SCALARS),)
     want = sim._simulate_plain(p, "cpu")

@@ -1,6 +1,7 @@
 """The port on an NVIDIA GPU: the CUDA kernels and runs through them (the
 simulator's engine, one engine_run launch per run held against the
-per-cycle loop, and recurrentgemma-2b-smoke, rwkv6-1.6b-smoke and
+per-cycle loop, a Study as one launch per core count held against its
+single runs, and recurrentgemma-2b-smoke, rwkv6-1.6b-smoke and
 kimi-k2-1t-a32b-smoke served by ServeEngine).
 
 Every test here is marked ``gpu`` and skips without a CUDA device (the
@@ -21,7 +22,7 @@ import pytest
 import torch
 
 from repro_torch import convert
-from repro_torch.core import protocols
+from repro_torch.core import protocols, sim
 from repro_torch.core.sim import SimParams
 from repro_torch.configs import get_config
 from repro_torch.kernels import (LAUNCHES, colibri_scatter, engine_step,
@@ -108,6 +109,57 @@ def test_run_kernel_matches_the_plain_loop(name, traced, cuda_device):
         assert cs.run_case(p, cuda_device) == (p.cycles, 0.0)
         assert LAUNCHES["engine_run"] == 1
         LAUNCHES.update(before)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_batch", [None, 2])
+def test_study_on_gpu_equals_single_runs(max_batch, cuda_device):
+    """A small Study on the card: one engine_run launch per launch group
+    (core count) and chunk, every point equal to its single run (bank
+    arrays padded to the bucket), and equal to the CPU's sweep."""
+    from repro_torch.sync import Study
+    cs = _chip_smoke()
+    specs = [Spec(protocol=pr, workload="zipf_histogram", zipf_skew=0,
+                  n_cores=n, n_addrs=a, cycles=600, seed=s, q_slots=q)
+             for pr, n, a, s, q in (("colibri", 64, 3, 1, 256),
+                                    ("lrsc", 64, 16, -5, 256),
+                                    ("lrscwait", 64, 5, 2, 8),
+                                    ("amo", 32, 7, 3, 256),
+                                    ("lrscwait", 32, 1, 4, 256))]
+    specs.append(specs[0].replace(record_trace=True, telemetry_windows=8,
+                                  n_addrs=6))
+    before = dict(LAUNCHES)
+    got = Study.from_specs(specs).run(max_batch=max_batch)
+    # 64 cores: 4 points, 32 cores: 2 points; at max_batch=2: 2 + 1
+    want_launches = 2 if max_batch is None else 3
+    assert LAUNCHES["engine_run"] - before["engine_run"] == want_launches
+    assert LAUNCHES["engine_step"] == before["engine_step"]
+    cpu = Study.from_specs(specs).run(device="cpu")
+    for spec, r, c in zip(specs, got, cpu):
+        assert r.ok
+        assert cs.swept_diff(r.stats, run(spec).stats,
+                             spec.to_params()) == []
+        assert cs.int_keys_equal(r.stats, c.stats) == []
+
+
+@pytest.mark.gpu
+def test_batched_launch_runs_blocks_independently(cuda_device):
+    """The same point alone and among 200 others in one launch: the same
+    bits (no state shared between blocks)."""
+    cs = _chip_smoke()
+    base = SimParams(protocol="lrscwait", workload="zipf_histogram",
+                     zipf_skew=0, n_cores=256, n_addrs=5, cycles=2000,
+                     seed=11)
+    pts = [base] + [SimParams(protocol=("amo", "lrsc", "colibri")[i % 3],
+                              n_cores=256, n_addrs=1 + i % 40,
+                              cycles=500 + 10 * i, seed=i)
+                    for i in range(200)]
+    before = LAUNCHES["engine_run"]
+    many = sim.simulate_batch(pts, cuda_device)
+    alone = sim.simulate_batch([base], cuda_device)[0]
+    torch.cuda.synchronize()
+    assert LAUNCHES["engine_run"] == before + 2
+    assert cs.result_diff(many[0], alone) == []
 
 
 @pytest.mark.gpu

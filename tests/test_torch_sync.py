@@ -138,13 +138,48 @@ def test_chip_smoke_reference_values_match_the_reference():
 
 
 def test_chip_smoke_checks_the_kernel_at_every_shape_it_launches():
+    """Every (cores, banks) the golden, main and sweep phases launch (a
+    swept point at its bank bucket) is a KERNEL_SHAPES entry, where the
+    run_kernel phase holds the kernel against the plain loop."""
+    from repro_torch.core.sweep import _bucket_a
     cs = _chip_smoke()
     launched = {(c["n_cores"], c["n_addrs"]) for c in GOLDEN_CONFIGS}
     launched |= {(c["n_cores"], c["n_addrs"])
                  for c, _ in GOLDEN_EXTRA.values()}
     launched |= {(n, b) for _, n, b in cs.FULL_WIDTH_POINTS}
+    swept = [s.to_params() for s in cs.sweep_fig3_specs()
+             + cs.sweep_mixed_specs()]
+    launched |= {(p.n_cores, _bucket_a(p.n_addrs)) for p in swept}
     assert launched <= set(cs.KERNEL_SHAPES)
     assert (2048, 512) in cs.KERNEL_SHAPES
+
+
+def test_chip_smoke_sweep_points_are_covered():
+    """The sweep phase's points: the Fig. 3 lines at every bin count plus
+    the 1024-core point (every FULL_WIDTH_POINTS entry among them, so
+    FULL_WIDTH_REF holds them), two launch groups; the mixed grid is one
+    core count, varies every DYN_FIELDS field but zipf_skew, pads its
+    banks, carries the Fig. 5 workers and a traced point."""
+    from repro_torch.core.sim import DYN_FIELDS
+    from repro_torch.core.sweep import _bucket_a
+    cs = _chip_smoke()
+    fig3 = [s.to_params() for s in cs.sweep_fig3_specs()]
+    assert len(fig3) == 31
+    assert {p.n_cores for p in fig3} == {256, 1024}
+    assert cs.SWEEP_FIG3_LAUNCHES == 2
+    have = {(p.protocol, p.n_cores, p.n_addrs) for p in fig3}
+    assert set(cs.FULL_WIDTH_POINTS) <= have
+    assert {p.n_addrs for p in fig3} == set(cs.SWEEP_BINS)
+    assert {p.q_slots for p in fig3 if p.protocol == "lrscwait"} == {8, 256}
+    mixed = [s.to_params() for s in cs.sweep_mixed_specs()]
+    assert len({p.n_cores for p in mixed}) == 1
+    for f in DYN_FIELDS:
+        vals = {getattr(p, f) for p in mixed}
+        assert (len(vals) == 1) == (f == "zipf_skew"), f
+    assert any(_bucket_a(p.n_addrs) > p.n_addrs for p in mixed)
+    assert {p.n_workers for p in mixed if p.protocol == "lrscwait"
+            and p.net_bw == 13 and p.hol_block == 16} >= {0, 64, 128}
+    assert any(p.record_trace for p in mixed)
 
 
 @pytest.mark.parametrize("proto,want", [("amo", 366), ("lrsc", 376)])

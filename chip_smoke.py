@@ -13,10 +13,11 @@ Phases, one JSON line each:
    ``grouped_matmul`` CUDA libraries from the checkout, one ``nvcc``
    each, in parallel, and reports each kernel's ``ptxas`` line;
 3. kernel — the engine_step kernel against its plain PyTorch version on
-   the card, for each protocol at every (cores, banks) shape the later
-   phases run, plus the reference's multi-tile case, over chained
-   cycles from seeded random states: every output and bank array must
-   be equal;
+   the card, for each of the eight protocols at every (cores, banks)
+   shape the later phases run, plus the reference's multi-tile case,
+   over chained cycles from seeded random states (the lock bits, the
+   ticket dispensers and the cores' held tickets too): every output,
+   bank array and per-core write must be equal;
    run_kernel — the engine_run kernel (one launch per run) against the
    plain loop (``sim._simulate_plain``, one engine_step launch per
    cycle) on the card, for each protocol at every such shape over
@@ -84,9 +85,11 @@ Phases, one JSON line each:
    (``_hash``, the backoff jitter, the uniform and skew-0 Zipf address of
    every 24-bit hash) through the library's probe entry;
 7. golden — ``repro_torch.sync.run`` on the card reproduces the
-   reference's golden values (``tests/test_protocols.py``), each point
-   one engine_run launch and no engine_step launch, and one point per
-   protocol equals the port's own CPU run key for key;
+   reference's golden values (``tests/test_protocols.py``) for every
+   protocol that has them (all but ``ticket_lock``), each point one
+   engine_run launch and no engine_step launch, and one point per
+   protocol equals the port's own CPU run key for key; the protocols the
+   port lacks (``colibri_hier``, ``hw_event``, ``nb_feb``) are refused;
 8. main path — the paper's 256-core MemPool (Fig. 3 histogram, uniform
    bins) at the paper's 20 000 cycles for colibri and lrsc at 1 and 256
    bins, and a 1024-core colibri point: summaries and metrics equal the
@@ -116,12 +119,20 @@ Phases, one JSON line each:
    events over the wall; the profiler's reading beside it), ms per
    launch and per point for ``SWEEP_B`` seeds of colibri 256 × 1 (CUDA
    events) beside the barrier floor of a grid of as many blocks and the
-   byte bound, and the blocks resident per SM with the registers a
-   thread;
+   byte bound, and the blocks resident per SM with the registers and
+   local (spill) bytes a thread of each instance of the kernel;
+   fig4 — Fig. 4 (``benchmarks/bench_locks.py``): colibri and the four
+   lock baselines × ``SWEEP_BINS``, 256 cores, ``FIG4_CYCLES``, the locks
+   with the paper's fixed 128-cycle backoff, as one Study of ONE launch,
+   every point bit for bit equal to its single run; the figure's rows
+   (updates per cycle and Jain fairness per bin), the launch's card time
+   against the 30 single runs, the busy share;
 12. kernel times — engine_run's device time per run at the five
    main-path points beside its byte bound and the barrier-only floor of
    its chain of cycles, and the plain loop's time at the first, whose
    20 000-cycle result must equal the kernel's on every key; each
+   protocol's 256 × 1 run (``lock_time``: the four locks beside
+   colibri); each
    other kernel's device time per call (profiler) beside its bound, its
    plain version's and the PyTorch library call's, at the shapes the
    paths give it (colibri_scatter also on the trace phase's own four
@@ -176,7 +187,8 @@ from repro_torch.serving import Request, ServeEngine  # noqa: E402
 from repro_torch.obs.schema import STATE_NAMES  # noqa: E402
 from repro_torch.sync import Spec, run  # noqa: E402
 
-PROTOS = ("amo", "lrsc", "lrscwait", "colibri")
+PROTOS = ("amo", "lrsc", "lrscwait", "colibri", "amo_lock", "lrsc_lock",
+          "ticket_lock", "mwait_lock")
 
 #: H100 SXM device-memory rate (NVIDIA data sheet), for the bound
 HBM_BYTES_PER_S = 3.35e12
@@ -225,7 +237,37 @@ GOLDEN = {
  "colibri/2": {"ops": 874, "msgs": 7488, "polls": 0, "sleep_cyc": 238668,
                "backoff_cyc": 0, "bank_ops": 1874, "net_stall": 19,
                "ops_min": 6, "ops_max": 7},
+ "amo_lock/0": {"ops": 174, "msgs": 2732, "polls": 1017, "sleep_cyc": 0,
+                "backoff_cyc": 172636, "bank_ops": 1366, "net_stall": 0,
+                "ops_min": 0, "ops_max": 9},
+ "amo_lock/1": {"ops": 1632, "msgs": 8076, "polls": 764, "sleep_cyc": 0,
+                "backoff_cyc": 128388, "bank_ops": 4038, "net_stall": 0,
+                "ops_min": 9, "ops_max": 56},
+ "amo_lock/2": {"ops": 580, "msgs": 5062, "polls": 1367, "sleep_cyc": 0,
+                "backoff_cyc": 233012, "bank_ops": 2531, "net_stall": 5,
+                "ops_min": 0, "ops_max": 18},
+ "lrsc_lock/0": {"ops": 121, "msgs": 4734, "polls": 1001, "sleep_cyc": 0,
+                 "backoff_cyc": 169020, "bank_ops": 1244, "net_stall": 0,
+                 "ops_min": 0, "ops_max": 9},
+ "lrsc_lock/1": {"ops": 1239, "msgs": 10592, "polls": 780, "sleep_cyc": 0,
+                 "backoff_cyc": 131471, "bank_ops": 3269, "net_stall": 0,
+                 "ops_min": 3, "ops_max": 37},
+ "lrsc_lock/2": {"ops": 451, "msgs": 8186, "polls": 1368, "sleep_cyc": 0,
+                 "backoff_cyc": 230369, "bank_ops": 2272, "net_stall": 39,
+                 "ops_min": 0, "ops_max": 17},
+ "mwait_lock/0": {"ops": 196, "msgs": 1426, "polls": 0, "sleep_cyc": 183939,
+                  "backoff_cyc": 0, "bank_ops": 455, "net_stall": 0,
+                  "ops_min": 3, "ops_max": 4},
+ "mwait_lock/1": {"ops": 3161, "msgs": 18760, "polls": 0,
+                  "sleep_cyc": 98536, "backoff_cyc": 0, "bank_ops": 6374,
+                  "net_stall": 0, "ops_min": 48, "ops_max": 51},
+ "mwait_lock/2": {"ops": 874, "msgs": 5736, "polls": 0, "sleep_cyc": 238668,
+                  "backoff_cyc": 0, "bank_ops": 1874, "net_stall": 19,
+                  "ops_min": 6, "ops_max": 7},
 }
+#: the protocols with golden values (ticket_lock has none: the run_kernel
+#: phase and the CPU parity tests hold it)
+GOLDEN_PROTOS = tuple(pr for pr in PROTOS if f"{pr}/0" in GOLDEN)
 GOLDEN_EXTRA = {
  "lrscwait_q8": (dict(n_cores=64, n_addrs=1, q_slots=8, cycles=3000, seed=4),
                  {"ops": 222, "msgs": 2024, "polls": 560, "sleep_cyc": 20630,
@@ -627,8 +669,18 @@ SWEEP_B = (1, 8, 32, 132, 264)
 #: per-bank result arrays of a swept point padded to the bucket, with
 #: their bank axis
 BANK_AXIS = {"addr_ops": 0, "qbuf": 0, "qhead": 0, "qlen": 0,
-             "wake_tmr": 0, "resv_core": 0, "resv_valid": 0,
-             "trace_qlen": 1}
+             "wake_tmr": 0, "resv_core": 0, "resv_valid": 0, "lock": 0,
+             "next_tkt": 0, "serving": 0, "trace_qlen": 1}
+
+# ---- Fig. 4: colibri against the lock baselines, one launch ------------
+#: the protocols of Fig. 4 (benchmarks/bench_locks.py), at SWEEP_BINS
+FIG4_LOCKS = ("colibri", "amo_lock", "lrsc_lock", "ticket_lock",
+              "mwait_lock")
+#: simulated cycles of its points (bench_locks.py's CYCLES)
+FIG4_CYCLES = 12_000
+#: the 256-core points whose engine_run time the lock_time phase takes:
+#: each lock at one bin beside colibri (full_width_spec, FULL_WIDTH_CYCLES)
+LOCK_TIME_POINTS = tuple((pr, 256, 1) for pr in FIG4_LOCKS)
 
 
 def reset_launches() -> None:
@@ -717,7 +769,8 @@ def smi_line() -> str:
 # ---- phase 3 helpers ----------------------------------------------------
 
 def random_bank(proto, p, a, n, q_cap, rng) -> dict:
-    """Seeded random bank state of the protocol's layout (numpy)."""
+    """Seeded random bank state of the protocol's layout (numpy): lrsc's
+    reservations, the queues, the lock bits, the ticket dispensers."""
     bank = convert.to_numpy(proto.init_bank_state(p, a, n, q_cap, "cpu"))
     if "resv_core" in bank:
         bank["resv_core"] = rng.integers(-1, n, a).astype(np.int32)
@@ -727,11 +780,21 @@ def random_bank(proto, p, a, n, q_cap, rng) -> dict:
         bank["qhead"] = rng.integers(0, q_cap, a).astype(np.int32)
         bank["qlen"] = rng.integers(0, q_cap + 1, a).astype(np.int32)
         bank["wake_tmr"] = rng.integers(0, 8, a).astype(np.int32)
+    if "lock" in bank:
+        bank["lock"] = rng.random(a) < 0.5
+    if "next_tkt" in bank:
+        bank["next_tkt"] = rng.integers(0, 8, a).astype(np.int32)
+        bank["serving"] = rng.integers(0, 8, a).astype(np.int32)
     return bank
 
 
+#: per-core inputs of a step that are a protocol's per-core state
+CORE_FIELDS = ("tkt",)
+
+
 def random_step(n, a, cyc, rng) -> dict:
-    """Seeded random per-core inputs of one engine step (numpy)."""
+    """Seeded random per-core inputs of one engine step (numpy), with a
+    held ticket per core (-1 for none) for the protocols that read it."""
     shift = int(rng.integers(0, n))
     cand = rng.integers(0, cyc + 1, n).astype(np.int32)
     cand[rng.random(n) < 0.5] = sim._BIG
@@ -740,26 +803,35 @@ def random_step(n, a, cyc, rng) -> dict:
                 addr=rng.integers(0, a, n).astype(np.int32),
                 phase=rng.integers(0, 2, n).astype(np.int32),
                 acq_start=rng.integers(0, cyc + 1, n).astype(np.int32),
-                shift=shift)
+                shift=shift, tkt=rng.integers(-1, 8, n).astype(np.int32))
 
 
 def step_kwargs(inputs, dev, cyc, p, n, a, q_cap, cycles) -> dict:
+    fields = protocols.get(p.protocol).fused_core_fields
     kw = {k: torch.from_numpy(v).to(dev) for k, v in inputs.items()
-          if k != "shift"}
-    kw.update(core={}, cyc=cyc, shift=inputs["shift"], lat=p.lat, n=n, a=a,
+          if k != "shift" and k not in CORE_FIELDS}
+    kw.update(core={f: torch.from_numpy(inputs[f]).to(dev) for f in fields},
+              cyc=cyc, shift=inputs["shift"], lat=p.lat, n=n, a=a,
               q_cap=q_cap, cycles=cycles)
     return kw
 
 
 def compare(out_k, out_r) -> int:
-    """Max |kernel - plain| over every output and bank array; raises on
-    a dtype or shape mismatch."""
+    """Max |kernel - plain| over every output, bank array and per-core
+    write (values and mask); raises on a dtype or shape mismatch or on
+    different per-core fields."""
     worst = 0
     keys = ("valid", "win", "kind", "tmr", "polls", "msgs", "hist",
             "lat_max")
     pairs = [(k, out_k[k], out_r[k]) for k in keys]
     pairs += [(f"bank.{k}", out_k["bank"][k], out_r["bank"][k])
               for k in out_r["bank"]]
+    require(set(out_k["xset"]) == set(out_r["xset"]),
+            f"per-core writes {sorted(out_k['xset'])} vs "
+            f"{sorted(out_r['xset'])}")
+    for k, (val, msk) in out_r["xset"].items():
+        pairs += [(f"xset.{k}", out_k["xset"][k][0], val),
+                  (f"xset.{k}.mask", out_k["xset"][k][1], msk)]
     for name, x, y in pairs:
         require(x.dtype == y.dtype and x.shape == y.shape,
                 f"{name}: {x.dtype}{tuple(x.shape)} vs "
@@ -1056,7 +1128,7 @@ def require_one_run(what: str) -> None:
 
 def phase_golden() -> None:
     n_points = 0
-    for name in PROTOS:
+    for name in GOLDEN_PROTOS:
         for i, cfg in enumerate(GOLDEN_CONFIGS):
             reset_launches()
             r = run(Spec(protocol=name, **cfg))
@@ -1079,7 +1151,14 @@ def phase_golden() -> None:
         got = observe(r.stats)
         require({k: got[k] for k in want} == want, f"{key}: {got} != {want}")
         n_points += 1
-    emit(phase="golden", points=n_points, cpu_points=len(PROTOS),
+    for name in sim.UNPORTED_PROTOCOLS:         # refused, no fallback
+        try:
+            run(Spec(protocol=name, n_cores=8, cycles=10))
+        except NotImplementedError:
+            continue
+        raise Failed(f"{name}: ran, but the port has no branch for it")
+    emit(phase="golden", points=n_points, protocols=GOLDEN_PROTOS,
+         cpu_points=len(GOLDEN_PROTOS), refused=sim.UNPORTED_PROTOCOLS,
          equal=True)
 
 
@@ -1228,8 +1307,8 @@ def barrier_floor_ms(threads: int, cycles: int, per_cycle: int,
 
 def run_block(protocol: str, n: int) -> tuple:
     """engine_run's block for a run of ``n`` cores: (threads, block
-    barriers per simulated cycle: 4 for the queue protocols, 2 for amo
-    and lrsc)."""
+    barriers per simulated cycle: 4 for the queue protocols, 2 for amo,
+    lrsc and the spin locks)."""
     threads = _build.library("engine_step").engine_run_threads(n)
     return threads, 4 if protocols.get(protocol).uses_queue else 2
 
@@ -1623,11 +1702,72 @@ def phase_sweep() -> dict:
     emit(phase="sweep_fig3_time", **fig3_time)
     batches = [time_batch(b) for b in SWEEP_B]
     emit(phase="sweep_batch_time", batches=batches)
-    occ = [occupancy(256, 1), occupancy(1024, 1)]
+    # one shape per instance of the kernel: 256 threads, 1 024 threads,
+    # two cores a thread, cores in device memory
+    occ = [occupancy(n, 1) for n in (256, 1024, 2048, 2100)]
     emit(phase="sweep_occupancy", shapes=occ)
     return dict(fig3_launches=fig3["launches"],
                 mixed_launches=mixed["launches"], fig3=fig3_time,
                 batches=batches, occupancy=occ)
+
+
+def fig4_specs() -> list:
+    """Fig. 4's points (``benchmarks/bench_locks.py``): FIG4_LOCKS ×
+    SWEEP_BINS at 256 cores and FIG4_CYCLES, the locks with the paper's
+    fixed 128-cycle backoff."""
+    return [Spec(protocol=pr, n_addrs=bins, cycles=FIG4_CYCLES,
+                 **(dict(backoff=128, backoff_exp=1)
+                    if pr.endswith("lock") else {}))
+            for pr in FIG4_LOCKS for bins in SWEEP_BINS]
+
+
+def phase_fig4() -> dict:
+    """Fig. 4 on the card as one Study of ONE engine_run launch (30
+    points of one core count), every point bit for bit equal to its
+    single run; the figure's rows (updates per cycle and Jain fairness
+    per protocol and bin), the launch's card time (CUDA events) and the
+    Study's wall against the 30 single runs, the busy share."""
+    from repro_torch import obs
+    from repro_torch.sync import Study
+    specs = fig4_specs()
+    chk = sweep_check("fig4", specs, 1)
+    rows = {}
+    for r in chk["results"]:
+        rows.setdefault(r.spec.protocol.name, {})[r.spec.topology.n_addrs] \
+            = dict(updates_per_cycle=r.throughput,
+                   jain_fairness=r.jain_fairness, polls=r.polls)
+    t = {(pr, b): rows[pr][b]["updates_per_cycle"]
+         for pr in FIG4_LOCKS for b in SWEEP_BINS}
+    emit(phase="fig4_rows", launches=chk["launches"], points=len(specs),
+         cycles=FIG4_CYCLES, equal=True, rows=rows,
+         colibri_over_amo_lock_1bin=t[("colibri", 1)] / t[("amo_lock", 1)],
+         colibri_over_mwait_lock_1bin=(t[("colibri", 1)]
+                                       / t[("mwait_lock", 1)]),
+         colibri_best_everywhere=all(
+             t[("colibri", b)] >= max(t[(pr, b)] for pr in FIG4_LOCKS[1:])
+             * 0.99 for b in SWEEP_BINS))
+    study = Study.from_specs(specs)
+    launches = dict(LAUNCHES)
+    walls, card = [], []
+    for _ in range(3):
+        with obs.collect() as report:
+            t0 = time.perf_counter()
+            study.run()
+            walls.append(time.perf_counter() - t0)
+        card.append(report.to_dict()["execute_s"])
+    LAUNCHES.update(launches)                 # timing runs are not counted
+    best = min(range(len(walls)), key=walls.__getitem__)
+    single = sum(chk["single_wall_s"])
+    rec = dict(points=len(specs), launches=chk["launches"],
+               study_wall_s=walls[best], study_wall_s_repeat=walls,
+               card_ms=card[best] * 1e3, card_ms_repeat=[c * 1e3
+                                                         for c in card],
+               single_walls_sum_s=single,
+               single_wall_max_s=max(chk["single_wall_s"]),
+               speedup=single / walls[best],
+               device_busy_share=card[best] / walls[best])
+    emit(phase="fig4_time", **rec)
+    return rec
 
 
 def launch_floor_ms(dev) -> float:
@@ -2475,11 +2615,19 @@ def main() -> int:
     trace_run = timed(phase_trace, main_run["points"])
     timed(phase_profile)
     sweep_run = timed(phase_sweep)
+    fig4_run = timed(phase_fig4)
 
     t0 = time.perf_counter()
     runs = [time_run(full_width_spec(*pt), plain=i == 0)
             for i, pt in enumerate(FULL_WIDTH_POINTS)]
     emit(phase="run_time", seconds=time.perf_counter() - t0, points=runs)
+    locks = [time_run(full_width_spec(*pt), plain=False)
+             for pt in LOCK_TIME_POINTS]
+    emit(phase="lock_time", points=[
+        {k: r[k] for k in ("protocol", "n", "a", "cycles", "ms",
+                           "us_per_cycle", "barrier_floor_ms",
+                           "barriers_per_cycle", "bound_ms")}
+        for r in locks])
     head = runs[0]
     kernels = [dict(
         name="engine_run", route="cuda",
@@ -2503,7 +2651,14 @@ def main() -> int:
                                      "wall_ms_per_point", "barrier_floor_ms",
                                      "bound_ms")}
                   for r in sweep_run["batches"]],
-            occupancy=sweep_run["occupancy"]))]
+            occupancy=sweep_run["occupancy"]),
+        fig4=dict(launches=fig4_run["launches"], points=fig4_run["points"],
+                  card_ms=fig4_run["card_ms"],
+                  study_wall_s=fig4_run["study_wall_s"],
+                  single_walls_sum_s=fig4_run["single_walls_sum_s"],
+                  busy_share=fig4_run["device_busy_share"]),
+        us_per_cycle_256x1={r["protocol"]: r["us_per_cycle"]
+                            for r in locks})]
     timing = [time_kernel(dev, "colibri", 256, 1),
               time_kernel(dev, "lrsc", 256, 256),
               time_kernel(dev, "colibri", 1024, 1)]

@@ -45,8 +45,19 @@ OUT_NONE, OUT_GRANT, OUT_DONE, OUT_FAIL, OUT_SLEEP = 0, 1, 2, 3, 4
 OUT_EVICT, OUT_REDELIVER = 5, 6
 
 #: ``Protocol.kernel_code`` values: which bank-update branch of the CUDA
-#: ``engine_step`` kernel implements a protocol's ``fused_access``
-KERNEL_AMO, KERNEL_LRSC, KERNEL_QUEUE = 0, 1, 2
+#: ``engine_step`` kernel implements a protocol's ``fused_access`` (amo;
+#: lrsc's reservation slot; the FIFO queue of lrscwait, colibri and
+#: mwait_lock; the test&set lock bit of amo_lock and lrsc_lock; the ticket
+#: dispenser of ticket_lock)
+KERNEL_AMO, KERNEL_LRSC, KERNEL_QUEUE, KERNEL_LOCK, KERNEL_TICKET = \
+    0, 1, 2, 3, 4
+#: side-message rules of the kernel's branches (``kernel_args``): messages
+#: beyond the engine's 2 per winner.  None; colibri's SuccessorUpdate and
+#: WakeUpRequest round trips, 2 * (enqueued + pending wake); mwait_lock's
+#: Mwait setup, 2 * enqueued; lrsc_lock's LR/SC pair, 2 * acquire
+MSGS_NONE, MSGS_ENQ_PEND, MSGS_ENQ, MSGS_ACQ = 0, 1, 2, 3
+#: ``kernel_args``' queue length of a queue that never rejects (int32 max)
+NEVER_FULL = 2**31 - 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,10 +177,14 @@ class Protocol:
         raise NotImplementedError(
             f"protocol {self.name!r} does not provide fused_access")
 
-    def kernel_args(self, p) -> Tuple[int, int]:
-        """``(wake_delay, successor_updates)`` scalars for the CUDA
-        kernel's queue branch; (0, 0) for queueless protocols."""
-        return 0, 0
+    def kernel_args(self, p) -> Tuple[int, int, int, int]:
+        """``(wake_delay, msg_rule, acq_tmr, q_full)`` scalars for the
+        CUDA kernel's branch: the queue's wake delay (0 without a queue),
+        the side-message rule (``MSGS_*``), the response timer of an
+        acquire's outcome (every other outcome answers after ``p.lat``)
+        and the queue length at which an acquire is rejected (0 without
+        a queue, ``NEVER_FULL`` for a queue that never rejects)."""
+        return 0, MSGS_NONE, p.lat, 0
 
     def on_wake(self, ctx: Ctx, cs: Dict, bank: Dict
                 ) -> Tuple[Dict, Dict, torch.Tensor]:

@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.protocols.base import (KERNEL_QUEUE, OUT_DONE, OUT_FAIL,
+from repro_torch.core.protocols.base import (KERNEL_QUEUE, MSGS_ENQ_PEND,
+                                             MSGS_NONE, OUT_DONE, OUT_FAIL,
                                              OUT_GRANT, OUT_NONE, OUT_SLEEP,
                                              Contract, FusedOut, Protocol)
 from repro_torch.core.protocols.registry import register
@@ -36,7 +37,9 @@ class LrscWait(Protocol):
         return p.lat
 
     def kernel_args(self, p):
-        return self.wake_delay(p), int(self.successor_updates)
+        return (self.wake_delay(p),
+                MSGS_ENQ_PEND if self.successor_updates else MSGS_NONE, p.lat,
+                self.q_cap(p, p.n_cores))
 
     def init_bank_state(self, p, a, n, q_cap, device):
         def z():

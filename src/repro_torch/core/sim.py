@@ -23,7 +23,8 @@ tensors; ``cyc`` and the rotation ``shift`` are Python ints, and the loop
 never reads a device value back, so the host only queues work.
 
 Scope of the port so far: the ``amo``/``lrsc``/``lrscwait``/``colibri``
-protocols, the one-step ``rmw_loop``/``zipf_histogram`` programs, the
+protocols and the ``amo_lock``/``lrsc_lock``/``ticket_lock``/``mwait_lock``
+baselines, the one-step ``rmw_loop``/``zipf_histogram`` programs, the
 ``flat`` topology, Fig. 5 workers, the per-cycle event traces
 (``record_trace``) and the windowed telemetry (``telemetry_windows``).
 Everything else the reference engine runs is refused at
@@ -56,8 +57,11 @@ from repro_torch.kernels import engine_step
 from repro_torch.kernels.engine_step.kernel import shl32
 from repro_torch.obs.schema import TELE_K, TELE_NSUM, window_len
 
-#: the protocols the port covers (the reference's Fig. 3 set)
-PROTOCOLS = ("amo", "lrsc", "lrscwait", "colibri")
+#: the protocols the port covers (the reference's Fig. 3 and Fig. 4 sets)
+PROTOCOLS = ("amo", "lrsc", "lrscwait", "colibri", "amo_lock", "lrsc_lock",
+             "ticket_lock", "mwait_lock")
+#: the reference's protocols the port does not cover yet (ROADMAP A2)
+UNPORTED_PROTOCOLS = ("colibri_hier", "hw_event", "nb_feb")
 
 #: execution backends.  The port keeps the field so reference JSON loads;
 #: the device of the run (``device=``) picks kernel or plain code.
@@ -118,6 +122,11 @@ class SimParams:
                ("telemetry_windows", 0), ("clusters", 1))
 
     def __post_init__(self):
+        if self.protocol in UNPORTED_PROTOCOLS:
+            raise NotImplementedError(
+                f"protocol {self.protocol!r} is not ported to repro_torch "
+                f"yet (ROADMAP item A2); ported protocols: "
+                f"{', '.join(proto_registry.names())}")
         if self.protocol not in proto_registry.names():
             raise ValueError(
                 f"unknown protocol {self.protocol!r}; registered protocols: "
@@ -170,14 +179,14 @@ def _refuse_unported(p: SimParams, prog) -> None:
         raise NotImplementedError(
             f"{what} is not ported to repro_torch yet (ROADMAP item {item})")
     if K_BARRIER in prog.kind:
-        refuse("a barrier program", "A8")
+        refuse("a barrier program", "A3")
     if prog.length != 1:
-        refuse("a multi-step program", "A8")
+        refuse("a multi-step program", "A3")
     if ADDR_ZIPF in prog.addr_mode and p.zipf_skew != 0:
         refuse(f"zipf_skew={p.zipf_skew} (only the uniform limit 0 is "
-               f"bit-identical so far)", "A8")
+               f"bit-identical so far)", "A3")
     if p.faults.enabled:
-        refuse("an enabled FaultPlan", "A10")
+        refuse("an enabled FaultPlan", "A5")
 
 
 def _hash(x: torch.Tensor) -> torch.Tensor:
@@ -451,6 +460,11 @@ def _simulate_plain(p: SimParams, device, banks=None
         st = st.masked_fill_(winner & (kind_c == OUT_SLEEP), SLEEP)
         tmr = torch.where(resp_c, fs["tmr"][addr], tmr)
         nxt = torch.where(resp_c, nxt_of_kind[kind_c], nxt)
+        # the protocol's per-core writes (the ticket lock's drawn or
+        # dropped ticket), (values, mask) per bank, at the winning cores
+        for f in proto.fused_xset_fields:
+            val, msk = fs["xset"][f]
+            xc[f] = torch.where(winner & msk[addr], val[addr], xc[f])
         n_win = winner.sum(dtype=i32)
         polls = polls + fs["polls"]
         msgs_now = 2 * n_win + fs["msgs"]

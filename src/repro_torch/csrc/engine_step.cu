@@ -15,9 +15,12 @@
 //      means "no request".  The winner's core id is decoded from its rot
 //      with a floor-mod, (best_rot - shift) mod n.
 //   2. the protocol's bank update (bank_update below: one branch per
-//      protocol family, amo, lrsc, and the lrscwait/colibri FIFO queue),
-//      emitting an OUT_* code and a response timer per bank.  THE BANK
-//      STATE ARRAYS ARE UPDATED IN PLACE.
+//      protocol family: amo; lrsc's reservation slot; the FIFO queue of
+//      lrscwait, colibri and mwait_lock; the test&set lock bit of
+//      amo_lock and lrsc_lock; ticket_lock's dispenser, which reads the
+//      winner's held ticket and writes it back), emitting an OUT_* code,
+//      the outcome's response timer and the per-core write (value, mask)
+//      per bank.  THE BANK STATE ARRAYS ARE UPDATED IN PLACE.
 //   3. the completion-latency histogram of the retiring grants, bucketed
 //      with the integer LAT_THRESHOLDS table (no floating-point log2),
 //      and the [polls, msgs, lat_max] stats, accumulated with integer
@@ -49,13 +52,16 @@
 //     of at most 256 threads copy the scalars on into registers);
 //     nothing is shared between blocks but the read-only kLatThr table,
 //     so the blocks may run in any order;
-//   * per-core state in registers: thread t owns cores t + k * blockDim
+//   * per-core state (ticket_lock's held ticket too) in registers: thread
+//     t owns cores t + k * blockDim
 //     (k < K, K = 1 up to 1024 cores, 2 up to 2048); above that the
 //     state lives in the output arrays in device memory;
-//   * per-bank state (the packed arbitration keys, resv_core/resv_valid,
-//     qhead/qlen/wake_tmr, addr_ops) in shared memory when it fits,
-//     else in a scratch buffer in device memory; qbuf stays in device
-//     memory (the output tensor, updated in place);
+//   * per-bank state (the packed arbitration keys, the family's bank
+//     arrays: resv_core/resv_valid, qhead/qlen/wake_tmr, lock, next_tkt/
+//     serving; addr_ops) in shared memory when it fits, else in a scratch
+//     buffer in device memory; qbuf stays in device memory (the output
+//     tensor, updated in place).  The families share their slots, so the
+//     footprint is the same for all of them;
 //   * arbitration: a shared-memory atomicMin of the packed key per bank,
 //     double-buffered by cycle parity so a reset never races a read; the
 //     core that finds its own key at its bank is the winner and applies
@@ -77,7 +83,7 @@
 //
 // Barriers per simulated cycle: 4 for the queue protocols (after the
 // request words, after the key minimum, after the bank update, after the
-// wake flags), 2 for amo and lrsc.
+// wake flags), 2 for amo, lrsc and the locks.
 //
 // Bound on this card: the work of a cycle is a few hundred instructions
 // per thread between those barriers, so the run is bound by its serial
@@ -122,7 +128,9 @@ constexpr int kOutNone = 0, kOutGrant = 1, kOutDone = 2, kOutFail = 3,
 // request phases
 constexpr int kAcq = 0, kRel = 1;
 // protocol families (repro_torch.core.protocols.base.KERNEL_*)
-constexpr int kAmo = 0, kLrsc = 1, kQueue = 2;
+constexpr int kAmo = 0, kLrsc = 1, kQueue = 2, kLock = 3, kTicket = 4;
+// side-message rules (repro_torch.core.protocols.base.MSGS_*)
+constexpr int kMsgsNone = 0, kMsgsEnqPend = 1, kMsgsEnq = 2, kMsgsAcq = 3;
 // address-stream modes (repro_torch.core.workloads.base.ADDR_*)
 constexpr int kAddrFixed = 1, kAddrZipf = 2;
 
@@ -163,19 +171,37 @@ struct BankState {
   int32_t* qhead;       // queue (a,)
   int32_t* qlen;        // queue (a,)
   int32_t* wake_tmr;    // queue (a,)
+  bool* lock;           // lock (a,)
+  int32_t* next_tkt;    // ticket (a,)
+  int32_t* serving;     // ticket (a,)
+};
+
+// a protocol family and its scalars (kernel.py's kernel_args)
+struct Family {
+  int proto, q_cap, q_full, lat, acq_tmr, wake_delay, msg_rule;
+};
+
+// what a bank's update does to its winner: the OUT_* code, the response
+// timer of a RESP outcome, the side messages, and the per-core write
+// (ticket_lock's held ticket: xval where xset)
+struct Outcome {
+  int kind;
+  int32_t tmr;
+  int msgs;
+  bool xset;
+  int32_t xval;
 };
 
 // The protocol's update of bank b for this cycle's winner `win` (acq or
-// rel: its request phase; neither when the bank has no request).
-// Returns the OUT_* code; *extra_msgs gets the protocol's side messages.
-__device__ __forceinline__ int bank_update(const BankState& bs, int proto,
-                                           int b, int32_t win, bool acq,
-                                           bool rel, int q_cap,
-                                           int wake_delay, int succ,
-                                           int* extra_msgs) {
-  int kind = kOutNone;
-  *extra_msgs = 0;
-  switch (proto) {
+// rel: its request phase; neither when the bank has no request); `tkt`
+// is the winner's held ticket (ticket_lock only).
+__device__ __forceinline__ Outcome bank_update(const BankState& bs,
+                                               const Family& f, int b,
+                                               int32_t win, bool acq,
+                                               bool rel, int32_t tkt) {
+  Outcome o{kOutNone, acq ? f.acq_tmr : f.lat, 0, false, 0};
+  int& kind = o.kind;
+  switch (f.proto) {
     case kAmo:
       kind = acq ? kOutDone : kOutNone;
       break;
@@ -191,38 +217,74 @@ __device__ __forceinline__ int bank_update(const BankState& bs, int proto,
       break;
     }
     case kQueue: {
+      // an acquire at a queue of q_full entries is rejected (lrscwait's
+      // finite queue; mwait_lock's queue never rejects: q_full = kBig)
       int32_t qh = bs.qhead[b], ql = bs.qlen[b];
-      const bool empty = ql == 0, full = ql >= q_cap;
+      const bool empty = ql == 0, full = ql >= f.q_full;
       const bool grant = acq && empty;
       const bool enq = acq && !empty && !full;
       const bool rej = acq && full;
       const bool put = acq && !full;
       if (put) {
-        const int slot = (qh + ql) % q_cap;
-        bs.qbuf[static_cast<long long>(b) * q_cap + slot] = win;
+        const int slot = (qh + ql) % f.q_cap;
+        bs.qbuf[static_cast<long long>(b) * f.q_cap + slot] = win;
       }
       kind = grant ? kOutGrant
            : enq   ? kOutSleep
            : rej   ? kOutFail
            : rel   ? kOutDone
                    : kOutNone;
-      if (rel) qh = (qh + 1) % q_cap;
+      if (rel) qh = (qh + 1) % f.q_cap;
       ql = ql + (put ? 1 : 0) - (rel ? 1 : 0);
       const bool pend = rel && ql > 0;
-      if (pend) bs.wake_tmr[b] = wake_delay;
+      if (pend) bs.wake_tmr[b] = f.wake_delay;
       bs.qhead[b] = qh;
       bs.qlen[b] = ql;
-      if (succ) *extra_msgs = 2 * ((enq ? 1 : 0) + (pend ? 1 : 0));
+      if (f.msg_rule == kMsgsEnqPend) {
+        o.msgs = 2 * ((enq ? 1 : 0) + (pend ? 1 : 0));
+      } else if (f.msg_rule == kMsgsEnq) {
+        o.msgs = enq ? 2 : 0;
+      }
+      break;
+    }
+    case kLock: {
+      // test&set: an acquire takes a free lock or fails; a release
+      // clears it (a winner is an acquire or a release, never both)
+      const bool held = bs.lock[b];
+      const bool got = acq && !held;
+      kind = got ? kOutGrant : acq ? kOutFail : rel ? kOutDone : kOutNone;
+      bs.lock[b] = (held || got) && !rel;
+      if (f.msg_rule == kMsgsAcq && acq) o.msgs = 2;
+      break;
+    }
+    case kTicket: {
+      // the first attempt draws a ticket, a re-poll keeps the one it
+      // holds; granted iff it is the one served; a release serves the
+      // next and drops the ticket
+      int32_t nt = bs.next_tkt[b];
+      const bool draw = acq && tkt < 0;
+      const int32_t mine = draw ? nt : tkt;
+      if (draw) nt = wadd(nt, 1);
+      const int32_t sv = bs.serving[b];
+      kind = acq && mine == sv ? kOutGrant
+           : acq               ? kOutFail
+           : rel               ? kOutDone
+                               : kOutNone;
+      bs.next_tkt[b] = nt;
+      if (rel) bs.serving[b] = wadd(sv, 1);
+      o.xset = acq || rel;
+      o.xval = rel ? -1 : mine;
       break;
     }
     default:
       break;
   }
-  return kind;
+  return o;
 }
 
 struct Scalars {
-  int n, proto, q_cap, cyc, shift, lat, wake_delay, succ, cycles;
+  int n, cyc, shift, cycles;
+  Family f;
 };
 
 __global__ void __launch_bounds__(kThreads)
@@ -231,9 +293,10 @@ engine_step_kernel(const int32_t* __restrict__ cand,
                    const int32_t* __restrict__ addr,
                    const int32_t* __restrict__ phase,
                    const int32_t* __restrict__ acq_start,
-                   BankState bs, bool* valid_out, int32_t* win_out,
-                   int32_t* kind_out, int32_t* tmr_out, int32_t* stats,
-                   int32_t* hist, Scalars sc) {
+                   const int32_t* __restrict__ tkt, BankState bs,
+                   int32_t* xval_out, bool* xmask_out, bool* valid_out,
+                   int32_t* win_out, int32_t* kind_out, int32_t* tmr_out,
+                   int32_t* stats, int32_t* hist, Scalars sc) {
   const int b = blockIdx.x;
   const int n = sc.n;
 
@@ -267,15 +330,19 @@ engine_step_kernel(const int32_t* __restrict__ cand,
   const int32_t ph = phase[wcs];
 
   // ---- stage 2: the protocol's bank update (in place)
-  int extra_msgs;
-  const int kind = bank_update(bs, sc.proto, b, win, valid && ph == kAcq,
-                               valid && ph == kRel, sc.q_cap, sc.wake_delay,
-                               sc.succ, &extra_msgs);
-  const int32_t tmr = sc.lat;
+  const Outcome oc =
+      bank_update(bs, sc.f, b, win, valid && ph == kAcq, valid && ph == kRel,
+                  tkt != nullptr ? tkt[wcs] : -1);
+  const int kind = oc.kind, extra_msgs = oc.msgs;
+  const int32_t tmr = oc.tmr;
   valid_out[b] = valid;
   win_out[b] = win;
   kind_out[b] = kind;
   tmr_out[b] = tmr;
+  if (xval_out != nullptr) {
+    xval_out[b] = oc.xval;
+    xmask_out[b] = oc.xset;
+  }
 
   // ---- stage 3: latency histogram and stats
   const int32_t done_cyc = sc.cyc + (tmr > 1 ? tmr : 1);
@@ -294,10 +361,11 @@ engine_step_kernel(const int32_t* __restrict__ cand,
 // them into an int32 array; zipf_c travels as its float32 bits, seed as
 // its uint32 bits)
 enum Param {
-  P_N, P_A, P_N_ADDRS, P_CYCLES, P_PROTO, P_Q_CAP, P_LAT, P_WAKE_DELAY,
-  P_SUCC, P_PRE_DUR, P_MOD_DUR, P_ADDR_MODE, P_FIX_ADDR, P_ZIPF_C, P_EXP_CAP,
-  P_SEED, P_NET_BW, P_HOL_BLOCK, P_N_WORKERS, P_N_ATOMIC, P_STAGGER,
-  P_TRACE, P_TELE_WINDOWS, P_TELE_CW, P_BO_TAB
+  P_N, P_A, P_N_ADDRS, P_CYCLES, P_PROTO, P_Q_CAP, P_Q_FULL, P_LAT,
+  P_ACQ_TMR, P_WAKE_DELAY, P_MSG_RULE, P_PRE_DUR, P_MOD_DUR, P_ADDR_MODE,
+  P_FIX_ADDR, P_ZIPF_C, P_EXP_CAP, P_SEED, P_NET_BW, P_HOL_BLOCK,
+  P_N_WORKERS, P_N_ATOMIC, P_STAGGER, P_TRACE, P_TELE_WINDOWS, P_TELE_CW,
+  P_BO_TAB
 };
 // backoff base by failure streak, streaks >= kBoTab - 1 share the last
 // entry (backoff << 32 and beyond is 0)
@@ -307,8 +375,9 @@ constexpr int kNumParams = P_BO_TAB + kBoTab;
 // a run's scalars, unpacked from its words (the backoff table stays in
 // the words, in shared memory)
 struct RunParams {
-  int n, a, n_addrs, cycles, proto, q_cap, lat, wake_delay, succ, pre_dur,
-      mod_dur, addr_mode, fix_addr;
+  int n, a, n_addrs, cycles;
+  Family f;
+  int pre_dur, mod_dur, addr_mode, fix_addr;
   float zipf_c;
   int exp_cap;
   uint32_t seed;
@@ -322,11 +391,13 @@ __host__ __device__ inline RunParams unpack_params(const int32_t* w) {
   rp.a = w[P_A];
   rp.n_addrs = w[P_N_ADDRS];
   rp.cycles = w[P_CYCLES];
-  rp.proto = w[P_PROTO];
-  rp.q_cap = w[P_Q_CAP];
-  rp.lat = w[P_LAT];
-  rp.wake_delay = w[P_WAKE_DELAY];
-  rp.succ = w[P_SUCC];
+  rp.f.proto = w[P_PROTO];
+  rp.f.q_cap = w[P_Q_CAP];
+  rp.f.q_full = w[P_Q_FULL];
+  rp.f.lat = w[P_LAT];
+  rp.f.acq_tmr = w[P_ACQ_TMR];
+  rp.f.wake_delay = w[P_WAKE_DELAY];
+  rp.f.msg_rule = w[P_MSG_RULE];
   rp.pre_dur = w[P_PRE_DUR];
   rp.mod_dur = w[P_MOD_DUR];
   rp.addr_mode = w[P_ADDR_MODE];
@@ -353,8 +424,8 @@ enum Ptr {
   R_ST, R_TMR, R_ADDR, R_PHASE, R_NXT, R_OPC, R_OPS, R_ARR_CYC, R_STREAK,
   R_PARKED, R_ACQ_START, R_W_TMR, R_W_SERVED, R_ADDR_OPS, R_LAT_HIST,
   R_SCALARS, R_RESV_CORE, R_RESV_VALID, R_QBUF, R_QHEAD, R_QLEN,
-  R_WAKE_TMR, R_TELE, R_TRACE_STEP, R_TRACE_WAIT, R_TRACE_STATE,
-  R_TRACE_QLEN, R_SCRATCH, kNumPtrs
+  R_WAKE_TMR, R_LOCK, R_NEXT_TKT, R_SERVING, R_TKT, R_TELE, R_TRACE_STEP,
+  R_TRACE_WAIT, R_TRACE_STATE, R_TRACE_QLEN, R_SCRATCH, kNumPtrs
 };
 
 struct RunPtrs {
@@ -363,7 +434,10 @@ struct RunPtrs {
   int32_t *acq, *wtmr, *wserved, *addr_ops, *hist, *scalars;
   int32_t* resv_core;
   bool* resv_valid;
-  int32_t *qbuf, *qhead, *qlen, *wake_tmr, *tele, *trace_step, *trace_wait;
+  int32_t *qbuf, *qhead, *qlen, *wake_tmr;
+  bool* lock;
+  int32_t *next_tkt, *serving, *tkt;
+  int32_t *tele, *trace_step, *trace_wait;
   int8_t* trace_state;
   int32_t* trace_qlen;
   unsigned char* scratch;
@@ -434,6 +508,7 @@ __device__ __forceinline__ int32_t step_addr(const RunParams& rp, int i,
 
 struct Core {
   int32_t st, tmr, addr, phase, nxt, arr, opc, streak, acq, wtmr, wserved;
+  int32_t tkt;  // ticket_lock's held ticket (-1: none; unused elsewhere)
   bool parked;
 };
 
@@ -472,6 +547,7 @@ struct GlobalCores {
     v.phase = o.phase[i]; v.nxt = o.nxt[i]; v.arr = o.arr[i];
     v.opc = o.opc[i]; v.streak = o.streak[i]; v.acq = o.acq[i];
     v.wtmr = o.wtmr[i]; v.wserved = o.wserved[i]; v.parked = o.parked[i];
+    v.tkt = o.tkt != nullptr ? o.tkt[i] : -1;
     return v;
   }
   __device__ __forceinline__ void store(int, int i, const Core& v) {
@@ -479,6 +555,7 @@ struct GlobalCores {
     o.phase[i] = v.phase; o.nxt[i] = v.nxt; o.arr[i] = v.arr;
     o.opc[i] = v.opc; o.streak[i] = v.streak; o.acq[i] = v.acq;
     o.wtmr[i] = v.wtmr; o.wserved[i] = v.wserved; o.parked[i] = v.parked;
+    if (o.tkt != nullptr) o.tkt[i] = v.tkt;
   }
   static constexpr bool kInRegs = false;
 };
@@ -524,7 +601,8 @@ engine_run_kernel(const int32_t* __restrict__ params,
   const int32_t* bo_tab = s_par + P_BO_TAB;
   const RunPtrs& o = s_o;
   const int n = rp.n, a = rp.a, cycles = rp.cycles;
-  const bool lrsc = rp.proto == kLrsc, queue = rp.proto == kQueue;
+  const bool lrsc = rp.f.proto == kLrsc, queue = rp.f.proto == kQueue;
+  const bool lock = rp.f.proto == kLock, ticket = rp.f.proto == kTicket;
   const bool workers = rp.n_workers > 0, tele = rp.tele_windows > 0;
   const bool trace = rp.trace != 0;
 
@@ -536,8 +614,12 @@ engine_run_kernel(const int32_t* __restrict__ params,
   uint32_t* reqw = reinterpret_cast<uint32_t*>(base + L.reqw);
   bool* resv_valid = reinterpret_cast<bool*>(base + L.bytes);
   unsigned char* woken = base + L.bytes + a;
-  BankState bs{ints + a, resv_valid, o.qbuf, ints + 2 * a, ints + 3 * a,
-               ints + 4 * a};
+  // a block runs one family, so the families share the per-bank slots:
+  // the lock bits are resv_valid's bytes, next_tkt and serving are
+  // resv_core's and qhead's words
+  BankState bs{ints + a,     resv_valid,   o.qbuf,
+               ints + 2 * a, ints + 3 * a, ints + 4 * a,
+               resv_valid,   ints + a,     ints + 2 * a};
 
   for (int b = tid; b < a; b += T) {
     keys[b] = kNoKey;
@@ -551,6 +633,11 @@ engine_run_kernel(const int32_t* __restrict__ params,
       bs.qhead[b] = o.qhead[b];
       bs.qlen[b] = o.qlen[b];
       bs.wake_tmr[b] = o.wake_tmr[b];
+    }
+    if (lock) bs.lock[b] = o.lock[b];
+    if (ticket) {
+      bs.next_tkt[b] = o.next_tkt[b];
+      bs.serving[b] = o.serving[b];
     }
   }
   for (int i = tid; i < n; i += T) woken[i] = 0;
@@ -568,7 +655,7 @@ engine_run_kernel(const int32_t* __restrict__ params,
       c.tmr = (i * 3) % rp.stagger;
       c.addr = c.phase = c.nxt = c.opc = c.streak = c.acq = 0;
       c.wtmr = c.wserved = 0;
-      c.arr = -1;
+      c.arr = c.tkt = -1;
       c.parked = false;
       S.store(k, i, c);
     }
@@ -650,7 +737,7 @@ engine_run_kernel(const int32_t* __restrict__ params,
         if (md) c.phase = kRel;
         if (start || rb || md) {
           c.st = kReq;
-          c.tmr = rp.lat;
+          c.tmr = rp.f.lat;
         }
         const bool ra = t0 && c.st == kResp;
         const bool done = ra && c.nxt == kNxtWorkDone;
@@ -774,12 +861,11 @@ engine_run_kernel(const int32_t* __restrict__ params,
         if (c.parked && c.st == kReq) {
           const unsigned long long key = packed_key(c.arr, i, shift, n);
           if (key_now[c.addr] == key) {
-            int xm;
-            const int kind = bank_update(bs, rp.proto, c.addr, i,
-                                         c.phase == kAcq, c.phase == kRel,
-                                         rp.q_cap, rp.wake_delay, rp.succ,
-                                         &xm);
-            const int32_t done_cyc = cyc + max(rp.lat, 1);
+            const Outcome oc = bank_update(bs, rp.f, c.addr, i,
+                                           c.phase == kAcq, c.phase == kRel,
+                                           c.tkt);
+            const int kind = oc.kind, xm = oc.msgs;
+            const int32_t done_cyc = cyc + max(oc.tmr, 1);
             if (kind == kOutDone && done_cyc < cycles) {
               const int32_t lat_b = done_cyc - c.acq;
               atomicAdd(&s_hist[lat_bucket(lat_b)], 1);
@@ -795,9 +881,10 @@ engine_run_kernel(const int32_t* __restrict__ params,
             }
             c.parked = false;
             c.arr = -1;
+            if (oc.xset) c.tkt = oc.xval;
             if (kind == kOutGrant || kind == kOutDone || kind == kOutFail) {
               c.st = kResp;
-              c.tmr = rp.lat;
+              c.tmr = oc.tmr;
               c.nxt = kind == kOutGrant  ? kNxtMod
                     : kind == kOutDone   ? kNxtWorkDone
                                          : kNxtBackoff;
@@ -822,7 +909,7 @@ engine_run_kernel(const int32_t* __restrict__ params,
         ql = bs.qlen[b];
         if (wt == 1 && ql > 0) {
           const int32_t head =
-              o.qbuf[static_cast<size_t>(b) * rp.q_cap + bs.qhead[b]];
+              o.qbuf[static_cast<size_t>(b) * rp.f.q_cap + bs.qhead[b]];
           if (head >= 0 && head < n) woken[head] = 1;
         }
         if (wt2 == 1) atomicAdd(&cur[C_WAKE_LOAD], 1);
@@ -907,6 +994,11 @@ engine_run_kernel(const int32_t* __restrict__ params,
       o.qlen[b] = bs.qlen[b];
       o.wake_tmr[b] = bs.wake_tmr[b];
     }
+    if (lock) o.lock[b] = bs.lock[b];
+    if (ticket) {
+      o.next_tkt[b] = bs.next_tkt[b];
+      o.serving[b] = bs.serving[b];
+    }
   }
 #pragma unroll
   for (int k = 0; k < S.count(); ++k) {
@@ -919,6 +1011,7 @@ engine_run_kernel(const int32_t* __restrict__ params,
         o.opc[i] = c.opc; o.streak[i] = c.streak; o.acq[i] = c.acq;
         o.wtmr[i] = c.wtmr; o.wserved[i] = c.wserved;
         o.parked[i] = c.parked;
+        if (ticket) o.tkt[i] = c.tkt;
       }
       o.ops[i] = c.opc;
     }
@@ -969,23 +1062,37 @@ RunKernel run_kernel_for(int n, int* threads, int* kc) {
 
 }  // namespace
 
+// Pointers of a family's absent arrays are null: the bank state of other
+// families, and tkt, xval and xmask (ticket_lock's held tickets, the
+// per-core write's values and mask) outside the ticket family.
 extern "C" int engine_step_launch(
     const void* cand, const void* rot, const void* addr, const void* phase,
     const void* acq_start, void* resv_core, void* resv_valid, void* qbuf,
-    void* qhead, void* qlen, void* wake_tmr, void* valid_out, void* win_out,
-    void* kind_out, void* tmr_out, void* stats, void* hist, int n, int a,
-    int proto, int q_cap, int cyc, int shift, int lat, int wake_delay,
-    int succ, int cycles, void* stream) {
+    void* qhead, void* qlen, void* wake_tmr, void* lock, void* next_tkt,
+    void* serving, const void* tkt, void* xval, void* xmask, void* valid_out,
+    void* win_out, void* kind_out, void* tmr_out, void* stats, void* hist,
+    int n, int a, int proto, int q_cap, int q_full, int cyc, int shift,
+    int lat, int acq_tmr, int wake_delay, int msg_rule, int cycles,
+    void* stream) {
   BankState bs{static_cast<int32_t*>(resv_core),
-               static_cast<bool*>(resv_valid), static_cast<int32_t*>(qbuf),
-               static_cast<int32_t*>(qhead), static_cast<int32_t*>(qlen),
-               static_cast<int32_t*>(wake_tmr)};
-  Scalars sc{n, proto, q_cap, cyc, shift, lat, wake_delay, succ, cycles};
+               static_cast<bool*>(resv_valid),
+               static_cast<int32_t*>(qbuf),
+               static_cast<int32_t*>(qhead),
+               static_cast<int32_t*>(qlen),
+               static_cast<int32_t*>(wake_tmr),
+               static_cast<bool*>(lock),
+               static_cast<int32_t*>(next_tkt),
+               static_cast<int32_t*>(serving)};
+  Scalars sc{n, cyc, shift, cycles,
+             Family{proto, q_cap, q_full, lat, acq_tmr, wake_delay,
+                    msg_rule}};
   engine_step_kernel<<<a, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(cand), static_cast<const int32_t*>(rot),
       static_cast<const int32_t*>(addr), static_cast<const int32_t*>(phase),
-      static_cast<const int32_t*>(acq_start), bs,
-      static_cast<bool*>(valid_out), static_cast<int32_t*>(win_out),
+      static_cast<const int32_t*>(acq_start),
+      static_cast<const int32_t*>(tkt), bs, static_cast<int32_t*>(xval),
+      static_cast<bool*>(xmask), static_cast<bool*>(valid_out),
+      static_cast<int32_t*>(win_out),
       static_cast<int32_t*>(kind_out), static_cast<int32_t*>(tmr_out),
       static_cast<int32_t*>(stats), static_cast<int32_t*>(hist), sc);
   return static_cast<int>(cudaGetLastError());

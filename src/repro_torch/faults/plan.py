@@ -14,7 +14,7 @@ Everything is **static and seed-derived**: victim sets are drawn
 host-side from ``fault_seed`` (``numpy`` RNG) and the Bernoulli
 message-drop stream is a counter hash of (lane, cycle, ``fault_seed``),
 so the same plan always injects the same faults.  The port's engine
-runs only the empty plan so far (ROADMAP item A10); this module is the
+runs only the empty plan so far (ROADMAP item A5); this module is the
 reference's, so that ``Spec`` keeps its shape and JSON.
 
 Injection knobs

@@ -29,10 +29,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.metrics import LAT_BINS
-from repro_torch.core.protocols.base import (KERNEL_AMO, KERNEL_LRSC,
-                                             KERNEL_QUEUE)
+from repro_torch.core.protocols.base import (KERNEL_AMO, KERNEL_LOCK,
+                                             KERNEL_LRSC, KERNEL_QUEUE,
+                                             KERNEL_TICKET)
 from repro_torch.core.workloads.base import ADDR_ZIPF, zipf_factors
 from repro_torch.kernels import LAUNCHES, _build
+from repro_torch.kernels.engine_step.ref import _param_ns
 from repro_torch.obs.schema import TELE_K, window_len
 
 #: the package root (``.../repro_torch``) whose ``csrc/`` holds the source
@@ -47,7 +49,7 @@ def build_dir() -> Path:
 @functools.lru_cache(maxsize=1)
 def _launcher():
     fn = _build.library("engine_step").engine_step_launch
-    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 10 \
+    fn.argtypes = [ctypes.c_void_p] * 23 + [ctypes.c_int] * 12 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -67,15 +69,19 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
 
 def _require_branch(proto, kernel: str, core=None) -> None:
     """Raise ``NotImplementedError`` for a protocol the CUDA kernels have
-    no branch for, or one that needs per-core fields."""
+    no branch for, or one whose per-core fields are not its family's
+    (the ticket lock's ``tkt`` is the only per-core field they carry)."""
     if proto.kernel_code not in _BANK_LAYOUT:
         raise NotImplementedError(
             f"the {kernel} CUDA kernel has no branch for protocol "
             f"{proto.name!r}")
-    if proto.fused_core_fields or proto.fused_xset_fields or core:
+    fields = tuple(_CORE_LAYOUT.get(proto.kernel_code, {}))
+    if (proto.fused_core_fields != fields or proto.fused_xset_fields
+            != fields or (core is not None and tuple(core) != fields)):
         raise NotImplementedError(
-            f"protocol {proto.name!r} needs per-core fields, which the "
-            f"{kernel} CUDA kernel does not take yet")
+            f"protocol {proto.name!r} needs per-core fields "
+            f"{proto.fused_core_fields}, which the {kernel} CUDA kernel "
+            f"does not take")
 
 
 #: bank-state arrays each protocol family carries: (dtype, the value
@@ -86,7 +92,13 @@ _BANK_LAYOUT = {
                   "resv_valid": (torch.bool, False)},
     KERNEL_QUEUE: {"qbuf": (torch.int32, -1), "qhead": (torch.int32, 0),
                    "qlen": (torch.int32, 0), "wake_tmr": (torch.int32, 0)},
+    KERNEL_LOCK: {"lock": (torch.bool, False)},
+    KERNEL_TICKET: {"next_tkt": (torch.int32, 0),
+                    "serving": (torch.int32, 0)},
 }
+#: per-core state arrays a family carries (``init_core_state``), which
+#: are also its ``fused_core_fields`` and ``fused_xset_fields``
+_CORE_LAYOUT = {KERNEL_TICKET: {"tkt": (torch.int32, -1)}}
 
 
 def fused_step_cuda(proto, p, bank: Dict, *, cand_cyc, rot, addr, phase,
@@ -110,31 +122,42 @@ def fused_step_cuda(proto, p, bank: Dict, *, cand_cyc, rot, addr, phase,
         shape = (a, q_cap) if k == "qbuf" else (a,)
         _check(k, bank[k], shape, dt, dev)
 
+    for k in _CORE_LAYOUT.get(code, {}):
+        _check(k, core[k], (n,), torch.int32, dev)
+
     valid = torch.empty((a,), dtype=torch.bool, device=dev)
     win, kind, tmr = (torch.empty((a,), dtype=torch.int32, device=dev)
                       for _ in range(3))
     acc = torch.zeros((3 + LAT_BINS,), dtype=torch.int32, device=dev)
     stats, hist = acc[:3], acc[3:]
-    wake_delay, succ = proto.kernel_args(p)
+    xset = {k: (torch.empty((a,), dtype=torch.int32, device=dev),
+                torch.empty((a,), dtype=torch.bool, device=dev))
+            for k in _CORE_LAYOUT.get(code, {})}
+    wake_delay, msg_rule, acq_tmr, q_full = proto.kernel_args(
+        _param_ns(p, lat))
 
-    def ptr(k):
-        return bank[k].data_ptr() if k in bank else None
+    def ptr(d, k, j=None):
+        if k not in d:
+            return None
+        return (d[k] if j is None else d[k][j]).data_ptr()
 
     err = _launcher()(
         cand_cyc.data_ptr(), rot.data_ptr(), addr.data_ptr(),
         phase.data_ptr(), acq_start.data_ptr(),
-        ptr("resv_core"), ptr("resv_valid"), ptr("qbuf"), ptr("qhead"),
-        ptr("qlen"), ptr("wake_tmr"),
+        ptr(bank, "resv_core"), ptr(bank, "resv_valid"), ptr(bank, "qbuf"),
+        ptr(bank, "qhead"), ptr(bank, "qlen"), ptr(bank, "wake_tmr"),
+        ptr(bank, "lock"), ptr(bank, "next_tkt"), ptr(bank, "serving"),
+        ptr(core, "tkt"), ptr(xset, "tkt", 0), ptr(xset, "tkt", 1),
         valid.data_ptr(), win.data_ptr(), kind.data_ptr(), tmr.data_ptr(),
         stats.data_ptr(), hist.data_ptr(),
-        n, a, code, q_cap, cyc, shift, lat, wake_delay, succ, cycles,
-        torch.cuda.current_stream(dev).cuda_stream)
+        n, a, code, q_cap, q_full, cyc, shift, lat, acq_tmr, wake_delay,
+        msg_rule, cycles, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"engine_step kernel launch failed: CUDA error "
                            f"{err}")
     LAUNCHES["engine_step"] += 1
     return dict(valid=valid, win=win, kind=kind, tmr=tmr, bank=bank,
-                xset={}, polls=stats[0], msgs=stats[1], hist=hist,
+                xset=xset, polls=stats[0], msgs=stats[1], hist=hist,
                 lat_max=stats[2])
 
 
@@ -142,11 +165,11 @@ def fused_step_cuda(proto, p, bank: Dict, *, cand_cyc, rot, addr, phase,
 
 #: ``engine_run_launch``'s int32 parameters, in the order of the source's
 #: ``Param`` enum; ``bo_tab`` is the last and spans ``BO_TAB`` entries
-RUN_PARAMS = ("n", "a", "n_addrs", "cycles", "proto", "q_cap", "lat",
-              "wake_delay", "succ", "pre_dur", "mod_dur", "addr_mode",
-              "fix_addr", "zipf_c", "exp_cap", "seed", "net_bw",
-              "hol_block", "n_workers", "n_atomic", "stagger", "trace",
-              "tele_windows", "tele_cw", "bo_tab")
+RUN_PARAMS = ("n", "a", "n_addrs", "cycles", "proto", "q_cap", "q_full",
+              "lat", "acq_tmr", "wake_delay", "msg_rule", "pre_dur",
+              "mod_dur", "addr_mode", "fix_addr", "zipf_c", "exp_cap",
+              "seed", "net_bw", "hol_block", "n_workers", "n_atomic",
+              "stagger", "trace", "tele_windows", "tele_cw", "bo_tab")
 #: backoff bases passed: streak k reads entry min(k, BO_TAB - 1), and
 #: ``backoff << 32`` and beyond is 0 (``shl32``)
 BO_TAB = 34
@@ -154,8 +177,9 @@ BO_TAB = 34
 RUN_PTRS = ("st", "tmr", "addr", "phase", "nxt", "opc", "ops", "arr_cyc",
             "streak", "parked", "acq_start", "w_tmr", "w_served",
             "addr_ops", "lat_hist", "scalars", "resv_core", "resv_valid",
-            "qbuf", "qhead", "qlen", "wake_tmr", "tele", "trace_step",
-            "trace_wait", "trace_state", "trace_qlen", "scratch")
+            "qbuf", "qhead", "qlen", "wake_tmr", "lock", "next_tkt",
+            "serving", "tkt", "tele", "trace_step", "trace_wait",
+            "trace_state", "trace_qlen", "scratch")
 #: the run's 0-d outputs, in the order of the source's ``Scalar`` enum
 RUN_SCALARS = ("resp_prev", "msgs", "polls", "sleep_cyc", "lat_max",
                "active_cyc", "backoff_cyc", "bank_ops", "net_stall")
@@ -195,7 +219,7 @@ def run_scalars(p, proto, prog, banks=None) -> Dict[str, Any]:
     if a < n_addrs:
         raise ValueError(f"banks={a} is below n_addrs={n_addrs}")
     exp_cap = 1 if proto.fixed_backoff else p.backoff_exp
-    wake_delay, succ = proto.kernel_args(p)
+    wake_delay, msg_rule, acq_tmr, q_full = proto.kernel_args(p)
     addr_mode = int(pt["addr_mode"][0])
     zipf_c = 0.0
     if addr_mode == ADDR_ZIPF:
@@ -208,8 +232,8 @@ def run_scalars(p, proto, prog, banks=None) -> Dict[str, Any]:
     return dict(
         n=n, a=a, n_addrs=n_addrs, cycles=p.cycles,
         proto=proto.kernel_code,
-        q_cap=proto.q_cap(p, n), lat=p.lat, wake_delay=wake_delay,
-        succ=succ,
+        q_cap=proto.q_cap(p, n), q_full=q_full, lat=p.lat, acq_tmr=acq_tmr,
+        wake_delay=wake_delay, msg_rule=msg_rule,
         pre_dur=int(pt["pre_mult"][0]) * p.work + int(pt["pre_add"][0]),
         mod_dur=int(pt["mod_mult"][0]) * p.modify + int(pt["mod_add"][0]),
         addr_mode=addr_mode,
@@ -278,23 +302,24 @@ _LAYOUT_CHECKED = set()
 
 def _check_bank_layout(proto, p, n: int) -> None:
     """Raise unless ``proto``'s initial bank state has ``_BANK_LAYOUT``'s
-    keys, dtypes and values (once per protocol) and it has no per-core
-    state."""
+    keys, dtypes and values and its per-core state ``_CORE_LAYOUT``'s
+    (once per protocol)."""
     if proto.name in _LAYOUT_CHECKED:
         return
-    probe = proto.init_bank_state(p, 1, n, 1, "cpu")
-    layout = _BANK_LAYOUT[proto.kernel_code]
-    if set(probe) != set(layout):
-        raise ValueError(f"bank state keys {sorted(probe)} do not match "
-                         f"protocol {proto.name!r} ({sorted(layout)})")
-    for k, (dt, value) in layout.items():
-        if probe[k].dtype != dt or not bool((probe[k] == value).all()):
-            raise ValueError(f"protocol {proto.name!r} starts {k} at "
-                             f"{probe[k].tolist()}, the kernel at {value}")
-    if proto.init_core_state(p, n, "cpu"):
-        raise NotImplementedError(
-            f"protocol {proto.name!r} has per-core state, which the "
-            f"engine_run kernel does not carry yet")
+    for what, probe, layout in (
+            ("bank", proto.init_bank_state(p, 1, n, 1, "cpu"),
+             _BANK_LAYOUT[proto.kernel_code]),
+            ("per-core", proto.init_core_state(p, 1, "cpu"),
+             _CORE_LAYOUT.get(proto.kernel_code, {}))):
+        if set(probe) != set(layout):
+            raise ValueError(f"{what} state keys {sorted(probe)} do not "
+                             f"match protocol {proto.name!r} "
+                             f"({sorted(layout)})")
+        for k, (dt, value) in layout.items():
+            if probe[k].dtype != dt or not bool((probe[k] == value).all()):
+                raise ValueError(f"protocol {proto.name!r} starts {k} at "
+                                 f"{probe[k].tolist()}, the kernel at "
+                                 f"{value}")
     _LAYOUT_CHECKED.add(proto.name)
 
 
@@ -324,6 +349,8 @@ def _layout(code: int, n: int, a: int, q_cap: int, cycles: int,
         out["tele"] = z((tele_windows, TELE_K))
     for k, (dt, value) in _BANK_LAYOUT[code].items():
         out[k] = (dt, (a, q_cap) if k == "qbuf" else (a,), value)
+    for k, (dt, _) in _CORE_LAYOUT.get(code, {}).items():
+        out[k] = w((n,), dt)                 # the kernel writes its start
     if trace:
         out.update(trace_step=w((cycles, n)), trace_wait=w((cycles, n)),
                    trace_state=w((cycles, n), torch.int8),

@@ -2,9 +2,10 @@
 plain version and the Pallas kernel.
 
 ``src/repro_torch/csrc/colibri_scatter.cu`` is compiled with g++ against
-``tests/cuda_cpu_mock.h`` (one ``std::thread`` per CUDA thread, real
-barriers and warp exchanges), as ``tests/test_torch_engine_run_cpu.py``
-and ``tests/test_torch_recurrence_kernels_cpu.py`` build theirs.  The
+``tests/cuda_cpu_mock.h`` (the CUDA threads of a block as fibers on one
+OS thread, barriers and warp exchanges as switches in a fixed order; a
+look-back's pause lets the other threads run), as
+``tests/engine_mock.py`` builds the engine kernels.  The
 prelude below supplies what the source keeps under ``#ifndef
 CUDA_CPU_MOCK`` (the relaxed 64-bit word accesses) and the CUDA types and
 intrinsics the mock lacks (vector types, bf16, shuffles up and down).
@@ -125,7 +126,7 @@ inline unsigned long long load_word(const unsigned long long* p) {
 inline void store_word(unsigned long long* p, unsigned long long w) {
   std::atomic_ref<unsigned long long>(*p).store(w, std::memory_order_relaxed);
 }
-inline void __nanosleep(unsigned) { std::this_thread::yield(); }
+inline void __nanosleep(unsigned) { mock_yield(); }
 
 // The launch shim: the mock's, with the blocks in index order (0),
 // reversed (1) or in a shuffle seeded by `seed` (2).
@@ -145,22 +146,8 @@ void mock_launch_order(long long grid, int block, size_t smem, cudaStream_t,
                                     std::mt19937(mock_seed));
   blockDim = {static_cast<unsigned>(block), 1, 1};
   gridDim = {static_cast<unsigned>(grid), 1, 1};
-  for (long long b : ids) {
-    mock_block_barrier = std::make_unique<std::barrier<>>(block);
-    mock_warps.clear();
-    for (int w = 0; w < (block + 31) / 32; ++w)
-      mock_warps.push_back(
-          std::make_unique<MockWarp>(std::min(32, block - 32 * w)));
-    mock_dynamic_smem.assign(smem + 16, 0xAB);
-    std::vector<std::thread> threads;
-    for (int t = 0; t < block; ++t)
-      threads.emplace_back([=] {
-        threadIdx = {static_cast<unsigned>(t), 0, 0};
-        blockIdx = {static_cast<unsigned>(b), 0, 0};
-        kern(args...);
-      });
-    for (auto& th : threads) th.join();
-  }
+  const std::function<void()> body = [&] { kern(args...); };
+  for (long long b : ids) mock_run_block(b, block, smem, body);
 }
 """
 

@@ -4,10 +4,10 @@ scalars, its C interface and its routing.
 The CUDA kernel runs only on a GPU (``tests/test_torch_gpu.py`` and
 ``chip_smoke.py`` hold it against the plain loop there), and its source
 runs on the CPU against the plain loop through a g++ build
-(``tests/test_torch_engine_run_cpu.py``).  Here:
+(``tests/engine_mock.py``).  Here:
 
 * ``run_scalars`` gives the values the plain loop (``_simulate_plain``)
-  derives, for the four protocols, with and without workers, for
+  derives, for the eight protocols, with and without workers, for
   negative and large seeds;
 * ``RUN_PARAMS``/``RUN_PTRS``/``RUN_SCALARS`` name the source's enums in
   order, and ``pack_runs`` lays out what the plain loop returns;
@@ -29,7 +29,8 @@ from repro_torch.kernels import engine_step
 from repro_torch.kernels.engine_step import kernel as es_kernel
 from repro_torch.obs.schema import window_len
 
-PROTOS = ("amo", "lrsc", "lrscwait", "colibri")
+PROTOS = ("amo", "lrsc", "lrscwait", "colibri", "amo_lock", "lrsc_lock",
+          "ticket_lock", "mwait_lock")
 SOURCE = Path(__file__).resolve().parents[1] / "src" / "repro_torch" \
     / "csrc" / "engine_step.cu"
 _M32 = 0xFFFFFFFF
@@ -83,7 +84,15 @@ def test_run_scalars_are_what_the_plain_loop_derives(proto, workers):
             assert sc["addr_mode"] == int(pt["addr_mode"][0])
             assert sc["fix_addr"] == (int(pt["addr_arg"][0]) & _M32) \
                 % p.n_addrs
-            assert (sc["wake_delay"], sc["succ"]) == pr.kernel_args(p)
+            assert (sc["wake_delay"], sc["msg_rule"], sc["acq_tmr"],
+                    sc["q_full"]) == pr.kernel_args(p)
+            # lrscwait's finite queue rejects when full, mwait_lock's never
+            assert sc["q_full"] == (
+                sc["q_cap"] if proto in ("lrscwait", "colibri")
+                else 2**31 - 1 if proto == "mwait_lock" else 0)
+            # an LR/SC pair answers an acquire after two round trips
+            assert sc["acq_tmr"] == p.lat * (2 if proto == "lrsc_lock"
+                                             else 1)
             assert sc["q_cap"] == pr.q_cap(p, p.n_cores)
             assert sc["proto"] == pr.kernel_code
             assert sc["n_atomic"] == p.n_cores - min(p.n_workers,
@@ -207,3 +216,33 @@ def test_simulate_on_cpu_runs_the_plain_loop(monkeypatch):
     r = sim.simulate(_params("amo", cycles=30), "cpu")
     assert r["st"].device.type == "cpu"
 
+
+
+def test_kernels_refuse_what_they_have_no_branch_for():
+    """A protocol without a kernel branch, or with per-core fields other
+    than its family's, is refused by both kernels' wrappers (no
+    fallback); the ticket lock's held tickets are taken; the protocols
+    the port lacks are refused before any kernel, on every device."""
+    from repro_torch.core.protocols.base import KERNEL_AMO, Protocol
+
+    class NoBranch(Protocol):
+        name = "no_branch"
+
+    class OtherCore(Protocol):
+        name = "other_core"
+        kernel_code = KERNEL_AMO
+        fused_core_fields = fused_xset_fields = ("x",)
+
+    for pr in (NoBranch(), OtherCore()):
+        for kernel in ("engine_step", "engine_run"):
+            with pytest.raises(NotImplementedError, match=pr.name):
+                es_kernel._require_branch(pr, kernel)
+    ticket = tprotocols.get("ticket_lock")
+    es_kernel._require_branch(ticket, "engine_run")
+    es_kernel._require_branch(ticket, "engine_step",
+                              {"tkt": torch.zeros(4, dtype=torch.int32)})
+    with pytest.raises(NotImplementedError, match="ticket_lock"):
+        es_kernel._require_branch(ticket, "engine_step", {})
+    for name in sim.UNPORTED_PROTOCOLS:
+        with pytest.raises(NotImplementedError, match="ROADMAP item A2"):
+            sim.SimParams(protocol=name, n_cores=8)

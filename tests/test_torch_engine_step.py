@@ -25,7 +25,8 @@ from repro_torch.kernels import engine_step
 from repro_torch.kernels.engine_step import kernel as es_kernel
 from repro_torch.kernels.engine_step.kernel import fused_step_cuda
 
-PROTOS = ("amo", "lrsc", "lrscwait", "colibri")
+PROTOS = ("amo", "lrsc", "lrscwait", "colibri", "amo_lock", "lrsc_lock",
+          "ticket_lock", "mwait_lock")
 _BIG = 2**31 - 1
 _OUT_KEYS = ("valid", "win", "kind", "tmr", "polls", "msgs", "hist",
              "lat_max")
@@ -41,7 +42,18 @@ def _random_bank(proto, p, a, n, q_cap, rng):
         bank["qhead"] = rng.integers(0, q_cap, a).astype(np.int32)
         bank["qlen"] = rng.integers(0, q_cap + 1, a).astype(np.int32)
         bank["wake_tmr"] = rng.integers(0, 8, a).astype(np.int32)
+    if "lock" in bank:
+        bank["lock"] = rng.random(a) < 0.5
+    if "next_tkt" in bank:
+        bank["next_tkt"] = rng.integers(0, 8, a).astype(np.int32)
+        bank["serving"] = rng.integers(0, 8, a).astype(np.int32)
     return bank
+
+
+def _random_core(proto, n, rng):
+    """The protocol's per-core fields: held tickets, -1 for none."""
+    return {f: rng.integers(-1, 8, n).astype(np.int32)
+            for f in proto.fused_core_fields}
 
 
 def _random_step(n, a, cyc, rng):
@@ -58,7 +70,9 @@ def _random_step(n, a, cyc, rng):
 def _as_numpy(out):
     flat = {k: np.asarray(out[k]) for k in _OUT_KEYS}
     flat.update({f"bank.{k}": np.asarray(v) for k, v in out["bank"].items()})
-    assert not out["xset"]
+    for k, (val, msk) in out["xset"].items():
+        flat[f"xset.{k}"], flat[f"xset.{k}.mask"] = (np.asarray(val),
+                                                     np.asarray(msk))
     return flat
 
 
@@ -87,15 +101,18 @@ def test_fused_step_ref_matches_reference_and_pallas(name, n, a):
     cycles = cyc + 12                       # some grants retire past it
     for step in range(2 if n > 1024 else 3):
         shift, inp = _random_step(n, a, cyc, rng)
-        sc = dict(core={}, cyc=cyc, shift=shift, lat=jp.lat, n=n, a=a,
+        core = _random_core(tproto, n, rng)
+        sc = dict(cyc=cyc, shift=shift, lat=jp.lat, n=n, a=a,
                   q_cap=q_cap, cycles=cycles)
-        out_j = j_fused_step_ref(jproto, jp, bank_j,
+        core_j = {k: jnp.asarray(v) for k, v in core.items()}
+        out_j = j_fused_step_ref(jproto, jp, bank_j, core=core_j,
                                  **{k: jnp.asarray(v) for k, v in inp.items()},
                                  **sc)
-        out_p = j_fused_step(jproto, jp, bank_p, interpret=True,
+        out_p = j_fused_step(jproto, jp, bank_p, interpret=True, core=core_j,
                              **{k: jnp.asarray(v) for k, v in inp.items()},
                              **sc)
         out_t = engine_step.fused_step(tproto, tp, bank_t,
+                                       core=convert.to_torch(core, "cpu"),
                                        **convert.to_torch(inp, "cpu"), **sc)
         want = _as_numpy(out_j)
         _assert_equal(_as_numpy(out_p), want, f"pallas {name} step {step}")

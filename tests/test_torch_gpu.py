@@ -32,7 +32,8 @@ from repro_torch.models import build
 from repro_torch.serving import ServeEngine
 from repro_torch.sync import Spec, run
 
-PROTOS = ("amo", "lrsc", "lrscwait", "colibri")
+PROTOS = ("amo", "lrsc", "lrscwait", "colibri", "amo_lock", "lrsc_lock",
+          "ticket_lock", "mwait_lock")
 ROOT = Path(__file__).resolve().parents[1]
 
 

@@ -2,9 +2,10 @@
 versions.
 
 ``src/repro_torch/csrc/rwkv6_wkv.cu`` and ``rglru_scan.cu`` are compiled
-with g++ against ``tests/cuda_cpu_mock.h`` (one ``std::thread`` per CUDA
-thread, real barriers), as ``tests/test_torch_engine_run_cpu.py`` builds
-the engine kernel.  The few PTX helpers each source keeps under
+with g++ against ``tests/cuda_cpu_mock.h`` (the CUDA threads of a block
+as fibers on one OS thread, barriers and warp exchanges as switches in a
+fixed order), as ``tests/engine_mock.py`` builds the engine kernel.  The
+few PTX helpers each source keeps under
 ``#ifndef CUDA_CPU_MOCK`` are replaced by the CPU stand-ins below:
 
 * ``wgmma`` m64nNk8 TF32: each thread computes its accumulators (warp w
@@ -13,10 +14,12 @@ the engine kernel.  The few PTX helpers each source keeps under
   state (start, LBO, SBO; no swizzle, K-major) or, for a register A,
   from the warp's m16n8k8 A fragments (a0 (g, t), a1 (g+8, t), a2 (g,
   t+4), a3 (g+8, t+4)), reading the top 19 bits of each operand; the
-  wait is a warpgroup barrier (the card's wgmma reads are done by then);
+  wait is a barrier of warpgroup 0's 128 threads (the card's wgmma reads
+  are done by then);
 * the TMA boxes: synchronous copies that check the alignment the card
   needs and read past an array's end as 0; the mbarrier: phases that
-  complete when the bytes expected have been copied;
+  complete when the bytes expected have been copied, and a wait on one
+  lets the other threads run (``mock_yield``);
 * acquire/release flags: ``std::atomic_ref``.
 
 Blocks run one after another, so the rglru look-back always finds the
@@ -50,7 +53,6 @@ PRELUDE = r"""
 #include <cstdio>
 #include <cstdlib>
 #include <map>
-#include <mutex>
 #undef __launch_bounds__
 #define __launch_bounds__(...)
 #define __grid_constant__
@@ -73,7 +75,8 @@ inline void mock_fail(const char* what) {
   std::abort();
 }
 inline void __syncwarp(unsigned = 0xffffffffu) {
-  mock_warps[threadIdx.x / 32]->bar.arrive_and_wait();
+  uint64_t o[32];
+  mock_warp_exchange(0, o);
 }
 // every lane's values, once all 32 lanes of the warp have given theirs
 inline float mock_lanes[32][32][4];
@@ -85,30 +88,29 @@ inline float __shfl_sync(unsigned, float v, int src) {
   __syncwarp();
   return r;
 }
-// the 128 threads of warpgroup 0: one barrier, reused block after block
-inline std::mutex mock_wg_mu;
-inline std::unique_ptr<std::barrier<>> mock_wg;
+// the 128 threads of warpgroup 0: a barrier of their own, reused block
+// after block (the other threads run on while they wait)
+inline int mock_wg_arrived = 0;
+inline unsigned mock_wg_gen = 0;
 inline void mock_wg0_sync() {
-  std::barrier<>* bar;
-  {
-    std::lock_guard<std::mutex> lock(mock_wg_mu);
-    if (!mock_wg) mock_wg = std::make_unique<std::barrier<>>(128);
-    bar = mock_wg.get();
+  const unsigned gen = mock_wg_gen;
+  if (++mock_wg_arrived == 128) {
+    mock_wg_arrived = 0;
+    ++mock_wg_gen;
+    return;
   }
-  bar->arrive_and_wait();
+  while (mock_wg_gen == gen) mock_yield();
 }
 
 // an mbarrier of one arrival: its transaction bytes still pending and the
 // phases completed (copies here are synchronous, so a phase completes
 // when its copies have all been issued)
 struct MockBar {
-  std::atomic<long long> pending{0};
-  std::atomic<int> done{0};
+  long long pending = 0;
+  int done = 0;
 };
-inline std::mutex mock_bar_mu;
 inline std::map<const void*, std::unique_ptr<MockBar>> mock_bars;
 inline MockBar& mock_bar(const void* p) {
-  std::lock_guard<std::mutex> lock(mock_bar_mu);
   auto& b = mock_bars[p];
   if (!b) b = std::make_unique<MockBar>();
   return *b;
@@ -131,7 +133,7 @@ inline void mbar_wait(uint64_t* bar, uint32_t parity = 0) {
   MockBar& b = mock_bar(bar);
   for (int spin = 0; b.done % 2 == static_cast<int>(parity); ++spin) {
     if (spin > 20000000) mock_fail("mbarrier: a phase never completed");
-    std::this_thread::yield();
+    mock_yield();
   }
 }
 inline void mock_box_aligned(const float* dst) {
@@ -219,7 +221,7 @@ inline void store_flag(int* p, int f) {
 inline void __threadfence() {
   std::atomic_thread_fence(std::memory_order_seq_cst);
 }
-inline void __nanosleep(unsigned) { std::this_thread::yield(); }
+inline void __nanosleep(unsigned) { mock_yield(); }
 inline float __ldcg(const float* p) { return *p; }
 inline void __stcg(float* p, float v) { *p = v; }
 """

@@ -3,10 +3,10 @@ embedded reference values.
 
 ``repro_torch.sync.run`` on the CPU reproduces the reference suite's
 ``GOLDEN``/``GOLDEN_EXTRA`` values (``tests/test_protocols.py``) for the
-four ported protocols exactly; a ``Spec`` written by either package loads
-in the other; and the reference values ``chip_smoke.py`` holds the GPU
-run against are recomputed here with the JAX package, so they cannot
-drift.
+ported protocols that have them exactly; a ``Spec`` written by either
+package loads in the other; and the reference values ``chip_smoke.py``
+holds the GPU run against are recomputed here with the JAX package, so
+they cannot drift.
 """
 import importlib.util
 import json
@@ -22,7 +22,11 @@ from repro_torch.core.sim import SimParams
 from repro_torch.kernels import engine_step
 from test_protocols import GOLDEN, GOLDEN_CONFIGS, GOLDEN_EXTRA, _observe
 
-PROTOS = ("amo", "lrsc", "lrscwait", "colibri")
+PROTOS = ("amo", "lrsc", "lrscwait", "colibri", "amo_lock", "lrsc_lock",
+          "mwait_lock")
+#: what the port registers, sorted
+PORTED = ("amo, amo_lock, colibri, lrsc, lrsc_lock, lrscwait, mwait_lock, "
+          "ticket_lock")
 ROOT = Path(__file__).resolve().parents[1]
 
 
@@ -89,9 +93,10 @@ def test_spec_json_round_trips_both_ways(kw):
 
 
 def test_spec_with_unported_feature_fails_in_the_port():
-    ref = jsync.Spec(protocol="ticket_lock")
-    with pytest.raises(ValueError, match="amo, colibri, lrsc, lrscwait"):
+    ref = jsync.Spec(protocol="hw_event")
+    with pytest.raises(NotImplementedError, match="ROADMAP item A2") as e:
         tsync.Spec.from_json(ref.to_json())
+    assert PORTED in str(e.value)
     ref = jsync.Spec(workload="zipf_histogram", zipf_skew=100)
     with pytest.raises(NotImplementedError, match="ROADMAP item"):
         tsync.Spec.from_json(ref.to_json())
@@ -111,7 +116,7 @@ def test_run_without_device_needs_a_gpu(monkeypatch):
 
 
 def test_registries_and_scenarios():
-    assert tsync.protocols() == ("amo", "colibri", "lrsc", "lrscwait")
+    assert tsync.protocols() == tuple(PORTED.split(", "))
     assert tsync.workloads() == ("rmw_loop", "zipf_histogram")
     assert tsync.scenario("zipf_histogram") == jsync.scenario(
         "zipf_histogram")
@@ -148,10 +153,33 @@ def test_chip_smoke_checks_the_kernel_at_every_shape_it_launches():
                  for c, _ in GOLDEN_EXTRA.values()}
     launched |= {(n, b) for _, n, b in cs.FULL_WIDTH_POINTS}
     swept = [s.to_params() for s in cs.sweep_fig3_specs()
-             + cs.sweep_mixed_specs()]
+             + cs.sweep_mixed_specs() + cs.fig4_specs()]
     launched |= {(p.n_cores, _bucket_a(p.n_addrs)) for p in swept}
     assert launched <= set(cs.KERNEL_SHAPES)
     assert (2048, 512) in cs.KERNEL_SHAPES
+
+
+def test_chip_smoke_fig4_is_the_bench_locks_grid():
+    """The fig4 phase runs ``benchmarks/bench_locks.py``'s grid at its
+    full length: its protocols × bins, 256 cores, the locks with the
+    fixed 128-cycle backoff, one core count (one launch)."""
+    import sys
+    sys.path.insert(0, str(ROOT))
+    from benchmarks import bench_locks
+    cs = _chip_smoke()
+    assert cs.FIG4_LOCKS == bench_locks.LOCKS
+    assert cs.SWEEP_BINS == bench_locks.BINS
+    assert cs.FIG4_CYCLES == 12_000
+    want = [jsync.Spec(protocol=pr, n_addrs=b, cycles=cs.FIG4_CYCLES,
+                       **(dict(backoff=128, backoff_exp=1)
+                          if pr.endswith("lock") else {}))
+            for pr in bench_locks.LOCKS for b in bench_locks.BINS]
+    got = cs.fig4_specs()
+    assert [g.to_dict() for g in got] == [
+        tsync.Spec.from_json(w.to_json()).to_dict() for w in want]
+    assert {g.to_params().n_cores for g in got} == {256}
+    assert set(cs.LOCK_TIME_POINTS) == {(pr, 256, 1)
+                                        for pr in bench_locks.LOCKS}
 
 
 def test_chip_smoke_sweep_points_are_covered():

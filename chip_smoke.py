@@ -13,20 +13,24 @@ Phases, one JSON line each:
    ``grouped_matmul`` CUDA libraries from the checkout, one ``nvcc``
    each, in parallel, and reports each kernel's ``ptxas`` line;
 3. kernel — the engine_step kernel against its plain PyTorch version on
-   the card, for each of the eight protocols at every (cores, banks)
-   shape the later phases run, plus the reference's multi-tile case,
-   over chained cycles from seeded random states (the lock bits, the
-   ticket dispensers and the cores' held tickets too): every output,
-   bank array and per-core write must be equal;
+   the card, for each of the eleven protocols (colibri_hier at 1, 3 and
+   4 groups: ``PROTO_CASES``) at every (cores, banks) shape the later
+   phases run, plus the reference's multi-tile case, over chained cycles
+   from seeded random states (the lock bits, the ticket dispensers, the
+   cores' held tickets, nb_feb's full/empty bits apart from its queue
+   lengths, and the two-level queues in the shape the protocols reach,
+   ``random_hier_bank``): every output, bank array and per-core write
+   must be equal;
    run_kernel — the engine_run kernel (one launch per run) against the
    plain loop (``sim._simulate_plain``, one engine_step launch per
-   cycle) on the card, for each protocol at every such shape over
-   ``RUN_KERNEL_CYCLES`` cycles, untraced and with ``record_trace`` and
-   64 telemetry windows, plus the colibri_workers point and, for each
-   protocol, one traced run with per-core state in device memory (more
-   than 2 048 cores) and one with per-bank state in the scratch buffer
-   (more banks than shared memory holds): every key of the result dict
-   equal, traces included;
+   cycle) on the card, for each ``PROTO_CASES`` entry at every such
+   shape over ``RUN_KERNEL_CYCLES`` cycles (the protocols of earlier
+   slices over ``RUN_KERNEL_CYCLES_EARLIER``), untraced and with
+   ``record_trace`` and 64 telemetry windows, plus the colibri_workers
+   point and, for each entry, one traced run with per-core state in
+   device memory (more than 2 048 cores) and one with per-bank state in
+   the scratch buffer (more banks than shared memory holds): every key
+   of the result dict equal, traces included;
 4. scatter_kernel — the colibri_scatter kernel against its plain
    version on the card at the reference tests' shapes (f32 and bf16),
    the trace path's shapes and two large ones, on uniform keys and with
@@ -86,10 +90,13 @@ Phases, one JSON line each:
    every 24-bit hash) through the library's probe entry;
 7. golden — ``repro_torch.sync.run`` on the card reproduces the
    reference's golden values (``tests/test_protocols.py``) for every
-   protocol that has them (all but ``ticket_lock``), each point one
-   engine_run launch and no engine_step launch, and one point per
-   protocol equals the port's own CPU run key for key; the protocols the
-   port lacks (``colibri_hier``, ``hw_event``, ``nb_feb``) are refused;
+   protocol that has them (all but ``ticket_lock``, ``colibri_hier``,
+   ``hw_event`` and ``nb_feb``), each point one engine_run launch and no
+   engine_step launch, and one point per protocol equals the port's own
+   CPU run key for key; ``colibri_hier``, ``hw_event`` and ``nb_feb`` at
+   every golden configuration equal the port's CPU run on every integer
+   key, without a poll, and the reference's three ``test_colibri_hier_*``
+   invariants hold on the card;
 8. main path — the paper's 256-core MemPool (Fig. 3 histogram, uniform
    bins) at the paper's 20 000 cycles for colibri and lrsc at 1 and 256
    bins, and a 1024-core colibri point: summaries and metrics equal the
@@ -127,6 +134,16 @@ Phases, one JSON line each:
    every point bit for bit equal to its single run; the figure's rows
    (updates per cycle and Jain fairness per bin), the launch's card time
    against the 30 single runs, the busy share;
+   hier — colibri and nb_feb, colibri_hier at 1, 2, 4, 8 and 16 groups
+   and hw_event at 4 (``HIER_LINES``) × ``SWEEP_BINS``, 256 cores,
+   ``HIER_CYCLES``, uniform bins, as one Study of ONE launch (48 blocks
+   whose group counts differ), every point bit for bit equal to its
+   single run and without a poll; updates per cycle and Jain fairness
+   per point, the launch's card time, the Study's wall against its
+   single runs', the busy share;
+   hier_time — the three at 256 × 1, ``FULL_WIDTH_CYCLES``, beside
+   colibri: µs per simulated cycle, and the registers, spill and blocks
+   per SM of each instance of the kernel;
 12. kernel times — engine_run's device time per run at the five
    main-path points beside its byte bound and the barrier-only floor of
    its chain of cycles, and the plain loop's time at the first, whose
@@ -188,7 +205,14 @@ from repro_torch.obs.schema import STATE_NAMES  # noqa: E402
 from repro_torch.sync import Spec, run  # noqa: E402
 
 PROTOS = ("amo", "lrsc", "lrscwait", "colibri", "amo_lock", "lrsc_lock",
-          "ticket_lock", "mwait_lock")
+          "ticket_lock", "mwait_lock", "colibri_hier", "hw_event", "nb_feb")
+#: the two-level queues and nb_feb, the last protocols ported
+HIER_PROTOS = ("colibri_hier", "hw_event", "nb_feb")
+#: (protocol, n_groups) of the kernel and run_kernel phases: each
+#: protocol at the default 4 groups, and colibri_hier also at 1 group and
+#: at 3 (which do not divide the core counts: the last group is larger)
+PROTO_CASES = tuple((pr, 4) for pr in PROTOS) + (("colibri_hier", 1),
+                                                 ("colibri_hier", 3))
 
 #: H100 SXM device-memory rate (NVIDIA data sheet), for the bound
 HBM_BYTES_PER_S = 3.35e12
@@ -620,8 +644,10 @@ LM_KERNELS = ("flash_attention", "rglru_scan", "rwkv6_wkv", "grouped_matmul")
 KERNELS = ("engine_step", "colibri_scatter", "flash_attention", "rglru_scan",
            "rwkv6_wkv", "grouped_matmul")
 
-#: simulated cycles of each run_kernel case
+#: simulated cycles of each run_kernel case: HIER_PROTOS' at 300, the
+#: others', held there since their slices, at 200
 RUN_KERNEL_CYCLES = 300
+RUN_KERNEL_CYCLES_EARLIER = 200
 #: (cores, banks) of the run_kernel cases in the kernel's two other
 #: layouts: per-core state in device memory (more than 2 048 cores) and
 #: per-bank state in the scratch buffer (more banks than shared memory
@@ -667,10 +693,14 @@ SWEEP_MIXED = (
 #: one launch (132 = the H100's SMs)
 SWEEP_B = (1, 8, 32, 132, 264)
 #: per-bank result arrays of a swept point padded to the bucket, with
-#: their bank axis
+#: their bank axis (the two-level queues' local queues have a row per
+#: (bank, group), a bank's rows side by side)
 BANK_AXIS = {"addr_ops": 0, "qbuf": 0, "qhead": 0, "qlen": 0,
              "wake_tmr": 0, "resv_core": 0, "resv_valid": 0, "lock": 0,
-             "next_tkt": 0, "serving": 0, "trace_qlen": 1}
+             "next_tkt": 0, "serving": 0, "feb": 0, "lqbuf": 0,
+             "lqhead": 0, "lqlen": 0, "ggq": 0, "g_inq": 0, "cur_grp": 0,
+             "turn_srv": 0, "gqhead": 0, "gqlen": 0, "wake_grp": 0,
+             "trace_qlen": 1}
 
 # ---- Fig. 4: colibri against the lock baselines, one launch ------------
 #: the protocols of Fig. 4 (benchmarks/bench_locks.py), at SWEEP_BINS
@@ -681,6 +711,20 @@ FIG4_CYCLES = 12_000
 #: the 256-core points whose engine_run time the lock_time phase takes:
 #: each lock at one bin beside colibri (full_width_spec, FULL_WIDTH_CYCLES)
 LOCK_TIME_POINTS = tuple((pr, 256, 1) for pr in FIG4_LOCKS)
+
+# ---- the two-level queues beside colibri and nb_feb, one launch ----------
+#: (protocol, n_groups) lines of the hier phase, each at SWEEP_BINS:
+#: colibri and nb_feb (one queue a bank), colibri_hier at 1 to 16 groups,
+#: hw_event at 4
+HIER_LINES = ((("colibri", 4), ("nb_feb", 4))
+              + tuple(("colibri_hier", g) for g in (1, 2, 4, 8, 16))
+              + (("hw_event", 4),))
+#: simulated cycles of its points (the Fig. 4 phase's)
+HIER_CYCLES = FIG4_CYCLES
+#: the 256-core points whose engine_run time the hier_time phase takes,
+#: each (full_width_spec, FULL_WIDTH_CYCLES) beside colibri
+HIER_TIME_POINTS = (("colibri", 256, 1),) + tuple((pr, 256, 1)
+                                                 for pr in HIER_PROTOS)
 
 
 def reset_launches() -> None:
@@ -768,10 +812,59 @@ def smi_line() -> str:
 
 # ---- phase 3 helpers ----------------------------------------------------
 
+def random_hier_bank(bank: dict, n: int, a: int, groups: int, gsz: int,
+                     cap_l: int, rng) -> None:
+    """Fill ``bank``, the two-level queues' state (numpy, in place), with
+    a seeded random state of the shape the protocols reach: per bank a
+    serving group (``cur_grp``, -1 idle), distinct registered groups
+    other than it in the ``ggq`` window at ``gqhead`` (their ``g_inq``
+    set, stale slots -1), sleepers only in the serving and registered
+    groups' local queues (at least one in each registered one, each a
+    distinct member core of its group) and ``wake_grp`` a group.  Every
+    live index is in range, so no group id -1 is ever read from ``ggq``
+    (it would wrap to the last group in torch and not in CUDA)."""
+    members = [np.arange(g * gsz, n if g == groups - 1 else (g + 1) * gsz)
+               for g in range(groups)]
+    for b in range(a):
+        cur = -1 if rng.random() < 0.2 else int(rng.integers(groups))
+        others = [g for g in range(groups) if g != cur]
+        k = 0 if cur < 0 else int(rng.integers(0, len(others) + 1))
+        reg = list(rng.permutation(others)[:k])
+        head = int(rng.integers(groups))
+        bank["cur_grp"][b], bank["gqhead"][b], bank["gqlen"][b] = \
+            cur, head, k
+        for j, g in enumerate(reg):
+            bank["ggq"][b, (head + j) % groups] = g
+            bank["g_inq"][b, g] = True
+        for g in range(groups):
+            row = b * groups + g
+            pool = members[g]
+            live = (int(rng.integers(1, len(pool) + 1)) if g in reg
+                    else int(rng.integers(0, len(pool) + 1)) if g == cur
+                    else 0)
+            h = int(rng.integers(cap_l))
+            bank["lqhead"][row], bank["lqlen"][row] = h, live
+            for j, c in enumerate(rng.permutation(pool)[:live]):
+                bank["lqbuf"][row, (h + j) % cap_l] = c
+        bank["wake_grp"][b] = cur if cur >= 0 else int(rng.integers(groups))
+        bank["wake_tmr"][b] = int(rng.integers(0, 8))
+        if "turn_srv" in bank:
+            bank["turn_srv"][b] = int(rng.integers(0, gsz + 2))
+
+
 def random_bank(proto, p, a, n, q_cap, rng) -> dict:
     """Seeded random bank state of the protocol's layout (numpy): lrsc's
-    reservations, the queues, the lock bits, the ticket dispensers."""
+    reservations, the queues (nb_feb's full/empty bits drawn apart from
+    its queue lengths), the lock bits, the ticket dispensers and the
+    two-level queues (``random_hier_bank``)."""
     bank = convert.to_numpy(proto.init_bank_state(p, a, n, q_cap, "cpu"))
+    if "lqbuf" in bank:
+        args = proto.kernel_args(p)
+        random_hier_bank(bank, n, a, args.groups, args.group_size,
+                         args.group_cap, rng)
+        return bank
+    if "feb" in bank:
+        bank["feb"] = rng.random(a) < 0.5
     if "resv_core" in bank:
         bank["resv_core"] = rng.integers(-1, n, a).astype(np.int32)
         bank["resv_valid"] = rng.random(a) < 0.5
@@ -843,11 +936,12 @@ def compare(out_k, out_r) -> int:
 
 def phase_kernel(dev) -> int:
     worst, cases = 0, 0
-    for i, name in enumerate(PROTOS):
+    for i, (name, groups) in enumerate(PROTO_CASES):
         proto = protocols.get(name)
         for j, (n, a) in enumerate(KERNEL_SHAPES):
             rng = np.random.default_rng([11, i, j])
-            p = sim.SimParams(protocol=name, n_cores=n, n_addrs=a)
+            p = sim.SimParams(protocol=name, n_cores=n, n_addrs=a,
+                              n_groups=groups)
             q_cap = proto.q_cap(p, n)
             bank0 = random_bank(proto, p, a, n, q_cap, rng)
             bank_k = convert.to_torch(bank0, dev)
@@ -861,14 +955,14 @@ def phase_kernel(dev) -> int:
                 out_r = engine_step.fused_step_ref(proto, p, bank_r, **kw)
                 torch.cuda.synchronize()
                 err = compare(out_k, out_r)
-                require(err == 0, f"{name} n={n} a={a}: kernel differs "
-                                  f"from plain by {err}")
+                require(err == 0, f"{name} n={n} a={a} groups={groups}: "
+                                  f"kernel differs from plain by {err}")
                 worst = max(worst, err)
                 bank_k, bank_r = out_k["bank"], out_r["bank"]
                 cyc += 1
                 cases += 1
     emit(phase="kernel", cases=cases, shapes=KERNEL_SHAPES,
-         protocols=PROTOS, max_abs_err=worst, equal=True)
+         protocols=PROTO_CASES, max_abs_err=worst, equal=True)
     return worst
 
 
@@ -895,7 +989,7 @@ def run_case(p, dev) -> tuple:
     launches (one per cycle, counted from 0) and the largest absolute
     difference over the keys."""
     what = (f"{p.protocol} n={p.n_cores} a={p.n_addrs} {p.workload} "
-            f"seed={p.seed} trace={p.record_trace}")
+            f"seed={p.seed} trace={p.record_trace} groups={p.n_groups}")
     reset_launches()
     want = sim._simulate_plain(p, dev)
     torch.cuda.synchronize()
@@ -915,23 +1009,27 @@ def run_case(p, dev) -> tuple:
 def phase_run_kernel(dev) -> dict:
     """engine_run against the plain loop (``sim._simulate_plain``, whose
     bank side is the per-cycle engine_step kernel) on the card, for each
-    protocol at every KERNEL_SHAPES entry over RUN_KERNEL_CYCLES cycles,
-    untraced and with record_trace and 64 telemetry windows (uniform and
-    Zipf streams in turn, seeds past the int32 range), plus the
-    colibri_workers point and each protocol at the LAYOUT_CASES."""
+    PROTO_CASES entry at every KERNEL_SHAPES entry over RUN_KERNEL_CYCLES
+    cycles (RUN_KERNEL_CYCLES_EARLIER for the protocols of earlier
+    slices), untraced and with record_trace and 64 telemetry windows
+    (uniform and Zipf streams in turn, seeds past the int32 range), plus
+    the colibri_workers point and each PROTO_CASES entry at the
+    LAYOUT_CASES."""
     params = []
-    for i, name in enumerate(PROTOS):
+    for i, (name, groups) in enumerate(PROTO_CASES):
+        cycles = (RUN_KERNEL_CYCLES if name in HIER_PROTOS
+                  else RUN_KERNEL_CYCLES_EARLIER)
         for j, (n, a) in enumerate(KERNEL_SHAPES):
             for traced in (False, True):
                 params.append(sim.SimParams(
-                    protocol=name, n_cores=n, n_addrs=a,
+                    protocol=name, n_cores=n, n_addrs=a, n_groups=groups,
                     workload="zipf_histogram" if j % 2 else "rmw_loop",
-                    zipf_skew=0, cycles=RUN_KERNEL_CYCLES,
+                    zipf_skew=0, cycles=cycles,
                     seed=100 * i + j - (2**33 if traced else 0),
                     record_trace=traced, telemetry_windows=64 * traced))
         for j, (n, a) in enumerate(LAYOUT_CASES):
             params.append(sim.SimParams(
-                protocol=name, n_cores=n, n_addrs=a,
+                protocol=name, n_cores=n, n_addrs=a, n_groups=groups,
                 workload="zipf_histogram", zipf_skew=0,
                 cycles=LAYOUT_CASE_CYCLES, seed=9 + 10 * i + j,
                 record_trace=True, telemetry_windows=8))
@@ -946,8 +1044,10 @@ def phase_run_kernel(dev) -> dict:
         worst = max(worst, err)
     reset_launches()                   # comparison runs: no path's count
     emit(phase="run_kernel", cases=len(params), shapes=KERNEL_SHAPES,
-         layout_cases=LAYOUT_CASES, protocols=PROTOS,
-         cycles=RUN_KERNEL_CYCLES, layout_case_cycles=LAYOUT_CASE_CYCLES,
+         layout_cases=LAYOUT_CASES, protocols=PROTO_CASES,
+         cycles=RUN_KERNEL_CYCLES,
+         cycles_earlier=RUN_KERNEL_CYCLES_EARLIER,
+         layout_case_cycles=LAYOUT_CASE_CYCLES,
          plain_engine_step_launches=plain_launches, max_abs_err=worst,
          equal=True)
     return dict(cases=len(params), plain_launches=plain_launches,
@@ -1151,15 +1251,56 @@ def phase_golden() -> None:
         got = observe(r.stats)
         require({k: got[k] for k in want} == want, f"{key}: {got} != {want}")
         n_points += 1
-    for name in sim.UNPORTED_PROTOCOLS:         # refused, no fallback
-        try:
-            run(Spec(protocol=name, n_cores=8, cycles=10))
-        except NotImplementedError:
-            continue
-        raise Failed(f"{name}: ran, but the port has no branch for it")
+    # the protocols without golden values: each config on the card
+    # against the port's CPU run, every integer key
+    for name in HIER_PROTOS:
+        for i, cfg in enumerate(GOLDEN_CONFIGS):
+            reset_launches()
+            r = run(Spec(protocol=name, **cfg))
+            require_one_run(f"{name}/{i}")
+            require(int(r.polls) == 0, f"{name}/{i}: {int(r.polls)} polls")
+            cpu = run(Spec(protocol=name, **cfg), device="cpu")
+            bad = int_keys_equal(r.stats, cpu.stats)
+            require(not bad, f"{name}/{i}: card and CPU differ on {bad}")
+            n_points += 1
+    hier = hier_invariants()
     emit(phase="golden", points=n_points, protocols=GOLDEN_PROTOS,
-         cpu_points=len(GOLDEN_PROTOS), refused=sim.UNPORTED_PROTOCOLS,
-         equal=True)
+         cpu_points=len(GOLDEN_PROTOS) + len(HIER_PROTOS)
+         * len(GOLDEN_CONFIGS), cpu_protocols=HIER_PROTOS,
+         colibri_hier_invariants=hier, equal=True)
+
+
+def hier_invariants() -> dict:
+    """The reference's ``test_colibri_hier_*`` invariants
+    (``tests/test_protocols.py``) on the card, each run one engine_run
+    launch: polling-free with round-robin fairness across groups (ops
+    span at most 3), at least 0.8 of flat colibri's throughput at 1 and
+    16 bins, and progress with no poll at 1, 2 and 8 groups."""
+    def one(**kw):
+        reset_launches()
+        r = run(Spec(n_cores=64, **kw))
+        require_one_run(f"invariant {kw}")
+        return r
+    r = one(protocol="colibri_hier", n_addrs=1, cycles=8000)
+    span = int(r.stats["ops"].max()) - int(r.stats["ops"].min())
+    require(int(r.polls) == 0 and int(r.stats["sleep_cyc"]) > 0
+            and span <= 3 and int(r.stats["ops"].sum()) > 0,
+            f"colibri_hier polling-free and fair: polls {int(r.polls)}, "
+            f"span {span}")
+    ratio = {}
+    for bins in (1, 16):
+        hier = one(protocol="colibri_hier", n_addrs=bins, cycles=8000)
+        flat = one(protocol="colibri", n_addrs=bins, cycles=8000)
+        ratio[bins] = hier.throughput / flat.throughput
+        require(hier.throughput >= 0.8 * flat.throughput
+                and int(hier.polls) == 0,
+                f"colibri_hier at {bins} bins: {hier.throughput} against "
+                f"colibri's {flat.throughput}")
+    for g in (1, 2, 8):
+        r = one(protocol="colibri_hier", n_groups=g, n_addrs=2, cycles=5000)
+        require(int(r.polls) == 0 and int(r.stats["ops"].sum()) > 0,
+                f"colibri_hier at {g} groups: polls {int(r.polls)}")
+    return dict(ops_span=span, over_flat_colibri=ratio)
 
 
 def time_launches(fn, reps: int) -> float:
@@ -1536,9 +1677,18 @@ def swept_diff(swept: dict, one: dict, p) -> list:
         g, w = np.asarray(swept[k]), np.asarray(w)
         if k in BANK_AXIS:
             ax = BANK_AXIS[k]
+            init_k = init.get(k)
+            if ax == 0:                  # one row a bank, whatever its rows
+                rows = w.shape[0] // p.n_addrs
+                if g.shape[0] != bucket * rows:
+                    bad.append(f"{k} (padding)")
+                    continue
+                g, w = g.reshape((bucket, -1)), w.reshape((p.n_addrs, -1))
+                if init_k is not None:
+                    init_k = init_k.reshape((bucket, -1))
             pad = np.take(g, range(p.n_addrs, bucket), axis=ax)
-            want_pad = (np.take(init[k], range(p.n_addrs, bucket), axis=ax)
-                        if k in init else np.zeros_like(pad))
+            want_pad = (np.take(init_k, range(p.n_addrs, bucket), axis=ax)
+                        if init_k is not None else np.zeros_like(pad))
             if g.shape[ax] != bucket or not np.array_equal(pad, want_pad):
                 bad.append(f"{k} (padding)")
                 continue
@@ -1622,19 +1772,21 @@ def time_batch(b: int) -> dict:
                 bound_ms=b * one["bound_ms"])
 
 
-def occupancy(n: int, a: int) -> dict:
+def occupancy(n: int, a: int, wide: int = 0) -> dict:
     """What the card gives engine_run blocks of ``n`` cores and ``a``
-    banks: blocks resident per SM, registers and local bytes a thread."""
+    banks on the kernel's instance without (``wide`` 0) or with (1) the
+    two-level queues' and nb_feb's branches: blocks resident per SM,
+    registers and local bytes a thread."""
     lib = _build.library("engine_step")
     lib.engine_run_occupancy.argtypes = [ctypes.c_int, ctypes.c_longlong,
-                                         ctypes.c_void_p]
+                                         ctypes.c_int, ctypes.c_void_p]
     lib.engine_run_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.engine_run_smem_bytes.restype = ctypes.c_longlong
     smem = lib.engine_run_smem_bytes(n, a)
     out = (ctypes.c_int * 4)()
-    require(lib.engine_run_occupancy(n, smem, out) == 0,
+    require(lib.engine_run_occupancy(n, smem, wide, out) == 0,
             "engine_run_occupancy failed")
-    return dict(n=n, a=a, smem=smem, blocks_per_sm=out[0],
+    return dict(n=n, a=a, wide=wide, smem=smem, blocks_per_sm=out[0],
                 registers=out[1], threads=out[2], local_bytes=out[3],
                 sms=torch.cuda.get_device_properties(0).multi_processor_count)
 
@@ -1767,6 +1919,83 @@ def phase_fig4() -> dict:
                speedup=single / walls[best],
                device_busy_share=card[best] / walls[best])
     emit(phase="fig4_time", **rec)
+    return rec
+
+
+def hier_specs() -> list:
+    """The hier phase's points: HIER_LINES × SWEEP_BINS, 256 cores,
+    HIER_CYCLES, the Fig. 3 histogram's uniform bins (``zipf_histogram``
+    at skew 0)."""
+    return [Spec(protocol=pr, n_groups=g, workload="zipf_histogram",
+                 zipf_skew=0, n_cores=256, n_addrs=bins, cycles=HIER_CYCLES)
+            for pr, g in HIER_LINES for bins in SWEEP_BINS]
+
+
+def phase_hier() -> dict:
+    """The two-level queues and nb_feb on the card as one Study of ONE
+    engine_run launch (48 points of one core count), every point bit for
+    bit equal to its single run and without a poll (all are retry-free);
+    updates per cycle and Jain fairness per line and bin, the launch's
+    card time (CUDA events), the Study's wall against its single runs',
+    the busy share."""
+    from repro_torch import obs
+    from repro_torch.sync import Study
+    specs = hier_specs()
+    chk = sweep_check("hier", specs, 1)
+    rows = {}
+    for r in chk["results"]:
+        pr, g = r.spec.protocol.name, r.spec.protocol.n_groups
+        line = f"{pr}/g{g}" if pr in ("colibri_hier", "hw_event") else pr
+        require(int(r.polls) == 0,
+                f"hier {line}/{r.spec.topology.n_addrs}: {int(r.polls)} "
+                f"polls")
+        rows.setdefault(line, {})[r.spec.topology.n_addrs] = dict(
+            updates_per_cycle=r.throughput, jain_fairness=r.jain_fairness)
+    t = {(line, b): rows[line][b]["updates_per_cycle"]
+         for line in rows for b in SWEEP_BINS}
+    emit(phase="hier_rows", launches=chk["launches"], points=len(specs),
+         cycles=HIER_CYCLES, equal=True, polls=0, rows=rows,
+         hier_g4_over_colibri={b: t[("colibri_hier/g4", b)]
+                               / t[("colibri", b)] for b in SWEEP_BINS})
+    study = Study.from_specs(specs)
+    launches = dict(LAUNCHES)
+    walls, card = [], []
+    for _ in range(3):
+        with obs.collect() as report:
+            t0 = time.perf_counter()
+            study.run()
+            walls.append(time.perf_counter() - t0)
+        card.append(report.to_dict()["execute_s"])
+    LAUNCHES.update(launches)                 # timing runs are not counted
+    best = min(range(len(walls)), key=walls.__getitem__)
+    single = sum(chk["single_wall_s"])
+    rec = dict(points=len(specs), launches=chk["launches"],
+               study_wall_s=walls[best], study_wall_s_repeat=walls,
+               card_ms=card[best] * 1e3, card_ms_repeat=[c * 1e3
+                                                         for c in card],
+               single_walls_sum_s=single,
+               single_wall_max_s=max(chk["single_wall_s"]),
+               speedup=single / walls[best],
+               device_busy_share=card[best] / walls[best])
+    emit(phase="hier_study_time", **rec)
+    return rec
+
+
+def phase_hier_time() -> dict:
+    """engine_run's device time at HIER_TIME_POINTS (the three protocols
+    at 256 × 1, FULL_WIDTH_CYCLES, beside colibri): µs per simulated
+    cycle, the barrier floor and the byte bound; and the registers,
+    spill and blocks per SM of every wide instance of the kernel, the
+    one the three protocols run on (the sweep phase reports the
+    others)."""
+    runs = [time_run(full_width_spec(*pt), plain=False)
+            for pt in HIER_TIME_POINTS]
+    occ = [occupancy(n, 1, wide=1) for n in (256, 1024, 2048, 2100)]
+    rec = dict(points=[{k: r[k] for k in (
+        "protocol", "n", "a", "cycles", "ms", "us_per_cycle",
+        "barrier_floor_ms", "barriers_per_cycle", "bound_ms")}
+        for r in runs], occupancy=occ)
+    emit(phase="hier_time", **rec)
     return rec
 
 
@@ -2616,6 +2845,8 @@ def main() -> int:
     timed(phase_profile)
     sweep_run = timed(phase_sweep)
     fig4_run = timed(phase_fig4)
+    hier_run = timed(phase_hier)
+    hier_time = timed(phase_hier_time)
 
     t0 = time.perf_counter()
     runs = [time_run(full_width_spec(*pt), plain=i == 0)
@@ -2657,8 +2888,16 @@ def main() -> int:
                   study_wall_s=fig4_run["study_wall_s"],
                   single_walls_sum_s=fig4_run["single_walls_sum_s"],
                   busy_share=fig4_run["device_busy_share"]),
-        us_per_cycle_256x1={r["protocol"]: r["us_per_cycle"]
-                            for r in locks})]
+        hier=dict(launches=hier_run["launches"], points=hier_run["points"],
+                  card_ms=hier_run["card_ms"],
+                  study_wall_s=hier_run["study_wall_s"],
+                  single_walls_sum_s=hier_run["single_walls_sum_s"],
+                  busy_share=hier_run["device_busy_share"]),
+        us_per_cycle_256x1=dict(
+            {r["protocol"]: r["us_per_cycle"] for r in locks},
+            **{r["protocol"]: r["us_per_cycle"]
+               for r in hier_time["points"]}),
+        occupancy=hier_time["occupancy"])]
     timing = [time_kernel(dev, "colibri", 256, 1),
               time_kernel(dev, "lrsc", 256, 256),
               time_kernel(dev, "colibri", 1024, 1)]

@@ -22,7 +22,7 @@ The port drives every protocol through ``fused_access``; the masked
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -48,16 +48,45 @@ OUT_EVICT, OUT_REDELIVER = 5, 6
 #: ``engine_step`` kernel implements a protocol's ``fused_access`` (amo;
 #: lrsc's reservation slot; the FIFO queue of lrscwait, colibri and
 #: mwait_lock; the test&set lock bit of amo_lock and lrsc_lock; the ticket
-#: dispenser of ticket_lock)
-KERNEL_AMO, KERNEL_LRSC, KERNEL_QUEUE, KERNEL_LOCK, KERNEL_TICKET = \
-    0, 1, 2, 3, 4
+#: dispenser of ticket_lock; the two-level queues of colibri_hier, with
+#: its turn budget, and of hw_event, without one (one branch, two bank
+#: layouts); the FIFO queue behind nb_feb's full/empty bit)
+(KERNEL_AMO, KERNEL_LRSC, KERNEL_QUEUE, KERNEL_LOCK, KERNEL_TICKET,
+ KERNEL_HIER, KERNEL_EVENT, KERNEL_FEB) = range(8)
 #: side-message rules of the kernel's branches (``kernel_args``): messages
 #: beyond the engine's 2 per winner.  None; colibri's SuccessorUpdate and
 #: WakeUpRequest round trips, 2 * (enqueued + pending wake); mwait_lock's
-#: Mwait setup, 2 * enqueued; lrsc_lock's LR/SC pair, 2 * acquire
-MSGS_NONE, MSGS_ENQ_PEND, MSGS_ENQ, MSGS_ACQ = 0, 1, 2, 3
+#: Mwait setup, 2 * enqueued; lrsc_lock's LR/SC pair, 2 * acquire;
+#: colibri_hier's, 1 per enqueue, 2 per group registration, 1 per local
+#: wake, 2 per re-registration and 2 per cross-group hand-off; hw_event's,
+#: 1 per registration and 2 per hand-off
+MSGS_NONE, MSGS_ENQ_PEND, MSGS_ENQ, MSGS_ACQ, MSGS_HIER, MSGS_EVENT = \
+    range(6)
 #: ``kernel_args``' queue length of a queue that never rejects (int32 max)
 NEVER_FULL = 2**31 - 1
+
+
+class KernelArgs(NamedTuple):
+    """The scalars a protocol's branch of the CUDA kernels reads
+    (:meth:`Protocol.kernel_args`)."""
+    #: the queue's wake delay (0 without a queue); the two-level queues'
+    #: cross-group hand-off delay
+    wake_delay: int = 0
+    #: the side-message rule (``MSGS_*``)
+    msg_rule: int = MSGS_NONE
+    #: the response timer of an acquire's outcome (every other outcome
+    #: answers after ``p.lat``)
+    acq_tmr: int = 0
+    #: the queue length at which an acquire is rejected (0 without a
+    #: queue, ``NEVER_FULL`` for a queue that never rejects)
+    q_full: int = 0
+    #: the two-level queues: groups, cores a group (the last group takes
+    #: the rest), slots of a group's local queue, and the local wake
+    #: delay; 0 for the other families
+    groups: int = 0
+    group_size: int = 0
+    group_cap: int = 0
+    local_delay: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,14 +206,11 @@ class Protocol:
         raise NotImplementedError(
             f"protocol {self.name!r} does not provide fused_access")
 
-    def kernel_args(self, p) -> Tuple[int, int, int, int]:
-        """``(wake_delay, msg_rule, acq_tmr, q_full)`` scalars for the
-        CUDA kernel's branch: the queue's wake delay (0 without a queue),
-        the side-message rule (``MSGS_*``), the response timer of an
-        acquire's outcome (every other outcome answers after ``p.lat``)
-        and the queue length at which an acquire is rejected (0 without
-        a queue, ``NEVER_FULL`` for a queue that never rejects)."""
-        return 0, MSGS_NONE, p.lat, 0
+    def kernel_args(self, p) -> KernelArgs:
+        """The scalars of the CUDA kernel's branch (:class:`KernelArgs`)
+        for the resolved parameters ``p``, whose ``n_cores`` is the run's
+        core count.  Default: no queue, no side messages."""
+        return KernelArgs(acq_tmr=p.lat)
 
     def on_wake(self, ctx: Ctx, cs: Dict, bank: Dict
                 ) -> Tuple[Dict, Dict, torch.Tensor]:

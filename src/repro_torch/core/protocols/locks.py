@@ -22,7 +22,8 @@ import torch
 from repro_torch.core.protocols.base import (KERNEL_LOCK, KERNEL_TICKET,
                                              MSGS_ACQ, MSGS_NONE, OUT_DONE,
                                              OUT_FAIL, OUT_GRANT, OUT_NONE,
-                                             Contract, FusedOut, Protocol)
+                                             Contract, FusedOut, KernelArgs,
+                                             Protocol)
 from repro_torch.core.protocols.registry import register
 
 
@@ -41,8 +42,8 @@ class SpinLock(Protocol):
         return 2 * p.lat if self.lr_pair else p.lat
 
     def kernel_args(self, p):
-        return (0, MSGS_ACQ if self.lr_pair else MSGS_NONE, self.acq_tmr(p),
-                0)
+        return KernelArgs(msg_rule=MSGS_ACQ if self.lr_pair else MSGS_NONE,
+                          acq_tmr=self.acq_tmr(p))
 
     def init_bank_state(self, p, a, n, q_cap, device):
         return dict(lock=torch.zeros((a,), dtype=torch.bool, device=device))

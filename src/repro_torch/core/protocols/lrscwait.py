@@ -13,7 +13,8 @@ import torch
 from repro_torch.core.protocols.base import (KERNEL_QUEUE, MSGS_ENQ_PEND,
                                              MSGS_NONE, OUT_DONE, OUT_FAIL,
                                              OUT_GRANT, OUT_NONE, OUT_SLEEP,
-                                             Contract, FusedOut, Protocol)
+                                             Contract, FusedOut, KernelArgs,
+                                             Protocol)
 from repro_torch.core.protocols.registry import register
 
 
@@ -37,9 +38,10 @@ class LrscWait(Protocol):
         return p.lat
 
     def kernel_args(self, p):
-        return (self.wake_delay(p),
-                MSGS_ENQ_PEND if self.successor_updates else MSGS_NONE, p.lat,
-                self.q_cap(p, p.n_cores))
+        return KernelArgs(
+            self.wake_delay(p),
+            MSGS_ENQ_PEND if self.successor_updates else MSGS_NONE, p.lat,
+            self.q_cap(p, p.n_cores))
 
     def init_bank_state(self, p, a, n, q_cap, device):
         def z():

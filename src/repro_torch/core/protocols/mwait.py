@@ -13,7 +13,7 @@ import torch
 from repro_torch.core.protocols.base import (KERNEL_QUEUE, MSGS_ENQ,
                                              NEVER_FULL, OUT_DONE, OUT_GRANT,
                                              OUT_NONE, OUT_SLEEP, Contract,
-                                             FusedOut, Protocol)
+                                             FusedOut, KernelArgs, Protocol)
 from repro_torch.core.protocols.registry import register
 
 
@@ -39,7 +39,7 @@ class MwaitLock(Protocol):
         return p.lat + 2
 
     def kernel_args(self, p):
-        return self.wake_delay(p), MSGS_ENQ, p.lat, NEVER_FULL
+        return KernelArgs(self.wake_delay(p), MSGS_ENQ, p.lat, NEVER_FULL)
 
     def init_bank_state(self, p, a, n, q_cap, device):
         def z():

@@ -22,9 +22,11 @@ on a GPU, its plain PyTorch version on the CPU.  All state is int32/bool
 tensors; ``cyc`` and the rotation ``shift`` are Python ints, and the loop
 never reads a device value back, so the host only queues work.
 
-Scope of the port so far: the ``amo``/``lrsc``/``lrscwait``/``colibri``
-protocols and the ``amo_lock``/``lrsc_lock``/``ticket_lock``/``mwait_lock``
-baselines, the one-step ``rmw_loop``/``zipf_histogram`` programs, the
+Scope of the port so far: all eleven of the reference's protocols (the
+``amo``/``lrsc``/``lrscwait``/``colibri`` protocols, the
+``amo_lock``/``lrsc_lock``/``ticket_lock``/``mwait_lock`` baselines and
+the ``colibri_hier``/``hw_event``/``nb_feb`` waiters), through their
+fused path, the one-step ``rmw_loop``/``zipf_histogram`` programs, the
 ``flat`` topology, Fig. 5 workers, the per-cycle event traces
 (``record_trace``) and the windowed telemetry (``telemetry_windows``).
 Everything else the reference engine runs is refused at
@@ -56,12 +58,6 @@ from repro_torch.faults import FaultPlan
 from repro_torch.kernels import engine_step
 from repro_torch.kernels.engine_step.kernel import shl32
 from repro_torch.obs.schema import TELE_K, TELE_NSUM, window_len
-
-#: the protocols the port covers (the reference's Fig. 3 and Fig. 4 sets)
-PROTOCOLS = ("amo", "lrsc", "lrscwait", "colibri", "amo_lock", "lrsc_lock",
-             "ticket_lock", "mwait_lock")
-#: the reference's protocols the port does not cover yet (ROADMAP A2)
-UNPORTED_PROTOCOLS = ("colibri_hier", "hw_event", "nb_feb")
 
 #: execution backends.  The port keeps the field so reference JSON loads;
 #: the device of the run (``device=``) picks kernel or plain code.
@@ -122,11 +118,6 @@ class SimParams:
                ("telemetry_windows", 0), ("clusters", 1))
 
     def __post_init__(self):
-        if self.protocol in UNPORTED_PROTOCOLS:
-            raise NotImplementedError(
-                f"protocol {self.protocol!r} is not ported to repro_torch "
-                f"yet (ROADMAP item A2); ported protocols: "
-                f"{', '.join(proto_registry.names())}")
         if self.protocol not in proto_registry.names():
             raise ValueError(
                 f"unknown protocol {self.protocol!r}; registered protocols: "

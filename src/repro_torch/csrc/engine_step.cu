@@ -16,9 +16,12 @@
 //      with a floor-mod, (best_rot - shift) mod n.
 //   2. the protocol's bank update (bank_update below: one branch per
 //      protocol family: amo; lrsc's reservation slot; the FIFO queue of
-//      lrscwait, colibri and mwait_lock; the test&set lock bit of
-//      amo_lock and lrsc_lock; ticket_lock's dispenser, which reads the
-//      winner's held ticket and writes it back), emitting an OUT_* code,
+//      lrscwait, colibri and mwait_lock, and of nb_feb behind its
+//      full/empty bit; the test&set lock bit of amo_lock and lrsc_lock;
+//      ticket_lock's dispenser, which reads the winner's held ticket and
+//      writes it back; the two-level queues of colibri_hier and
+//      hw_event: group-local FIFOs under a global FIFO of groups),
+//      emitting an OUT_* code,
 //      the outcome's response timer and the per-core write (value, mask)
 //      per bank.  THE BANK STATE ARRAYS ARE UPDATED IN PLACE.
 //   3. the completion-latency histogram of the retiring grants, bucketed
@@ -58,10 +61,13 @@
 //     state lives in the output arrays in device memory;
 //   * per-bank state (the packed arbitration keys, the family's bank
 //     arrays: resv_core/resv_valid, qhead/qlen/wake_tmr, lock, next_tkt/
-//     serving; addr_ops) in shared memory when it fits, else in a scratch
-//     buffer in device memory; qbuf stays in device memory (the output
-//     tensor, updated in place).  The families share their slots, so the
-//     footprint is the same for all of them;
+//     serving, feb, the two-level queues' cur_grp/gqhead/wake_tmr and
+//     queue depth; addr_ops) in shared memory when it fits, else in a
+//     scratch buffer in device memory; qbuf, and the two-level queues'
+//     local queues, global FIFOs of groups and their other per-bank words,
+//     stay in device memory (the output tensors, updated in place).  The
+//     families share their slots, so the footprint is the same for all of
+//     them;
 //   * arbitration: a shared-memory atomicMin of the packed key per bank,
 //     double-buffered by cycle parity so a reset never races a read; the
 //     core that finds its own key at its bank is the winner and applies
@@ -81,9 +87,9 @@
 //     threads are compiled with a 256-thread bound, so their state stays
 //     in registers.
 //
-// Barriers per simulated cycle: 4 for the queue protocols (after the
-// request words, after the key minimum, after the bank update, after the
-// wake flags), 2 for amo, lrsc and the locks.
+// Barriers per simulated cycle: 4 for the queue protocols, one FIFO or
+// two levels (after the request words, after the key minimum, after the
+// bank update, after the wake flags), 2 for amo, lrsc and the spin locks.
 //
 // Bound on this card: the work of a cycle is a few hundred instructions
 // per thread between those barriers, so the run is bound by its serial
@@ -128,9 +134,11 @@ constexpr int kOutNone = 0, kOutGrant = 1, kOutDone = 2, kOutFail = 3,
 // request phases
 constexpr int kAcq = 0, kRel = 1;
 // protocol families (repro_torch.core.protocols.base.KERNEL_*)
-constexpr int kAmo = 0, kLrsc = 1, kQueue = 2, kLock = 3, kTicket = 4;
+constexpr int kAmo = 0, kLrsc = 1, kQueue = 2, kLock = 3, kTicket = 4,
+              kHier = 5, kEvent = 6, kFeb = 7;
 // side-message rules (repro_torch.core.protocols.base.MSGS_*)
-constexpr int kMsgsNone = 0, kMsgsEnqPend = 1, kMsgsEnq = 2, kMsgsAcq = 3;
+constexpr int kMsgsNone = 0, kMsgsEnqPend = 1, kMsgsEnq = 2, kMsgsAcq = 3,
+              kMsgsHier = 4, kMsgsEvent = 5;
 // address-stream modes (repro_torch.core.workloads.base.ADDR_*)
 constexpr int kAddrFixed = 1, kAddrZipf = 2;
 
@@ -167,18 +175,38 @@ __device__ __forceinline__ int32_t wsub(int32_t x, int32_t y) {
 struct BankState {
   int32_t* resv_core;   // lrsc (a,)
   bool* resv_valid;     // lrsc (a,)
-  int32_t* qbuf;        // queue (a, q_cap)
-  int32_t* qhead;       // queue (a,)
-  int32_t* qlen;        // queue (a,)
-  int32_t* wake_tmr;    // queue (a,)
+  int32_t* qbuf;        // queue, feb (a, q_cap)
+  int32_t* qhead;       // queue, feb (a,)
+  int32_t* qlen;        // queue, feb (a,); hier: the sum of lqlen, or null
+  int32_t* wake_tmr;    // queue, feb, hier (a,)
   bool* lock;           // lock (a,)
   int32_t* next_tkt;    // ticket (a,)
   int32_t* serving;     // ticket (a,)
+  bool* feb;            // feb (a,): the full/empty bit
+  // hier (colibri_hier, hw_event): G groups a bank, the flat queue id
+  // of (bank b, group g) is b * G + g
+  int32_t* lqbuf;       // (a * G, group_cap) local queues
+  int32_t* lqhead;      // (a * G,)
+  int32_t* lqlen;       // (a * G,)
+  int32_t* ggq;         // (a, G) global FIFO of group ids
+  bool* g_inq;          // (a, G) group registered in it
+  int32_t* cur_grp;     // (a,) group holding the turn, -1 idle
+  int32_t* turn_srv;    // (a,) ops served this turn (colibri_hier only)
+  int32_t* gqhead;      // (a,)
+  int32_t* gqlen;       // (a,)
+  int32_t* wake_grp;    // (a,) group whose local queue to wake
 };
 
 // a protocol family and its scalars (kernel.py's kernel_args)
 struct Family {
   int proto, q_cap, q_full, lat, acq_tmr, wake_delay, msg_rule;
+};
+
+// the two-level queues' geometry (kernel_args): groups a bank, cores a
+// group (the last takes the rest), slots of a local queue, and the
+// local wake delay (the cross-group hand-off's is Family::wake_delay)
+struct Groups {
+  int count, size, cap, local_delay;
 };
 
 // what a bank's update does to its winner: the OUT_* code, the response
@@ -194,9 +222,13 @@ struct Outcome {
 
 // The protocol's update of bank b for this cycle's winner `win` (acq or
 // rel: its request phase; neither when the bank has no request); `tkt`
-// is the winner's held ticket (ticket_lock only).
+// is the winner's held ticket (ticket_lock only), `g` the two-level
+// queues' geometry (colibri_hier and hw_event only).  With kWide false
+// only the families up to kTicket have a branch (see engine_run_kernel).
+template <bool kWide>
 __device__ __forceinline__ Outcome bank_update(const BankState& bs,
-                                               const Family& f, int b,
+                                               const Family& f,
+                                               const Groups& g, int b,
                                                int32_t win, bool acq,
                                                bool rel, int32_t tkt) {
   Outcome o{kOutNone, acq ? f.acq_tmr : f.lat, 0, false, 0};
@@ -216,13 +248,19 @@ __device__ __forceinline__ Outcome bank_update(const BankState& bs,
       kind = acq ? kOutGrant : owner ? kOutDone : rel ? kOutFail : kOutNone;
       break;
     }
-    case kQueue: {
+    case kQueue:
+    case kFeb: {
       // an acquire at a queue of q_full entries is rejected (lrscwait's
-      // finite queue; mwait_lock's queue never rejects: q_full = kBig)
+      // finite queue; mwait_lock's and nb_feb's never reject: q_full =
+      // kBig).  nb_feb grants on its full/empty bit, not on an empty
+      // queue, and the grantee enters the queue at its head all the same
       int32_t qh = bs.qhead[b], ql = bs.qlen[b];
       const bool empty = ql == 0, full = ql >= f.q_full;
-      const bool grant = acq && empty;
-      const bool enq = acq && !empty && !full;
+      const bool fb = kWide && f.proto == kFeb;
+      const bool bit = fb && bs.feb[b];
+      const bool free_now = fb ? bit : empty;
+      const bool grant = acq && free_now;
+      const bool enq = acq && !free_now && !full;
       const bool rej = acq && full;
       const bool put = acq && !full;
       if (put) {
@@ -240,6 +278,8 @@ __device__ __forceinline__ Outcome bank_update(const BankState& bs,
       if (pend) bs.wake_tmr[b] = f.wake_delay;
       bs.qhead[b] = qh;
       bs.qlen[b] = ql;
+      // readFE empties the bit, a writeEF that drains the queue fills it
+      if (fb) bs.feb[b] = (rel && ql == 0) || (bit && !acq);
       if (f.msg_rule == kMsgsEnqPend) {
         o.msgs = 2 * ((enq ? 1 : 0) + (pend ? 1 : 0));
       } else if (f.msg_rule == kMsgsEnq) {
@@ -276,6 +316,84 @@ __device__ __forceinline__ Outcome bank_update(const BankState& bs,
       o.xval = rel ? -1 : mine;
       break;
     }
+    case kHier:
+    case kEvent: {
+      // colibri_hier's and hw_event's fused_access, statement by
+      // statement in the reference's order: later statements read what
+      // earlier ones wrote.  A bank without a winner is left as it is.
+      if (!kWide || (!acq && !rel)) break;
+      const bool budget = f.proto == kHier;  // hw_event has no turn budget
+      const bool hmsg = f.msg_rule == kMsgsHier;
+      const int G = g.count;
+      const long long row = static_cast<long long>(b) * G;
+      const int32_t gb = min(win / g.size, G - 1);  // the winner's group
+      const long long lq = row + gb;                // its local queue
+      int32_t cur = bs.cur_grp[b], gqh = bs.gqhead[b], gql = bs.gqlen[b];
+      int32_t tsrv = budget ? bs.turn_srv[b] : 0;
+      int32_t ll = bs.lqlen[lq];
+      int msgs = 0;
+      // ---- acquire: an idle address is granted, else the winner sleeps
+      // in its group's local queue
+      const bool idle = cur < 0;
+      const bool grant = acq && idle;
+      if (grant) {
+        cur = gb;
+        tsrv = 0;
+      }
+      const bool enq = acq && !idle;
+      if (enq) {
+        const int slot = (bs.lqhead[lq] + ll) % g.cap;
+        bs.lqbuf[lq * g.cap + slot] = win;
+        ll += 1;
+        bs.lqlen[lq] = ll;
+        if (bs.qlen != nullptr) bs.qlen[b] += 1;
+        if (hmsg) msgs += 1;                      // local SuccessorUpdate
+      }
+      // the first waiter of a group not serving registers it globally
+      if (enq && cur != gb && !bs.g_inq[lq]) {
+        bs.ggq[row + (gqh + gql) % G] = gb;
+        gql += 1;
+        bs.g_inq[lq] = true;
+        msgs += hmsg ? 2 : 1;
+      }
+      // ---- release (the releaser's group is cur): with competitors
+      // registered, colibri_hier's group yields after `size` ops
+      const int32_t srv = wadd(tsrv, 1);
+      const bool exhausted = budget && rel && srv >= g.size && gql > 0;
+      if (rel && ll > 0 && !exhausted) {          // wake the next local
+        bs.wake_grp[b] = gb;
+        bs.wake_tmr[b] = g.local_delay;
+        if (hmsg) msgs += 1;
+        tsrv = srv;
+      }
+      if (rel && ll > 0 && exhausted) {           // re-register at the tail
+        bs.ggq[row + (gqh + gql) % G] = gb;
+        gql += 1;
+        bs.g_inq[lq] = true;
+        msgs += 2;
+      }
+      const bool end_turn = rel && (ll == 0 || exhausted);
+      const bool have_next = end_turn && gql > 0;
+      if (have_next) {                            // cross-group hand-off
+        const int32_t nx = bs.ggq[row + gqh];
+        cur = nx;
+        bs.g_inq[row + nx] = false;
+        gqh = (gqh + 1) % G;
+        gql -= 1;
+        bs.wake_grp[b] = nx;
+        bs.wake_tmr[b] = f.wake_delay;
+        tsrv = 0;
+        msgs += 2;
+      }
+      if (end_turn && !have_next) cur = -1;       // the address goes idle
+      bs.cur_grp[b] = cur;
+      bs.gqhead[b] = gqh;
+      bs.gqlen[b] = gql;
+      if (budget) bs.turn_srv[b] = tsrv;
+      kind = grant ? kOutGrant : enq ? kOutSleep : kOutDone;
+      o.msgs = msgs;
+      break;
+    }
     default:
       break;
   }
@@ -285,6 +403,7 @@ __device__ __forceinline__ Outcome bank_update(const BankState& bs,
 struct Scalars {
   int n, cyc, shift, cycles;
   Family f;
+  Groups g;
 };
 
 __global__ void __launch_bounds__(kThreads)
@@ -331,8 +450,8 @@ engine_step_kernel(const int32_t* __restrict__ cand,
 
   // ---- stage 2: the protocol's bank update (in place)
   const Outcome oc =
-      bank_update(bs, sc.f, b, win, valid && ph == kAcq, valid && ph == kRel,
-                  tkt != nullptr ? tkt[wcs] : -1);
+      bank_update<true>(bs, sc.f, sc.g, b, win, valid && ph == kAcq,
+                        valid && ph == kRel, tkt != nullptr ? tkt[wcs] : -1);
   const int kind = oc.kind, extra_msgs = oc.msgs;
   const int32_t tmr = oc.tmr;
   valid_out[b] = valid;
@@ -365,7 +484,7 @@ enum Param {
   P_ACQ_TMR, P_WAKE_DELAY, P_MSG_RULE, P_PRE_DUR, P_MOD_DUR, P_ADDR_MODE,
   P_FIX_ADDR, P_ZIPF_C, P_EXP_CAP, P_SEED, P_NET_BW, P_HOL_BLOCK,
   P_N_WORKERS, P_N_ATOMIC, P_STAGGER, P_TRACE, P_TELE_WINDOWS, P_TELE_CW,
-  P_BO_TAB
+  P_GROUPS, P_GROUP_SIZE, P_GROUP_CAP, P_LOCAL_DELAY, P_BO_TAB
 };
 // backoff base by failure streak, streaks >= kBoTab - 1 share the last
 // entry (backoff << 32 and beyond is 0)
@@ -383,6 +502,7 @@ struct RunParams {
   uint32_t seed;
   int net_bw, hol_block, n_workers, n_atomic, stagger, trace, tele_windows,
       tele_cw;
+  Groups g;
 };
 
 __host__ __device__ inline RunParams unpack_params(const int32_t* w) {
@@ -414,6 +534,10 @@ __host__ __device__ inline RunParams unpack_params(const int32_t* w) {
   rp.trace = w[P_TRACE];
   rp.tele_windows = w[P_TELE_WINDOWS];
   rp.tele_cw = w[P_TELE_CW];
+  rp.g.count = w[P_GROUPS];
+  rp.g.size = w[P_GROUP_SIZE];
+  rp.g.cap = w[P_GROUP_CAP];
+  rp.g.local_delay = w[P_LOCAL_DELAY];
   return rp;
 }
 
@@ -424,8 +548,10 @@ enum Ptr {
   R_ST, R_TMR, R_ADDR, R_PHASE, R_NXT, R_OPC, R_OPS, R_ARR_CYC, R_STREAK,
   R_PARKED, R_ACQ_START, R_W_TMR, R_W_SERVED, R_ADDR_OPS, R_LAT_HIST,
   R_SCALARS, R_RESV_CORE, R_RESV_VALID, R_QBUF, R_QHEAD, R_QLEN,
-  R_WAKE_TMR, R_LOCK, R_NEXT_TKT, R_SERVING, R_TKT, R_TELE, R_TRACE_STEP,
-  R_TRACE_WAIT, R_TRACE_STATE, R_TRACE_QLEN, R_SCRATCH, kNumPtrs
+  R_WAKE_TMR, R_LOCK, R_NEXT_TKT, R_SERVING, R_TKT, R_FEB, R_LQBUF,
+  R_LQHEAD, R_LQLEN, R_GGQ, R_G_INQ, R_CUR_GRP, R_TURN_SRV, R_GQHEAD,
+  R_GQLEN, R_WAKE_GRP, R_TELE, R_TRACE_STEP, R_TRACE_WAIT, R_TRACE_STATE,
+  R_TRACE_QLEN, R_SCRATCH, kNumPtrs
 };
 
 struct RunPtrs {
@@ -437,6 +563,10 @@ struct RunPtrs {
   int32_t *qbuf, *qhead, *qlen, *wake_tmr;
   bool* lock;
   int32_t *next_tkt, *serving, *tkt;
+  bool* feb;
+  int32_t *lqbuf, *lqhead, *lqlen, *ggq;
+  bool* g_inq;
+  int32_t *cur_grp, *turn_srv, *gqhead, *gqlen, *wake_grp;
   int32_t *tele, *trace_step, *trace_wait;
   int8_t* trace_state;
   int32_t* trace_qlen;
@@ -570,7 +700,12 @@ __device__ __forceinline__ void warp_add(int32_t* dst, int32_t v) {
   if ((threadIdx.x & 31) == 0 && s) atomicAdd(dst, static_cast<int32_t>(s));
 }
 
-template <class Cores, int kMaxThreads>
+// kWide: the instance with every family's branch.  The two-level queues
+// and nb_feb's bit run only in it; the instance the other families run on
+// (kWide false) has their code compiled out: in one instance for all,
+// it slowed every family's cycle by 5-12 % on the H100 (engine_run's
+// device time in chip_smoke.py), at one register more.
+template <class Cores, int kMaxThreads, bool kWide>
 __global__ void __launch_bounds__(kMaxThreads)
 engine_run_kernel(const int32_t* __restrict__ params,
                   const RunPtrs* __restrict__ ptrs, int kc) {
@@ -601,8 +736,14 @@ engine_run_kernel(const int32_t* __restrict__ params,
   const int32_t* bo_tab = s_par + P_BO_TAB;
   const RunPtrs& o = s_o;
   const int n = rp.n, a = rp.a, cycles = rp.cycles;
-  const bool lrsc = rp.f.proto == kLrsc, queue = rp.f.proto == kQueue;
-  const bool lock = rp.f.proto == kLock, ticket = rp.f.proto == kTicket;
+  const int proto = rp.f.proto;
+  const bool lrsc = proto == kLrsc, lock = proto == kLock;
+  const bool ticket = proto == kTicket, has_feb = kWide && proto == kFeb;
+  // one FIFO a bank (lrscwait, colibri, mwait_lock, nb_feb) or the
+  // two-level queues (colibri_hier, hw_event): both have a wake pass
+  const bool fifo = proto == kQueue || has_feb;
+  const bool hier = kWide && (proto == kHier || proto == kEvent);
+  const bool queue = fifo || hier;
   const bool workers = rp.n_workers > 0, tele = rp.tele_windows > 0;
   const bool trace = rp.trace != 0;
 
@@ -615,11 +756,19 @@ engine_run_kernel(const int32_t* __restrict__ params,
   bool* resv_valid = reinterpret_cast<bool*>(base + L.bytes);
   unsigned char* woken = base + L.bytes + a;
   // a block runs one family, so the families share the per-bank slots:
-  // the lock bits are resv_valid's bytes, next_tkt and serving are
-  // resv_core's and qhead's words
-  BankState bs{ints + a,     resv_valid,   o.qbuf,
-               ints + 2 * a, ints + 3 * a, ints + 4 * a,
-               resv_valid,   ints + a,     ints + 2 * a};
+  // the lock bits and nb_feb's full/empty bits are resv_valid's bytes,
+  // next_tkt and serving are resv_core's and qhead's words, and the
+  // two-level queues keep cur_grp, gqhead and wake_tmr in resv_core's,
+  // qhead's and wake_tmr's words and the sum of a bank's local queue
+  // lengths (its queue depth) in qlen's.  Their other per-bank words
+  // (turn_srv, gqlen, wake_grp) and per-(bank, group) arrays stay in
+  // device memory, updated in place, as qbuf does: the layout is the
+  // same for every family.
+  BankState bs{ints + a,     resv_valid,   o.qbuf,       ints + 2 * a,
+               ints + 3 * a, ints + 4 * a, resv_valid,   ints + a,
+               ints + 2 * a, resv_valid,   o.lqbuf,      o.lqhead,
+               o.lqlen,      o.ggq,        o.g_inq,      ints + a,
+               o.turn_srv,   ints + 2 * a, o.gqlen,      o.wake_grp};
 
   for (int b = tid; b < a; b += T) {
     keys[b] = kNoKey;
@@ -629,10 +778,21 @@ engine_run_kernel(const int32_t* __restrict__ params,
       bs.resv_core[b] = o.resv_core[b];
       bs.resv_valid[b] = o.resv_valid[b];
     }
-    if (queue) {
+    if (fifo) {
       bs.qhead[b] = o.qhead[b];
       bs.qlen[b] = o.qlen[b];
       bs.wake_tmr[b] = o.wake_tmr[b];
+    }
+    if (has_feb) bs.feb[b] = o.feb[b];
+    if (hier) {
+      bs.cur_grp[b] = o.cur_grp[b];
+      bs.gqhead[b] = o.gqhead[b];
+      bs.wake_tmr[b] = o.wake_tmr[b];
+      int32_t depth = 0;
+      for (int j = 0; j < s_rp.g.count; ++j) {
+        depth += o.lqlen[static_cast<size_t>(b) * s_rp.g.count + j];
+      }
+      bs.qlen[b] = depth;
     }
     if (lock) bs.lock[b] = o.lock[b];
     if (ticket) {
@@ -861,9 +1021,9 @@ engine_run_kernel(const int32_t* __restrict__ params,
         if (c.parked && c.st == kReq) {
           const unsigned long long key = packed_key(c.arr, i, shift, n);
           if (key_now[c.addr] == key) {
-            const Outcome oc = bank_update(bs, rp.f, c.addr, i,
-                                           c.phase == kAcq, c.phase == kRel,
-                                           c.tkt);
+            const Outcome oc = bank_update<kWide>(
+                bs, rp.f, s_rp.g, c.addr, i, c.phase == kAcq,
+                c.phase == kRel, c.tkt);
             const int kind = oc.kind, xm = oc.msgs;
             const int32_t done_cyc = cyc + max(oc.tmr, 1);
             if (kind == kOutDone && done_cyc < cycles) {
@@ -906,11 +1066,31 @@ engine_run_kernel(const int32_t* __restrict__ params,
         const int32_t wt = bs.wake_tmr[b];
         const int32_t wt2 = max(wt - 1, 0);
         bs.wake_tmr[b] = wt2;
-        ql = bs.qlen[b];
-        if (wt == 1 && ql > 0) {
-          const int32_t head =
-              o.qbuf[static_cast<size_t>(b) * rp.f.q_cap + bs.qhead[b]];
-          if (head >= 0 && head < n) woken[head] = 1;
+        if (hier) {
+          // wake the head of the chosen group's local queue and pop it:
+          // it is the address's holder now
+          if (wt == 1) {
+            const Groups& g = s_rp.g;
+            const size_t wq =
+                static_cast<size_t>(b) * g.count + o.wake_grp[b];
+            const int32_t wl = o.lqlen[wq];
+            if (wl > 0) {
+              const int32_t lh = o.lqhead[wq];
+              const int32_t head = o.lqbuf[wq * g.cap + lh];
+              if (head >= 0 && head < n) woken[head] = 1;
+              o.lqhead[wq] = (lh + 1) % g.cap;
+              o.lqlen[wq] = wl - 1;
+              bs.qlen[b] -= 1;
+            }
+          }
+          ql = bs.qlen[b];
+        } else {
+          ql = bs.qlen[b];
+          if (wt == 1 && ql > 0) {
+            const int32_t head =
+                o.qbuf[static_cast<size_t>(b) * rp.f.q_cap + bs.qhead[b]];
+            if (head >= 0 && head < n) woken[head] = 1;
+          }
         }
         if (wt2 == 1) atomicAdd(&cur[C_WAKE_LOAD], 1);
       }
@@ -989,9 +1169,15 @@ engine_run_kernel(const int32_t* __restrict__ params,
       o.resv_core[b] = bs.resv_core[b];
       o.resv_valid[b] = bs.resv_valid[b];
     }
-    if (queue) {
+    if (fifo) {
       o.qhead[b] = bs.qhead[b];
       o.qlen[b] = bs.qlen[b];
+      o.wake_tmr[b] = bs.wake_tmr[b];
+    }
+    if (has_feb) o.feb[b] = bs.feb[b];
+    if (hier) {
+      o.cur_grp[b] = bs.cur_grp[b];
+      o.gqhead[b] = bs.gqhead[b];
       o.wake_tmr[b] = bs.wake_tmr[b];
     }
     if (lock) o.lock[b] = bs.lock[b];
@@ -1050,42 +1236,44 @@ __global__ void engine_barrier_kernel(int cycles, int per_cycle,
 using RunKernel = void (*)(const int32_t*, const RunPtrs*, int);
 
 // the kernel instance, block size and cores a thread of runs of n cores
-// (a block of at most 256 threads may use up to 255 registers a thread)
-RunKernel run_kernel_for(int n, int* threads, int* kc) {
+// (a block of at most 256 threads may use up to 255 registers a thread),
+// with every family's branch when `wide`
+template <bool kWide>
+RunKernel run_kernel_of(int n, int* threads, int* kc) {
   *threads = n <= kRunThreads ? ((n + 31) / 32) * 32 : kRunThreads;
   *kc = (n + *threads - 1) / *threads;
-  if (*kc > 2) return engine_run_kernel<GlobalCores, kRunThreads>;
-  if (*kc == 2) return engine_run_kernel<RegCores<2>, kRunThreads>;
-  if (*threads <= 256) return engine_run_kernel<RegCores<1>, 256>;
-  return engine_run_kernel<RegCores<1>, kRunThreads>;
+  if (*kc > 2) return engine_run_kernel<GlobalCores, kRunThreads, kWide>;
+  if (*kc == 2) return engine_run_kernel<RegCores<2>, kRunThreads, kWide>;
+  if (*threads <= 256) return engine_run_kernel<RegCores<1>, 256, kWide>;
+  return engine_run_kernel<RegCores<1>, kRunThreads, kWide>;
+}
+
+RunKernel run_kernel_for(int n, int wide, int* threads, int* kc) {
+  return wide ? run_kernel_of<true>(n, threads, kc)
+              : run_kernel_of<false>(n, threads, kc);
 }
 
 }  // namespace
 
 // Pointers of a family's absent arrays are null: the bank state of other
 // families, and tkt, xval and xmask (ticket_lock's held tickets, the
-// per-core write's values and mask) outside the ticket family.
+// per-core write's values and mask) outside the ticket family.  `bank`
+// holds the bank-state pointers in BankState's order.
 extern "C" int engine_step_launch(
     const void* cand, const void* rot, const void* addr, const void* phase,
-    const void* acq_start, void* resv_core, void* resv_valid, void* qbuf,
-    void* qhead, void* qlen, void* wake_tmr, void* lock, void* next_tkt,
-    void* serving, const void* tkt, void* xval, void* xmask, void* valid_out,
-    void* win_out, void* kind_out, void* tmr_out, void* stats, void* hist,
-    int n, int a, int proto, int q_cap, int q_full, int cyc, int shift,
-    int lat, int acq_tmr, int wake_delay, int msg_rule, int cycles,
-    void* stream) {
-  BankState bs{static_cast<int32_t*>(resv_core),
-               static_cast<bool*>(resv_valid),
-               static_cast<int32_t*>(qbuf),
-               static_cast<int32_t*>(qhead),
-               static_cast<int32_t*>(qlen),
-               static_cast<int32_t*>(wake_tmr),
-               static_cast<bool*>(lock),
-               static_cast<int32_t*>(next_tkt),
-               static_cast<int32_t*>(serving)};
+    const void* acq_start, void* const* bank, const void* tkt, void* xval,
+    void* xmask, void* valid_out, void* win_out, void* kind_out,
+    void* tmr_out, void* stats, void* hist, int n, int a, int proto,
+    int q_cap, int q_full, int cyc, int shift, int lat, int acq_tmr,
+    int wake_delay, int msg_rule, int cycles, int groups, int group_size,
+    int group_cap, int local_delay, void* stream) {
+  BankState bs;
+  static_assert(sizeof(BankState) == 20 * sizeof(void*), "BankState words");
+  memcpy(&bs, bank, sizeof(BankState));
   Scalars sc{n, cyc, shift, cycles,
              Family{proto, q_cap, q_full, lat, acq_tmr, wake_delay,
-                    msg_rule}};
+                    msg_rule},
+             Groups{groups, group_size, group_cap, local_delay}};
   engine_step_kernel<<<a, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(cand), static_cast<const int32_t*>(rot),
       static_cast<const int32_t*>(addr), static_cast<const int32_t*>(phase),
@@ -1116,7 +1304,7 @@ extern "C" long long engine_run_smem_bytes(int n, int a) {
 // Threads per block of a run of n cores (the barrier floor's block size).
 extern "C" int engine_run_threads(int n) {
   int threads, kc;
-  run_kernel_for(n, &threads, &kc);
+  run_kernel_for(n, 0, &threads, &kc);
   return threads;
 }
 
@@ -1126,18 +1314,20 @@ extern "C" int engine_run_threads(int n) {
 // pointers (run b's RunPtrs); every run's P_N word must be n, and a run
 // whose per-bank state does not fit in shared memory must have its own
 // scratch (engine_run_scratch_bytes).  `smem` is the launch's dynamic
-// shared memory, the largest engine_run_smem_bytes of its runs.  Returns
-// a CUDA error code, or -1 when the caller's layout does not match this
-// library's (n_params, n_ptrs per run) or smem is out of range.
+// shared memory, the largest engine_run_smem_bytes of its runs.  `wide`
+// must be nonzero when a run's family is kHier, kEvent or kFeb: only the
+// wide instances have their branches.  Returns a CUDA error code, or -1
+// when the caller's layout does not match this library's (n_params,
+// n_ptrs per run) or smem is out of range.
 extern "C" int engine_run_launch(int n_runs, int n, const void* params,
                                  int n_params, const void* ptrs, int n_ptrs,
-                                 long long smem, void* stream) {
+                                 long long smem, int wide, void* stream) {
   if (n_params != kNumParams || n_ptrs != kNumPtrs || n_runs < 1 || n < 1 ||
       smem < 0 || smem > static_cast<long long>(kMaxDynSmem)) {
     return -1;
   }
   int threads, kc;
-  const RunKernel kern = run_kernel_for(n, &threads, &kc);
+  const RunKernel kern = run_kernel_for(n, wide, &threads, &kc);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1153,11 +1343,13 @@ extern "C" int engine_run_launch(int n_runs, int n, const void* params,
 
 #ifndef CUDA_CPU_MOCK
 // What the card gives a launch of runs of n cores with `smem` bytes of
-// dynamic shared memory: out[0] blocks resident per SM, out[1] registers
-// a thread, out[2] threads a block, out[3] local (spill) bytes a thread.
-extern "C" int engine_run_occupancy(int n, long long smem, int* out) {
+// dynamic shared memory on the instance `wide` picks: out[0] blocks
+// resident per SM, out[1] registers a thread, out[2] threads a block,
+// out[3] local (spill) bytes a thread.
+extern "C" int engine_run_occupancy(int n, long long smem, int wide,
+                                    int* out) {
   int threads, kc;
-  const RunKernel kern = run_kernel_for(n, &threads, &kc);
+  const RunKernel kern = run_kernel_for(n, wide, &threads, &kc);
   cudaError_t err;
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(kern,

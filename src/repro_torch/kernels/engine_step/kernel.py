@@ -11,7 +11,10 @@ hash; nothing runs at import time).  It holds two kernels:
   (``core.sim._simulate_plain``) calls it once per cycle on the card.
 * ``run_cuda_batch`` launches ``engine_run_kernel`` once for a batch of
   runs of one core count, one thread block per run, and adds one to
-  ``LAUNCHES["engine_run"]`` per launch (not per run).  It returns each
+  ``LAUNCHES["engine_run"]`` per launch (not per run).  A launch that
+  holds a run of the two-level queues or nb_feb (``WIDE_FAMILIES``) runs
+  on the kernel's wide instance, the others on the one without their
+  branches.  It returns each
   run's ``core.sim.simulate`` result dict, every tensor a view of ONE
   flat device buffer per launch, so a batch comes back to the host in
   one copy.  ``run_cuda`` is its one-run case.  ``run_scalars`` is the
@@ -29,9 +32,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.metrics import LAT_BINS
-from repro_torch.core.protocols.base import (KERNEL_AMO, KERNEL_LOCK,
-                                             KERNEL_LRSC, KERNEL_QUEUE,
-                                             KERNEL_TICKET)
+from repro_torch.core.protocols.base import (KERNEL_AMO, KERNEL_EVENT,
+                                             KERNEL_FEB, KERNEL_HIER,
+                                             KERNEL_LOCK, KERNEL_LRSC,
+                                             KERNEL_QUEUE, KERNEL_TICKET)
 from repro_torch.core.workloads.base import ADDR_ZIPF, zipf_factors
 from repro_torch.kernels import LAUNCHES, _build
 from repro_torch.kernels.engine_step.ref import _param_ns
@@ -49,7 +53,7 @@ def build_dir() -> Path:
 @functools.lru_cache(maxsize=1)
 def _launcher():
     fn = _build.library("engine_step").engine_step_launch
-    fn.argtypes = [ctypes.c_void_p] * 23 + [ctypes.c_int] * 12 \
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 16 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -84,6 +88,15 @@ def _require_branch(proto, kernel: str, core=None) -> None:
             f"does not take")
 
 
+#: the two-level queues' bank state (colibri_hier's; hw_event has no
+#: turn_srv)
+_HIER_LAYOUT = {
+    "lqbuf": (torch.int32, -1), "lqhead": (torch.int32, 0),
+    "lqlen": (torch.int32, 0), "ggq": (torch.int32, -1),
+    "gqhead": (torch.int32, 0), "gqlen": (torch.int32, 0),
+    "g_inq": (torch.bool, False), "cur_grp": (torch.int32, -1),
+    "turn_srv": (torch.int32, 0), "wake_tmr": (torch.int32, 0),
+    "wake_grp": (torch.int32, 0)}
 #: bank-state arrays each protocol family carries: (dtype, the value
 #: every element starts at, as ``init_bank_state`` gives it)
 _BANK_LAYOUT = {
@@ -95,10 +108,38 @@ _BANK_LAYOUT = {
     KERNEL_LOCK: {"lock": (torch.bool, False)},
     KERNEL_TICKET: {"next_tkt": (torch.int32, 0),
                     "serving": (torch.int32, 0)},
+    KERNEL_HIER: _HIER_LAYOUT,
+    KERNEL_EVENT: {k: v for k, v in _HIER_LAYOUT.items() if k != "turn_srv"},
+    KERNEL_FEB: {"feb": (torch.bool, True), "qbuf": (torch.int32, -1),
+                 "qhead": (torch.int32, 0), "qlen": (torch.int32, 0),
+                 "wake_tmr": (torch.int32, 0)},
 }
 #: per-core state arrays a family carries (``init_core_state``), which
 #: are also its ``fused_core_fields`` and ``fused_xset_fields``
 _CORE_LAYOUT = {KERNEL_TICKET: {"tkt": (torch.int32, -1)}}
+#: the bank-state pointers ``engine_step_launch`` takes, in the order of
+#: the source's ``BankState`` (null where the family has no such array)
+STEP_BANK = ("resv_core", "resv_valid", "qbuf", "qhead", "qlen", "wake_tmr",
+             "lock", "next_tkt", "serving", "feb", "lqbuf", "lqhead",
+             "lqlen", "ggq", "g_inq", "cur_grp", "turn_srv", "gqhead",
+             "gqlen", "wake_grp")
+
+
+def bank_shape(key: str, a: int, q_cap: int, groups: int,
+               group_cap: int) -> tuple:
+    """The shape of bank-state array ``key`` at ``a`` banks: the FIFO
+    queues' ``qbuf`` has ``q_cap`` slots a bank; the two-level queues'
+    local queues are ``a * groups`` rows of ``group_cap`` slots and their
+    global FIFOs ``(a, groups)``; the rest are ``(a,)``."""
+    if key == "qbuf":
+        return (a, q_cap)
+    if key == "lqbuf":
+        return (a * groups, group_cap)
+    if key in ("lqhead", "lqlen"):
+        return (a * groups,)
+    if key in ("ggq", "g_inq"):
+        return (a, groups)
+    return (a,)
 
 
 def fused_step_cuda(proto, p, bank: Dict, *, cand_cyc, rot, addr, phase,
@@ -118,9 +159,13 @@ def fused_step_cuda(proto, p, bank: Dict, *, cand_cyc, rot, addr, phase,
     if set(bank) != set(layout):
         raise ValueError(f"bank state keys {sorted(bank)} do not match "
                          f"protocol {proto.name!r} ({sorted(layout)})")
+    args = proto.kernel_args(_param_ns(p, lat))
+    if code in (KERNEL_HIER, KERNEL_EVENT) and n != p.n_cores:
+        raise ValueError(f"protocol {proto.name!r} sizes its groups for "
+                         f"{p.n_cores} cores, the step has {n}")
     for k, (dt, _) in layout.items():
-        shape = (a, q_cap) if k == "qbuf" else (a,)
-        _check(k, bank[k], shape, dt, dev)
+        _check(k, bank[k], bank_shape(k, a, q_cap, args.groups,
+                                      args.group_cap), dt, dev)
 
     for k in _CORE_LAYOUT.get(code, {}):
         _check(k, core[k], (n,), torch.int32, dev)
@@ -133,25 +178,24 @@ def fused_step_cuda(proto, p, bank: Dict, *, cand_cyc, rot, addr, phase,
     xset = {k: (torch.empty((a,), dtype=torch.int32, device=dev),
                 torch.empty((a,), dtype=torch.bool, device=dev))
             for k in _CORE_LAYOUT.get(code, {})}
-    wake_delay, msg_rule, acq_tmr, q_full = proto.kernel_args(
-        _param_ns(p, lat))
 
     def ptr(d, k, j=None):
         if k not in d:
             return None
         return (d[k] if j is None else d[k][j]).data_ptr()
 
+    banks = (ctypes.c_void_p * len(STEP_BANK))(
+        *(ptr(bank, k) for k in STEP_BANK))
     err = _launcher()(
         cand_cyc.data_ptr(), rot.data_ptr(), addr.data_ptr(),
-        phase.data_ptr(), acq_start.data_ptr(),
-        ptr(bank, "resv_core"), ptr(bank, "resv_valid"), ptr(bank, "qbuf"),
-        ptr(bank, "qhead"), ptr(bank, "qlen"), ptr(bank, "wake_tmr"),
-        ptr(bank, "lock"), ptr(bank, "next_tkt"), ptr(bank, "serving"),
+        phase.data_ptr(), acq_start.data_ptr(), ctypes.addressof(banks),
         ptr(core, "tkt"), ptr(xset, "tkt", 0), ptr(xset, "tkt", 1),
         valid.data_ptr(), win.data_ptr(), kind.data_ptr(), tmr.data_ptr(),
         stats.data_ptr(), hist.data_ptr(),
-        n, a, code, q_cap, q_full, cyc, shift, lat, acq_tmr, wake_delay,
-        msg_rule, cycles, torch.cuda.current_stream(dev).cuda_stream)
+        n, a, code, q_cap, args.q_full, cyc, shift, lat, args.acq_tmr,
+        args.wake_delay, args.msg_rule, cycles, args.groups,
+        args.group_size, args.group_cap, args.local_delay,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"engine_step kernel launch failed: CUDA error "
                            f"{err}")
@@ -169,7 +213,8 @@ RUN_PARAMS = ("n", "a", "n_addrs", "cycles", "proto", "q_cap", "q_full",
               "lat", "acq_tmr", "wake_delay", "msg_rule", "pre_dur",
               "mod_dur", "addr_mode", "fix_addr", "zipf_c", "exp_cap",
               "seed", "net_bw", "hol_block", "n_workers", "n_atomic",
-              "stagger", "trace", "tele_windows", "tele_cw", "bo_tab")
+              "stagger", "trace", "tele_windows", "tele_cw", "groups",
+              "group_size", "group_cap", "local_delay", "bo_tab")
 #: backoff bases passed: streak k reads entry min(k, BO_TAB - 1), and
 #: ``backoff << 32`` and beyond is 0 (``shl32``)
 BO_TAB = 34
@@ -178,8 +223,10 @@ RUN_PTRS = ("st", "tmr", "addr", "phase", "nxt", "opc", "ops", "arr_cyc",
             "streak", "parked", "acq_start", "w_tmr", "w_served",
             "addr_ops", "lat_hist", "scalars", "resv_core", "resv_valid",
             "qbuf", "qhead", "qlen", "wake_tmr", "lock", "next_tkt",
-            "serving", "tkt", "tele", "trace_step", "trace_wait",
-            "trace_state", "trace_qlen", "scratch")
+            "serving", "tkt", "feb", "lqbuf", "lqhead", "lqlen", "ggq",
+            "g_inq", "cur_grp", "turn_srv", "gqhead", "gqlen", "wake_grp",
+            "tele", "trace_step", "trace_wait", "trace_state", "trace_qlen",
+            "scratch")
 #: the run's 0-d outputs, in the order of the source's ``Scalar`` enum
 RUN_SCALARS = ("resp_prev", "msgs", "polls", "sleep_cyc", "lat_max",
                "active_cyc", "backoff_cyc", "bank_ops", "net_stall")
@@ -219,7 +266,7 @@ def run_scalars(p, proto, prog, banks=None) -> Dict[str, Any]:
     if a < n_addrs:
         raise ValueError(f"banks={a} is below n_addrs={n_addrs}")
     exp_cap = 1 if proto.fixed_backoff else p.backoff_exp
-    wake_delay, msg_rule, acq_tmr, q_full = proto.kernel_args(p)
+    args = proto.kernel_args(p)
     addr_mode = int(pt["addr_mode"][0])
     zipf_c = 0.0
     if addr_mode == ADDR_ZIPF:
@@ -232,8 +279,9 @@ def run_scalars(p, proto, prog, banks=None) -> Dict[str, Any]:
     return dict(
         n=n, a=a, n_addrs=n_addrs, cycles=p.cycles,
         proto=proto.kernel_code,
-        q_cap=proto.q_cap(p, n), q_full=q_full, lat=p.lat, acq_tmr=acq_tmr,
-        wake_delay=wake_delay, msg_rule=msg_rule,
+        q_cap=proto.q_cap(p, n), q_full=args.q_full, lat=p.lat,
+        acq_tmr=args.acq_tmr, wake_delay=args.wake_delay,
+        msg_rule=args.msg_rule,
         pre_dur=int(pt["pre_mult"][0]) * p.work + int(pt["pre_add"][0]),
         mod_dur=int(pt["mod_mult"][0]) * p.modify + int(pt["mod_add"][0]),
         addr_mode=addr_mode,
@@ -245,6 +293,8 @@ def run_scalars(p, proto, prog, banks=None) -> Dict[str, Any]:
         tele_windows=p.telemetry_windows,
         tele_cw=(window_len(p.cycles, p.telemetry_windows)
                  if p.telemetry_windows else 0),
+        groups=args.groups, group_size=args.group_size,
+        group_cap=args.group_cap, local_delay=args.local_delay,
         bo_tab=_bo_tab(p.backoff, exp_cap))
 
 
@@ -270,7 +320,8 @@ def _run_library():
     lib = _build.library("engine_step")
     lib.engine_run_launch.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_void_p]
     lib.engine_run_launch.restype = ctypes.c_int
     for fn in (lib.engine_run_scratch_bytes, lib.engine_run_smem_bytes):
         fn.argtypes = [ctypes.c_int, ctypes.c_int]
@@ -292,8 +343,7 @@ def result_arrays(p, proto, sc: Dict[str, Any]) -> Dict[str, Any]:
     against the protocol's own ``init_bank_state`` at one bank and one
     queue slot (not built at full size on the host)."""
     _check_bank_layout(proto, p, sc["n"])
-    return dict(_layout(sc["proto"], sc["n"], sc["a"], sc["q_cap"],
-                        sc["cycles"], sc["tele_windows"], sc["trace"]))
+    return dict(_layout(*_layout_key(sc)))
 
 
 #: protocols whose initial bank state is held to ``_BANK_LAYOUT``
@@ -323,9 +373,16 @@ def _check_bank_layout(proto, p, n: int) -> None:
     _LAYOUT_CHECKED.add(proto.name)
 
 
+def _layout_key(sc: Dict[str, Any]) -> tuple:
+    """The arguments of :func:`_layout` from a run's scalars."""
+    return (sc["proto"], sc["n"], sc["a"], sc["q_cap"], sc["groups"],
+            sc["group_cap"], sc["cycles"], sc["tele_windows"], sc["trace"])
+
+
 @functools.lru_cache(maxsize=4096)
-def _layout(code: int, n: int, a: int, q_cap: int, cycles: int,
-            tele_windows: int, trace: int) -> tuple:
+def _layout(code: int, n: int, a: int, q_cap: int, groups: int,
+            group_cap: int, cycles: int, tele_windows: int,
+            trace: int) -> tuple:
     """``result_arrays``' items for a run of this shape (hashable: a
     launch groups its runs by it)."""
     i32 = torch.int32
@@ -348,7 +405,7 @@ def _layout(code: int, n: int, a: int, q_cap: int, cycles: int,
     if tele_windows:
         out["tele"] = z((tele_windows, TELE_K))
     for k, (dt, value) in _BANK_LAYOUT[code].items():
-        out[k] = (dt, (a, q_cap) if k == "qbuf" else (a,), value)
+        out[k] = (dt, bank_shape(k, a, q_cap, groups, group_cap), value)
     for k, (dt, _) in _CORE_LAYOUT.get(code, {}).items():
         out[k] = w((n,), dt)                 # the kernel writes its start
     if trace:
@@ -414,10 +471,7 @@ def pack_runs(runs: Sequence[Tuple[Any, Any, Dict[str, Any]]], dev,
     groups: Dict[tuple, list] = {}           # layout -> [run indices]
     for b, (p, proto, sc) in enumerate(runs):
         _check_bank_layout(proto, p, sc["n"])
-        groups.setdefault(_layout(sc["proto"], sc["n"], sc["a"],
-                                  sc["q_cap"], sc["cycles"],
-                                  sc["tele_windows"], sc["trace"]),
-                          []).append(b)
+        groups.setdefault(_layout(*_layout_key(sc)), []).append(b)
     # regions: (group, key, dtype, shape, stride) -> offset
     fills: Dict[int, list] = {}
     staged, written = [], []
@@ -505,6 +559,24 @@ def pack_runs(runs: Sequence[Tuple[Any, Any, Dict[str, Any]]], dev,
     return dict(flat=flat, params=base + w_at, ptrs=base + p_at, outs=outs)
 
 
+def launch_smem(lib, scalars: Sequence[Dict[str, Any]]) -> int:
+    """Dynamic shared memory of one launch of runs with these
+    ``run_scalars``: the largest ``engine_run_smem_bytes`` of its runs
+    (the per-bank layout is the same for every protocol family)."""
+    return max(lib.engine_run_smem_bytes(sc["n"], sc["a"]) for sc in scalars)
+
+
+#: the families only the run kernel's wide instances have a branch for
+WIDE_FAMILIES = (KERNEL_HIER, KERNEL_EVENT, KERNEL_FEB)
+
+
+def launch_wide(scalars: Sequence[Dict[str, Any]]) -> int:
+    """1 when a launch of runs with these ``run_scalars`` needs the run
+    kernel's wide instance (a run of the two-level queues or nb_feb),
+    else 0: the other families run on the instance without their code."""
+    return int(any(sc["proto"] in WIDE_FAMILIES for sc in scalars))
+
+
 def run_cuda_batch(runs: Sequence[Tuple[Any, Any, Any, int]], device,
                    started=None) -> List[Dict[str, torch.Tensor]]:
     """Runs of one core count in ONE launch of ``engine_run_kernel`` on
@@ -532,11 +604,11 @@ def run_cuda_batch(runs: Sequence[Tuple[Any, Any, Any, int]], device,
         scalars.append((p, proto, run_scalars(p, proto, prog, banks)))
     lib = _run_library()
     packed = pack_runs(scalars, dev, lib.engine_run_scratch_bytes, started)
-    smem = max(lib.engine_run_smem_bytes(n, sc["a"]) for _, _, sc in scalars)
+    scs = [sc for _, _, sc in scalars]
     err = lib.engine_run_launch(
         len(runs), n, packed["params"], len(RUN_PARAMS) - 1 + BO_TAB,
-        packed["ptrs"], len(RUN_PTRS), smem,
-        torch.cuda.current_stream(dev).cuda_stream)
+        packed["ptrs"], len(RUN_PTRS), launch_smem(lib, scs),
+        launch_wide(scs), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(
             "engine_run kernel launch failed: "

@@ -71,7 +71,8 @@ def _bind(lib_path: str):
     lib = ctypes.CDLL(lib_path)
     lib.engine_run_launch.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_void_p]
     for fn in (lib.engine_run_scratch_bytes, lib.engine_run_smem_bytes):
         fn.argtypes = [ctypes.c_int, ctypes.c_int]
         fn.restype = ctypes.c_longlong
@@ -88,10 +89,12 @@ def _diff(out: dict, want: dict) -> list:
 
 
 def run_mock_batch(lib_path: str, kws: list, banks: list,
-                   order: int = 0) -> list:
+                   order: int = 0, wide=None) -> list:
     """One launch of the mock build for the points ``kws``, block b's
     banks allocated at ``banks[b]``, the blocks run in index order (0)
-    or reversed (1): each block's result dict."""
+    or reversed (1), on the kernel instance ``wide`` picks (default:
+    the one the wrapper picks, ``launch_wide``): each block's result
+    dict."""
     from repro_torch.core import protocols, sim, workloads
     from repro_torch.kernels.engine_step import kernel as K
     lib = _bind(lib_path)
@@ -105,10 +108,11 @@ def run_mock_batch(lib_path: str, kws: list, banks: list,
     n = runs[0][0].n_cores
     packed = K.pack_runs(runs, torch.device("cpu"),
                          lib.engine_run_scratch_bytes)
-    smem = max(lib.engine_run_smem_bytes(n, sc["a"]) for _, _, sc in runs)
+    scs = [sc for _, _, sc in runs]
     err = lib.engine_run_launch(
         len(runs), n, packed["params"], len(K.RUN_PARAMS) - 1 + K.BO_TAB,
-        packed["ptrs"], len(K.RUN_PTRS), smem, None)
+        packed["ptrs"], len(K.RUN_PTRS), K.launch_smem(lib, scs),
+        K.launch_wide(scs) if wide is None else wide, None)
     assert err == 0, err
     # each a copy: the views of the launch's buffer do not pickle
     return [{k: v.clone() for k, v in out.items() if k != "scalars"}
@@ -116,7 +120,7 @@ def run_mock_batch(lib_path: str, kws: list, banks: list,
 
 
 def check_batch(lib, tmp_path, kws: list, banks: list,
-                order: int = 0) -> list:
+                order: int = 0, wide=None) -> list:
     """The mock build's launch of ``kws`` (see :func:`run_mock_batch`) in
     a child process, while this one runs the plain loop of each point:
     the keys that differ (value, dtype, shape or order), per block.  A
@@ -124,7 +128,8 @@ def check_batch(lib, tmp_path, kws: list, banks: list,
     worker."""
     from repro_torch.core import sim
     out = tmp_path / "mock_out.pt"
-    job = dict(batch=kws, banks=banks, order=order, out=str(out))
+    job = dict(batch=kws, banks=banks, order=order, wide=wide,
+               out=str(out))
     proc = subprocess.Popen(
         [sys.executable, __file__, str(lib), json.dumps(job)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
@@ -152,4 +157,4 @@ if __name__ == "__main__":
     # the child: one launch; it imports neither the cases nor JAX
     job = json.loads(sys.argv[2])
     torch.save(run_mock_batch(sys.argv[1], job["batch"], job["banks"],
-                              job["order"]), job["out"])
+                              job["order"], job["wide"]), job["out"])

@@ -7,7 +7,7 @@ runs on the CPU against the plain loop through a g++ build
 (``tests/engine_mock.py``).  Here:
 
 * ``run_scalars`` gives the values the plain loop (``_simulate_plain``)
-  derives, for the eight protocols, with and without workers, for
+  derives, for the eleven protocols, with and without workers, for
   negative and large seeds;
 * ``RUN_PARAMS``/``RUN_PTRS``/``RUN_SCALARS`` name the source's enums in
   order, and ``pack_runs`` lays out what the plain loop returns;
@@ -24,13 +24,14 @@ import torch
 from repro_torch.core import protocols as tprotocols
 from repro_torch.core import sim
 from repro_torch.core import workloads as tworkloads
+from repro_torch.core.protocols.base import KernelArgs
 from repro_torch.core.workloads.base import ADDR_ZIPF, zipf_index
 from repro_torch.kernels import engine_step
 from repro_torch.kernels.engine_step import kernel as es_kernel
 from repro_torch.obs.schema import window_len
 
 PROTOS = ("amo", "lrsc", "lrscwait", "colibri", "amo_lock", "lrsc_lock",
-          "ticket_lock", "mwait_lock")
+          "ticket_lock", "mwait_lock", "colibri_hier", "hw_event", "nb_feb")
 SOURCE = Path(__file__).resolve().parents[1] / "src" / "repro_torch" \
     / "csrc" / "engine_step.cu"
 _M32 = 0xFFFFFFFF
@@ -84,12 +85,21 @@ def test_run_scalars_are_what_the_plain_loop_derives(proto, workers):
             assert sc["addr_mode"] == int(pt["addr_mode"][0])
             assert sc["fix_addr"] == (int(pt["addr_arg"][0]) & _M32) \
                 % p.n_addrs
-            assert (sc["wake_delay"], sc["msg_rule"], sc["acq_tmr"],
-                    sc["q_full"]) == pr.kernel_args(p)
-            # lrscwait's finite queue rejects when full, mwait_lock's never
+            assert tuple(sc[k] for k in KernelArgs._fields) \
+                == pr.kernel_args(p)
+            # lrscwait's finite queue rejects when full, mwait_lock's and
+            # nb_feb's never
             assert sc["q_full"] == (
                 sc["q_cap"] if proto in ("lrscwait", "colibri")
-                else 2**31 - 1 if proto == "mwait_lock" else 0)
+                else 2**31 - 1 if proto in ("mwait_lock", "nb_feb") else 0)
+            # the two-level queues' geometry is their own _geom's
+            if proto in ("colibri_hier", "hw_event"):
+                assert (sc["groups"], sc["group_size"], sc["group_cap"]) \
+                    == pr._geom(p, p.n_cores)
+                assert sc["wake_delay"] == p.lat + (
+                    2 if proto == "colibri_hier" else 1)
+            else:
+                assert sc["groups"] == sc["group_cap"] == 0
             # an LR/SC pair answers an acquire after two round trips
             assert sc["acq_tmr"] == p.lat * (2 if proto == "lrsc_lock"
                                              else 1)
@@ -221,8 +231,8 @@ def test_simulate_on_cpu_runs_the_plain_loop(monkeypatch):
 def test_kernels_refuse_what_they_have_no_branch_for():
     """A protocol without a kernel branch, or with per-core fields other
     than its family's, is refused by both kernels' wrappers (no
-    fallback); the ticket lock's held tickets are taken; the protocols
-    the port lacks are refused before any kernel, on every device."""
+    fallback); the ticket lock's held tickets are taken; every protocol
+    the port registers (all of the reference's) has a branch."""
     from repro_torch.core.protocols.base import KERNEL_AMO, Protocol
 
     class NoBranch(Protocol):
@@ -243,6 +253,9 @@ def test_kernels_refuse_what_they_have_no_branch_for():
                               {"tkt": torch.zeros(4, dtype=torch.int32)})
     with pytest.raises(NotImplementedError, match="ticket_lock"):
         es_kernel._require_branch(ticket, "engine_step", {})
-    for name in sim.UNPORTED_PROTOCOLS:
-        with pytest.raises(NotImplementedError, match="ROADMAP item A2"):
-            sim.SimParams(protocol=name, n_cores=8)
+    from repro.core import protocols as jprotocols
+    assert tprotocols.names() == jprotocols.names()
+    for name in tprotocols.names():
+        pr = tprotocols.get(name)
+        for kernel in ("engine_step", "engine_run"):
+            es_kernel._require_branch(pr, kernel)

@@ -3,10 +3,15 @@
 For each protocol the port's plain ``fused_step_ref`` is fed the same
 seeded random state as the reference's ``fused_step_ref`` (XLA) and its
 Pallas ``fused_step`` (interpret mode), and every output and every bank
-array must be equal, dtypes included, over chained cycles.  The CUDA
+array must be equal, dtypes included, over chained cycles.  The random
+bank states are ``chip_smoke.random_bank``'s (the two-level queues'
+drawn in the shape the protocols reach, nb_feb's full/empty bits apart
+from its queue lengths), so the card's kernel phase starts from states
+of the kind this file holds the reference to.  The CUDA
 kernel itself runs only on a GPU: ``tests/test_torch_gpu.py`` and
 ``chip_smoke.py`` hold it against the plain version there.
 """
+import importlib.util
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -26,28 +31,23 @@ from repro_torch.kernels.engine_step import kernel as es_kernel
 from repro_torch.kernels.engine_step.kernel import fused_step_cuda
 
 PROTOS = ("amo", "lrsc", "lrscwait", "colibri", "amo_lock", "lrsc_lock",
-          "ticket_lock", "mwait_lock")
+          "ticket_lock", "mwait_lock", "colibri_hier", "hw_event", "nb_feb")
 _BIG = 2**31 - 1
 _OUT_KEYS = ("valid", "win", "kind", "tmr", "polls", "msgs", "hist",
              "lat_max")
+ROOT = Path(__file__).resolve().parents[1]
 
 
-def _random_bank(proto, p, a, n, q_cap, rng):
-    bank = convert.to_numpy(proto.init_bank_state(p, a, n, q_cap, "cpu"))
-    if "resv_core" in bank:
-        bank["resv_core"] = rng.integers(-1, n, a).astype(np.int32)
-        bank["resv_valid"] = rng.random(a) < 0.5
-    if "qbuf" in bank:
-        bank["qbuf"] = rng.integers(-1, n, (a, q_cap)).astype(np.int32)
-        bank["qhead"] = rng.integers(0, q_cap, a).astype(np.int32)
-        bank["qlen"] = rng.integers(0, q_cap + 1, a).astype(np.int32)
-        bank["wake_tmr"] = rng.integers(0, 8, a).astype(np.int32)
-    if "lock" in bank:
-        bank["lock"] = rng.random(a) < 0.5
-    if "next_tkt" in bank:
-        bank["next_tkt"] = rng.integers(0, 8, a).astype(np.int32)
-        bank["serving"] = rng.integers(0, 8, a).astype(np.int32)
-    return bank
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_CS = _chip_smoke()
+_random_bank = _CS.random_bank
 
 
 def _random_core(proto, n, rng):

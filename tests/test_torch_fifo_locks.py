@@ -50,4 +50,4 @@ def test_kernel_families_and_arguments():
     assert tl.fused_core_fields == tl.fused_xset_fields == ("tkt",)
     assert mw.kernel_code == KERNEL_QUEUE and mw.uses_queue
     assert mw.q_cap(p, 16) == 16
-    assert mw.kernel_args(p) == (8, MSGS_ENQ, 6, NEVER_FULL)
+    assert mw.kernel_args(p) == (8, MSGS_ENQ, 6, NEVER_FULL, 0, 0, 0, 0)

@@ -33,7 +33,7 @@ from repro_torch.serving import ServeEngine
 from repro_torch.sync import Spec, run
 
 PROTOS = ("amo", "lrsc", "lrscwait", "colibri", "amo_lock", "lrsc_lock",
-          "ticket_lock", "mwait_lock")
+          "ticket_lock", "mwait_lock", "colibri_hier", "hw_event", "nb_feb")
 ROOT = Path(__file__).resolve().parents[1]
 
 
@@ -138,6 +138,61 @@ def test_study_on_gpu_equals_single_runs(max_batch, cuda_device):
     cpu = Study.from_specs(specs).run(device="cpu")
     for spec, r, c in zip(specs, got, cpu):
         assert r.ok
+        assert cs.swept_diff(r.stats, run(spec).stats,
+                             spec.to_params()) == []
+        assert cs.int_keys_equal(r.stats, c.stats) == []
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("groups", [1, 3, 16])
+def test_colibri_hier_group_counts_on_gpu(groups, cuda_device):
+    """colibri_hier's engine_run launch equals the plain loop at group
+    counts that divide the cores (1, 16) and one that does not (3), and
+    its per-cycle kernel equals its plain version from seeded random
+    states of the shape the protocol reaches."""
+    cs = _chip_smoke()
+    p = SimParams(protocol="colibri_hier", n_groups=groups,
+                  workload="zipf_histogram", zipf_skew=0, n_cores=256,
+                  n_addrs=16, cycles=300, seed=7 + groups,
+                  record_trace=True, telemetry_windows=8)
+    before = dict(LAUNCHES)
+    assert cs.run_case(p, cuda_device) == (p.cycles, 0.0)
+    LAUNCHES.update(before)
+    proto = protocols.get("colibri_hier")
+    rng = np.random.default_rng(groups)
+    bank0 = cs.random_bank(proto, p, 16, 256, proto.q_cap(p, 256), rng)
+    bank_k = convert.to_torch(bank0, cuda_device)
+    bank_r = convert.to_torch(bank0, cuda_device)
+    for cyc in range(3000, 3004):
+        kw = cs.step_kwargs(cs.random_step(256, 16, cyc, rng), cuda_device,
+                            cyc, p, 256, 16, 256, cyc + 12)
+        out_k = engine_step.fused_step(proto, p, bank_k, **kw)
+        out_r = engine_step.fused_step_ref(proto, p, bank_r, **kw)
+        torch.cuda.synchronize()
+        assert cs.compare(out_k, out_r) == 0, cyc
+        bank_k, bank_r = out_k["bank"], out_r["bank"]
+
+
+@pytest.mark.gpu
+def test_hier_group_counts_share_one_launch(cuda_device):
+    """colibri_hier at three group counts beside hw_event, nb_feb and
+    colibri: one engine_run launch, every point equal to its single run
+    and to the CPU's, no poll."""
+    from repro_torch.sync import Study
+    cs = _chip_smoke()
+    specs = [Spec(protocol=pr, n_groups=g, workload="zipf_histogram",
+                  zipf_skew=0, n_cores=128, n_addrs=a, cycles=800, seed=s)
+             for pr, g, a, s in (("colibri_hier", 1, 1, 1),
+                                 ("colibri_hier", 3, 5, 2),
+                                 ("colibri_hier", 16, 16, 3),
+                                 ("hw_event", 4, 2, 4), ("nb_feb", 4, 3, 5),
+                                 ("colibri", 4, 1, 6))]
+    before = dict(LAUNCHES)
+    got = Study.from_specs(specs).run()
+    assert LAUNCHES["engine_run"] - before["engine_run"] == 1
+    cpu = Study.from_specs(specs).run(device="cpu")
+    for spec, r, c in zip(specs, got, cpu):
+        assert r.ok and int(r.polls) == 0
         assert cs.swept_diff(r.stats, run(spec).stats,
                              spec.to_params()) == []
         assert cs.int_keys_equal(r.stats, c.stats) == []

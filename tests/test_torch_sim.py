@@ -87,15 +87,15 @@ def test_skew_is_ignored_where_no_zipf_stream_runs():
 
 
 def test_unported_names_list_what_the_port_has():
-    ported = ("amo, amo_lock, colibri, lrsc, lrsc_lock, lrscwait, "
-              "mwait_lock, ticket_lock")
+    from repro.core import protocols as jprotocols
+    from repro_torch.core import protocols as tprotocols
+    ported = ("amo, amo_lock, colibri, colibri_hier, hw_event, lrsc, "
+              "lrsc_lock, lrscwait, mwait_lock, nb_feb, ticket_lock")
     with pytest.raises(ValueError, match=ported):
         tsim.SimParams(protocol="no_such_protocol")
-    for name in tsim.UNPORTED_PROTOCOLS:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP item A2") as e:
-            tsim.SimParams(protocol=name)
-        assert ported in str(e.value)
+    # the port registers every protocol the reference does
+    assert tprotocols.names() == jprotocols.names()
+    assert ", ".join(tprotocols.names()) == ported
     with pytest.raises(ValueError, match="rmw_loop, zipf_histogram"):
         tsim.SimParams(workload="ms_queue")
     with pytest.raises(ValueError, match="registered topologies: flat"):

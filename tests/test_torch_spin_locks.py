@@ -32,7 +32,7 @@ def test_acquire_timer_and_messages_follow_the_pair(proto, pair):
     p = SimParams(protocol=proto, n_cores=8, n_addrs=4, lat=7)
     assert pr.kernel_code == KERNEL_LOCK and pr.fixed_backoff
     assert pr.kernel_args(p) == (0, MSGS_ACQ if pair else MSGS_NONE,
-                                 14 if pair else 7, 0)
+                                 14 if pair else 7, 0, 0, 0, 0, 0)
     # banks: free + acquire, held + acquire, held + release, no winner
     bank = dict(lock=torch.tensor([False, True, True, False]))
     fx = FusedCtx(p=_param_ns(p, 7), n=8, a=4, q_cap=8,

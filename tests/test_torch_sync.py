@@ -25,8 +25,8 @@ from test_protocols import GOLDEN, GOLDEN_CONFIGS, GOLDEN_EXTRA, _observe
 PROTOS = ("amo", "lrsc", "lrscwait", "colibri", "amo_lock", "lrsc_lock",
           "mwait_lock")
 #: what the port registers, sorted
-PORTED = ("amo, amo_lock, colibri, lrsc, lrsc_lock, lrscwait, mwait_lock, "
-          "ticket_lock")
+PORTED = ("amo, amo_lock, colibri, colibri_hier, hw_event, lrsc, lrsc_lock, "
+          "lrscwait, mwait_lock, nb_feb, ticket_lock")
 ROOT = Path(__file__).resolve().parents[1]
 
 
@@ -93,10 +93,17 @@ def test_spec_json_round_trips_both_ways(kw):
 
 
 def test_spec_with_unported_feature_fails_in_the_port():
-    ref = jsync.Spec(protocol="hw_event")
-    with pytest.raises(NotImplementedError, match="ROADMAP item A2") as e:
-        tsync.Spec.from_json(ref.to_json())
+    # every protocol loads; an unknown one lists them all
+    for name in PORTED.split(", "):
+        ref = jsync.Spec(protocol=name, n_groups=3)
+        assert tsync.Spec.from_json(ref.to_json()).to_dict() \
+            == ref.to_dict()
+    with pytest.raises(ValueError) as e:
+        tsync.Spec(protocol="no_such_protocol")
     assert PORTED in str(e.value)
+    ref = jsync.Spec(workload="ms_queue", n_addrs=2)
+    with pytest.raises(ValueError, match="rmw_loop, zipf_histogram"):
+        tsync.Spec.from_json(ref.to_json())
     ref = jsync.Spec(workload="zipf_histogram", zipf_skew=100)
     with pytest.raises(NotImplementedError, match="ROADMAP item"):
         tsync.Spec.from_json(ref.to_json())
@@ -153,7 +160,7 @@ def test_chip_smoke_checks_the_kernel_at_every_shape_it_launches():
                  for c, _ in GOLDEN_EXTRA.values()}
     launched |= {(n, b) for _, n, b in cs.FULL_WIDTH_POINTS}
     swept = [s.to_params() for s in cs.sweep_fig3_specs()
-             + cs.sweep_mixed_specs() + cs.fig4_specs()]
+             + cs.sweep_mixed_specs() + cs.fig4_specs() + cs.hier_specs()]
     launched |= {(p.n_cores, _bucket_a(p.n_addrs)) for p in swept}
     assert launched <= set(cs.KERNEL_SHAPES)
     assert (2048, 512) in cs.KERNEL_SHAPES
@@ -180,6 +187,27 @@ def test_chip_smoke_fig4_is_the_bench_locks_grid():
     assert {g.to_params().n_cores for g in got} == {256}
     assert set(cs.LOCK_TIME_POINTS) == {(pr, 256, 1)
                                         for pr in bench_locks.LOCKS}
+
+
+def test_chip_smoke_hier_is_one_launch_of_every_group_count():
+    """The hier phase's Study: colibri and nb_feb, colibri_hier at 1, 2,
+    4, 8 and 16 groups and hw_event at 4, each at the Fig. 3 bins, 256
+    cores (one launch), the Fig. 4 phase's cycles; the kernel phases
+    also take colibri_hier at 1 and 3 groups."""
+    cs = _chip_smoke()
+    pts = [s.to_params() for s in cs.hier_specs()]
+    assert len(pts) == 48
+    assert {p.n_cores for p in pts} == {256}
+    assert {p.cycles for p in pts} == {cs.FIG4_CYCLES}
+    lines = {(p.protocol, p.n_groups) for p in pts}
+    assert {g for pr, g in lines if pr == "colibri_hier"} == {1, 2, 4, 8,
+                                                              16}
+    assert {pr for pr, _ in lines} == {"colibri", "nb_feb", "colibri_hier",
+                                       "hw_event"}
+    assert {p.n_addrs for p in pts} == set(cs.SWEEP_BINS)
+    assert {(pr, g) for pr, g in cs.PROTO_CASES} >= {
+        ("colibri_hier", 1), ("colibri_hier", 3), ("colibri_hier", 4)}
+    assert {pr for pr, _ in cs.PROTO_CASES} == set(tprotocols.names())
 
 
 def test_chip_smoke_sweep_points_are_covered():

@@ -29,8 +29,14 @@ Phases, one JSON line each:
    ``record_trace`` and 64 telemetry windows, plus the colibri_workers
    point and, for each entry, one traced run with per-core state in
    device memory (more than 2 048 cores) and one with per-bank state in
-   the scratch buffer (more banks than shared memory holds): every key
-   of the result dict equal, traces included;
+   the scratch buffer (more banks than shared memory holds); then the
+   workload programs on the kernel's program instance: ``ms_queue``,
+   ``treiber_stack`` and ``barrier_phases`` (``PROGRAM_WORKLOADS``) for
+   each of the eleven protocols at their scenario's banks and 256 cores,
+   untraced and traced, the script's own program (``OWN_FIELDS``:
+   per-step durations, a barrier mid-program) for each protocol, and
+   ``barrier_phases`` with Fig. 5 workers: every key of the result dict
+   equal, traces included;
 4. scatter_kernel — the colibri_scatter kernel against its plain
    version on the card at the reference tests' shapes (f32 and bf16),
    the trace path's shapes and two large ones, on uniform keys and with
@@ -144,6 +150,24 @@ Phases, one JSON line each:
    hier_time — the three at 256 × 1, ``FULL_WIDTH_CYCLES``, beside
    colibri: µs per simulated cycle, and the registers, spill and blocks
    per SM of each instance of the kernel;
+   fig6 — Fig. 6 (``benchmarks/bench_queue.py``): ``ms_queue`` at its
+   scenario (head and tail words, ``modify`` 8), the paper's fixed
+   128-cycle backoff, colibri, colibri_hier, lrsc and amo_lock × 2–256
+   cores, ``FIG6_CYCLES``, as one Study of ONE launch per core count (6),
+   every point bit for bit equal to its single run and passing
+   ``Result.check()``; the figure's rows, ``bench_queue.headline``'s
+   entries from them, card ms per launch, the Study's wall against its
+   single runs', the busy share;
+   workloads — the workload grid (``benchmarks/bench_workloads.py``)
+   without its Zipf ladder and skewed ``zipf_histogram`` (the port
+   refuses skew): rmw_loop, ms_queue, treiber_stack and barrier_phases ×
+   its five protocols × 2 seeds at 64 cores as one Study of ONE launch,
+   each point against its single run and ``Result.check()``; ops per
+   cycle per (workload, protocol), no poll for the polling-free ones,
+   card ms, wall, busy share;
+   program_time — colibri and lrsc on each program workload at 256
+   cores, ``FULL_WIDTH_CYCLES``: µs per simulated cycle; the program
+   instance's registers, spill and blocks per SM;
 12. kernel times — engine_run's device time per run at the five
    main-path points beside its byte bound and the barrier-only floor of
    its chain of cycles, and the plain loop's time at the first, whose
@@ -165,6 +189,7 @@ when any phase fails, and its last line is the device record.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import gc
@@ -726,6 +751,102 @@ HIER_CYCLES = FIG4_CYCLES
 HIER_TIME_POINTS = (("colibri", 256, 1),) + tuple((pr, 256, 1)
                                                  for pr in HIER_PROTOS)
 
+# ---- workload programs: the run kernel's program instance ---------------
+#: the workloads with more than one step or a barrier step; the
+#: run_kernel phase runs each for every protocol at its scenario's banks
+#: and PROGRAM_CORES cores, untraced and traced, at
+#: RUN_KERNEL_CYCLES_EARLIER cycles
+PROGRAM_WORKLOADS = ("ms_queue", "treiber_stack", "barrier_phases")
+PROGRAM_CORES = 256
+#: a program of the script's own (tests/own_program.py's): local work and
+#: modify durations that differ between steps, a barrier step
+#: mid-program, every address mode (uniform, fixed, Zipf at skew 0)
+OWN_PROGRAM = "own_program"
+OWN_FIELDS = dict(kind=(0, 0, 1, 0), pre_mult=(1, 0, 2, 0),
+                  pre_add=(0, 3, 1, 0), addr_mode=(0, 1, 1, 2),
+                  addr_arg=(0, 1, 0, 0), mod_mult=(1, 0, 0, 2),
+                  mod_add=(0, 5, 1, 3))
+OWN_MIN_ADDRS = 2
+#: the protocols whose µs per simulated cycle the program_time phase
+#: takes on each PROGRAM_WORKLOADS entry (256 cores, FULL_WIDTH_CYCLES)
+PROGRAM_TIME_PROTOS = ("colibri", "lrsc")
+
+# ---- Fig. 6: the concurrent queue, one launch per core count ------------
+#: benchmarks/bench_queue.py's grid: protocols × core counts, ms_queue at
+#: its scenario, the paper's fixed 128-cycle backoff
+FIG6_PROTOS = ("colibri", "colibri_hier", "lrsc", "amo_lock")
+FIG6_CORES = (2, 8, 32, 64, 128, 256)
+FIG6_CYCLES = 10_000
+FIG6_KW = dict(backoff=128, backoff_exp=1)
+
+# ---- the workload grid: benchmarks/bench_workloads.py, one launch -------
+#: its workloads without zipf_histogram (its scenario's skew 1.0 is
+#: refused, ROADMAP A3), its protocols, seeds, core count and cycles;
+#: rmw_loop at 16 addresses (its OVERRIDES)
+GRID_WORKLOADS = ("rmw_loop", "ms_queue", "treiber_stack",
+                  "barrier_phases")
+GRID_PROTOS = ("colibri", "lrscwait", "mwait_lock", "lrsc", "amo_lock")
+GRID_SEEDS = (0, 1)
+GRID_CORES = 64
+GRID_CYCLES = 6_000
+GRID_OVERRIDES = {"rmw_loop": dict(n_addrs=16)}
+#: tests/test_workloads.py's polling-free protocols
+POLLING_FREE = ("lrscwait", "colibri", "colibri_hier", "mwait_lock")
+#: the reference's Fig. 6 rows, (ops per cycle, Jain fairness) per
+#: "protocol/cores": benchmarks/bench_queue.py's rows in the committed
+#: reports/benchmarks.json (the JAX package, xla_cpu, 10 000 cycles;
+#: tests/test_torch_programs.py holds them to the report and recomputes
+#: the 2- and 8-core points with the JAX package)
+FIG6_REF = {
+    "colibri/2": (0.0293, 0.9999883517763541),
+    "colibri/8": (0.0524, 0.9999417317328982),
+    "colibri/32": (0.0523, 0.999156195207481),
+    "colibri/64": (0.0521, 0.9981797187573547),
+    "colibri/128": (0.0518, 0.9972793767840152),
+    "colibri/256": (0.0511, 0.9990243939764937),
+    "colibri_hier/2": (0.0293, 0.9999883517763541),
+    "colibri_hier/8": (0.0603, 0.9999587485974523),
+    "colibri_hier/32": (0.068, 0.999584947426674),
+    "colibri_hier/64": (0.0692, 0.9986986118526429),
+    "colibri_hier/128": (0.0695, 0.9917563239159002),
+    "colibri_hier/256": (0.069, 0.971664380877743),
+    "lrsc/2": (0.0291, 0.999893730074389),
+    "lrsc/8": (0.0435, 0.9479830467716724),
+    "lrsc/32": (0.0444, 0.8506628003314002),
+    "lrsc/64": (0.0455, 0.8546276420079261),
+    "lrsc/128": (0.0156, 0.5463362068965517),
+    "lrsc/256": (0.005, 0.16837284482758622),
+    "amo_lock/2": (0.0289, 0.9997007636511622),
+    "amo_lock/8": (0.0437, 0.9433362971744714),
+    "amo_lock/32": (0.0449, 0.8645576025799369),
+    "amo_lock/64": (0.0475, 0.9135503044830267),
+    "amo_lock/128": (0.0458, 0.7657856308411215),
+    "amo_lock/256": (0.0079, 0.25132893041237114)}
+#: the reference's workload-grid rows, (ops per cycle averaged over the
+#: seeds, polls summed over them) per "workload/protocol":
+#: benchmarks/bench_workloads.py's rows in reports/benchmarks.json
+GRID_REF = {
+    "rmw_loop/colibri": (1.0573333333333332, 0),
+    "rmw_loop/lrscwait": (1.2111666666666667, 0),
+    "rmw_loop/mwait_lock": (1.0573333333333332, 0),
+    "rmw_loop/lrsc": (0.5095, 2166),
+    "rmw_loop/amo_lock": (0.5454166666666667, 2993),
+    "ms_queue/colibri": (0.051833333333333335, 0),
+    "ms_queue/lrscwait": (0.057833333333333334, 0),
+    "ms_queue/mwait_lock": (0.051833333333333335, 0),
+    "ms_queue/lrsc": (0.042166666666666665, 2216),
+    "ms_queue/amo_lock": (0.04533333333333334, 3978),
+    "treiber_stack/colibri": (0.032, 0),
+    "treiber_stack/lrscwait": (0.03333333333333333, 0),
+    "treiber_stack/mwait_lock": (0.032, 0),
+    "treiber_stack/lrsc": (0.022, 2346),
+    "treiber_stack/amo_lock": (0.0245, 4076),
+    "barrier_phases/colibri": (0.0735, 0),
+    "barrier_phases/lrscwait": (0.08533333333333333, 0),
+    "barrier_phases/mwait_lock": (0.0735, 0),
+    "barrier_phases/lrsc": (0.0205, 1068),
+    "barrier_phases/amo_lock": (0.031166666666666665, 1880)}
+
 
 def reset_launches() -> None:
     for k in LAUNCHES:
@@ -1042,16 +1163,71 @@ def phase_run_kernel(dev) -> dict:
         launches, err = run_case(p, dev)
         plain_launches += launches
         worst = max(worst, err)
+    with own_program():
+        programs = program_params()
+        for p in programs:
+            launches, err = run_case(p, dev)
+            plain_launches += launches
+            worst = max(worst, err)
     reset_launches()                   # comparison runs: no path's count
-    emit(phase="run_kernel", cases=len(params), shapes=KERNEL_SHAPES,
+    emit(phase="run_kernel", cases=len(params) + len(programs),
+         program_cases=len(programs), shapes=KERNEL_SHAPES,
          layout_cases=LAYOUT_CASES, protocols=PROTO_CASES,
+         program_workloads=PROGRAM_WORKLOADS + (OWN_PROGRAM,),
          cycles=RUN_KERNEL_CYCLES,
          cycles_earlier=RUN_KERNEL_CYCLES_EARLIER,
          layout_case_cycles=LAYOUT_CASE_CYCLES,
          plain_engine_step_launches=plain_launches, max_abs_err=worst,
          equal=True)
-    return dict(cases=len(params), plain_launches=plain_launches,
-                max_abs_err=worst)
+    return dict(cases=len(params) + len(programs),
+                plain_launches=plain_launches, max_abs_err=worst)
+
+
+@contextlib.contextmanager
+def own_program():
+    """OWN_FIELDS registered as the workload OWN_PROGRAM for the length of
+    the block."""
+    from repro_torch.core.workloads import base, registry
+    wl = base.Workload()
+    wl.name, wl.min_addrs = OWN_PROGRAM, OWN_MIN_ADDRS
+    wl.program = lambda p: base.Program(**OWN_FIELDS)
+    registry.register(wl)
+    try:
+        yield
+    finally:
+        del registry._REGISTRY[OWN_PROGRAM]
+
+
+def program_params() -> list:
+    """The run_kernel phase's program cases: each PROGRAM_WORKLOADS entry
+    for every protocol at its scenario and PROGRAM_CORES cores, untraced
+    and traced (64 windows); OWN_PROGRAM (registered by the caller) for
+    every protocol, traced; barrier_phases with 32 Fig. 5 workers for
+    colibri and lrsc, untraced and traced; all at
+    RUN_KERNEL_CYCLES_EARLIER cycles."""
+    out = []
+    for i, name in enumerate(PROTOS):
+        for j, wl in enumerate(PROGRAM_WORKLOADS):
+            for traced in (False, True):
+                out.append(sim.SimParams(
+                    protocol=name, workload=wl, n_cores=PROGRAM_CORES,
+                    cycles=RUN_KERNEL_CYCLES_EARLIER,
+                    seed=30 * i + 2 * j + traced - 2**32 * traced,
+                    record_trace=traced, telemetry_windows=64 * traced,
+                    **workloads.get(wl).scenario))
+        out.append(sim.SimParams(
+            protocol=name, workload=OWN_PROGRAM, n_cores=PROGRAM_CORES,
+            n_addrs=3, zipf_skew=0, backoff=24,
+            cycles=RUN_KERNEL_CYCLES_EARLIER, seed=700 + i,
+            record_trace=True, telemetry_windows=64))
+    for name in ("colibri", "lrsc"):
+        for traced in (False, True):
+            out.append(sim.SimParams(
+                protocol=name, workload="barrier_phases",
+                n_cores=PROGRAM_CORES, n_addrs=1, n_workers=32, net_bw=13,
+                hol_block=16, cycles=RUN_KERNEL_CYCLES_EARLIER, seed=9,
+                record_trace=traced, telemetry_windows=64 * traced))
+    return out
 
 
 def scatter_inputs(dev, t: int, bins: int, d: int, dtype: str, seed: int):
@@ -1349,9 +1525,12 @@ def device_ms(fn, reps: int, name: str = ""):
     fall short of a multiple of ``reps``; the mean over the records kept
     is the same, as every call runs on the same inputs.  Lost records
     are reported (a ``device_ms_lost_records`` line).  A profile that
-    recorded no device activity is taken again, up to three times, and
-    then reported as ``None`` (not measured).  With ``name``, only the
-    activities whose name holds it count."""
+    recorded no device activity is taken again, up to three times; after
+    many profiles in one process an H100 run recorded none at all, and
+    then the time is taken with CUDA events around ``reps`` back-to-back
+    calls instead (the host's issue included; a ``device_ms_by_events``
+    line says so).  With ``name``, only the activities whose name holds
+    it count."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(10):
         fn()
@@ -1371,7 +1550,9 @@ def device_ms(fn, reps: int, name: str = ""):
             emit(phase="device_ms_lost_records", reps=reps, lost=lost,
                  rows=[(name[:70], count) for name, count, _ in rows[:8]])
         return sum(us / count * k for k, count, us in per_call) / 1e3
-    return None
+    ms = time_launches(fn, reps)
+    emit(phase="device_ms_by_events", reps=reps, name=name, ms=ms)
+    return ms
 
 
 #: bank-state lanes the protocol update reads at a bank with a request
@@ -1499,8 +1680,9 @@ def time_run(spec, plain: bool) -> dict:
                 f"{p.cycles} cycles: kernel differs from the plain loop "
                 f"on {bad}")
         err = result_err(got, want)
-    rec = dict(protocol=p.protocol, n=p.n_cores, a=p.n_addrs,
-               cycles=p.cycles, ms=ms, us_per_cycle=ms / p.cycles * 1e3,
+    rec = dict(protocol=p.protocol, workload=p.workload, n=p.n_cores,
+               a=p.n_addrs, cycles=p.cycles, ms=ms,
+               us_per_cycle=ms / p.cycles * 1e3,
                plain_ms=plain_ms, max_abs_err=err, library_ms=None,
                **run_bound(p))
     LAUNCHES.update(launches)                 # timing runs are not counted
@@ -1772,11 +1954,12 @@ def time_batch(b: int) -> dict:
                 bound_ms=b * one["bound_ms"])
 
 
-def occupancy(n: int, a: int, wide: int = 0) -> dict:
+def occupancy(n: int, a: int, variant: int = 0) -> dict:
     """What the card gives engine_run blocks of ``n`` cores and ``a``
-    banks on the kernel's instance without (``wide`` 0) or with (1) the
-    two-level queues' and nb_feb's branches: blocks resident per SM,
-    registers and local bytes a thread."""
+    banks on the kernel's instance ``variant`` (``es_kernel.INSTANCE_*``:
+    without the two-level queues' and nb_feb's branches, with them, with
+    them and the program code): blocks resident per SM, registers and
+    local bytes a thread."""
     lib = _build.library("engine_step")
     lib.engine_run_occupancy.argtypes = [ctypes.c_int, ctypes.c_longlong,
                                          ctypes.c_int, ctypes.c_void_p]
@@ -1784,9 +1967,9 @@ def occupancy(n: int, a: int, wide: int = 0) -> dict:
     lib.engine_run_smem_bytes.restype = ctypes.c_longlong
     smem = lib.engine_run_smem_bytes(n, a)
     out = (ctypes.c_int * 4)()
-    require(lib.engine_run_occupancy(n, smem, wide, out) == 0,
+    require(lib.engine_run_occupancy(n, smem, variant, out) == 0,
             "engine_run_occupancy failed")
-    return dict(n=n, a=a, wide=wide, smem=smem, blocks_per_sm=out[0],
+    return dict(n=n, a=a, variant=variant, smem=smem, blocks_per_sm=out[0],
                 registers=out[1], threads=out[2], local_bytes=out[3],
                 sms=torch.cuda.get_device_properties(0).multi_processor_count)
 
@@ -1863,6 +2046,40 @@ def phase_sweep() -> dict:
                 batches=batches, occupancy=occ)
 
 
+def study_time(specs: list, chk: dict) -> dict:
+    """A Study over ``specs`` run 3 more times on the card: its best wall,
+    the chunks' card time (CUDA events, ``RunReport``: from the host's
+    packing of each launch to the end of its copy back), ms per launch,
+    the speedup over the points' single runs (``sweep_check``'s ``chk``)
+    and the busy share (card over wall); the timing runs' launches are
+    not counted."""
+    from repro_torch import obs
+    from repro_torch.sync import Study
+    study = Study.from_specs(specs)
+    launches = dict(LAUNCHES)
+    walls, card, per_launch = [], [], []
+    for _ in range(3):
+        with obs.collect() as report:
+            t0 = time.perf_counter()
+            study.run()
+            walls.append(time.perf_counter() - t0)
+        d = report.to_dict()
+        card.append(d["execute_s"])
+        per_launch.append([c["execute_s"] * 1e3 for c in d["chunks"]])
+    LAUNCHES.update(launches)                 # timing runs are not counted
+    best = min(range(len(walls)), key=walls.__getitem__)
+    single = sum(chk["single_wall_s"])
+    return dict(points=len(specs), launches=chk["launches"],
+                study_wall_s=walls[best], study_wall_s_repeat=walls,
+                card_ms=card[best] * 1e3,
+                card_ms_repeat=[c * 1e3 for c in card],
+                card_ms_per_launch=per_launch[best],
+                single_walls_sum_s=single,
+                single_wall_max_s=max(chk["single_wall_s"]),
+                speedup=single / walls[best],
+                device_busy_share=card[best] / walls[best])
+
+
 def fig4_specs() -> list:
     """Fig. 4's points (``benchmarks/bench_locks.py``): FIG4_LOCKS ×
     SWEEP_BINS at 256 cores and FIG4_CYCLES, the locks with the paper's
@@ -1879,8 +2096,6 @@ def phase_fig4() -> dict:
     single run; the figure's rows (updates per cycle and Jain fairness
     per protocol and bin), the launch's card time (CUDA events) and the
     Study's wall against the 30 single runs, the busy share."""
-    from repro_torch import obs
-    from repro_torch.sync import Study
     specs = fig4_specs()
     chk = sweep_check("fig4", specs, 1)
     rows = {}
@@ -1898,26 +2113,7 @@ def phase_fig4() -> dict:
          colibri_best_everywhere=all(
              t[("colibri", b)] >= max(t[(pr, b)] for pr in FIG4_LOCKS[1:])
              * 0.99 for b in SWEEP_BINS))
-    study = Study.from_specs(specs)
-    launches = dict(LAUNCHES)
-    walls, card = [], []
-    for _ in range(3):
-        with obs.collect() as report:
-            t0 = time.perf_counter()
-            study.run()
-            walls.append(time.perf_counter() - t0)
-        card.append(report.to_dict()["execute_s"])
-    LAUNCHES.update(launches)                 # timing runs are not counted
-    best = min(range(len(walls)), key=walls.__getitem__)
-    single = sum(chk["single_wall_s"])
-    rec = dict(points=len(specs), launches=chk["launches"],
-               study_wall_s=walls[best], study_wall_s_repeat=walls,
-               card_ms=card[best] * 1e3, card_ms_repeat=[c * 1e3
-                                                         for c in card],
-               single_walls_sum_s=single,
-               single_wall_max_s=max(chk["single_wall_s"]),
-               speedup=single / walls[best],
-               device_busy_share=card[best] / walls[best])
+    rec = study_time(specs, chk)
     emit(phase="fig4_time", **rec)
     return rec
 
@@ -1938,8 +2134,6 @@ def phase_hier() -> dict:
     updates per cycle and Jain fairness per line and bin, the launch's
     card time (CUDA events), the Study's wall against its single runs',
     the busy share."""
-    from repro_torch import obs
-    from repro_torch.sync import Study
     specs = hier_specs()
     chk = sweep_check("hier", specs, 1)
     rows = {}
@@ -1957,26 +2151,7 @@ def phase_hier() -> dict:
          cycles=HIER_CYCLES, equal=True, polls=0, rows=rows,
          hier_g4_over_colibri={b: t[("colibri_hier/g4", b)]
                                / t[("colibri", b)] for b in SWEEP_BINS})
-    study = Study.from_specs(specs)
-    launches = dict(LAUNCHES)
-    walls, card = [], []
-    for _ in range(3):
-        with obs.collect() as report:
-            t0 = time.perf_counter()
-            study.run()
-            walls.append(time.perf_counter() - t0)
-        card.append(report.to_dict()["execute_s"])
-    LAUNCHES.update(launches)                 # timing runs are not counted
-    best = min(range(len(walls)), key=walls.__getitem__)
-    single = sum(chk["single_wall_s"])
-    rec = dict(points=len(specs), launches=chk["launches"],
-               study_wall_s=walls[best], study_wall_s_repeat=walls,
-               card_ms=card[best] * 1e3, card_ms_repeat=[c * 1e3
-                                                         for c in card],
-               single_walls_sum_s=single,
-               single_wall_max_s=max(chk["single_wall_s"]),
-               speedup=single / walls[best],
-               device_busy_share=card[best] / walls[best])
+    rec = study_time(specs, chk)
     emit(phase="hier_study_time", **rec)
     return rec
 
@@ -1990,12 +2165,137 @@ def phase_hier_time() -> dict:
     others)."""
     runs = [time_run(full_width_spec(*pt), plain=False)
             for pt in HIER_TIME_POINTS]
-    occ = [occupancy(n, 1, wide=1) for n in (256, 1024, 2048, 2100)]
+    occ = [occupancy(n, 1, es_kernel.INSTANCE_WIDE)
+           for n in (256, 1024, 2048, 2100)]
     rec = dict(points=[{k: r[k] for k in (
         "protocol", "n", "a", "cycles", "ms", "us_per_cycle",
         "barrier_floor_ms", "barriers_per_cycle", "bound_ms")}
         for r in runs], occupancy=occ)
     emit(phase="hier_time", **rec)
+    return rec
+
+
+def program_spec(proto: str, wl: str, n: int, cycles: int, **kw) -> Spec:
+    """``wl`` at its scenario (``workloads.get(wl).scenario``)."""
+    return Spec(protocol=proto, workload=wl, n_cores=n, cycles=cycles,
+                **dict(workloads.get(wl).scenario, **kw))
+
+
+def fig6_specs() -> list:
+    """Fig. 6's points (``benchmarks/bench_queue.py``): FIG6_PROTOS ×
+    FIG6_CORES, ms_queue at its scenario, FIG6_CYCLES, the fixed
+    128-cycle backoff."""
+    return [program_spec(pr, "ms_queue", n, FIG6_CYCLES, **FIG6_KW)
+            for pr in FIG6_PROTOS for n in FIG6_CORES]
+
+
+def phase_fig6() -> dict:
+    """Fig. 6 on the card as one Study of ONE engine_run launch per core
+    count (24 points, 6 launches), every point bit for bit equal to its
+    single run and passing its workload's laws (``Result.check()``); the
+    figure's rows (ops and atomics per cycle, Jain fairness, slowest and
+    fastest core per protocol and core count), ``bench_queue.headline``'s
+    entries computed from them, and the Study's card time per launch,
+    wall and busy share (``study_time``)."""
+    specs = fig6_specs()
+    chk = sweep_check("fig6", specs, len(FIG6_CORES))
+    rows = {}
+    for r in chk["results"]:
+        pr, n = r.spec.protocol.name, r.spec.topology.n_cores
+        info = r.check()
+        require(info["atomics"] > 0, f"fig6 {pr}/{n}: no atomic retired")
+        rows.setdefault(pr, {})[n] = dict(
+            ops_per_cycle=r.throughput,
+            atomics_per_cycle=r.atomics_per_cycle,
+            jain_fairness=r.jain_fairness, slowest_core=r.fairness_min,
+            fastest_core=r.fairness_max, polls=r.polls)
+    got = {f"{pr}/{n}": (row["ops_per_cycle"], row["jain_fairness"])
+           for pr in rows for n, row in rows[pr].items()}
+    bad = sorted(k for k in FIG6_REF if got.get(k) != FIG6_REF[k])
+    require(not bad and set(got) == set(FIG6_REF),
+            f"fig6 rows differ from the reference's at {bad}")
+    t = {(pr, n): rows[pr][n] for pr in rows for n in rows[pr]}
+    headline = {
+        "colibri_over_lrsc_8cores": (t[("colibri", 8)]["ops_per_cycle"]
+                                     / t[("lrsc", 8)]["ops_per_cycle"]),
+        "colibri_over_lrsc_256cores": (
+            t[("colibri", 256)]["ops_per_cycle"]
+            / t[("lrsc", 256)]["ops_per_cycle"]),
+        "colibri_jain_256": t[("colibri", 256)]["jain_fairness"],
+        "lrsc_jain_256": t[("lrsc", 256)]["jain_fairness"],
+        "hier_over_colibri_256": (t[("colibri_hier", 256)]["ops_per_cycle"]
+                                  / t[("colibri", 256)]["ops_per_cycle"])}
+    emit(phase="fig6_rows", launches=chk["launches"], points=len(specs),
+         cycles=FIG6_CYCLES, equal=True, checked=True,
+         equal_to_reference=True, rows=rows, headline=headline)
+    rec = study_time(specs, chk)
+    emit(phase="fig6_time", **rec)
+    return dict(rec, headline=headline)
+
+
+def grid_specs() -> list:
+    """The workload grid's points (``benchmarks/bench_workloads.py``
+    without the Zipf ladder): GRID_WORKLOADS × GRID_PROTOS × GRID_SEEDS at
+    GRID_CORES cores and GRID_CYCLES, each workload at its scenario."""
+    return [program_spec(pr, wl, GRID_CORES, GRID_CYCLES, seed=seed,
+                         **GRID_OVERRIDES.get(wl, {}))
+            for wl in GRID_WORKLOADS for pr in GRID_PROTOS
+            for seed in GRID_SEEDS]
+
+
+def phase_workloads() -> dict:
+    """The workload grid on the card as one Study of ONE engine_run launch
+    (40 points of 64 cores on the program instance), every point bit for
+    bit equal to its single run and passing ``Result.check()``, no poll
+    for the polling-free protocols; ops per cycle per (workload,
+    protocol), the mean over the seeds as the benchmark takes it, equal
+    to the reference's (``GRID_REF``), colibri over lrsc per workload,
+    and the Study's card time, wall and busy share (``study_time``)."""
+    specs = grid_specs()
+    chk = sweep_check("workloads", specs, 1)
+    acc = {}
+    for r in chk["results"]:
+        wl, pr = r.spec.workload.name, r.spec.protocol.name
+        r.check()
+        require(pr not in POLLING_FREE or int(r.polls) == 0,
+                f"workloads {wl}/{pr}: {int(r.polls)} polls")
+        row = acc.setdefault(f"{wl}/{pr}", dict(ops_per_cycle=0.0,
+                                                polls=0))
+        row["ops_per_cycle"] += r.throughput
+        row["polls"] += int(r.polls)
+    for row in acc.values():                     # mean over the seeds
+        row["ops_per_cycle"] /= len(GRID_SEEDS)
+    got = {k: (row["ops_per_cycle"], row["polls"]) for k, row in acc.items()}
+    bad = sorted(k for k in GRID_REF if got.get(k) != GRID_REF[k])
+    require(not bad and set(got) == set(GRID_REF),
+            f"workload grid rows differ from the reference's at {bad}")
+    ratio = {wl: acc[f"{wl}/colibri"]["ops_per_cycle"]
+             / max(acc[f"{wl}/lrsc"]["ops_per_cycle"], 1e-9)
+             for wl in GRID_WORKLOADS}
+    emit(phase="workloads_rows", launches=chk["launches"],
+         points=len(specs), cycles=GRID_CYCLES, equal=True, checked=True,
+         equal_to_reference=True, rows=acc, colibri_over_lrsc=ratio)
+    rec = study_time(specs, chk)
+    emit(phase="workloads_time", **rec)
+    return dict(rec, colibri_over_lrsc=ratio)
+
+
+def phase_program_time() -> dict:
+    """engine_run's device time for PROGRAM_TIME_PROTOS on each
+    PROGRAM_WORKLOADS entry at 256 cores, FULL_WIDTH_CYCLES (its
+    scenario's banks): µs per simulated cycle, the barrier floor and the
+    byte bound; and the registers, spill and blocks per SM of every
+    program instance of the kernel."""
+    runs = [time_run(program_spec(pr, wl, 256, FULL_WIDTH_CYCLES),
+                     plain=False)
+            for wl in PROGRAM_WORKLOADS for pr in PROGRAM_TIME_PROTOS]
+    occ = [occupancy(n, 1, es_kernel.INSTANCE_PROG)
+           for n in (256, 1024, 2048, 2100)]
+    rec = dict(points=[{k: r[k] for k in (
+        "protocol", "workload", "n", "a", "cycles", "ms", "us_per_cycle",
+        "barrier_floor_ms", "barriers_per_cycle", "bound_ms")}
+        for r in runs], occupancy=occ)
+    emit(phase="program_time", **rec)
     return rec
 
 
@@ -2847,6 +3147,9 @@ def main() -> int:
     fig4_run = timed(phase_fig4)
     hier_run = timed(phase_hier)
     hier_time = timed(phase_hier_time)
+    fig6_run = timed(phase_fig6)
+    grid_run = timed(phase_workloads)
+    program_time = timed(phase_program_time)
 
     t0 = time.perf_counter()
     runs = [time_run(full_width_spec(*pt), plain=i == 0)
@@ -2893,6 +3196,18 @@ def main() -> int:
                   study_wall_s=hier_run["study_wall_s"],
                   single_walls_sum_s=hier_run["single_walls_sum_s"],
                   busy_share=hier_run["device_busy_share"]),
+        fig6=dict({k: fig6_run[k] for k in (
+            "launches", "points", "card_ms", "card_ms_per_launch",
+            "study_wall_s", "single_walls_sum_s", "headline")},
+            busy_share=fig6_run["device_busy_share"]),
+        workloads=dict({k: grid_run[k] for k in (
+            "launches", "points", "card_ms", "study_wall_s",
+            "single_walls_sum_s", "colibri_over_lrsc")},
+            busy_share=grid_run["device_busy_share"]),
+        us_per_cycle_programs_256={
+            f"{r['workload']}/{r['protocol']}": r["us_per_cycle"]
+            for r in program_time["points"]},
+        occupancy_program=program_time["occupancy"],
         us_per_cycle_256x1=dict(
             {r["protocol"]: r["us_per_cycle"] for r in locks},
             **{r["protocol"]: r["us_per_cycle"]

@@ -124,9 +124,10 @@ class Ctx:
     a: int                   # banks allocated
     q_cap: int               # queue slots per bank
     ba: Optional[torch.Tensor] = None       # (a,) int32 bank ids
-    #: the current micro-op's modify duration (cycles); wake paths grant
-    #: with this value.  An int: the port runs one-step programs only.
-    mod_dur: int = 0
+    #: (n,) int32: each core's current micro-op's modify duration
+    #: (cycles), the step table's entry at its program counter; wake
+    #: paths grant with it
+    mod_dur: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
@@ -233,6 +234,6 @@ class Protocol:
         woken[fire_core] = True
         woken = woken[:ctx.n]
         cs["st"] = cs["st"].masked_fill(woken, MOD)
-        cs["tmr"] = cs["tmr"].masked_fill(woken, ctx.mod_dur)
+        cs["tmr"] = torch.where(woken, ctx.mod_dur, cs["tmr"])
         bank["wake_tmr"] = wake_tmr
         return cs, bank, (wake_tmr == 1).sum(dtype=torch.int32)

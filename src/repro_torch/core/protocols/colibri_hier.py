@@ -200,7 +200,7 @@ class TwoLevelQueues(Protocol):
         woken[fire_core] = True
         woken = woken[:ctx.n]
         cs["st"] = cs["st"].masked_fill(woken, MOD)
-        cs["tmr"] = cs["tmr"].masked_fill(woken, ctx.mod_dur)
+        cs["tmr"] = torch.where(woken, ctx.mod_dur, cs["tmr"])
         popped = valid.to(torch.int32)
         lqhead = torch.remainder(lqhead.index_add(0, wq, popped), cap_l)
         lqlen = lqlen.index_add(0, wq, -popped)

@@ -26,12 +26,13 @@ Scope of the port so far: all eleven of the reference's protocols (the
 ``amo``/``lrsc``/``lrscwait``/``colibri`` protocols, the
 ``amo_lock``/``lrsc_lock``/``ticket_lock``/``mwait_lock`` baselines and
 the ``colibri_hier``/``hw_event``/``nb_feb`` waiters), through their
-fused path, the one-step ``rmw_loop``/``zipf_histogram`` programs, the
-``flat`` topology, Fig. 5 workers, the per-cycle event traces
-(``record_trace``) and the windowed telemetry (``telemetry_windows``).
-Everything else the reference engine runs is refused at
-:class:`SimParams` construction with the ROADMAP item that will bring
-it.
+fused path, every workload program (the per-core program counter, the
+per-step tables and the barrier release of ``ms_queue``,
+``treiber_stack`` and ``barrier_phases``), the ``flat`` topology,
+Fig. 5 workers, the per-cycle event traces (``record_trace``) and the
+windowed telemetry (``telemetry_windows``).  A skewed Zipf stream and
+an enabled fault plan are refused at :class:`SimParams` construction
+with the ROADMAP item that will bring them.
 """
 from __future__ import annotations
 
@@ -47,7 +48,8 @@ from repro_torch.core import protocols as proto_registry
 from repro_torch.core import topologies as topo_registry
 from repro_torch.core import workloads as wl_registry
 from repro_torch.core.metrics import LAT_BINS
-from repro_torch.core.protocols.base import (BACKOFF, MOD, NXT_BACKOFF,
+from repro_torch.core.protocols.base import (BACKOFF, BARWAIT, MOD,
+                                             NXT_BACKOFF,
                                              NXT_MOD, NXT_WORK_DONE, OUT_DONE,
                                              OUT_FAIL, OUT_GRANT, OUT_NONE,
                                              OUT_SLEEP, P_ACQ, P_REL, REQ,
@@ -169,10 +171,6 @@ def _refuse_unported(p: SimParams, prog) -> None:
     def refuse(what, item):
         raise NotImplementedError(
             f"{what} is not ported to repro_torch yet (ROADMAP item {item})")
-    if K_BARRIER in prog.kind:
-        refuse("a barrier program", "A3")
-    if prog.length != 1:
-        refuse("a multi-step program", "A3")
     if ADDR_ZIPF in prog.addr_mode and p.zipf_skew != 0:
         refuse(f"zipf_skew={p.zipf_skew} (only the uniform limit 0 is "
                f"bit-identical so far)", "A3")
@@ -292,15 +290,26 @@ def _simulate_plain(p: SimParams, device, banks=None
     n, a = p.n_cores, (p.n_addrs if banks is None else banks)
     q_cap = proto.q_cap(p, n)
     exp_cap = 1 if proto.fixed_backoff else p.backoff_exp
-    # one-step programs (SimParams refuses others): every per-step table
-    # entry is a constant and the program counter never moves
-    pre_dur = int(pt["pre_mult"][0]) * p.work + int(pt["pre_add"][0])
-    mod_dur = int(pt["mod_mult"][0]) * p.modify + int(pt["mod_add"][0])
-    addr_mode = int(pt["addr_mode"][0])
-    fix_addr = (int(pt["addr_arg"][0]) & _MASK32) % p.n_addrs
+    # the step tables: local work and modify durations, address modes
+    # and fixed addresses, one entry per step
+    L = prog.length
+    pre_tab = [int(pt["pre_mult"][j]) * p.work + int(pt["pre_add"][j])
+               for j in range(L)]
+    mod_tab = [int(pt["mod_mult"][j]) * p.modify + int(pt["mod_add"][j])
+               for j in range(L)]
+    modes = [int(m) for m in pt["addr_mode"]]
+    fix_tab = [(int(x) & _MASK32) % p.n_addrs for x in pt["addr_arg"]]
+    has_bar = K_BARRIER in prog.kind
+    # decided once per run, as use_tele is: a one-step barrier-free
+    # program folds every table entry to a constant and keeps no program
+    # counter, so it issues no tensor op a cycle for what it does not run
+    use_pc = L > 1 or has_bar
 
     def zeros(shape=(), dtype=i32):
         return torch.zeros(shape, dtype=dtype, device=dev)
+
+    def table(vals, dtype=i32):
+        return torch.tensor(vals, dtype=dtype, device=dev)
 
     iota = torch.arange(n, dtype=i32, device=dev)
     hash_base = iota.to(torch.int64) * 7919 + p.seed
@@ -332,6 +341,15 @@ def _simulate_plain(p: SimParams, device, banks=None
                                                     zeros(), zeros())
     addr_ops, lat_hist = zeros(a), zeros(LAT_BINS)
     w_tmr, w_served = zeros(n), zeros(n)
+    if use_pc:
+        pc, bar_cnt, ops, bar_cyc = zeros(n), zeros(n), zeros(n), zeros()
+        pre_t, mod_t, fix_t = table(pre_tab), table(mod_tab), table(fix_tab)
+        mode_t = table(modes)
+        next_t = table([(j + 1) % L for j in range(L)])
+        is_bar_t = table([k == K_BARRIER for k in prog.kind], torch.bool)
+        mod_dur = mod_t[pc]
+    else:
+        pre_dur, mod_dur = pre_tab[0], mod_tab[0]
     # observability (repro_torch.obs): decided once per run, so with
     # both features off the loop issues exactly the ops it would without
     # them and the result dict has none of their keys
@@ -341,13 +359,17 @@ def _simulate_plain(p: SimParams, device, banks=None
     if use_tele:
         tele = zeros((p.telemetry_windows, TELE_K))
         tele_cw = window_len(p.cycles, p.telemetry_windows)
-        zero = zeros()                   # barwait, xcl_msgs (flat)
+        zero = zeros()          # xcl_msgs (flat); barwait without bars
     if use_trace:
+        if use_pc:
+            trace_step = zeros((p.cycles, n))
         trace_wait = zeros((p.cycles, n))
         trace_state = zeros((p.cycles, n), torch.int8)
         trace_qlen = zeros((p.cycles, a))
         no_retire = torch.full((), -1, dtype=i32, device=dev)
-    ctx = Ctx(p=p, n=n, a=a, q_cap=q_cap, ba=ba, mod_dur=mod_dur)
+    ctx = Ctx(p=p, n=n, a=a, q_cap=q_cap, ba=ba,
+              mod_dur=(mod_dur if use_pc else
+                       torch.full((n,), mod_dur, dtype=i32, device=dev)))
     # the engine's OUT_* -> (st, nxt) apply as lookup tables over the
     # five codes: GRANT/DONE/FAIL answer with RESP and NXT_MOD /
     # NXT_WORK_DONE / NXT_BACKOFF; SLEEP parks the core; NONE is no-op
@@ -358,15 +380,24 @@ def _simulate_plain(p: SimParams, device, banks=None
         [NXT_MOD if k == OUT_GRANT else NXT_WORK_DONE if k == OUT_DONE
          else NXT_BACKOFF for k in kinds], dtype=i32, device=dev)
 
-    def step_addr(opc):
-        """Current micro-op's target address (uniform counter hash,
-        fixed, or the Zipf stream)."""
-        if addr_mode == ADDR_FIXED:
-            return torch.full((n,), fix_addr, dtype=i32, device=dev)
+    def stream(opc, mode):
+        """The uniform counter hash or the Zipf stream at ``opc``."""
         h = _hash(hash_base + opc.to(torch.int64) * 104729)
-        if addr_mode == ADDR_ZIPF:
+        if mode == ADDR_ZIPF:
             return zipf_index(h, p.n_addrs, p.zipf_skew)
         return (h % p.n_addrs).to(i32)                  # ADDR_UNIFORM
+
+    def step_addr(opc, pc):
+        """Current micro-op's target address: its step's fixed address
+        or stream (``pc`` None: the one step of a one-step program)."""
+        if pc is None:
+            if modes[0] == ADDR_FIXED:
+                return torch.full((n,), fix_tab[0], dtype=i32, device=dev)
+            return stream(opc, modes[0])
+        out = fix_t[pc]
+        for mode in sorted(set(modes) - {ADDR_FIXED}):
+            out = torch.where(mode_t[pc] == mode, stream(opc, mode), out)
+        return out
 
     for cyc in range(p.cycles):
         # ---- timers ----
@@ -381,7 +412,8 @@ def _simulate_plain(p: SimParams, device, banks=None
         rb = t0 & (st == BACKOFF)
         md = t0 & (st == MOD)
         issue = start | rb | md
-        addr = torch.where(start, step_addr(opc), addr)
+        addr = torch.where(start, step_addr(opc, pc if use_pc else None),
+                           addr)
         phase = phase.masked_fill(start | rb, P_ACQ).masked_fill_(md, P_REL)
         st = st.masked_fill(issue, REQ)
         tmr = tmr.masked_fill_(issue, p.lat)
@@ -389,20 +421,49 @@ def _simulate_plain(p: SimParams, device, banks=None
         # ---- RESP arrives: the current micro-op retires ----
         ra = t0 & (st == RESP)
         done = ra & (nxt == NXT_WORK_DONE)
-        st = st.masked_fill_(done, WORK)
-        tmr = tmr.masked_fill_(done, pre_dur)
-        opc = opc + done          # one-step program: ops == opc
+        if use_pc:
+            # a retiring barrier step parks at the barrier, any other
+            # goes to the next step's local work; the program counter
+            # wraps to 0 once per completed op
+            pc_done = pc
+            go_work = done
+            if has_bar:
+                at_bar = done & is_bar_t[pc]
+                go_work = done & ~at_bar
+                bar_cnt = bar_cnt + at_bar
+                st = st.masked_fill_(at_bar, BARWAIT)
+            st = st.masked_fill_(go_work, WORK)
+            pc = torch.where(done, next_t[pc], pc)
+            ops = ops + (done & (pc == 0))
+            pre_dur = pre_t[pc]
+            mod_dur = ctx.mod_dur = mod_t[pc]
+            tmr = torch.where(go_work, pre_dur, tmr)
+        else:
+            st = st.masked_fill_(done, WORK)
+            tmr = tmr.masked_fill_(done, pre_dur)
+        opc = opc + done
         acq_start = acq_start.masked_fill(start, cyc)
         addr_ops = addr_ops.index_add(0, addr, done.to(i32))
         to_mod = ra & (nxt == NXT_MOD)
         st = st.masked_fill_(to_mod, MOD)
-        tmr = tmr.masked_fill_(to_mod, mod_dur)
+        tmr = (torch.where(to_mod, mod_dur, tmr) if use_pc
+               else tmr.masked_fill_(to_mod, mod_dur))
         to_bo = ra & (nxt == NXT_BACKOFF)
         st = st.masked_fill_(to_bo, BACKOFF)
         streak = torch.where(to_bo, (streak + 1).clamp_(max=exp_cap),
                              streak.masked_fill(done, 0))
         bo_len = bo_tab[streak] + jitter[cyc:cyc + n]
         tmr = torch.where(to_bo, bo_len, tmr)
+
+        # ---- barrier: the last arrival releases every waiter, one wake
+        # message each, after one response latency ----
+        if has_bar:
+            min_bar = (bar_cnt.masked_fill(is_worker, _BIG) if has_workers
+                       else bar_cnt).min()
+            rel = (st == BARWAIT) & (bar_cnt <= min_bar)
+            st = st.masked_fill_(rel, WORK)
+            tmr = torch.where(rel, pre_dur + p.lat, tmr)
+            bar_msgs = rel.sum(dtype=i32)
 
         # ---- workers stream loads (Fig. 5) ----
         if has_workers:
@@ -459,6 +520,8 @@ def _simulate_plain(p: SimParams, device, banks=None
         n_win = winner.sum(dtype=i32)
         polls = polls + fs["polls"]
         msgs_now = 2 * n_win + fs["msgs"]
+        if has_bar:
+            msgs_now = msgs_now + bar_msgs
         msgs = msgs + msgs_now
         bank = fs["bank"]
         bank_ops = bank_ops + n_win
@@ -478,8 +541,11 @@ def _simulate_plain(p: SimParams, device, banks=None
         lat_hist = lat_hist + fs["hist"]
         lat_max = torch.maximum(lat_max, fs["lat_max"])
         # network slots taken next cycle by this cycle's responses,
-        # worker loads, protocol side-messages and wake-ups
+        # worker loads, protocol side-messages, wake-ups and barrier
+        # releases
         resp_prev = n_win + fs["msgs"] + wake_load
+        if has_bar:
+            resp_prev = resp_prev + bar_msgs
         if has_workers:
             resp_prev = resp_prev + w_acc.sum(dtype=i32)
         # ---- per-cycle state census ----
@@ -487,11 +553,20 @@ def _simulate_plain(p: SimParams, device, banks=None
         sleep_cyc = sleep_cyc + sleep_now
         backoff_now = (st == BACKOFF).sum(dtype=i32)
         backoff_cyc = backoff_cyc + backoff_now
+        if has_bar:
+            bar_now = (st == BARWAIT).sum(dtype=i32)
+            bar_cyc = bar_cyc + bar_now
         if has_workers:
-            active_now = ((st != SLEEP) & not_worker).sum(dtype=i32)
+            awake = st != SLEEP
+            if has_bar:
+                awake = awake & (st != BARWAIT)
+            active_now = (awake & not_worker).sum(dtype=i32)
         else:
-            # no BARWAIT in a barrier-free program: active = not asleep
+            # workers are never asleep nor at a barrier: active = the
+            # atomic cores neither asleep nor at a barrier
             active_now = n_atomic - sleep_now
+            if has_bar:
+                active_now = active_now - bar_now
         active_cyc = active_cyc + active_now
 
         # ---- observability: end-of-cycle queue depths (after on_wake),
@@ -504,7 +579,8 @@ def _simulate_plain(p: SimParams, device, banks=None
                      if proto.uses_queue else zero)
             # flat topology: every accepted request is local
             row = torch.stack([
-                active_now, sleep_now, backoff_now, zero, oc["grants"],
+                active_now, sleep_now, backoff_now,
+                bar_now if has_bar else zero, oc["grants"],
                 oc["retires"], oc["fails"], oc["enqueues"], wakes, msgs_now,
                 stall_now, accepted.sum(dtype=i32), zero,
                 qd.sum(dtype=i32)])
@@ -512,16 +588,20 @@ def _simulate_plain(p: SimParams, device, banks=None
             tw[:TELE_NSUM] += row
             tw[TELE_NSUM:].clamp_(min=qd.max())      # queue_max
         if use_trace:
+            if use_pc:
+                torch.where(done, pc_done, no_retire, out=trace_step[cyc])
             torch.where(done, cyc - acq_start, no_retire,
                         out=trace_wait[cyc])
             trace_state[cyc].copy_(st)
             trace_qlen[cyc].copy_(qd)
 
+    if not use_pc:
+        pc, bar_cnt, ops, bar_cyc = zeros(n), zeros(n), opc.clone(), zeros()
     out = dict(st=st, tmr=tmr, addr=addr, phase=phase, nxt=nxt,
-               pc=zeros(n), bar_cnt=zeros(n), opc=opc, arr_cyc=arr_cyc,
-               streak=streak, parked=parked, resp_prev=resp_prev, ops=opc.clone(),
+               pc=pc, bar_cnt=bar_cnt, opc=opc, arr_cyc=arr_cyc,
+               streak=streak, parked=parked, resp_prev=resp_prev, ops=ops,
                acq_start=acq_start, msgs=msgs, polls=polls,
-               addr_ops=addr_ops, sleep_cyc=sleep_cyc, bar_cyc=zeros(),
+               addr_ops=addr_ops, sleep_cyc=sleep_cyc, bar_cyc=bar_cyc,
                lat_hist=lat_hist, lat_max=lat_max, active_cyc=active_cyc,
                backoff_cyc=backoff_cyc, bank_ops=bank_ops,
                net_stall=net_stall, w_tmr=w_tmr, w_served=w_served)
@@ -530,9 +610,11 @@ def _simulate_plain(p: SimParams, device, banks=None
     out.update(bank)
     out.update(xc)
     if use_trace:
-        # the retired micro-op's pre-advance program counter, which is 0
-        # in a one-step program: 0 where a core retired, else -1
-        out["trace_step"] = (trace_wait >= 0).to(i32) - 1
+        # the retired micro-op's pre-advance program counter where a core
+        # retired, else -1 (0 in a one-step program)
+        if not use_pc:
+            trace_step = (trace_wait >= 0).to(i32) - 1
+        out["trace_step"] = trace_step
         out["trace_wait"] = trace_wait
         out["trace_state"] = trace_state
         out["trace_qlen"] = trace_qlen

@@ -21,8 +21,15 @@ ADDR_ZIPF      bounded power-law over ``n_addrs`` with skew
                ``zipf_skew/100`` (:func:`zipf_index`)
 =============  =========================================================
 
+A ``K_BARRIER`` step issues its arrival atomic through the active
+protocol, then parks the core in ``BARWAIT`` until every participating
+core has arrived; the engine then releases all waiters with one
+broadcast message each and one response latency.
+
 Completing the last step wraps the program counter and counts one
-completed *op*.  ``check`` validates a result dict host-side (numpy).
+completed *op*.  ``check`` validates a result dict host-side (numpy),
+with the completion trace (``trace_step``: the retired step's id, or -1)
+where the run recorded one.
 """
 from __future__ import annotations
 
@@ -146,3 +153,11 @@ class Workload:
             assert lat_mass == atomics, \
                 f"latency histogram mass {lat_mass} != {atomics}"
         return {"atomics": atomics, "ops": int(np.asarray(res["ops"]).sum())}
+
+    # ---- trace helpers for subclasses ----
+    @staticmethod
+    def _per_core_steps(trace: np.ndarray):
+        """Yield (core, step-id sequence in completion order)."""
+        for c in range(trace.shape[1]):
+            col = trace[:, c]
+            yield c, col[col >= 0]

@@ -42,10 +42,11 @@
 // ---- engine_run_kernel: a whole run, one launch --------------------------
 //
 // Computes what src/repro_torch/core/sim.py::_simulate_plain computes for
-// one SimParams: every cycle's core-side stages (timers, issue, retire,
-// backoff, Fig. 5 workers, rotating-fair network acceptance), the bank
-// side above, the outcome apply, the queue protocols' on_wake, the
-// census, the windowed telemetry and the per-cycle traces, bit for bit.
+// one SimParams: every cycle's core-side stages (timers, issue, retire
+// with the workload program's step tables, backoff, the barrier release,
+// Fig. 5 workers, rotating-fair network acceptance), the bank side above,
+// the outcome apply, the queue protocols' on_wake, the census, the
+// windowed telemetry and the per-cycle traces, bit for bit.
 // Hopper's counterpart of the reference's lax.scan is a persistent block:
 //
 //   * one thread block per run, the cycles looping inside the kernel; a
@@ -87,6 +88,13 @@
 //     threads are compiled with a 256-thread bound, so their state stays
 //     in registers.
 //
+//   * workload programs of more than one step or with a barrier step
+//     run on an instance of their own (kProg, see engine_run_kernel),
+//     which derives the program counter, ops and barrier arrivals from
+//     the op count and the step tables (parameter words in shared
+//     memory) and adds no barrier a cycle; the other instances have the
+//     program code compiled out.
+//
 // Barriers per simulated cycle: 4 for the queue protocols, one FIFO or
 // two levels (after the request words, after the key minimum, after the
 // bank update, after the wake flags), 2 for amo, lrsc and the spin locks.
@@ -125,7 +133,7 @@ constexpr unsigned long long kNoKey = ~0ULL;
 
 // core states (repro_torch.core.protocols.base)
 constexpr int kWork = 0, kReq = 1, kSleep = 2, kMod = 3, kBackoff = 4,
-              kResp = 5;
+              kResp = 5, kBarWait = 6;
 // resp_next codes
 constexpr int kNxtWorkDone = 0, kNxtMod = 1, kNxtBackoff = 2;
 // outcome codes (repro_torch.core.protocols.base.OUT_*)
@@ -476,26 +484,40 @@ engine_step_kernel(const int32_t* __restrict__ cand,
 
 // ======================= engine_run_kernel ================================
 
-// per-run scalars, in the order of kernel.RUN_PARAMS (the wrapper packs
-// them into an int32 array; zipf_c travels as its float32 bits, seed as
-// its uint32 bits)
-enum Param {
-  P_N, P_A, P_N_ADDRS, P_CYCLES, P_PROTO, P_Q_CAP, P_Q_FULL, P_LAT,
-  P_ACQ_TMR, P_WAKE_DELAY, P_MSG_RULE, P_PRE_DUR, P_MOD_DUR, P_ADDR_MODE,
-  P_FIX_ADDR, P_ZIPF_C, P_EXP_CAP, P_SEED, P_NET_BW, P_HOL_BLOCK,
-  P_N_WORKERS, P_N_ATOMIC, P_STAGGER, P_TRACE, P_TELE_WINDOWS, P_TELE_CW,
-  P_GROUPS, P_GROUP_SIZE, P_GROUP_CAP, P_LOCAL_DELAY, P_BO_TAB
-};
 // backoff base by failure streak, streaks >= kBoTab - 1 share the last
 // entry (backoff << 32 and beyond is 0)
 constexpr int kBoTab = 34;
-constexpr int kNumParams = P_BO_TAB + kBoTab;
+// steps a workload program may have (kernel.MAX_STEPS)
+constexpr int kMaxSteps = 16;
 
-// a run's scalars, unpacked from its words (the backoff table stays in
-// the words, in shared memory)
+// per-run scalars, in the order of kernel.RUN_PARAMS (the wrapper packs
+// them into an int32 array; zipf_c travels as its float32 bits, seed as
+// its uint32 bits).  The backoff table and the program's step tables
+// span several words each: a step's local work, modify duration,
+// address mode, fixed address and barrier flag, and the barrier steps
+// before it (kMaxSteps words each, the program's prog_len first)
+enum Param {
+  P_N, P_A, P_N_ADDRS, P_CYCLES, P_PROTO, P_Q_CAP, P_Q_FULL, P_LAT,
+  P_ACQ_TMR, P_WAKE_DELAY, P_MSG_RULE, P_PROG_LEN, P_N_BAR, P_ZIPF_C,
+  P_EXP_CAP, P_SEED, P_NET_BW, P_HOL_BLOCK, P_N_WORKERS, P_N_ATOMIC,
+  P_STAGGER, P_TRACE, P_TELE_WINDOWS, P_TELE_CW, P_GROUPS, P_GROUP_SIZE,
+  P_GROUP_CAP, P_LOCAL_DELAY, P_BO_TAB,
+  P_PRE_DUR = P_BO_TAB + kBoTab,
+  P_MOD_DUR = P_PRE_DUR + kMaxSteps,
+  P_ADDR_MODE = P_MOD_DUR + kMaxSteps,
+  P_FIX_ADDR = P_ADDR_MODE + kMaxSteps,
+  P_IS_BAR = P_FIX_ADDR + kMaxSteps,
+  P_BAR_PREFIX = P_IS_BAR + kMaxSteps
+};
+constexpr int kNumParams = P_BAR_PREFIX + kMaxSteps;
+
+// a run's scalars, unpacked from its words (the backoff and step tables
+// stay in the words, in shared memory; pre_dur, mod_dur, addr_mode and
+// fix_addr are step 0's, all a one-step program has)
 struct RunParams {
   int n, a, n_addrs, cycles;
   Family f;
+  int prog_len, n_bar;
   int pre_dur, mod_dur, addr_mode, fix_addr;
   float zipf_c;
   int exp_cap;
@@ -518,6 +540,8 @@ __host__ __device__ inline RunParams unpack_params(const int32_t* w) {
   rp.f.acq_tmr = w[P_ACQ_TMR];
   rp.f.wake_delay = w[P_WAKE_DELAY];
   rp.f.msg_rule = w[P_MSG_RULE];
+  rp.prog_len = w[P_PROG_LEN];
+  rp.n_bar = w[P_N_BAR];
   rp.pre_dur = w[P_PRE_DUR];
   rp.mod_dur = w[P_MOD_DUR];
   rp.addr_mode = w[P_ADDR_MODE];
@@ -551,7 +575,7 @@ enum Ptr {
   R_WAKE_TMR, R_LOCK, R_NEXT_TKT, R_SERVING, R_TKT, R_FEB, R_LQBUF,
   R_LQHEAD, R_LQLEN, R_GGQ, R_G_INQ, R_CUR_GRP, R_TURN_SRV, R_GQHEAD,
   R_GQLEN, R_WAKE_GRP, R_TELE, R_TRACE_STEP, R_TRACE_WAIT, R_TRACE_STATE,
-  R_TRACE_QLEN, R_SCRATCH, kNumPtrs
+  R_TRACE_QLEN, R_SCRATCH, R_PC, R_BAR_CNT, kNumPtrs
 };
 
 struct RunPtrs {
@@ -571,19 +595,21 @@ struct RunPtrs {
   int8_t* trace_state;
   int32_t* trace_qlen;
   unsigned char* scratch;
+  int32_t *pc, *bar_cnt;
 };
 static_assert(sizeof(RunPtrs) == kNumPtrs * sizeof(void*), "RunPtrs words");
 
 // the run's scalar outputs, in the order of kernel.RUN_SCALARS
 enum Scalar {
   S_RESP_PREV, S_MSGS, S_POLLS, S_SLEEP_CYC, S_LAT_MAX, S_ACTIVE_CYC,
-  S_BACKOFF_CYC, S_BANK_OPS, S_NET_STALL, kNumScalars
+  S_BACKOFF_CYC, S_BANK_OPS, S_NET_STALL, S_BAR_CYC, kNumScalars
 };
 
 // one cycle's counts, one set per cycle parity
 enum Count {
   C_NWIN, C_XMSG, C_WAKE_LOAD, C_WACC, C_PARKED, C_FAIL, C_GRANT, C_DONE,
-  C_ENQ, C_WAKES, C_SLEEP, C_BACKOFF, C_ACTIVE, C_QSUM, C_QMAX, kNumCounts
+  C_ENQ, C_WAKES, C_SLEEP, C_BACKOFF, C_ACTIVE, C_QSUM, C_QMAX, C_BAR,
+  kNumCounts
 };
 
 constexpr int kTeleK = 15;  // obs.schema.TELE_K
@@ -627,13 +653,14 @@ __device__ __forceinline__ int32_t addr_of_hash(uint32_t h, int mode,
   return static_cast<int32_t>(h % static_cast<uint32_t>(n_addrs));
 }
 
-// core.sim's step_addr: the current micro-op's target of core i
-__device__ __forceinline__ int32_t step_addr(const RunParams& rp, int i,
-                                             int32_t opc) {
-  if (rp.addr_mode == kAddrFixed) return rp.fix_addr;
+// core.sim's step_addr: the current micro-op's target of core i, its
+// step's address mode and fixed address given
+__device__ __forceinline__ int32_t step_addr(const RunParams& rp, int mode,
+                                             int fix, int i, int32_t opc) {
+  if (mode == kAddrFixed) return fix;
   const uint32_t x = static_cast<uint32_t>(i) * 7919u + rp.seed +
                      static_cast<uint32_t>(opc) * 104729u;
-  return addr_of_hash(hash24(x), rp.addr_mode, rp.n_addrs, rp.zipf_c);
+  return addr_of_hash(hash24(x), mode, rp.n_addrs, rp.zipf_c);
 }
 
 struct Core {
@@ -705,13 +732,28 @@ __device__ __forceinline__ void warp_add(int32_t* dst, int32_t v) {
 // (kWide false) has their code compiled out: in one instance for all,
 // it slowed every family's cycle by 5-12 % on the H100 (engine_run's
 // device time in chip_smoke.py), at one register more.
-template <class Cores, int kMaxThreads, bool kWide>
+//
+// kProg (with kWide): the instance that runs workload programs, more than
+// one step or a barrier step; the others run one-step barrier-free
+// programs with the program code compiled out.  It keeps no program
+// counter: every retirement adds one to opc and nothing else moves the
+// program counter or the barrier count, so pc = opc mod L, ops = opc / L
+// and bar_cnt = (opc / L) * n_bar + bar_prefix[opc mod L], which is
+// nondecreasing in opc.  The barrier release (core.sim: after this
+// cycle's arrivals, before the workers' stage) needs the least bar_cnt
+// over the atomic cores, which is that function of their least opc: it is
+// reduced in the core stage, ahead of barrier 1, and the release is
+// applied in the census pass.  Between the two nothing reads a waiter's
+// state or timer (acceptance and the bank side read REQ cores, the wake
+// pass SLEEP ones), so the order is the reference's.
+template <class Cores, int kMaxThreads, bool kWide, bool kProg>
 __global__ void __launch_bounds__(kMaxThreads)
 engine_run_kernel(const int32_t* __restrict__ params,
                   const RunPtrs* __restrict__ ptrs, int kc) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int32_t s_hist[kLatBins];
   __shared__ int32_t s_cnt[2][kNumCounts];
+  __shared__ int32_t s_minopc[2];  // least opc of the atomic cores
   __shared__ int32_t s_lat_max;
   __shared__ int32_t s_par[kNumParams];
   __shared__ RunParams s_rp;
@@ -746,6 +788,14 @@ engine_run_kernel(const int32_t* __restrict__ params,
   const bool queue = fifo || hier;
   const bool workers = rp.n_workers > 0, tele = rp.tele_windows > 0;
   const bool trace = rp.trace != 0;
+  // the program: its steps and whether it has a barrier step
+  const int n_steps = kProg ? rp.prog_len : 1;
+  const bool bars = kProg && rp.n_bar > 0;
+  // barrier arrivals after `opc` retirements
+  auto bar_count = [&](int32_t opc) {
+    return (opc / n_steps) * rp.n_bar +
+           s_par[P_BAR_PREFIX + opc % n_steps];
+  };
 
   const Layout L = run_layout(n, a);
   unsigned char* base = L.total <= kMaxDynSmem ? smem_raw : o.scratch;
@@ -803,7 +853,10 @@ engine_run_kernel(const int32_t* __restrict__ params,
   for (int i = tid; i < n; i += T) woken[i] = 0;
   for (int j = tid; j < kLatBins; j += T) s_hist[j] = 0;
   for (int j = tid; j < 2 * kNumCounts; j += T) (&s_cnt[0][0])[j] = 0;
-  if (tid == 0) s_lat_max = 0;
+  if (tid == 0) {
+    s_lat_max = 0;
+    s_minopc[0] = s_minopc[1] = kBig;
+  }
 
   Cores S(o, kc);
 #pragma unroll
@@ -823,7 +876,7 @@ engine_run_kernel(const int32_t* __restrict__ params,
 
   // thread 0's run totals (int32, wrapping) and telemetry row
   int32_t msgs = 0, polls = 0, sleep_cyc = 0, backoff_cyc = 0,
-          active_cyc = 0, bank_ops = 0, net_stall = 0;
+          active_cyc = 0, bank_ops = 0, net_stall = 0, bar_cyc = 0;
   int32_t stall_now = 0, acc_now = 0, stall_prev = 0, acc_prev = 0;
   int32_t row[kTeleK];
 #pragma unroll
@@ -837,14 +890,18 @@ engine_run_kernel(const int32_t* __restrict__ params,
     polls = wadd(polls, cnt[C_FAIL]);
     bank_ops = wadd(bank_ops, nwin);
     const int32_t sleep_now = cnt[C_SLEEP], backoff_now = cnt[C_BACKOFF];
+    const int32_t bar_now = kProg ? cnt[C_BAR] : 0;
+    // workers are never asleep nor at a barrier
     const int32_t active_now =
-        workers ? cnt[C_ACTIVE] : wsub(rp.n_atomic, sleep_now);
+        workers ? cnt[C_ACTIVE] : wsub(wsub(rp.n_atomic, sleep_now), bar_now);
     sleep_cyc = wadd(sleep_cyc, sleep_now);
     backoff_cyc = wadd(backoff_cyc, backoff_now);
     active_cyc = wadd(active_cyc, active_now);
+    if (kProg) bar_cyc = wadd(bar_cyc, bar_now);
     if (tele) {
       const int32_t add[kTeleK - 1] = {
-          active_now, sleep_now, backoff_now, 0, cnt[C_GRANT], cnt[C_DONE],
+          active_now, sleep_now, backoff_now, bar_now, cnt[C_GRANT],
+          cnt[C_DONE],
           cnt[C_FAIL], cnt[C_ENQ], cnt[C_WAKES], msgs_now, stall_c,
           acc_c, 0, cnt[C_QSUM]};
 #pragma unroll
@@ -877,6 +934,7 @@ engine_run_kernel(const int32_t* __restrict__ params,
     }
 
     // ---- timers, issue, retire, backoff, workers; the request words
+    int32_t l_minopc = kBig;
 #pragma unroll
     for (int k = 0; k < S.count(); ++k) {
       const int i = tid + k * T;
@@ -890,7 +948,13 @@ engine_run_kernel(const int32_t* __restrict__ params,
         const bool rb = t0 && c.st == kBackoff;
         const bool md = t0 && c.st == kMod;
         if (start) {
-          c.addr = step_addr(rp, i, c.opc);
+          if (kProg) {
+            const int pc = c.opc % n_steps;
+            c.addr = step_addr(rp, s_par[P_ADDR_MODE + pc],
+                               s_par[P_FIX_ADDR + pc], i, c.opc);
+          } else {
+            c.addr = step_addr(rp, rp.addr_mode, rp.fix_addr, i, c.opc);
+          }
           c.acq = cyc;
         }
         if (start || rb) c.phase = kAcq;
@@ -901,16 +965,30 @@ engine_run_kernel(const int32_t* __restrict__ params,
         }
         const bool ra = t0 && c.st == kResp;
         const bool done = ra && c.nxt == kNxtWorkDone;
+        int step = 0;  // the retiring micro-op's program counter
         if (done) {
-          c.st = kWork;
-          c.tmr = rp.pre_dur;
+          if (kProg) {
+            // a barrier step parks at the barrier (its timer is 0), any
+            // other goes to the next step's local work
+            step = c.opc % n_steps;
+            if (s_par[P_IS_BAR + step]) {
+              c.st = kBarWait;
+            } else {
+              c.st = kWork;
+              const int next = step + 1 == n_steps ? 0 : step + 1;
+              c.tmr = s_par[P_PRE_DUR + next];
+            }
+          } else {
+            c.st = kWork;
+            c.tmr = rp.pre_dur;
+          }
           c.opc = wadd(c.opc, 1);
           c.streak = 0;
           atomicAdd(&addr_ops[c.addr], 1);
         }
         if (ra && c.nxt == kNxtMod) {
           c.st = kMod;
-          c.tmr = rp.mod_dur;
+          c.tmr = kProg ? s_par[P_MOD_DUR + c.opc % n_steps] : rp.mod_dur;
         }
         if (ra && c.nxt == kNxtBackoff) {
           c.st = kBackoff;
@@ -921,8 +999,9 @@ engine_run_kernel(const int32_t* __restrict__ params,
         if (trace) {
           const size_t at = static_cast<size_t>(cyc) * n + i;
           o.trace_wait[at] = done ? cyc - c.acq : -1;
-          o.trace_step[at] = done ? 0 : -1;
+          o.trace_step[at] = done ? step : -1;
         }
+        if (bars && !worker) l_minopc = min(l_minopc, c.opc);
         if (workers) c.wtmr = max(c.wtmr - 1, 0);
         const bool fresh = c.st == kReq && c.tmr == 0 && !c.parked && !worker;
         req = fresh || (worker && c.wtmr == 0);
@@ -932,7 +1011,15 @@ engine_run_kernel(const int32_t* __restrict__ params,
       const int w = k * (T >> 5) + wid;
       if (lane == 0 && w < nw) reqw[w] = word;
     }
-    __syncthreads();  // 1: request words
+    if (bars) {
+      const unsigned m =
+          __reduce_min_sync(kFull, static_cast<unsigned>(l_minopc));
+      if (lane == 0) atomicMin(&s_minopc[par], static_cast<int32_t>(m));
+    }
+    __syncthreads();  // 1: request words, the least opc
+    // last read in the previous cycle's census pass, next written in the
+    // next cycle's core stage (after barrier 2)
+    if (bars && tid == 0) s_minopc[par ^ 1] = kBig;
 
     // the previous cycle's response load and parked count set the budget
     const int32_t resp_prev = wadd(wadd(prev[C_NWIN], prev[C_XMSG]),
@@ -1102,23 +1189,35 @@ engine_run_kernel(const int32_t* __restrict__ params,
 
     // ---- wakes, census, trace state
     int32_t l_wakes = 0, l_sleep = 0, l_backoff = 0, l_active = 0,
-            l_parked = 0;
+            l_parked = 0, l_bar = 0, l_rel = 0;
 #pragma unroll
     for (int k = 0; k < S.count(); ++k) {
       const int i = tid + k * T;
-      bool sl = false, bo = false, ac = false, pk = false;
+      bool sl = false, bo = false, ac = false, pk = false, bw = false;
       if (i < n) {
         Core c = S.load(k, i);
         if (queue && woken[i]) {
           woken[i] = 0;
           l_wakes += c.st == kSleep;
           c.st = kMod;
-          c.tmr = rp.mod_dur;
+          c.tmr = kProg ? s_par[P_MOD_DUR + c.opc % n_steps] : rp.mod_dur;
           S.store(k, i, c);
+        }
+        if (bars && c.st == kBarWait) {
+          // the barrier release: every waiter whose arrivals are at most
+          // the least over the atomic cores, one wake message each
+          const int32_t mo = s_minopc[par];
+          if (c.opc <= mo || bar_count(c.opc) <= bar_count(mo)) {
+            c.st = kWork;
+            c.tmr = rp.f.lat + s_par[P_PRE_DUR + c.opc % n_steps];
+            ++l_rel;
+            S.store(k, i, c);
+          }
         }
         sl = c.st == kSleep;
         bo = c.st == kBackoff;
-        ac = c.st != kSleep && !(workers && i < rp.n_workers);
+        bw = bars && c.st == kBarWait;
+        ac = c.st != kSleep && !bw && !(workers && i < rp.n_workers);
         pk = c.parked;
         if (trace) {
           o.trace_state[static_cast<size_t>(cyc) * n + i] =
@@ -1129,6 +1228,11 @@ engine_run_kernel(const int32_t* __restrict__ params,
       l_backoff += __popc(__ballot_sync(kFull, bo));
       if (workers) l_active += __popc(__ballot_sync(kFull, ac));
       if (rp.hol_block) l_parked += __popc(__ballot_sync(kFull, pk));
+      if (bars) l_bar += __popc(__ballot_sync(kFull, bw));
+    }
+    if (bars) {
+      warp_count(&cur[C_BAR], l_bar);
+      warp_add(&cur[C_XMSG], l_rel);  // this cycle's msgs, next's budget
     }
     warp_count(&cur[C_SLEEP], l_sleep);
     warp_count(&cur[C_BACKOFF], l_backoff);
@@ -1161,6 +1265,7 @@ engine_run_kernel(const int32_t* __restrict__ params,
     o.scalars[S_BACKOFF_CYC] = backoff_cyc;
     o.scalars[S_BANK_OPS] = bank_ops;
     o.scalars[S_NET_STALL] = net_stall;
+    o.scalars[S_BAR_CYC] = bar_cyc;
   }
   for (int j = tid; j < kLatBins; j += T) o.hist[j] = s_hist[j];
   for (int b = tid; b < a; b += T) {
@@ -1199,7 +1304,9 @@ engine_run_kernel(const int32_t* __restrict__ params,
         o.parked[i] = c.parked;
         if (ticket) o.tkt[i] = c.tkt;
       }
-      o.ops[i] = c.opc;
+      o.ops[i] = kProg ? c.opc / n_steps : c.opc;
+      o.pc[i] = kProg ? c.opc % n_steps : 0;
+      o.bar_cnt[i] = bars ? bar_count(c.opc) : 0;
     }
   }
 }
@@ -1237,20 +1344,33 @@ using RunKernel = void (*)(const int32_t*, const RunPtrs*, int);
 
 // the kernel instance, block size and cores a thread of runs of n cores
 // (a block of at most 256 threads may use up to 255 registers a thread),
-// with every family's branch when `wide`
-template <bool kWide>
+// with every family's branch when kWide, and the program code when kProg
+template <bool kWide, bool kProg>
 RunKernel run_kernel_of(int n, int* threads, int* kc) {
   *threads = n <= kRunThreads ? ((n + 31) / 32) * 32 : kRunThreads;
   *kc = (n + *threads - 1) / *threads;
-  if (*kc > 2) return engine_run_kernel<GlobalCores, kRunThreads, kWide>;
-  if (*kc == 2) return engine_run_kernel<RegCores<2>, kRunThreads, kWide>;
-  if (*threads <= 256) return engine_run_kernel<RegCores<1>, 256, kWide>;
-  return engine_run_kernel<RegCores<1>, kRunThreads, kWide>;
+  if (*kc > 2) {
+    return engine_run_kernel<GlobalCores, kRunThreads, kWide, kProg>;
+  }
+  if (*kc == 2) {
+    return engine_run_kernel<RegCores<2>, kRunThreads, kWide, kProg>;
+  }
+  if (*threads <= 256) {
+    return engine_run_kernel<RegCores<1>, 256, kWide, kProg>;
+  }
+  return engine_run_kernel<RegCores<1>, kRunThreads, kWide, kProg>;
 }
 
-RunKernel run_kernel_for(int n, int wide, int* threads, int* kc) {
-  return wide ? run_kernel_of<true>(n, threads, kc)
-              : run_kernel_of<false>(n, threads, kc);
+// the instance `variant` names (kernel.py's INSTANCE_*): 0 without the
+// two-level queues' and nb_feb's branches, 1 with them, 2 with them and
+// the program code; null for another value
+RunKernel run_kernel_for(int n, int variant, int* threads, int* kc) {
+  switch (variant) {
+    case 0: return run_kernel_of<false, false>(n, threads, kc);
+    case 1: return run_kernel_of<true, false>(n, threads, kc);
+    case 2: return run_kernel_of<true, true>(n, threads, kc);
+    default: return nullptr;
+  }
 }
 
 }  // namespace
@@ -1314,20 +1434,22 @@ extern "C" int engine_run_threads(int n) {
 // pointers (run b's RunPtrs); every run's P_N word must be n, and a run
 // whose per-bank state does not fit in shared memory must have its own
 // scratch (engine_run_scratch_bytes).  `smem` is the launch's dynamic
-// shared memory, the largest engine_run_smem_bytes of its runs.  `wide`
-// must be nonzero when a run's family is kHier, kEvent or kFeb: only the
-// wide instances have their branches.  Returns a CUDA error code, or -1
-// when the caller's layout does not match this library's (n_params,
-// n_ptrs per run) or smem is out of range.
+// shared memory, the largest engine_run_smem_bytes of its runs.
+// `variant` picks the kernel instance (run_kernel_for): at least 1 when a
+// run's family is kHier, kEvent or kFeb, 2 when a run's program has more
+// than one step or a barrier step.  Returns a CUDA error code, or -1 when
+// the caller's layout does not match this library's (n_params, n_ptrs per
+// run) or smem or variant is out of range.
 extern "C" int engine_run_launch(int n_runs, int n, const void* params,
                                  int n_params, const void* ptrs, int n_ptrs,
-                                 long long smem, int wide, void* stream) {
+                                 long long smem, int variant, void* stream) {
+  int threads, kc;
+  const RunKernel kern = run_kernel_for(n, variant, &threads, &kc);
   if (n_params != kNumParams || n_ptrs != kNumPtrs || n_runs < 1 || n < 1 ||
-      smem < 0 || smem > static_cast<long long>(kMaxDynSmem)) {
+      smem < 0 || smem > static_cast<long long>(kMaxDynSmem) ||
+      kern == nullptr) {
     return -1;
   }
-  int threads, kc;
-  const RunKernel kern = run_kernel_for(n, wide, &threads, &kc);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1343,13 +1465,14 @@ extern "C" int engine_run_launch(int n_runs, int n, const void* params,
 
 #ifndef CUDA_CPU_MOCK
 // What the card gives a launch of runs of n cores with `smem` bytes of
-// dynamic shared memory on the instance `wide` picks: out[0] blocks
+// dynamic shared memory on the instance `variant` picks: out[0] blocks
 // resident per SM, out[1] registers a thread, out[2] threads a block,
 // out[3] local (spill) bytes a thread.
-extern "C" int engine_run_occupancy(int n, long long smem, int wide,
+extern "C" int engine_run_occupancy(int n, long long smem, int variant,
                                     int* out) {
   int threads, kc;
-  const RunKernel kern = run_kernel_for(n, wide, &threads, &kc);
+  const RunKernel kern = run_kernel_for(n, variant, &threads, &kc);
+  if (kern == nullptr) return -1;
   cudaError_t err;
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(kern,

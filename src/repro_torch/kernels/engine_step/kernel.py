@@ -17,8 +17,11 @@ hash; nothing runs at import time).  It holds two kernels:
   branches.  It returns each
   run's ``core.sim.simulate`` result dict, every tensor a view of ONE
   flat device buffer per launch, so a batch comes back to the host in
-  one copy.  ``run_cuda`` is its one-run case.  ``run_scalars`` is the
-  pure function that derives every per-run scalar it passes.
+  one copy.  A launch that holds a workload program of more than one
+  step or with a barrier step runs on the program instance
+  (``launch_variant``).  ``run_cuda`` is its one-run case.
+  ``run_scalars`` is the pure function that derives every per-run scalar
+  it passes.
 """
 from __future__ import annotations
 
@@ -36,7 +39,8 @@ from repro_torch.core.protocols.base import (KERNEL_AMO, KERNEL_EVENT,
                                              KERNEL_FEB, KERNEL_HIER,
                                              KERNEL_LOCK, KERNEL_LRSC,
                                              KERNEL_QUEUE, KERNEL_TICKET)
-from repro_torch.core.workloads.base import ADDR_ZIPF, zipf_factors
+from repro_torch.core.workloads.base import (ADDR_ZIPF, K_BARRIER,
+                                             zipf_factors)
 from repro_torch.kernels import LAUNCHES, _build
 from repro_torch.kernels.engine_step.ref import _param_ns
 from repro_torch.obs.schema import TELE_K, window_len
@@ -208,16 +212,27 @@ def fused_step_cuda(proto, p, bank: Dict, *, cand_cyc, rot, addr, phase,
 # ---- the whole-run kernel -------------------------------------------------
 
 #: ``engine_run_launch``'s int32 parameters, in the order of the source's
-#: ``Param`` enum; ``bo_tab`` is the last and spans ``BO_TAB`` entries
+#: ``Param`` enum; those of ``PARAM_SPANS`` span that many words each
 RUN_PARAMS = ("n", "a", "n_addrs", "cycles", "proto", "q_cap", "q_full",
-              "lat", "acq_tmr", "wake_delay", "msg_rule", "pre_dur",
-              "mod_dur", "addr_mode", "fix_addr", "zipf_c", "exp_cap",
-              "seed", "net_bw", "hol_block", "n_workers", "n_atomic",
-              "stagger", "trace", "tele_windows", "tele_cw", "groups",
-              "group_size", "group_cap", "local_delay", "bo_tab")
+              "lat", "acq_tmr", "wake_delay", "msg_rule", "prog_len",
+              "n_bar", "zipf_c", "exp_cap", "seed", "net_bw", "hol_block",
+              "n_workers", "n_atomic", "stagger", "trace", "tele_windows",
+              "tele_cw", "groups", "group_size", "group_cap",
+              "local_delay", "bo_tab", "pre_dur", "mod_dur", "addr_mode",
+              "fix_addr", "is_bar", "bar_prefix")
 #: backoff bases passed: streak k reads entry min(k, BO_TAB - 1), and
 #: ``backoff << 32`` and beyond is 0 (``shl32``)
 BO_TAB = 34
+#: steps a workload program may have on the run kernel: its step tables
+#: (each step's local work, modify duration, address mode, fixed address,
+#: barrier flag and the barrier steps before it) are words of the run
+MAX_STEPS = 16
+PARAM_SPANS = {"bo_tab": BO_TAB, "pre_dur": MAX_STEPS,
+               "mod_dur": MAX_STEPS, "addr_mode": MAX_STEPS,
+               "fix_addr": MAX_STEPS, "is_bar": MAX_STEPS,
+               "bar_prefix": MAX_STEPS}
+#: int32 words a run's parameters take
+N_PARAM_WORDS = sum(PARAM_SPANS.get(k, 1) for k in RUN_PARAMS)
 #: its device pointers, in the order of the source's ``Ptr`` enum
 RUN_PTRS = ("st", "tmr", "addr", "phase", "nxt", "opc", "ops", "arr_cyc",
             "streak", "parked", "acq_start", "w_tmr", "w_served",
@@ -226,10 +241,11 @@ RUN_PTRS = ("st", "tmr", "addr", "phase", "nxt", "opc", "ops", "arr_cyc",
             "serving", "tkt", "feb", "lqbuf", "lqhead", "lqlen", "ggq",
             "g_inq", "cur_grp", "turn_srv", "gqhead", "gqlen", "wake_grp",
             "tele", "trace_step", "trace_wait", "trace_state", "trace_qlen",
-            "scratch")
+            "scratch", "pc", "bar_cnt")
 #: the run's 0-d outputs, in the order of the source's ``Scalar`` enum
 RUN_SCALARS = ("resp_prev", "msgs", "polls", "sleep_cyc", "lat_max",
-               "active_cyc", "backoff_cyc", "bank_ops", "net_stall")
+               "active_cyc", "backoff_cyc", "bank_ops", "net_stall",
+               "bar_cyc")
 
 _MASK32 = 0xFFFFFFFF
 
@@ -252,24 +268,36 @@ def _bo_tab(backoff: int, exp_cap: int) -> tuple:
 
 def run_scalars(p, proto, prog, banks=None) -> Dict[str, Any]:
     """Every per-run scalar ``run_cuda`` passes to the kernel, derived from
-    ``SimParams`` ``p``, the protocol and the workload's one-step program
-    as ``core.sim._simulate_plain`` derives them: Python ints (the seed
+    ``SimParams`` ``p``, the protocol and the workload's program as
+    ``core.sim._simulate_plain`` derives them: Python ints (the seed
     reduced mod 2^32), ``zipf_c`` a float (the skew-0 Zipf factor, 0.0
-    for other streams) and ``bo_tab`` a tuple of ``BO_TAB`` ints.
+    without a Zipf step), ``bo_tab`` a tuple of ``BO_TAB`` ints, and the
+    step tables (``PARAM_SPANS``) tuples of ``MAX_STEPS`` ints, the
+    program's ``prog_len`` steps first and zeros past them.
 
     ``a`` is the banks allocated, ``banks`` (default ``p.n_addrs``; a
     sweep passes the power-of-two bucket), and ``n_addrs`` the live
-    address count the stream hashes over."""
+    address count the stream hashes over.  A program of more than
+    ``MAX_STEPS`` steps is refused."""
     pt = prog.tables()
+    L = prog.length
+    if L > MAX_STEPS:
+        raise NotImplementedError(
+            f"the engine_run kernel runs programs of at most {MAX_STEPS} "
+            f"steps (workload {p.workload!r} has {L}; ROADMAP item A3)")
     n, n_addrs = p.n_cores, p.n_addrs
     a = n_addrs if banks is None else banks
     if a < n_addrs:
         raise ValueError(f"banks={a} is below n_addrs={n_addrs}")
     exp_cap = 1 if proto.fixed_backoff else p.backoff_exp
     args = proto.kernel_args(p)
-    addr_mode = int(pt["addr_mode"][0])
+    is_bar = [int(k == K_BARRIER) for k in prog.kind]
+
+    def steps(vals):
+        return tuple(int(v) for v in vals) + (0,) * (MAX_STEPS - L)
+
     zipf_c = 0.0
-    if addr_mode == ADDR_ZIPF:
+    if ADDR_ZIPF in prog.addr_mode:
         _, c, inv = zipf_factors(n_addrs, p.zipf_skew)
         if c is None or inv != 1.0:
             raise NotImplementedError(
@@ -282,11 +310,8 @@ def run_scalars(p, proto, prog, banks=None) -> Dict[str, Any]:
         q_cap=proto.q_cap(p, n), q_full=args.q_full, lat=p.lat,
         acq_tmr=args.acq_tmr, wake_delay=args.wake_delay,
         msg_rule=args.msg_rule,
-        pre_dur=int(pt["pre_mult"][0]) * p.work + int(pt["pre_add"][0]),
-        mod_dur=int(pt["mod_mult"][0]) * p.modify + int(pt["mod_add"][0]),
-        addr_mode=addr_mode,
-        fix_addr=(int(pt["addr_arg"][0]) & _MASK32) % n_addrs,
-        zipf_c=zipf_c, exp_cap=exp_cap, seed=int(p.seed) & _MASK32,
+        prog_len=L, n_bar=sum(is_bar), zipf_c=zipf_c, exp_cap=exp_cap,
+        seed=int(p.seed) & _MASK32,
         net_bw=p.net_bw, hol_block=p.hol_block, n_workers=p.n_workers,
         n_atomic=n - min(p.n_workers, n), stagger=p.work + 1,
         trace=int(bool(p.record_trace)),
@@ -295,7 +320,16 @@ def run_scalars(p, proto, prog, banks=None) -> Dict[str, Any]:
                  if p.telemetry_windows else 0),
         groups=args.groups, group_size=args.group_size,
         group_cap=args.group_cap, local_delay=args.local_delay,
-        bo_tab=_bo_tab(p.backoff, exp_cap))
+        bo_tab=_bo_tab(p.backoff, exp_cap),
+        pre_dur=steps(int(m) * p.work + int(x)
+                      for m, x in zip(pt["pre_mult"], pt["pre_add"])),
+        mod_dur=steps(int(m) * p.modify + int(x)
+                      for m, x in zip(pt["mod_mult"], pt["mod_add"])),
+        addr_mode=steps(pt["addr_mode"]),
+        fix_addr=steps((int(x) & _MASK32) % n_addrs
+                       for x in pt["addr_arg"]),
+        is_bar=steps(is_bar),
+        bar_prefix=steps(np.cumsum([0] + is_bar[:-1])))
 
 
 def _pack_params(sc: Dict[str, Any]) -> list:
@@ -304,7 +338,7 @@ def _pack_params(sc: Dict[str, Any]) -> list:
     words = []
     for k in RUN_PARAMS:
         v = sc[k]
-        if k == "bo_tab":
+        if k in PARAM_SPANS:
             words += list(v)
         elif k == "zipf_c":
             words.append(int(np.float32(v).view(np.int32)))
@@ -394,11 +428,11 @@ def _layout(code: int, n: int, a: int, q_cap: int, groups: int,
         return (i32, shape, 0)
 
     out = dict(st=w((n,)), tmr=w((n,)), addr=w((n,)), phase=w((n,)),
-               nxt=w((n,)), pc=z((n,)), bar_cnt=z((n,)), opc=w((n,)),
+               nxt=w((n,)), pc=w((n,)), bar_cnt=w((n,)), opc=w((n,)),
                arr_cyc=w((n,)), streak=w((n,)),
                parked=w((n,), torch.bool), resp_prev=SCALAR, ops=w((n,)),
                acq_start=w((n,)), msgs=SCALAR, polls=SCALAR,
-               addr_ops=w((a,)), sleep_cyc=SCALAR, bar_cyc=z(),
+               addr_ops=w((a,)), sleep_cyc=SCALAR, bar_cyc=SCALAR,
                lat_hist=w((LAT_BINS,)), lat_max=SCALAR,
                active_cyc=SCALAR, backoff_cyc=SCALAR, bank_ops=SCALAR,
                net_stall=SCALAR, w_tmr=w((n,)), w_served=w((n,)))
@@ -568,13 +602,23 @@ def launch_smem(lib, scalars: Sequence[Dict[str, Any]]) -> int:
 
 #: the families only the run kernel's wide instances have a branch for
 WIDE_FAMILIES = (KERNEL_HIER, KERNEL_EVENT, KERNEL_FEB)
+#: the run kernel's instances (the source's ``run_kernel_for``): without
+#: the WIDE_FAMILIES' branches, with them, and with them and the program
+#: code (the program counter, per-step tables and barrier release)
+INSTANCE_NARROW, INSTANCE_WIDE, INSTANCE_PROG = 0, 1, 2
 
 
-def launch_wide(scalars: Sequence[Dict[str, Any]]) -> int:
-    """1 when a launch of runs with these ``run_scalars`` needs the run
-    kernel's wide instance (a run of the two-level queues or nb_feb),
-    else 0: the other families run on the instance without their code."""
-    return int(any(sc["proto"] in WIDE_FAMILIES for sc in scalars))
+def launch_variant(scalars: Sequence[Dict[str, Any]]) -> int:
+    """The run kernel's instance for a launch of runs with these
+    ``run_scalars``: INSTANCE_PROG when a run's program has more than
+    one step or a barrier step, else INSTANCE_WIDE when a run is of the
+    two-level queues or nb_feb, else INSTANCE_NARROW (the other families,
+    one-step programs: the instance without their code)."""
+    if any(sc["prog_len"] > 1 or sc["n_bar"] > 0 for sc in scalars):
+        return INSTANCE_PROG
+    if any(sc["proto"] in WIDE_FAMILIES for sc in scalars):
+        return INSTANCE_WIDE
+    return INSTANCE_NARROW
 
 
 def run_cuda_batch(runs: Sequence[Tuple[Any, Any, Any, int]], device,
@@ -606,9 +650,9 @@ def run_cuda_batch(runs: Sequence[Tuple[Any, Any, Any, int]], device,
     packed = pack_runs(scalars, dev, lib.engine_run_scratch_bytes, started)
     scs = [sc for _, _, sc in scalars]
     err = lib.engine_run_launch(
-        len(runs), n, packed["params"], len(RUN_PARAMS) - 1 + BO_TAB,
+        len(runs), n, packed["params"], N_PARAM_WORDS,
         packed["ptrs"], len(RUN_PTRS), launch_smem(lib, scs),
-        launch_wide(scs), torch.cuda.current_stream(dev).cuda_stream)
+        launch_variant(scs), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(
             "engine_run kernel launch failed: "

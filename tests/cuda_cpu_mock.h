@@ -275,6 +275,13 @@ inline unsigned __reduce_max_sync(unsigned, unsigned v) {
   for (int i = 0; i < 32; ++i) r = std::max(r, static_cast<unsigned>(o[i]));
   return r;
 }
+inline unsigned __reduce_min_sync(unsigned, unsigned v) {
+  uint64_t o[32];
+  mock_warp_exchange(v, o);
+  unsigned r = ~0u;
+  for (int i = 0; i < 32; ++i) r = std::min(r, static_cast<unsigned>(o[i]));
+  return r;
+}
 inline long long __shfl_down_sync(unsigned, long long v, int off) {
   uint64_t o[32];
   mock_warp_exchange(static_cast<uint64_t>(v), o);
@@ -289,6 +296,13 @@ inline int atomicMax(int* p, int v) {
   std::atomic_ref<int> r(*p);
   int cur = r.load();
   while (cur < v && !r.compare_exchange_weak(cur, v)) {
+  }
+  return cur;
+}
+inline int atomicMin(int* p, int v) {
+  std::atomic_ref<int> r(*p);
+  int cur = r.load();
+  while (v < cur && !r.compare_exchange_weak(cur, v)) {
   }
   return cur;
 }

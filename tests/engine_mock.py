@@ -20,6 +20,7 @@ checks the kernel's logic and order, not the GPU's compiler or speed
 (``chip_smoke.py`` and ``tests/test_torch_gpu.py`` run the real build on
 the card).  The fixture skips without g++.
 """
+import contextlib
 import ctypes
 import json
 import os
@@ -88,15 +89,42 @@ def _diff(out: dict, want: dict) -> list:
             or not torch.equal(out[k], w)]
 
 
+def register_program(name: str, fields: dict, min_addrs: int = 1):
+    """Register a workload ``name`` whose program is ``Program(**fields)``
+    in the port's registry."""
+    from repro_torch.core.workloads import base, registry
+    wl = base.Workload()
+    wl.name, wl.min_addrs = name, min_addrs
+    wl.program = lambda p: base.Program(**fields)
+    registry.register(wl)
+
+
+@contextlib.contextmanager
+def programs_registered(programs):
+    """``programs`` (name -> (Program fields, min_addrs)) registered in
+    the port's registry for the length of the block."""
+    from repro_torch.core.workloads import registry
+    for name, (fields, min_addrs) in (programs or {}).items():
+        register_program(name, fields, min_addrs)
+    try:
+        yield
+    finally:
+        for name in programs or {}:
+            del registry._REGISTRY[name]
+
+
 def run_mock_batch(lib_path: str, kws: list, banks: list,
-                   order: int = 0, wide=None) -> list:
+                   order: int = 0, variant=None, programs=None) -> list:
     """One launch of the mock build for the points ``kws``, block b's
     banks allocated at ``banks[b]``, the blocks run in index order (0)
-    or reversed (1), on the kernel instance ``wide`` picks (default:
-    the one the wrapper picks, ``launch_wide``): each block's result
-    dict."""
+    or reversed (1), on the kernel instance ``variant`` picks (default:
+    the one the wrapper picks, ``launch_variant``): each block's result
+    dict.  ``programs`` maps the names of workloads the points use that
+    are not built in to ``(Program fields, min_addrs)``."""
     from repro_torch.core import protocols, sim, workloads
     from repro_torch.kernels.engine_step import kernel as K
+    for name, (fields, min_addrs) in (programs or {}).items():
+        register_program(name, fields, min_addrs)       # the child's own
     lib = _bind(lib_path)
     lib.mock_set_block_order(order)
     runs = []
@@ -110,9 +138,9 @@ def run_mock_batch(lib_path: str, kws: list, banks: list,
                          lib.engine_run_scratch_bytes)
     scs = [sc for _, _, sc in runs]
     err = lib.engine_run_launch(
-        len(runs), n, packed["params"], len(K.RUN_PARAMS) - 1 + K.BO_TAB,
+        len(runs), n, packed["params"], K.N_PARAM_WORDS,
         packed["ptrs"], len(K.RUN_PTRS), K.launch_smem(lib, scs),
-        K.launch_wide(scs) if wide is None else wide, None)
+        K.launch_variant(scs) if variant is None else variant, None)
     assert err == 0, err
     # each a copy: the views of the launch's buffer do not pickle
     return [{k: v.clone() for k, v in out.items() if k != "scalars"}
@@ -120,23 +148,26 @@ def run_mock_batch(lib_path: str, kws: list, banks: list,
 
 
 def check_batch(lib, tmp_path, kws: list, banks: list,
-                order: int = 0, wide=None) -> list:
+                order: int = 0, variant=None, programs=None) -> list:
     """The mock build's launch of ``kws`` (see :func:`run_mock_batch`) in
     a child process, while this one runs the plain loop of each point:
     the keys that differ (value, dtype, shape or order), per block.  A
     crash or a reported deadlock in the child fails the case, not the
-    worker."""
+    worker.  ``programs``: as :func:`run_mock_batch`'s, registered in
+    this process while the plain loop runs."""
     from repro_torch.core import sim
     out = tmp_path / "mock_out.pt"
-    job = dict(batch=kws, banks=banks, order=order, wide=wide,
-               out=str(out))
+    job = dict(batch=kws, banks=banks, order=order, variant=variant,
+               programs=programs, out=str(out))
     proc = subprocess.Popen(
         [sys.executable, __file__, str(lib), json.dumps(job)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
     try:
-        want = [sim._simulate_plain(sim.SimParams(**kw), "cpu", banks=bk)
-                for kw, bk in zip(kws, banks)]
+        with programs_registered(programs):
+            want = [sim._simulate_plain(sim.SimParams(**kw), "cpu",
+                                        banks=bk)
+                    for kw, bk in zip(kws, banks)]
         _, err = proc.communicate(timeout=600)
     finally:
         if proc.poll() is None:
@@ -147,14 +178,16 @@ def check_batch(lib, tmp_path, kws: list, banks: list,
     return [_diff(g, w) for g, w in zip(got, want)]
 
 
-def check(lib, tmp_path, kw: dict) -> list:
+def check(lib, tmp_path, kw: dict, programs=None) -> list:
     """One run of the mock build against the plain loop: the keys that
     differ."""
-    return check_batch(lib, tmp_path, [kw], [kw["n_addrs"]])[0]
+    return check_batch(lib, tmp_path, [kw], [kw["n_addrs"]],
+                       programs=programs)[0]
 
 
 if __name__ == "__main__":
     # the child: one launch; it imports neither the cases nor JAX
     job = json.loads(sys.argv[2])
     torch.save(run_mock_batch(sys.argv[1], job["batch"], job["banks"],
-                              job["order"], job["wide"]), job["out"])
+                              job["order"], job["variant"],
+                              job["programs"]), job["out"])

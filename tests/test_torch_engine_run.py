@@ -8,7 +8,7 @@ runs on the CPU against the plain loop through a g++ build
 
 * ``run_scalars`` gives the values the plain loop (``_simulate_plain``)
   derives, for the eleven protocols, with and without workers, for
-  negative and large seeds;
+  negative and large seeds, and every workload's step tables;
 * ``RUN_PARAMS``/``RUN_PTRS``/``RUN_SCALARS`` name the source's enums in
   order, and ``pack_runs`` lays out what the plain loop returns;
 * ``run_cuda`` refuses a CPU device, and ``simulate`` on a CUDA device
@@ -61,7 +61,9 @@ def test_run_scalars_are_what_the_plain_loop_derives(proto, workers):
     """Each value against the plain loop's own expression for it."""
     for seed in (0, 7, -1, -(2**40) + 3, 2**31, 2**63 - 1):
         for wl, extra in (("rmw_loop", {}),
-                          ("zipf_histogram", dict(zipf_skew=0))):
+                          ("zipf_histogram", dict(zipf_skew=0)),
+                          ("ms_queue", {}), ("treiber_stack", {}),
+                          ("barrier_phases", {})):
             p = _params(proto, workers, seed=seed, workload=wl,
                         backoff=96, backoff_exp=4, work=7, modify=3,
                         record_trace=seed == 7, telemetry_windows=5,
@@ -78,13 +80,27 @@ def test_run_scalars_are_what_the_plain_loop_derives(proto, workers):
             for k, v in enumerate(bo_plain):
                 assert sc["bo_tab"][min(k, es_kernel.BO_TAB - 1)] == v
             assert len(sc["bo_tab"]) == es_kernel.BO_TAB
-            assert sc["pre_dur"] == (int(pt["pre_mult"][0]) * p.work
-                                     + int(pt["pre_add"][0]))
-            assert sc["mod_dur"] == (int(pt["mod_mult"][0]) * p.modify
-                                     + int(pt["mod_add"][0]))
-            assert sc["addr_mode"] == int(pt["addr_mode"][0])
-            assert sc["fix_addr"] == (int(pt["addr_arg"][0]) & _M32) \
-                % p.n_addrs
+            # the step tables: each step's entry, zeros past the program
+            L = len(pt["kind"])
+            assert sc["prog_len"] == L
+            bars = [int(k == tworkloads.K_BARRIER) for k in pt["kind"]]
+            assert sc["n_bar"] == sum(bars)
+            for j in range(es_kernel.MAX_STEPS):
+                if j >= L:
+                    assert all(sc[k][j] == 0 for k in (
+                        "pre_dur", "mod_dur", "addr_mode", "fix_addr",
+                        "is_bar", "bar_prefix"))
+                    continue
+                assert sc["pre_dur"][j] == (int(pt["pre_mult"][j]) * p.work
+                                            + int(pt["pre_add"][j]))
+                assert sc["mod_dur"][j] == (int(pt["mod_mult"][j])
+                                            * p.modify
+                                            + int(pt["mod_add"][j]))
+                assert sc["addr_mode"][j] == int(pt["addr_mode"][j])
+                assert sc["fix_addr"][j] == (int(pt["addr_arg"][j])
+                                             & _M32) % p.n_addrs
+                assert sc["is_bar"][j] == bars[j]
+                assert sc["bar_prefix"][j] == sum(bars[:j])
             assert tuple(sc[k] for k in KernelArgs._fields) \
                 == pr.kernel_args(p)
             # lrscwait's finite queue rejects when full, mwait_lock's and
@@ -113,7 +129,7 @@ def test_run_scalars_are_what_the_plain_loop_derives(proto, workers):
             assert sc["n_workers"] == p.n_workers
             assert sc["trace"] == int(p.record_trace)
             assert sc["tele_cw"] == window_len(p.cycles, 5)
-            if sc["addr_mode"] == ADDR_ZIPF:
+            if ADDR_ZIPF in sc["addr_mode"]:
                 # u * c + 1 with the host's c is zipf_index at skew 0
                 h = torch.arange(0, 1 << 24, 4099, dtype=torch.int64)
                 u = h.to(torch.float32) * float(np.float32(2.0**-24))
@@ -137,18 +153,23 @@ def test_packed_params_follow_the_source_layout():
                 zipf_skew=0, n_addrs=16)
     sc = _scalars(p)
     words = es_kernel._pack_params(sc)
-    assert len(words) == len(es_kernel.RUN_PARAMS) - 1 + es_kernel.BO_TAB
+    assert len(words) == es_kernel.N_PARAM_WORDS
     assert all(-(2**31) <= w < 2**31 for w in words)
-    at = {k: i for i, k in enumerate(es_kernel.RUN_PARAMS)}
+    at, pos = {}, 0
+    for k in es_kernel.RUN_PARAMS:
+        at[k] = pos
+        pos += es_kernel.PARAM_SPANS.get(k, 1)
+    assert pos == len(words)
     assert words[at["seed"]] == -5
     assert np.int32(words[at["zipf_c"]]).view(np.float32) == np.float32(16)
-    assert words[at["bo_tab"]:] == list(sc["bo_tab"])
+    for k, span in es_kernel.PARAM_SPANS.items():
+        assert words[at[k]:at[k] + span] == list(sc[k])
 
 
 def _enum(name):
     body = re.search(r"enum %s \{(.*?)\};" % name, SOURCE.read_text(),
                      re.S).group(1)
-    return [t.strip() for t in body.split(",") if t.strip()]
+    return [t.split("=")[0].strip() for t in body.split(",") if t.strip()]
 
 
 def test_python_layout_names_the_source_enums_in_order():
@@ -159,6 +180,8 @@ def test_python_layout_names_the_source_enums_in_order():
     scalars = [t[2:].lower() for t in _enum("Scalar") if t != "kNumScalars"]
     assert scalars == list(es_kernel.RUN_SCALARS)
     assert f"constexpr int kBoTab = {es_kernel.BO_TAB};" in \
+        SOURCE.read_text()
+    assert f"constexpr int kMaxSteps = {es_kernel.MAX_STEPS};" in \
         SOURCE.read_text()
 
 

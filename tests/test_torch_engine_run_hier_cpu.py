@@ -79,7 +79,7 @@ def test_earlier_families_on_the_wide_instance(mock_library, tmp_path):
     from test_torch_engine_run_batch_cpu import BATCHES
     kws, _ = BATCHES["families"]
     banks = [_bucket_a(kw["n_addrs"]) for kw in kws]
-    assert check_batch(mock_library, tmp_path, kws, banks, wide=1) \
+    assert check_batch(mock_library, tmp_path, kws, banks, variant=1) \
         == [[]] * len(kws)
 
 

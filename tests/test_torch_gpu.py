@@ -1,8 +1,9 @@
 """The port on an NVIDIA GPU: the CUDA kernels and runs through them (the
 simulator's engine, one engine_run launch per run held against the
-per-cycle loop, a Study as one launch per core count held against its
-single runs, and recurrentgemma-2b-smoke, rwkv6-1.6b-smoke and
-kimi-k2-1t-a32b-smoke served by ServeEngine).
+per-cycle loop, the workload programs on its program instance, a Study
+as one launch per core count held against its single runs, and
+recurrentgemma-2b-smoke, rwkv6-1.6b-smoke and kimi-k2-1t-a32b-smoke
+served by ServeEngine).
 
 Every test here is marked ``gpu`` and skips without a CUDA device (the
 CUDA kernel has no CPU mode).  The file imports neither JAX nor the
@@ -110,6 +111,76 @@ def test_run_kernel_matches_the_plain_loop(name, traced, cuda_device):
         assert cs.run_case(p, cuda_device) == (p.cycles, 0.0)
         assert LAUNCHES["engine_run"] == 1
         LAUNCHES.update(before)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("traced", [False, True])
+@pytest.mark.parametrize("wl", ["ms_queue", "treiber_stack",
+                                "barrier_phases"])
+def test_program_run_kernel_matches_the_plain_loop(wl, traced, cuda_device):
+    """The workload programs on the run kernel's program instance: one
+    engine_run launch equals the plain loop on every key for every
+    protocol at the workload's scenario, in the register layout and with
+    the per-core state in device memory (more than 2 048 cores)."""
+    cs = _chip_smoke()
+    for i, name in enumerate(PROTOS):
+        for n, cycles in ((256, 200), (2100, cs.LAYOUT_CASE_CYCLES)):
+            p = SimParams(protocol=name, workload=wl, n_cores=n,
+                          cycles=cycles, seed=17 * i - 5,
+                          record_trace=traced, telemetry_windows=16 * traced,
+                          **cs.workloads.get(wl).scenario)
+            before = dict(LAUNCHES)
+            assert cs.run_case(p, cuda_device) == (p.cycles, 0.0)
+            LAUNCHES.update(before)
+
+
+@pytest.mark.gpu
+def test_own_program_and_barrier_workers_on_gpu(cuda_device):
+    """chip_smoke's own program (per-step durations, a barrier
+    mid-program) for every protocol, and barrier_phases beside Fig. 5
+    workers, one launch each, equal to the plain loop on every key."""
+    cs = _chip_smoke()
+    params = [SimParams(protocol=name, workload="barrier_phases",
+                        n_cores=128, n_addrs=1, n_workers=16, net_bw=13,
+                        hol_block=16, cycles=300, seed=3, record_trace=True,
+                        telemetry_windows=8) for name in PROTOS]
+    with cs.own_program():
+        params += [SimParams(protocol=name, workload=cs.OWN_PROGRAM,
+                             n_cores=96, n_addrs=3, zipf_skew=0,
+                             backoff=24, cycles=300, seed=i,
+                             record_trace=True, telemetry_windows=8)
+                   for i, name in enumerate(PROTOS)]
+        for p in params:
+            before = dict(LAUNCHES)
+            assert cs.run_case(p, cuda_device) == (p.cycles, 0.0)
+            LAUNCHES.update(before)
+
+
+@pytest.mark.gpu
+def test_program_study_on_gpu_equals_single_runs(cuda_device):
+    """A Study of one-step and program points on the card: one launch per
+    core count (the program instance runs the one-step points beside the
+    programs), every point equal to its single run and to the CPU's."""
+    from repro_torch.sync import Study
+    cs = _chip_smoke()
+    specs = [cs.program_spec(pr, wl, n, 800, seed=s)
+             for pr, wl, n, s in (("colibri", "ms_queue", 64, 1),
+                                  ("lrsc", "barrier_phases", 64, 2),
+                                  ("nb_feb", "treiber_stack", 64, 3),
+                                  ("amo", "rmw_loop", 64, 4),
+                                  ("colibri_hier", "ms_queue", 32, 5),
+                                  ("ticket_lock", "barrier_phases", 32, 6))]
+    before = dict(LAUNCHES)
+    got = Study.from_specs(specs).run()
+    assert LAUNCHES["engine_run"] - before["engine_run"] == 2
+    assert LAUNCHES["engine_step"] == before["engine_step"]
+    cpu = Study.from_specs(specs).run(device="cpu")
+    for spec, r, c in zip(specs, got, cpu):
+        assert r.ok
+        r.check()
+        assert cs.swept_diff(r.stats, run(spec).stats,
+                             spec.to_params()) == []
+        assert cs.int_keys_equal(r.stats, c.stats) == []
 
 
 @pytest.mark.gpu

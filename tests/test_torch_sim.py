@@ -96,8 +96,17 @@ def test_unported_names_list_what_the_port_has():
     # the port registers every protocol the reference does
     assert tprotocols.names() == jprotocols.names()
     assert ", ".join(tprotocols.names()) == ported
-    with pytest.raises(ValueError, match="rmw_loop, zipf_histogram"):
-        tsim.SimParams(workload="ms_queue")
+    # the port registers every workload the reference does
+    from repro.core import workloads as jworkloads
+    from repro_torch.core import workloads as tworkloads
+    assert tworkloads.names() == jworkloads.names()
+    wls = ("barrier_phases, ms_queue, rmw_loop, treiber_stack, "
+           "zipf_histogram")
+    assert ", ".join(tworkloads.names()) == wls
+    with pytest.raises(ValueError, match=wls):
+        tsim.SimParams(workload="no_such_workload")
+    assert tsim.SimParams(workload="ms_queue", n_addrs=2).workload \
+        == "ms_queue"
     with pytest.raises(ValueError, match="registered topologies: flat"):
         tsim.SimParams(topology="cluster2")
 

@@ -35,8 +35,14 @@ Phases, one JSON line each:
    each of the eleven protocols at their scenario's banks and 256 cores,
    untraced and traced, the script's own program (``OWN_FIELDS``:
    per-step durations, a barrier mid-program) for each protocol, and
-   ``barrier_phases`` with Fig. 5 workers: every key of the result dict
-   equal, traces included;
+   ``barrier_phases`` with Fig. 5 workers; then the topology instance:
+   every protocol on cluster2 and cluster3 at 256 cores with link budgets
+   that turn crossing requests away, on the skewed Zipf stream in the
+   sweep's form in turns, two more register layouts on cluster3 with
+   Fig. 5 workers, and the Zipf cases (``ZIPF_KERNEL_CASES``: the
+   threshold lookup in both forms, the log-uniform limit, the skew-0
+   fused multiply-add at 43 bins): every key of the result dict equal,
+   traces and ``hops`` included;
 4. scatter_kernel — the colibri_scatter kernel against its plain
    version on the card at the reference tests' shapes (f32 and bf16),
    the trace path's shapes and two large ones, on uniform keys and with
@@ -90,10 +96,12 @@ Phases, one JSON line each:
    beside their bounds, their plain versions and the library call
    (flash: ``scaled_dot_product_attention``, also at head dim 112;
    grouped_matmul: ``torch.bmm``);
-6. exact — ``zipf_index`` (skew 0) and ``_hash`` on the card against the
+6. exact — ``zipf_index`` (skew 0, and the skewed streams of
+   ``ZIPF_PROBES`` in either form) and ``_hash`` on the card against the
    CPU over 2^24 inputs, and the engine_run kernel's own device code
    (``_hash``, the backoff jitter, the uniform and skew-0 Zipf address of
-   every 24-bit hash) through the library's probe entry;
+   every 24-bit hash, at ``ZIPF_FMA_BINS`` too, and the threshold search
+   of the ``ZIPF_PROBES`` streams) through the library's probe entry;
 7. golden — ``repro_torch.sync.run`` on the card reproduces the
    reference's golden values (``tests/test_protocols.py``) for every
    protocol that has them (all but ``ticket_lock``, ``colibri_hier``,
@@ -120,8 +128,8 @@ Phases, one JSON line each:
 11. sweep — the batched sweep (``repro_torch.sync.Study`` → one launch
    of the engine_run kernel per core count, a grid of run blocks): the
    Fig. 3 uniform lines (``SWEEP_LINES`` × ``SWEEP_BINS``, 256 cores,
-   ``FULL_WIDTH_CYCLES``; the skewed companion lines are refused by the
-   port) and the 1024-core colibri point as one Study of 2 launches,
+   ``FULL_WIDTH_CYCLES``; the skewed companion lines are fig3_skew's)
+   and the 1024-core colibri point as one Study of 2 launches,
    then the mixed grid (``SWEEP_MIXED``: one launch whose blocks differ
    in every ``DYN_FIELDS`` field but ``zipf_skew``, banks padded to the
    bucket, the Fig. 5 workers, one traced point): every point bit for
@@ -158,16 +166,33 @@ Phases, one JSON line each:
    ``Result.check()``; the figure's rows, ``bench_queue.headline``'s
    entries from them, card ms per launch, the Study's wall against its
    single runs', the busy share;
-   workloads — the workload grid (``benchmarks/bench_workloads.py``)
-   without its Zipf ladder and skewed ``zipf_histogram`` (the port
-   refuses skew): rmw_loop, ms_queue, treiber_stack and barrier_phases ×
-   its five protocols × 2 seeds at 64 cores as one Study of ONE launch,
-   each point against its single run and ``Result.check()``; ops per
-   cycle per (workload, protocol), no poll for the polling-free ones,
-   card ms, wall, busy share;
+   workloads — the workload grid (``benchmarks/bench_workloads.py``):
+   rmw_loop, ms_queue, treiber_stack, zipf_histogram (skew 1.0) and
+   barrier_phases × its five protocols × 2 seeds, and its Zipf ladder
+   (colibri and lrsc at skews 0, 1.0 and 2.0), at 64 cores as one Study
+   of ONE launch, each point against its single run (a Study of the
+   point alone where the sweep's stream differs) and ``Result.check()``;
+   ops per cycle per row equal to the reference's, no poll for the
+   polling-free ones, card ms, wall, busy share;
    program_time — colibri and lrsc on each program workload at 256
    cores, ``FULL_WIDTH_CYCLES``: µs per simulated cycle; the program
    instance's registers, spill and blocks per SM;
+   fig3_skew — Fig. 3's skewed companion lines (colibri and lrsc at
+   zipf_skew 150 × ``SWEEP_BINS``, 256 cores, ``FIG3_SKEW_CYCLES``) as
+   one Study of ONE launch in the sweep's form of the stream (threshold
+   tables in the launch's buffer), each point against its single run,
+   the rows equal to the reference's (``FIG3_SKEW_REF``);
+   topology — ``benchmarks/bench_topology.py``'s 17 points (colibri,
+   lrsc, colibri_hier, hw_event, nb_feb on flat and cluster2 at 256 and
+   1 024 cores, colibri_hier's flat → cluster2 → cluster3 ladder) as one
+   Study of one launch per core count on the topology instance, each
+   point against its single run, ``hops`` on the hierarchical ones only,
+   the rows and the benchmark's headline equal to the reference's
+   (``TOPO_REF``), three points against the plain loop on the card;
+   topo_time — µs per simulated cycle of colibri 256 × 4 on flat (its
+   own instance and the topology instance), cluster2 and cluster3, and
+   of the Zipf lookup (colibri and lrsc at 256 × 1 024, skew 0 beside
+   150); the topology instance's registers, spill and blocks per SM;
 12. kernel times — engine_run's device time per run at the five
    main-path points beside its byte bound and the barrier-only floor of
    its chain of cycles, and the plain loop's time at the first, whose
@@ -209,8 +234,8 @@ import torch  # noqa: E402
 
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import metrics, protocols, sim, workloads  # noqa: E402
-from repro_torch.core.workloads.base import (ADDR_ZIPF,  # noqa: E402
-                                             zipf_factors, zipf_index)
+from repro_torch.core.workloads.base import (  # noqa: E402
+    ADDR_ZIPF, zipf_factors, zipf_index, zipf_thresholds)
 from repro_torch.kernels import LAUNCHES, _build  # noqa: E402
 from repro_torch.kernels import colibri_scatter, engine_step  # noqa: E402
 import repro_torch.kernels.colibri_scatter.kernel as cs_kernel  # noqa: E402
@@ -669,10 +694,12 @@ LM_KERNELS = ("flash_attention", "rglru_scan", "rwkv6_wkv", "grouped_matmul")
 KERNELS = ("engine_step", "colibri_scatter", "flash_attention", "rglru_scan",
            "rwkv6_wkv", "grouped_matmul")
 
-#: simulated cycles of each run_kernel case: HIER_PROTOS' at 300, the
-#: others', held there since their slices, at 200
-RUN_KERNEL_CYCLES = 300
-RUN_KERNEL_CYCLES_EARLIER = 200
+#: simulated cycles of each run_kernel case: HIER_PROTOS' at 200, the
+#: others', held there since their slices, at 120 (the plain loop they
+#: are held to is host-bound: these depths keep the script near half its
+#: time limit)
+RUN_KERNEL_CYCLES = 200
+RUN_KERNEL_CYCLES_EARLIER = 120
 #: (cores, banks) of the run_kernel cases in the kernel's two other
 #: layouts: per-core state in device memory (more than 2 048 cores) and
 #: per-bank state in the scratch buffer (more banks than shared memory
@@ -780,16 +807,20 @@ FIG6_CYCLES = 10_000
 FIG6_KW = dict(backoff=128, backoff_exp=1)
 
 # ---- the workload grid: benchmarks/bench_workloads.py, one launch -------
-#: its workloads without zipf_histogram (its scenario's skew 1.0 is
-#: refused, ROADMAP A3), its protocols, seeds, core count and cycles;
-#: rmw_loop at 16 addresses (its OVERRIDES)
+#: its workloads, protocols, seeds, core count and cycles; rmw_loop at 16
+#: addresses (its OVERRIDES), zipf_histogram at its scenario (64 bins,
+#: skew 1.0)
 GRID_WORKLOADS = ("rmw_loop", "ms_queue", "treiber_stack",
-                  "barrier_phases")
+                  "zipf_histogram", "barrier_phases")
 GRID_PROTOS = ("colibri", "lrscwait", "mwait_lock", "lrsc", "amo_lock")
 GRID_SEEDS = (0, 1)
 GRID_CORES = 64
 GRID_CYCLES = 6_000
 GRID_OVERRIDES = {"rmw_loop": dict(n_addrs=16)}
+#: its Zipf ladder: zipf_histogram at its scenario with these skews for
+#: colibri and lrsc, one point each (seed 0); rows "zipf_s<skew/100>"
+GRID_ZIPF_LADDER = (0, 100, 200)
+GRID_LADDER_PROTOS = ("colibri", "lrsc")
 #: tests/test_workloads.py's polling-free protocols
 POLLING_FREE = ("lrscwait", "colibri", "colibri_hier", "mwait_lock")
 #: the reference's Fig. 6 rows, (ops per cycle, Jain fairness) per
@@ -845,7 +876,126 @@ GRID_REF = {
     "barrier_phases/lrscwait": (0.08533333333333333, 0),
     "barrier_phases/mwait_lock": (0.0735, 0),
     "barrier_phases/lrsc": (0.0205, 1068),
-    "barrier_phases/amo_lock": (0.031166666666666665, 1880)}
+    "barrier_phases/amo_lock": (0.031166666666666665, 1880),
+    "zipf_histogram/colibri": (0.4215833333333333, 0),
+    "zipf_histogram/lrscwait": (0.48158333333333336, 0),
+    "zipf_histogram/mwait_lock": (0.4215833333333333, 0),
+    "zipf_histogram/lrsc": (0.35058333333333336, 2042),
+    "zipf_histogram/amo_lock": (0.37116666666666664, 3386),
+    "zipf_s0.0/colibri": (1.8765, 0),
+    "zipf_s1.0/colibri": (0.423, 0),
+    "zipf_s2.0/colibri": (0.13416666666666666, 0),
+    "zipf_s0.0/lrsc": (1.4225, 383),
+    "zipf_s1.0/lrsc": (0.3465, 1019),
+    "zipf_s2.0/lrsc": (0.1215, 1127)}
+
+# ---- skewed Zipf: Fig. 3's companion lines, one launch ------------------
+#: benchmarks/bench_histogram.py's skewed lines: these protocols at
+#: zipf_skew FIG3_SKEW × SWEEP_BINS, 256 cores, its CYCLES; a Study runs
+#: them in the sweep's form of the stream, as the reference's does
+FIG3_SKEW_PROTOS = ("colibri", "lrsc")
+FIG3_SKEW = 150
+FIG3_SKEW_CYCLES = 12_000
+#: their rows in reports/benchmarks.json, (updates per cycle, Jain
+#: fairness, polls, msgs, ops) per "protocol/bins"
+FIG3_SKEW_REF = {
+    "colibri/1": (0.06525, 0.9941381927148194, 0, 7282, 783),
+    "colibri/4": (0.13508333333333333, 0.8841607938883624, 0, 12652, 1621),
+    "colibri/16": (0.16808333333333333, 0.8901447323279, 0, 13938, 2017),
+    "colibri/64": (0.18166666666666667, 0.8998576102762966, 0, 14158, 2180),
+    "colibri/256": (0.20791666666666667, 0.8737828849850875, 0, 15324,
+                    2495),
+    "colibri/1024": (0.224, 0.8746203904555314, 0, 16102, 2688),
+    "lrsc/1": (0.009916666666666667, 0.2525863299086758, 5853, 23990, 119),
+    "lrsc/4": (0.057166666666666664, 0.5526956178592904, 6571, 29124, 686),
+    "lrsc/16": (0.08141666666666666, 0.5949623274692836, 6395, 29588, 977),
+    "lrsc/64": (0.08958333333333333, 0.6043861502543848, 6279, 29500, 1075),
+    "lrsc/256": (0.09116666666666666, 0.6230198061034116, 6226, 29378,
+                 1094),
+    "lrsc/1024": (0.09158333333333334, 0.6161646410147578, 6213, 29346,
+                  1099)}
+#: the points whose Zipf address stream the exact phase checks on every
+#: hash: (n_addrs, zipf_skew, the sweep's form); skew 0 at counts where
+#: two roundings differ from the fused multiply-add
+ZIPF_PROBES = ((64, 150, False), (64, 150, True), (1000, 150, True),
+               (1024, 200, False), (64, 100, False), (16384, 150, True))
+ZIPF_FMA_BINS = (43, 92, 554, 1000)
+
+# ---- hierarchical topologies: benchmarks/bench_topology.py --------------
+#: its protocol × topology matrix at each TOPO_CORES, TOPO_CYCLES,
+#: TOPO_ADDRS addresses, TOPO_CLUSTERS leaf clusters, and colibri_hier's
+#: ladder at 256 cores, as one Study (a launch per core count)
+TOPO_CORES = (256, 1024)
+TOPO_CYCLES = 12_000
+TOPO_CLUSTERS = 4
+TOPO_ADDRS = 4
+TOPO_MATRIX = (("colibri", "flat"), ("lrsc", "flat"),
+               ("colibri", "cluster2"), ("lrsc", "cluster2"),
+               ("colibri_hier", "cluster2"), ("hw_event", "cluster2"),
+               ("nb_feb", "cluster2"))
+TOPO_LADDER = ("flat", "cluster2", "cluster3")
+TOPO_LAUNCHES = len(TOPO_CORES)
+#: its rows in reports/benchmarks.topology.json, (ops per cycle, Jain
+#: fairness, polls, msgs, ops, hops per op) per row name
+TOPO_REF = {
+    "colibri_flat_256c": (0.26525, 0.9984139081775524, 0, 26468, 3183, 0.0),
+    "lrsc_flat_256c": (0.21541666666666667, 0.8300983115360152, 9153, 46994,
+                       2585, 0.0),
+    "colibri_cluster2_256c": (0.18933333333333333, 0.9986133122028527, 0,
+                              19188, 2272, 10.581866197183098),
+    "lrsc_cluster2_256c": (0.15791666666666668, 0.8105068126336165, 8800,
+                           42822, 1895, 55.53245382585752),
+    "colibri_hier_cluster2_256c": (0.2455, 0.9736922173875582, 0, 18652,
+                                   2946, 10.494908350305499),
+    "hw_event_cluster2_256c": (0.262, 0.9817505720823798, 0, 13232, 3144,
+                               10.534351145038167),
+    "nb_feb_cluster2_256c": (0.20933333333333334, 0.9984202851587816, 0,
+                             10552, 2512, 10.511146496815286),
+    "colibri_flat_1024c": (0.2613333333333333, 0.9937913907284768, 0, 29160,
+                           3136, 0.0),
+    "lrsc_flat_1024c": (0.04008333333333333, 0.30491022478070173, 23412,
+                        95960, 481, 0.0),
+    "colibri_cluster2_1024c": (0.18516666666666667, 0.9709155066955296, 0,
+                               21848, 2222, 12.453645364536454),
+    "lrsc_cluster2_1024c": (0.04033333333333333, 0.3151041666666667, 23416,
+                            95960, 484, 497.801652892562),
+    "colibri_hier_cluster2_1024c": (0.23933333333333334, 0.8207726207458732,
+                                    0, 20347, 2872, 11.928969359331477),
+    "hw_event_cluster2_1024c": (0.26066666666666666, 0.7716897512518172, 0,
+                                14598, 3128, 11.512787723785166),
+    "nb_feb_cluster2_1024c": (0.20425, 0.9600069610640648, 0, 11840, 2451,
+                              12.243166054671562),
+    "ladder_flat": (0.3888333333333333, 0.9934251544832259, 0, 29075, 4666,
+                    0.0),
+    "ladder_cluster2": (0.2455, 0.9736922173875582, 0, 18652, 2946,
+                        10.494908350305499),
+    "ladder_cluster3": (0.19383333333333333, 0.9805089832513687, 0, 14871,
+                        2326, 14.545141874462598)}
+#: topology points held against the plain loop on the card (its cost,
+#: ~3 ms a cycle, cuts their cycles to TOPO_PLAIN_CYCLES)
+TOPO_PLAIN = (("colibri", "cluster2", 256), ("lrsc", "cluster3", 256),
+              ("hw_event", "cluster2", 1024))
+TOPO_PLAIN_CYCLES = 300
+#: the run_kernel phase's topology and Zipf cases: every protocol on both
+#: hierarchical topologies at (TOPO_KERNEL_CORES, TOPO_ADDRS) with a
+#: network budget whose levels' share turns requests away, and the run
+#: kernel's other register layouts on cluster3
+TOPO_KERNEL_CORES = 256
+TOPO_KERNEL_NET_BW = 13
+TOPO_KERNEL_LAYOUTS = ((1100, 16), (2100, 64))
+#: (protocol, bins, skew, the sweep's form) of the run_kernel phase's
+#: skewed Zipf cases, 256 cores
+ZIPF_KERNEL_CASES = (("lrsc", 1000, 150, False), ("colibri", 1000, 150,
+                                                  True),
+                     ("amo_lock", 64, 200, True), ("colibri", 64, 100,
+                                                   False),
+                     ("lrsc", 43, 0, False), ("colibri_hier", 1024, 200,
+                                              False))
+#: the topo_time phase: colibri at 256 cores and TOPO_ADDRS addresses on
+#: each topology (flat also on the topology instance), and the Zipf
+#: lookup: colibri and lrsc at 256 × 1024 bins, skew 0 beside
+#: ZIPF_TIME_SKEW, all at FULL_WIDTH_CYCLES
+ZIPF_TIME_SKEW = 150
 
 
 def reset_launches() -> None:
@@ -1104,22 +1254,25 @@ def result_err(got: dict, want: dict) -> float:
                 for k, w in want.items() if w.numel()), default=0.0)
 
 
-def run_case(p, dev) -> tuple:
+def run_case(p, dev, traced: bool = False) -> tuple:
     """The engine_run kernel against the plain loop on the card for one
     point, every key equal; returns the plain loop's engine_step
     launches (one per cycle, counted from 0) and the largest absolute
-    difference over the keys."""
+    difference over the keys.  ``traced``: both in the sweep's form of a
+    skewed Zipf stream."""
     what = (f"{p.protocol} n={p.n_cores} a={p.n_addrs} {p.workload} "
-            f"seed={p.seed} trace={p.record_trace} groups={p.n_groups}")
+            f"seed={p.seed} trace={p.record_trace} groups={p.n_groups} "
+            f"topology={p.topology} skew={p.zipf_skew} traced={traced}")
     reset_launches()
-    want = sim._simulate_plain(p, dev)
+    want = sim._simulate_plain(p, dev, traced=traced)
     torch.cuda.synchronize()
     plain = dict(LAUNCHES)
     require(plain["engine_step"] == p.cycles and plain["engine_run"] == 0,
             f"{what}: the plain loop made {plain['engine_step']} engine_step "
             f"and {plain['engine_run']} engine_run launches")
-    got = engine_step.run_cuda(p, protocols.get(p.protocol),
-                               workloads.get(p.workload).program(p), dev)
+    got = engine_step.run_cuda_batch(
+        [(p, protocols.get(p.protocol), workloads.get(p.workload).program(p),
+          p.n_addrs)], dev, traced=traced)[0]
     torch.cuda.synchronize()
     require(LAUNCHES["engine_run"] == 1, f"{what}: no engine_run launch")
     bad = result_diff(got, want)
@@ -1169,9 +1322,15 @@ def phase_run_kernel(dev) -> dict:
             launches, err = run_case(p, dev)
             plain_launches += launches
             worst = max(worst, err)
+    topo = topo_zipf_params()
+    for p, traced in topo:
+        launches, err = run_case(p, dev, traced)
+        plain_launches += launches
+        worst = max(worst, err)
     reset_launches()                   # comparison runs: no path's count
-    emit(phase="run_kernel", cases=len(params) + len(programs),
-         program_cases=len(programs), shapes=KERNEL_SHAPES,
+    emit(phase="run_kernel", cases=len(params) + len(programs) + len(topo),
+         program_cases=len(programs), topology_zipf_cases=len(topo),
+         shapes=KERNEL_SHAPES,
          layout_cases=LAYOUT_CASES, protocols=PROTO_CASES,
          program_workloads=PROGRAM_WORKLOADS + (OWN_PROGRAM,),
          cycles=RUN_KERNEL_CYCLES,
@@ -1179,8 +1338,41 @@ def phase_run_kernel(dev) -> dict:
          layout_case_cycles=LAYOUT_CASE_CYCLES,
          plain_engine_step_launches=plain_launches, max_abs_err=worst,
          equal=True)
-    return dict(cases=len(params) + len(programs),
+    return dict(cases=len(params) + len(programs) + len(topo),
                 plain_launches=plain_launches, max_abs_err=worst)
+
+
+def topo_zipf_params() -> list:
+    """The run_kernel phase's cases of the topology instance and the Zipf
+    lookup, ``(SimParams, the sweep's form)`` each: every protocol on
+    cluster2 and cluster3 at (TOPO_KERNEL_CORES, TOPO_ADDRS), traced on
+    cluster3, TOPO_KERNEL_NET_BW so the levels' budgets turn requests
+    away, on the skewed stream in turns; the other register layouts
+    (TOPO_KERNEL_LAYOUTS) on cluster3 with Fig. 5 workers; and
+    ZIPF_KERNEL_CASES on the flat topology, traced."""
+    out = []
+    for i, name in enumerate(PROTOS):
+        for j, topo in enumerate(("cluster2", "cluster3")):
+            traced = topo == "cluster3"
+            out.append((sim.SimParams(
+                protocol=name, topology=topo, clusters=TOPO_CLUSTERS * (j + 1),
+                n_cores=TOPO_KERNEL_CORES, n_addrs=TOPO_ADDRS,
+                net_bw=TOPO_KERNEL_NET_BW, workload="zipf_histogram",
+                zipf_skew=(0, 200)[i % 2], cycles=RUN_KERNEL_CYCLES_EARLIER,
+                seed=40 * i + j, record_trace=traced,
+                telemetry_windows=64 * traced), i % 2 == 1))
+    for j, (n, a) in enumerate(TOPO_KERNEL_LAYOUTS):
+        out.append((sim.SimParams(
+            protocol=("lrscwait", "colibri_hier")[j], topology="cluster3",
+            clusters=8, n_cores=n, n_addrs=a, n_workers=n // 8, net_bw=48,
+            cycles=LAYOUT_CASE_CYCLES, seed=60 + j, record_trace=True,
+            telemetry_windows=8), False))
+    for j, (name, bins, skew, traced) in enumerate(ZIPF_KERNEL_CASES):
+        out.append((sim.SimParams(
+            protocol=name, workload="zipf_histogram", zipf_skew=skew,
+            n_cores=256, n_addrs=bins, cycles=RUN_KERNEL_CYCLES_EARLIER,
+            seed=80 + j, record_trace=True, telemetry_windows=64), traced))
+    return out
 
 
 @contextlib.contextmanager
@@ -1351,28 +1543,43 @@ def phase_exact(dev) -> None:
     require(np.array_equal(probe(xu, 1).cpu().numpy(), got_cpu % 32),
             "the kernel's backoff jitter differs from the CPU's")
     hu = h.to(torch.int32).to(dev)
-    for b in bins:
-        _, c, _ = zipf_factors(b, 0)
-        zipf = probe(hu, 2, ADDR_ZIPF, b, c).cpu()
+    for b in bins + ZIPF_FMA_BINS:
+        zipf = probe(hu, 2, ADDR_ZIPF, b, zipf_factors(b, 0)).cpu()
         require(torch.equal(zipf, zipf_index(h, b, 0)),
                 f"the kernel's zipf stream differs at {b} bins")
         uni = probe(hu, 2, 0, b).cpu()
         require(torch.equal(uni, (h % b).to(torch.int32)),
                 f"the kernel's uniform stream differs at {b} bins")
-    emit(phase="exact", zipf_bins=bins, zipf_inputs=1 << 24,
+    # the skewed streams: the kernel's threshold lookup, and zipf_index's
+    # on the card, against the CPU's on every hash
+    for b, skew, traced in ZIPF_PROBES:
+        want = zipf_index(h, b, skew, traced)
+        thr = torch.from_numpy(zipf_thresholds(b, skew, traced)).to(dev)
+        got = probe(hu, 2, ADDR_ZIPF, b, 0.0, thr).cpu()
+        require(torch.equal(got, want), f"the kernel's zipf lookup differs "
+                f"at {b} bins, skew {skew}, traced={traced}")
+        require(torch.equal(zipf_index(h.to(dev), b, skew, traced).cpu(),
+                            want), f"zipf_index differs on the card at {b} "
+                f"bins, skew {skew}, traced={traced}")
+    emit(phase="exact", zipf_bins=bins + ZIPF_FMA_BINS,
+         zipf_skewed=ZIPF_PROBES, zipf_inputs=1 << 24,
          hash_inputs=int(x.size), kernel_probe=True, equal=True)
 
 
 def probe(x: torch.Tensor, what: int, mode: int = 0, n_addrs: int = 1,
-          zipf_c: float = 0.0) -> torch.Tensor:
+          zipf_c: float = 0.0, thr=None) -> torch.Tensor:
     """The engine_run kernel's device functions on the int32 card tensor
     ``x`` (read as uint32): ``what`` 0 is ``_hash``, 1 the backoff jitter,
-    2 the address of hash ``x`` in address mode ``mode``."""
+    2 the address of hash ``x`` in address mode ``mode`` (a skewed Zipf
+    stream: its thresholds ``thr``, an int32 card tensor)."""
     fn = _build.library("engine_step").engine_probe_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_int] * 3 \
-        + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+        + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+           ctypes.c_void_p]
     out = torch.empty_like(x)
     err = fn(x.data_ptr(), x.numel(), what, mode, n_addrs, zipf_c,
+             None if thr is None else thr.data_ptr(),
+             0 if thr is None else thr.numel(),
              out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     require(err == 0, f"engine_probe launch: CUDA error {err}")
     torch.cuda.synchronize()
@@ -1844,12 +2051,20 @@ def sweep_mixed_specs() -> list:
 
 
 def swept_diff(swept: dict, one: dict, p) -> list:
-    """Keys where a swept point differs from its single run: every key
-    of the single run, bank arrays on their live rows and the padded
-    rows past them at the protocol's initial bank state."""
+    """Keys where a swept point differs from its single run
+    (``single_run``): every key of the single run, bank arrays on their
+    live rows and the padded rows past them at the protocol's initial
+    bank state; where the point's sweep stream differs
+    (``sweep_form_differs``), its single run is a one-point Study, padded
+    as the point is, and every key must be equal whole."""
     from repro_torch.core.sweep import _bucket_a
     if list(swept) != list(one):
         return [f"keys {list(swept)} != {list(one)}"]
+    if sweep_form_differs(p):
+        return [k for k, w in one.items()
+                if np.asarray(swept[k]).dtype != np.asarray(w).dtype
+                or not np.array_equal(swept[k], w, equal_nan=np.asarray(
+                    w).dtype.kind == "f")]
     bucket = _bucket_a(p.n_addrs)
     proto = protocols.get(p.protocol)
     init = convert.to_numpy(proto.init_bank_state(
@@ -1881,10 +2096,31 @@ def swept_diff(swept: dict, one: dict, p) -> list:
     return bad
 
 
+def sweep_form_differs(p) -> bool:
+    """Whether point ``p`` has a skewed Zipf stream whose sweep form (a
+    Study's) differs from its single run's (``zipf_index``'s ``traced``)."""
+    if ADDR_ZIPF not in workloads.get(p.workload).program(p).addr_mode \
+            or p.zipf_skew == 0 or p.n_addrs < 2:
+        return False
+    return not np.array_equal(zipf_thresholds(p.n_addrs, p.zipf_skew, False),
+                              zipf_thresholds(p.n_addrs, p.zipf_skew, True))
+
+
+def single_run(spec):
+    """A Study point's own single run, one launch: ``run(spec)``, or,
+    where its stream's sweep form differs from a single run's
+    (``sweep_form_differs``), a one-point Study, the sweep's form."""
+    from repro_torch.sync import Study
+    if not sweep_form_differs(spec.to_params()):
+        return run(spec)
+    return Study.from_specs([spec]).run()[0]
+
+
 def sweep_check(name: str, specs: list, launches_want: int) -> dict:
     """One Study over ``specs`` on the card: its launches, then every
-    point against its own single ``run`` (one launch each), bit for bit.
-    Returns the Study's results and walls beside the single runs'."""
+    point against its own single run (``single_run``, one launch each),
+    bit for bit.  Returns the Study's results and walls beside the single
+    runs'."""
     from repro_torch import obs
     from repro_torch.sync import Study
     study = Study.from_specs(specs)
@@ -1909,7 +2145,7 @@ def sweep_check(name: str, specs: list, launches_want: int) -> dict:
         require(r.ok, f"sweep {name} {key}: error record {r.error}")
         reset_launches()
         t1 = time.perf_counter()
-        one = run(spec)
+        one = single_run(spec)
         singles.append(time.perf_counter() - t1)
         require_one_run(f"sweep {name} {key} single")
         bad = swept_diff(r.stats, one.stats, spec.to_params())
@@ -2234,44 +2470,62 @@ def phase_fig6() -> dict:
 
 
 def grid_specs() -> list:
-    """The workload grid's points (``benchmarks/bench_workloads.py``
-    without the Zipf ladder): GRID_WORKLOADS × GRID_PROTOS × GRID_SEEDS at
-    GRID_CORES cores and GRID_CYCLES, each workload at its scenario."""
+    """The workload grid's points (``benchmarks/bench_workloads.py``):
+    GRID_WORKLOADS × GRID_PROTOS × GRID_SEEDS at GRID_CORES cores and
+    GRID_CYCLES, each workload at its scenario, then its Zipf ladder
+    (GRID_LADDER_PROTOS × GRID_ZIPF_LADDER)."""
     return [program_spec(pr, wl, GRID_CORES, GRID_CYCLES, seed=seed,
                          **GRID_OVERRIDES.get(wl, {}))
             for wl in GRID_WORKLOADS for pr in GRID_PROTOS
-            for seed in GRID_SEEDS]
+            for seed in GRID_SEEDS] + [
+        program_spec(pr, "zipf_histogram", GRID_CORES, GRID_CYCLES,
+                     zipf_skew=skew)
+        for pr in GRID_LADDER_PROTOS for skew in GRID_ZIPF_LADDER]
+
+
+def grid_labels() -> list:
+    """The workload grid's row of each ``grid_specs`` point, the
+    benchmark's labels: the workload for the grid, ``zipf_s<skew/100>``
+    for the ladder."""
+    n = len(GRID_WORKLOADS) * len(GRID_PROTOS) * len(GRID_SEEDS)
+    return [s.workload.name if i < n
+            else f"zipf_s{s.workload.zipf_skew / 100:.1f}"
+            for i, s in enumerate(grid_specs())]
 
 
 def phase_workloads() -> dict:
     """The workload grid on the card as one Study of ONE engine_run launch
-    (40 points of 64 cores on the program instance), every point bit for
-    bit equal to its single run and passing ``Result.check()``, no poll
-    for the polling-free protocols; ops per cycle per (workload,
-    protocol), the mean over the seeds as the benchmark takes it, equal
-    to the reference's (``GRID_REF``), colibri over lrsc per workload,
-    and the Study's card time, wall and busy share (``study_time``)."""
+    (56 points of 64 cores on the program instance: 50 of the grid, 6 of
+    its Zipf ladder, skews 0, 1.0 and 2.0 in the sweep's form), every
+    point bit for bit equal to its single run and passing
+    ``Result.check()``, no poll for the polling-free protocols; ops per
+    cycle per (workload, protocol), the mean over the seeds as the
+    benchmark takes it, equal to the reference's (``GRID_REF``), colibri
+    over lrsc per workload and ladder rung, and the Study's card time,
+    wall and busy share (``study_time``)."""
     specs = grid_specs()
     chk = sweep_check("workloads", specs, 1)
     acc = {}
-    for r in chk["results"]:
-        wl, pr = r.spec.workload.name, r.spec.protocol.name
+    for wl, r in zip(grid_labels(), chk["results"]):
+        pr = r.spec.protocol.name
         r.check()
         require(pr not in POLLING_FREE or int(r.polls) == 0,
                 f"workloads {wl}/{pr}: {int(r.polls)} polls")
         row = acc.setdefault(f"{wl}/{pr}", dict(ops_per_cycle=0.0,
-                                                polls=0))
+                                                polls=0, n=0))
         row["ops_per_cycle"] += r.throughput
         row["polls"] += int(r.polls)
+        row["n"] += 1
     for row in acc.values():                     # mean over the seeds
-        row["ops_per_cycle"] /= len(GRID_SEEDS)
+        row["ops_per_cycle"] /= row.pop("n")
     got = {k: (row["ops_per_cycle"], row["polls"]) for k, row in acc.items()}
     bad = sorted(k for k in GRID_REF if got.get(k) != GRID_REF[k])
     require(not bad and set(got) == set(GRID_REF),
             f"workload grid rows differ from the reference's at {bad}")
     ratio = {wl: acc[f"{wl}/colibri"]["ops_per_cycle"]
              / max(acc[f"{wl}/lrsc"]["ops_per_cycle"], 1e-9)
-             for wl in GRID_WORKLOADS}
+             for wl in GRID_WORKLOADS + tuple(
+                 f"zipf_s{s / 100:.1f}" for s in GRID_ZIPF_LADDER)}
     emit(phase="workloads_rows", launches=chk["launches"],
          points=len(specs), cycles=GRID_CYCLES, equal=True, checked=True,
          equal_to_reference=True, rows=acc, colibri_over_lrsc=ratio)
@@ -2296,6 +2550,180 @@ def phase_program_time() -> dict:
         "barrier_floor_ms", "barriers_per_cycle", "bound_ms")}
         for r in runs], occupancy=occ)
     emit(phase="program_time", **rec)
+    return rec
+
+
+def fig3_skew_specs() -> list:
+    """Fig. 3's skewed companion lines (``benchmarks/bench_histogram.py``):
+    FIG3_SKEW_PROTOS × SWEEP_BINS at zipf_skew FIG3_SKEW, 256 cores,
+    FIG3_SKEW_CYCLES."""
+    return [Spec(protocol=pr, workload="zipf_histogram", zipf_skew=FIG3_SKEW,
+                 n_cores=256, n_addrs=bins, cycles=FIG3_SKEW_CYCLES)
+            for pr in FIG3_SKEW_PROTOS for bins in SWEEP_BINS]
+
+
+def phase_fig3_skew() -> dict:
+    """Fig. 3's 12 skewed points on the card as one Study of ONE
+    engine_run launch, in the sweep's form of the stream (its threshold
+    tables in the launch's buffer, a binary search per issue), every
+    point bit for bit equal to its own single run (a Study of the point
+    alone where the single run's form differs) and passing
+    ``Result.check()``; the rows equal to the reference's
+    (``FIG3_SKEW_REF``), the headline's colibri over lrsc at 1 024 bins,
+    the Study's card time, wall and busy share."""
+    specs = fig3_skew_specs()
+    chk = sweep_check("fig3_skew", specs, 1)
+    got = {}
+    for r in chk["results"]:
+        r.check()
+        got[f"{r.spec.protocol.name}/{r.spec.topology.n_addrs}"] = (
+            r.throughput, r.jain_fairness, int(r.polls), int(r.msgs),
+            int(np.asarray(r.stats["ops"]).sum()))
+    bad = sorted(k for k in FIG3_SKEW_REF if got.get(k) != FIG3_SKEW_REF[k])
+    require(not bad and set(got) == set(FIG3_SKEW_REF),
+            f"fig3 skewed rows differ from the reference's at {bad}")
+    head = got["colibri/1024"][0] / got["lrsc/1024"][0]
+    emit(phase="fig3_skew_rows", launches=chk["launches"], points=len(specs),
+         cycles=FIG3_SKEW_CYCLES, skew=FIG3_SKEW, equal=True, checked=True,
+         equal_to_reference=True, rows=got,
+         sweep_form_differs=[f"{s.protocol.name}/{s.topology.n_addrs}"
+                             for s in specs
+                             if sweep_form_differs(s.to_params())],
+         zipf15_colibri_over_lrsc_1024bins=head)
+    rec = study_time(specs, chk)
+    emit(phase="fig3_skew_time", **rec)
+    return dict(rec, zipf15_colibri_over_lrsc_1024bins=head)
+
+
+def topology_specs() -> tuple:
+    """``benchmarks/bench_topology.py``'s points and row names: TOPO_MATRIX
+    at each TOPO_CORES, then colibri_hier's TOPO_LADDER at 256 cores, all
+    TOPO_ADDRS addresses, TOPO_CLUSTERS clusters, TOPO_CYCLES."""
+    def spec(pr, topo, n):
+        return Spec(protocol=pr, topology=topo, clusters=TOPO_CLUSTERS,
+                    n_cores=n, n_addrs=TOPO_ADDRS, cycles=TOPO_CYCLES)
+    pts = [(f"{pr}_{topo}_{n}c", spec(pr, topo, n))
+           for n in TOPO_CORES for pr, topo in TOPO_MATRIX]
+    pts += [(f"ladder_{topo}", spec("colibri_hier", topo, TOPO_CORES[0]))
+            for topo in TOPO_LADDER]
+    return [k for k, _ in pts], [s for _, s in pts]
+
+
+def hops_per_op(r) -> float:
+    """``bench_topology``'s hop traffic per completed op (0 on flat)."""
+    ops = float(np.asarray(r.stats["ops"]).sum())
+    return float(np.asarray(r.stats.get("hops", 0))) / max(ops, 1.0)
+
+
+def phase_topology(dev) -> dict:
+    """The topology grid on the card as one Study of one engine_run launch
+    per core count (17 points, 2 launches on the topology instance, flat
+    points beside hierarchical ones), every point bit for bit equal to its
+    single run, ``hops`` only on the hierarchical points; the rows equal
+    to the reference's (``TOPO_REF``), ``bench_topology.headline``'s
+    entries from them; TOPO_PLAIN's points at TOPO_PLAIN_CYCLES against
+    the plain loop on the card; the Study's card time, wall and busy
+    share."""
+    names, specs = topology_specs()
+    chk = sweep_check("topology", specs, TOPO_LAUNCHES)
+    got, by = {}, {}
+    for name, r in zip(names, chk["results"]):
+        require(("hops" in r.stats) == (r.spec.topology.name != "flat"),
+                f"topology {name}: hops present on a flat run or absent "
+                f"on a hierarchical one")
+        got[name] = (r.throughput, r.jain_fairness, int(r.polls),
+                     int(r.msgs), int(np.asarray(r.stats["ops"]).sum()),
+                     hops_per_op(r))
+        by[name] = r
+    bad = sorted(k for k in TOPO_REF if got.get(k) != TOPO_REF[k])
+    require(not bad and set(got) == set(TOPO_REF),
+            f"topology rows differ from the reference's at {bad}")
+    n = max(TOPO_CORES)
+
+    def t(pr, topo):
+        return got[f"{pr}_{topo}_{n}c"][0]
+    hier = t("colibri_hier", "cluster2")
+    headline = dict(
+        hier_cluster2_over_flat_colibri=hier / t("colibri", "flat"),
+        hier_over_lrsc_cluster2=hier / t("lrsc", "cluster2"),
+        colibri_over_lrsc_cluster2=t("colibri", "cluster2")
+        / t("lrsc", "cluster2"),
+        hw_event_over_lrsc_cluster2=t("hw_event", "cluster2")
+        / t("lrsc", "cluster2"),
+        nb_feb_over_lrsc_cluster2=t("nb_feb", "cluster2")
+        / t("lrsc", "cluster2"),
+        lrsc_hops_per_op_cluster2=got[f"lrsc_cluster2_{n}c"][5],
+        hier_hops_per_op_cluster2=got[f"colibri_hier_cluster2_{n}c"][5],
+        lrsc_energy_over_hier_cluster2=(
+            by[f"lrsc_cluster2_{n}c"].energy_pj_per_op
+            / max(by[f"colibri_hier_cluster2_{n}c"].energy_pj_per_op,
+                  1e-12)),
+        ladder_monotone=float(all(
+            got[f"ladder_{a}"][0] >= got[f"ladder_{b}"][0] * 0.99
+            for a, b in zip(TOPO_LADDER, TOPO_LADDER[1:]))))
+    plain_launches, worst = 0, 0.0
+    for pr, topo, cores in TOPO_PLAIN:
+        p = sim.SimParams(protocol=pr, topology=topo, clusters=TOPO_CLUSTERS,
+                          n_cores=cores, n_addrs=TOPO_ADDRS,
+                          cycles=TOPO_PLAIN_CYCLES)
+        launches, err = run_case(p, dev)
+        plain_launches += launches
+        worst = max(worst, err)
+    reset_launches()                   # comparison runs: no path's count
+    emit(phase="topology_rows", launches=chk["launches"], points=len(specs),
+         cycles=TOPO_CYCLES, equal=True, equal_to_reference=True, rows=got,
+         headline=headline, plain_points=TOPO_PLAIN,
+         plain_cycles=TOPO_PLAIN_CYCLES, plain_launches=plain_launches,
+         max_abs_err=worst)
+    rec = study_time(specs, chk)
+    emit(phase="topology_time", **rec)
+    return dict(rec, headline=headline, max_abs_err=worst)
+
+
+@contextlib.contextmanager
+def instance(variant: int):
+    """Every engine_run launch of the block on the kernel's instance
+    ``variant`` (``es_kernel.INSTANCE_*``), whatever its runs."""
+    pick = es_kernel.launch_variant
+    es_kernel.launch_variant = lambda scalars: variant
+    try:
+        yield
+    finally:
+        es_kernel.launch_variant = pick
+
+
+def phase_topo_time() -> dict:
+    """engine_run's device time (µs per simulated cycle, FULL_WIDTH_CYCLES)
+    of colibri at 256 cores and TOPO_ADDRS addresses on flat (its own
+    instance, then the topology instance), cluster2 and cluster3, and of
+    the Zipf lookup: colibri and lrsc at 256 × 1 024 bins, skew 0 (the
+    fused multiply-add) beside ZIPF_TIME_SKEW (the threshold search);
+    the topology instance's registers, spill and blocks per SM."""
+    def spec(**kw):
+        return Spec(protocol="colibri", n_cores=256, n_addrs=TOPO_ADDRS,
+                    clusters=TOPO_CLUSTERS, cycles=FULL_WIDTH_CYCLES,
+                    **kw)
+    keys = ("protocol", "n", "a", "cycles", "ms", "us_per_cycle",
+            "barrier_floor_ms", "barriers_per_cycle", "bound_ms")
+    topo = {"flat": time_run(spec(), plain=False)}
+    with instance(es_kernel.INSTANCE_TOPO):
+        topo["flat_on_topology_instance"] = time_run(spec(), plain=False)
+    for name in ("cluster2", "cluster3"):
+        topo[name] = time_run(spec(topology=name), plain=False)
+    zipf = {}
+    for pr in ("colibri", "lrsc"):
+        for skew in (0, ZIPF_TIME_SKEW):
+            zipf[f"{pr}/{skew}"] = time_run(Spec(
+                protocol=pr, workload="zipf_histogram", zipf_skew=skew,
+                n_cores=256, n_addrs=1024, cycles=FULL_WIDTH_CYCLES),
+                plain=False)
+    occ = [occupancy(n, a, es_kernel.INSTANCE_TOPO)
+           for n, a in ((256, TOPO_ADDRS), (1024, TOPO_ADDRS), (2048, 64),
+                        (2100, 64))]
+    rec = dict(topology={k: {x: r[x] for x in keys} for k, r in topo.items()},
+               zipf={k: {x: r[x] for x in keys} for k, r in zipf.items()},
+               occupancy=occ)
+    emit(phase="topo_time", **rec)
     return rec
 
 
@@ -3150,6 +3578,9 @@ def main() -> int:
     fig6_run = timed(phase_fig6)
     grid_run = timed(phase_workloads)
     program_time = timed(phase_program_time)
+    fig3_skew_run = timed(phase_fig3_skew)
+    topo_run = timed(phase_topology, dev)
+    topo_time = timed(phase_topo_time)
 
     t0 = time.perf_counter()
     runs = [time_run(full_width_spec(*pt), plain=i == 0)
@@ -3168,7 +3599,8 @@ def main() -> int:
         source="src/repro_torch/csrc/engine_step.cu",
         replaces="src/repro/kernels/engine_step/kernel.py:45",
         launches=main_run["launches"],
-        max_abs_err=max(run_check["max_abs_err"], head["max_abs_err"]),
+        max_abs_err=max(run_check["max_abs_err"], head["max_abs_err"],
+                        topo_run["max_abs_err"]),
         **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                 "library_ms", "us_per_cycle",
                                 "barrier_floor_ms", "barriers_per_cycle",
@@ -3204,6 +3636,19 @@ def main() -> int:
             "launches", "points", "card_ms", "study_wall_s",
             "single_walls_sum_s", "colibri_over_lrsc")},
             busy_share=grid_run["device_busy_share"]),
+        fig3_skew=dict({k: fig3_skew_run[k] for k in (
+            "launches", "points", "card_ms", "study_wall_s",
+            "single_walls_sum_s", "zipf15_colibri_over_lrsc_1024bins")},
+            busy_share=fig3_skew_run["device_busy_share"]),
+        topology=dict({k: topo_run[k] for k in (
+            "launches", "points", "card_ms", "card_ms_per_launch",
+            "study_wall_s", "single_walls_sum_s", "headline")},
+            busy_share=topo_run["device_busy_share"]),
+        us_per_cycle_topology_256x4={
+            k: r["us_per_cycle"] for k, r in topo_time["topology"].items()},
+        us_per_cycle_zipf_256x1024={
+            k: r["us_per_cycle"] for k, r in topo_time["zipf"].items()},
+        occupancy_topology=topo_time["occupancy"],
         us_per_cycle_programs_256={
             f"{r['workload']}/{r['protocol']}": r["us_per_cycle"]
             for r in program_time["points"]},

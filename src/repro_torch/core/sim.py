@@ -28,11 +28,14 @@ Scope of the port so far: all eleven of the reference's protocols (the
 the ``colibri_hier``/``hw_event``/``nb_feb`` waiters), through their
 fused path, every workload program (the per-core program counter, the
 per-step tables and the barrier release of ``ms_queue``,
-``treiber_stack`` and ``barrier_phases``), the ``flat`` topology,
-Fig. 5 workers, the per-cycle event traces (``record_trace``) and the
-windowed telemetry (``telemetry_windows``).  A skewed Zipf stream and
-an enabled fault plan are refused at :class:`SimParams` construction
-with the ROADMAP item that will bring them.
+``treiber_stack`` and ``barrier_phases``), the Zipf stream at every
+skew (in a single run's and a sweep's form, as the reference computes
+them), every topology (``flat``, and ``cluster2``/``cluster3``: extra
+latency at issue, per-level link budgets, the ``hops`` counter), Fig. 5
+workers, the per-cycle event traces (``record_trace``) and the
+windowed telemetry (``telemetry_windows``).  An enabled fault plan is
+refused at :class:`SimParams` construction with the ROADMAP item that
+will bring it.
 """
 from __future__ import annotations
 
@@ -171,9 +174,6 @@ def _refuse_unported(p: SimParams, prog) -> None:
     def refuse(what, item):
         raise NotImplementedError(
             f"{what} is not ported to repro_torch yet (ROADMAP item {item})")
-    if ADDR_ZIPF in prog.addr_mode and p.zipf_skew != 0:
-        refuse(f"zipf_skew={p.zipf_skew} (only the uniform limit 0 is "
-               f"bit-identical so far)", "A3")
     if p.faults.enabled:
         refuse("an enabled FaultPlan", "A5")
 
@@ -252,11 +252,15 @@ def simulate_batch(points: Sequence[SimParams], device, started=None
     launch of the ``engine_run`` kernel (``engine_step.run_cuda_batch``,
     every tensor of a launch a view of one flat buffer); on the CPU each
     point is the plain loop, :func:`_simulate_plain`, at the bucket.
-    ``started``, a CUDA event, is recorded when the host has packed the
-    first launch, before the card's work (GPU only)."""
+    A skewed Zipf stream takes the reference sweep's form (its traced
+    scalars, ``zipf_index(..., traced=True)``), which differs from a
+    single run's on a few hashes.  ``started``, a CUDA event, is
+    recorded when the host has packed the first launch, before the
+    card's work (GPU only)."""
     dev = torch.device(device)
     if dev.type != "cuda":
-        return [_simulate_plain(p, dev, banks=_bucket_a(p.n_addrs))
+        return [_simulate_plain(p, dev, banks=_bucket_a(p.n_addrs),
+                                traced=True)
                 for p in points]
     groups: Dict[int, List[int]] = {}
     for i, p in enumerate(points):
@@ -266,14 +270,14 @@ def simulate_batch(points: Sequence[SimParams], device, started=None
         runs = [(points[i], proto_registry.get(points[i].protocol),
                  wl_registry.get(points[i].workload).program(points[i]),
                  _bucket_a(points[i].n_addrs)) for i in idxs]
-        for i, res in zip(idxs, engine_step.run_cuda_batch(runs, dev,
-                                                           started)):
+        for i, res in zip(idxs, engine_step.run_cuda_batch(
+                runs, dev, started, traced=True)):
             out[i] = res
         started = None
     return out
 
 
-def _simulate_plain(p: SimParams, device, banks=None
+def _simulate_plain(p: SimParams, device, banks=None, traced=False
                     ) -> Dict[str, torch.Tensor]:
     """The plain version of a run: one pass of an eager loop per
     simulated cycle, its bank side through ``engine_step.fused_step``
@@ -281,7 +285,10 @@ def _simulate_plain(p: SimParams, device, banks=None
     version on the CPU).  It is what ``simulate`` runs on the CPU, and
     what the ``engine_run`` kernel is held against on the card.
     ``banks`` (default ``p.n_addrs``) is the number of banks allocated;
-    addresses are drawn over ``p.n_addrs``."""
+    addresses are drawn over ``p.n_addrs``.  ``traced`` picks the
+    sweep's form of a skewed Zipf stream (``zipf_index``).  A
+    hierarchical topology's tables are compiled at ``banks``, as the
+    reference's sweep compiles them at its bank allocation."""
     dev = torch.device(device)
     i32 = torch.int32
     proto = proto_registry.get(p.protocol)
@@ -304,6 +311,12 @@ def _simulate_plain(p: SimParams, device, banks=None
     # program folds every table entry to a constant and keeps no program
     # counter, so it issues no tensor op a cycle for what it does not run
     use_pc = L > 1 or has_bar
+    # the NoC topology: per-(core, bank) extra latency, hop counts and
+    # level crossings, flattened so a cycle gathers one lane a core at
+    # ``core * a + addr``; flat compiles to no tables and no stage
+    topo = topo_registry.get(p.topology)
+    tt = topo.tables(p, n, a)
+    use_topo = not tt.is_flat
 
     def zeros(shape=(), dtype=i32):
         return torch.zeros(shape, dtype=dtype, device=dev)
@@ -312,6 +325,13 @@ def _simulate_plain(p: SimParams, device, banks=None
         return torch.tensor(vals, dtype=dtype, device=dev)
 
     iota = torch.arange(n, dtype=i32, device=dev)
+    if use_topo:
+        lane0 = iota.to(torch.int64) * a
+        extra_t = torch.from_numpy(tt.extra.reshape(-1)).to(dev)
+        hops_t = torch.from_numpy(tt.hops.reshape(-1)).to(dev)
+        cross_t = [torch.from_numpy(x.reshape(-1)).to(dev) for x in tt.cross]
+        lvl_bw = [max(p.net_bw // lv.bw_div, 1) for lv in topo.levels]
+        hops = zeros()
     hash_base = iota.to(torch.int64) * 7919 + p.seed
     # backoff jitter ``_hash(core + cyc) % 32`` for every (core, cycle):
     # one table over [0, cycles + n), read per cycle as a slice
@@ -384,7 +404,7 @@ def _simulate_plain(p: SimParams, device, banks=None
         """The uniform counter hash or the Zipf stream at ``opc``."""
         h = _hash(hash_base + opc.to(torch.int64) * 104729)
         if mode == ADDR_ZIPF:
-            return zipf_index(h, p.n_addrs, p.zipf_skew)
+            return zipf_index(h, p.n_addrs, p.zipf_skew, traced)
         return (h % p.n_addrs).to(i32)                  # ADDR_UNIFORM
 
     def step_addr(opc, pc):
@@ -416,7 +436,12 @@ def _simulate_plain(p: SimParams, device, banks=None
                            addr)
         phase = phase.masked_fill(start | rb, P_ACQ).masked_fill_(md, P_REL)
         st = st.masked_fill(issue, REQ)
-        tmr = tmr.masked_fill_(issue, p.lat)
+        if use_topo:
+            # a request crossing cluster levels pays their extra latency
+            # once per issue, before the network and bank stages
+            tmr = torch.where(issue, p.lat + extra_t[lane0 + addr], tmr)
+        else:
+            tmr = tmr.masked_fill_(issue, p.lat)
 
         # ---- RESP arrives: the current micro-op retires ----
         ra = t0 & (st == RESP)
@@ -480,6 +505,15 @@ def _simulate_plain(p: SimParams, device, banks=None
         hol = (parked.sum(dtype=i32) // p.hol_block) if p.hol_block else 0
         budget = (p.net_bw - resp_prev - hol).clamp_(min=1)
         accepted = accept_rotating_fair(all_req, budget, shift)
+        if use_topo:
+            # a request crossing level l also needs one of that level's
+            # link slots this cycle (the same rotating-fair arbiter over
+            # the crossing requesters); workers' loads stay local
+            lane = lane0 + addr
+            xmask = [x[lane] & not_worker for x in cross_t]
+            for cm, bw in zip(xmask, lvl_bw):
+                acc_x = accept_rotating_fair(all_req & cm, bw, shift)
+                accepted = accepted & (~cm | acc_x)
         if has_workers:
             w_acc = w_arr & accepted
             w_served = w_served + w_acc
@@ -490,6 +524,13 @@ def _simulate_plain(p: SimParams, device, banks=None
         new_acc = fresh & accepted
         parked = parked | new_acc
         arr_cyc = arr_cyc.masked_fill(new_acc, cyc)
+        if use_topo:
+            # every accepted request crosses its hop path twice (request
+            # and response); a worker's load is a one-hop round trip
+            hop_now = torch.where(new_acc, hops_t[lane], 0).sum(dtype=i32)
+            if has_workers:
+                hop_now = hop_now + w_acc.sum(dtype=i32)
+            hops = hops + 2 * hop_now
 
         # ---- bank side: arbitration + protocol + histogram ----
         arrived = parked & (st == REQ)
@@ -577,12 +618,16 @@ def _simulate_plain(p: SimParams, device, banks=None
         if use_tele:
             wakes = (((st_pre_wake == SLEEP) & (st != SLEEP)).sum(dtype=i32)
                      if proto.uses_queue else zero)
-            # flat topology: every accepted request is local
+            # accepted requests, split by whether their path crosses the
+            # leaf-cluster boundary (flat: every one is local)
+            acc_all = accepted.sum(dtype=i32)
+            xcl_now = ((accepted & xmask[0]).sum(dtype=i32) if use_topo
+                       else zero)
             row = torch.stack([
                 active_now, sleep_now, backoff_now,
                 bar_now if has_bar else zero, oc["grants"],
                 oc["retires"], oc["fails"], oc["enqueues"], wakes, msgs_now,
-                stall_now, accepted.sum(dtype=i32), zero,
+                stall_now, acc_all - xcl_now, xcl_now,
                 qd.sum(dtype=i32)])
             tw = tele[cyc // tele_cw]
             tw[:TELE_NSUM] += row
@@ -605,6 +650,8 @@ def _simulate_plain(p: SimParams, device, banks=None
                lat_hist=lat_hist, lat_max=lat_max, active_cyc=active_cyc,
                backoff_cyc=backoff_cyc, bank_ops=bank_ops,
                net_stall=net_stall, w_tmr=w_tmr, w_served=w_served)
+    if use_topo:
+        out["hops"] = hops
     if use_tele:
         out["tele"] = tele
     out.update(bank)

@@ -21,9 +21,10 @@ static per-(core, bank) tables the engine's network stage consumes:
 
 The tables are plain numpy, computed once per run.  The ``flat``
 topology compiles to the *absence* of tables (:attr:`TopoTables.is_flat`),
-so the engine gates every topology branch off in Python.  The port
-registers only ``flat`` so far; the hierarchical engine stages are not
-ported yet.
+so the engine gates every topology branch off in Python.  The engine
+kernel takes no table: for a topology on the default tree
+(:meth:`Topology.uses_default_tree`) it derives them from a core's and a
+bank's leaf cluster and the level words.
 """
 from __future__ import annotations
 
@@ -59,17 +60,6 @@ class TopoTables:
     is_flat: bool                         # no levels: engine gates all off
 
 
-def cluster_of(idx: np.ndarray, count: int, clusters: int) -> np.ndarray:
-    """Block placement: contiguous ``ceil``-free partition of ``count``
-    ids into ``clusters`` blocks — ``idx // (count // clusters)`` clamped
-    so the remainder joins the last cluster.  Matches the hw_event
-    protocol's group geometry (``_geom``) exactly, so the event unit a
-    core registers with is the cluster the topology routes it to."""
-    c = max(1, min(clusters, count))
-    sz = max(1, count // c)
-    return np.minimum(idx // sz, c - 1).astype(np.int32)
-
-
 class Topology:
     """Base topology plugin.  Subclasses declare ``name`` and ``levels``
     and may override the placement hooks."""
@@ -79,23 +69,49 @@ class Topology:
     levels: Tuple[LinkLevel, ...] = ()
 
     # ---- placement ------------------------------------------------------
+    def leaf_geometry(self, p, n: int, a: int) -> Tuple[int, int, int]:
+        """``(core_size, core_clusters, bank_clusters)`` of ``n`` cores
+        and ``a`` banks: core ``i``'s leaf cluster is
+        ``min(i // core_size, core_clusters - 1)`` (a contiguous block
+        placement whose remainder joins the last cluster, the hw_event
+        protocol's group geometry, so the event unit a core registers
+        with is the cluster the topology routes it to), bank ``b``'s is
+        ``b % bank_clusters``.  The one statement of the rule: the
+        placement hooks apply it, and the engine kernel takes these three
+        words."""
+        clusters = getattr(p, "clusters", 1)
+        core_clusters = max(1, min(clusters, n))
+        return (max(1, n // core_clusters), core_clusters,
+                max(1, min(clusters, max(a, 1))))
+
     def core_clusters(self, p, n: int) -> np.ndarray:
         """(n,) leaf-cluster id of every core (block placement)."""
-        return cluster_of(np.arange(n), n, getattr(p, "clusters", 1))
+        size, count, _ = self.leaf_geometry(p, n, 0)
+        return np.minimum(np.arange(n) // size, count - 1).astype(np.int32)
 
     def bank_clusters(self, p, a: int) -> np.ndarray:
         """(a,) leaf-cluster id of every bank.  Banks interleave across
         clusters (``b % clusters``) — the address-interleaved SPM layout
         of the reference manycore, so hot addresses spread over all
         cluster-local memories instead of piling into one."""
-        c = max(1, min(getattr(p, "clusters", 1), max(a, 1)))
-        return (np.arange(a) % c).astype(np.int32)
+        _, _, count = self.leaf_geometry(p, 0, a)
+        return (np.arange(a) % count).astype(np.int32)
 
     def level_cluster(self, leaf: np.ndarray, level: int, p) -> np.ndarray:
         """Collapse leaf-cluster ids to the cluster id at ``level`` (0 =
         leaf).  Default tree: each level pairs up the clusters below it
         (``leaf >> level``)."""
         return leaf >> level
+
+    def uses_default_tree(self) -> bool:
+        """Whether this topology keeps the base placement hooks (the
+        placement of :meth:`leaf_geometry`, the ``leaf >> level`` tree):
+        the engine kernel derives its tables from that rule and refuses a
+        topology that overrides them."""
+        base = Topology
+        return all(getattr(type(self), f) is getattr(base, f)
+                   for f in ("core_clusters", "bank_clusters",
+                             "level_cluster", "tables"))
 
     # ---- compilation ----------------------------------------------------
     def tables(self, p, n: int, a: int) -> TopoTables:

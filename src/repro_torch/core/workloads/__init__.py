@@ -10,8 +10,7 @@ Importing this package registers every workload the reference has:
 ``barrier_phases`` compute → barrier → compute (arXiv:2307.10248)
 ================  =====================================================
 
-The engine runs every one of them; only a skewed Zipf stream
-(``zipf_skew > 0``) is refused at ``SimParams`` construction.
+The engine runs every one of them, the Zipf stream at every skew.
 """
 from repro_torch.core.workloads import (barrier_phases, ms_queue, rmw_loop,
                                         treiber_stack, zipf_histogram)

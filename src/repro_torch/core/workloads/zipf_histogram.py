@@ -4,9 +4,10 @@ Same one-atomic-per-op shape as ``rmw_loop``, but the address stream is
 a bounded power law (:func:`~repro_torch.core.workloads.base.zipf_index`)
 with skew ``SimParams.zipf_skew / 100`` instead of the uniform counter
 hash.  ``zipf_skew=0`` is the exact uniform limit over ``n_addrs`` bins
-(the Fig. 3 histogram scenario) and is the only skew the port's engine
-runs so far.  ``check`` asserts mass conservation and, for skewed
-streams, that the hot bin carries at least its uniform share.
+(the Fig. 3 histogram scenario); a skewed stream is the reference's bit
+for bit, in a single run's and a sweep's form.  ``check`` asserts mass
+conservation and, for skewed streams, that the hot bin carries at least
+its uniform share.
 """
 from __future__ import annotations
 

@@ -93,7 +93,13 @@
 //     which derives the program counter, ops and barrier arrivals from
 //     the op count and the step tables (parameter words in shared
 //     memory) and adds no barrier a cycle; the other instances have the
-//     program code compiled out.
+//     program code compiled out;
+//   * a launch that holds a run on a hierarchical topology (cluster2,
+//     cluster3) runs on the topology instance (kTopo, with the wide
+//     families' and the program code), which bills the
+//     crossed levels' latency at issue and ranks each level's requesters
+//     in the acceptance pass from their own request words, with no
+//     barrier more a cycle.
 //
 // Barriers per simulated cycle: 4 for the queue protocols, one FIFO or
 // two levels (after the request words, after the key minimum, after the
@@ -112,9 +118,13 @@
 // run has n_addrs == a.
 //
 // Bit-exactness: int32 counters wrap as torch's do (unsigned adds);
-// _hash is a native uint32 multiply; the skew-0 Zipf stream is two
-// rounded float32 ops (__fmul_rn, __fadd_rn: no fma contraction), then
-// floor, -1 and the clamp, as the port computes it.
+// _hash is a native uint32 multiply; the skew-0 Zipf stream is
+// fma(u, c, 1) with one rounding (__fmaf_rn), then floor, -1 and the
+// clamp, as the reference's contracted 1 + u * c; a skewed stream is a
+// count of host-built thresholds (no float pow on the card).  A
+// hierarchical topology (the topology instance) derives each (core,
+// bank) path's crossed levels from the two clusters, its extra latency
+// and hop count from the level words.
 //
 // Domain: latencies are non-negative (acq_start <= cyc), as the engine
 // guarantees; stats[2] starts at 0 and only grows.
@@ -489,27 +499,74 @@ engine_step_kernel(const int32_t* __restrict__ cand,
 constexpr int kBoTab = 34;
 // steps a workload program may have (kernel.MAX_STEPS)
 constexpr int kMaxSteps = 16;
+// boundary levels a hierarchical topology may have (kernel.MAX_LEVELS)
+constexpr int kMaxLevels = 2;
 
 // per-run scalars, in the order of kernel.RUN_PARAMS (the wrapper packs
 // them into an int32 array; zipf_c travels as its float32 bits, seed as
 // its uint32 bits).  The backoff table and the program's step tables
 // span several words each: a step's local work, modify duration,
 // address mode, fixed address and barrier flag, and the barrier steps
-// before it (kMaxSteps words each, the program's prog_len first)
+// before it (kMaxSteps words each, the program's prog_len first); a
+// hierarchical topology's extra latency and link budget, one word a
+// level each (kMaxLevels words each)
 enum Param {
   P_N, P_A, P_N_ADDRS, P_CYCLES, P_PROTO, P_Q_CAP, P_Q_FULL, P_LAT,
   P_ACQ_TMR, P_WAKE_DELAY, P_MSG_RULE, P_PROG_LEN, P_N_BAR, P_ZIPF_C,
-  P_EXP_CAP, P_SEED, P_NET_BW, P_HOL_BLOCK, P_N_WORKERS, P_N_ATOMIC,
-  P_STAGGER, P_TRACE, P_TELE_WINDOWS, P_TELE_CW, P_GROUPS, P_GROUP_SIZE,
-  P_GROUP_CAP, P_LOCAL_DELAY, P_BO_TAB,
+  P_ZIPF_N_THR, P_EXP_CAP, P_SEED, P_NET_BW, P_HOL_BLOCK, P_N_WORKERS,
+  P_N_ATOMIC, P_STAGGER, P_TRACE, P_TELE_WINDOWS, P_TELE_CW, P_GROUPS,
+  P_GROUP_SIZE, P_GROUP_CAP, P_LOCAL_DELAY, P_TOPO_LEVELS,
+  P_TOPO_CORE_SIZE, P_TOPO_CORE_CLUSTERS, P_TOPO_BANK_CLUSTERS, P_BO_TAB,
   P_PRE_DUR = P_BO_TAB + kBoTab,
   P_MOD_DUR = P_PRE_DUR + kMaxSteps,
   P_ADDR_MODE = P_MOD_DUR + kMaxSteps,
   P_FIX_ADDR = P_ADDR_MODE + kMaxSteps,
   P_IS_BAR = P_FIX_ADDR + kMaxSteps,
-  P_BAR_PREFIX = P_IS_BAR + kMaxSteps
+  P_BAR_PREFIX = P_IS_BAR + kMaxSteps,
+  P_LEVEL_EXTRA = P_BAR_PREFIX + kMaxSteps,
+  P_LEVEL_BW = P_LEVEL_EXTRA + kMaxLevels
 };
-constexpr int kNumParams = P_BAR_PREFIX + kMaxSteps;
+constexpr int kNumParams = P_LEVEL_BW + kMaxLevels;
+
+// a hierarchical topology on the default tree (core/topologies/base.py,
+// Topology.leaf_geometry):
+// core i's leaf cluster is min(i / core_size, core_clusters - 1), bank
+// b's is b % bank_clusters, and a (core, bank) path crosses level l when
+// their clusters differ at l (leaf >> l); crossing it costs extra[l]
+// cycles at issue and one of bw[l] link slots a cycle.  A flat run's
+// words say levels == 0; unpack_params makes that one level with one
+// cluster, which no path crosses.
+struct Topo {
+  int levels, core_size, core_clusters, bank_clusters;
+  int extra[kMaxLevels], bw[kMaxLevels];
+};
+
+// core i's leaf cluster
+__device__ __forceinline__ int core_cluster(const Topo& t, int i) {
+  return min(i / t.core_size, t.core_clusters - 1);
+}
+
+// the levels a request from leaf cluster cc to bank b crosses, bit l for
+// level l
+__device__ __forceinline__ unsigned cross_bits(const Topo& t, int cc, int b) {
+  const int bc = b % t.bank_clusters;
+  unsigned bits = 0;
+#pragma unroll
+  for (int l = 0; l < kMaxLevels; ++l) {
+    if (l < t.levels && (cc >> l) != (bc >> l)) bits |= 1u << l;
+  }
+  return bits;
+}
+
+// the extra latency of a path crossing the levels `bits`
+__device__ __forceinline__ int32_t cross_extra(const Topo& t, unsigned bits) {
+  int32_t e = 0;
+#pragma unroll
+  for (int l = 0; l < kMaxLevels; ++l) {
+    if (bits >> l & 1u) e += t.extra[l];
+  }
+  return e;
+}
 
 // a run's scalars, unpacked from its words (the backoff and step tables
 // stay in the words, in shared memory; pre_dur, mod_dur, addr_mode and
@@ -520,11 +577,13 @@ struct RunParams {
   int prog_len, n_bar;
   int pre_dur, mod_dur, addr_mode, fix_addr;
   float zipf_c;
+  int zipf_n_thr;
   int exp_cap;
   uint32_t seed;
   int net_bw, hol_block, n_workers, n_atomic, stagger, trace, tele_windows,
       tele_cw;
   Groups g;
+  Topo topo;
 };
 
 __host__ __device__ inline RunParams unpack_params(const int32_t* w) {
@@ -548,6 +607,7 @@ __host__ __device__ inline RunParams unpack_params(const int32_t* w) {
   rp.fix_addr = w[P_FIX_ADDR];
   static_assert(sizeof(float) == sizeof(int32_t), "float bits");
   memcpy(&rp.zipf_c, w + P_ZIPF_C, sizeof(float));
+  rp.zipf_n_thr = w[P_ZIPF_N_THR];
   rp.exp_cap = w[P_EXP_CAP];
   rp.seed = static_cast<uint32_t>(w[P_SEED]);
   rp.net_bw = w[P_NET_BW];
@@ -562,12 +622,27 @@ __host__ __device__ inline RunParams unpack_params(const int32_t* w) {
   rp.g.size = w[P_GROUP_SIZE];
   rp.g.cap = w[P_GROUP_CAP];
   rp.g.local_delay = w[P_LOCAL_DELAY];
+  rp.topo.levels = w[P_TOPO_LEVELS];
+  rp.topo.core_size = w[P_TOPO_CORE_SIZE];
+  rp.topo.core_clusters = w[P_TOPO_CORE_CLUSTERS];
+  rp.topo.bank_clusters = w[P_TOPO_BANK_CLUSTERS];
+  for (int l = 0; l < kMaxLevels; ++l) {
+    rp.topo.extra[l] = w[P_LEVEL_EXTRA + l];
+    rp.topo.bw[l] = w[P_LEVEL_BW + l];
+  }
+  if (rp.topo.levels == 0) {
+    // flat: one level whose one cluster holds every core and bank, so no
+    // path crosses it (a flat run on a topology instance)
+    rp.topo.levels = rp.topo.core_size = rp.topo.core_clusters = 1;
+    rp.topo.bank_clusters = 1;
+  }
   return rp;
 }
 
 // device pointers, in the order of kernel.RUN_PTRS (null where a key is
-// absent: another protocol's bank arrays, telemetry or traces off); a
-// launch takes an array of RunPtrs, one per block, as kNumPtrs words
+// absent: another protocol's bank arrays, telemetry or traces off, the
+// Zipf thresholds of a run without a skewed stream); a launch takes an
+// array of RunPtrs, one per block, as kNumPtrs words
 enum Ptr {
   R_ST, R_TMR, R_ADDR, R_PHASE, R_NXT, R_OPC, R_OPS, R_ARR_CYC, R_STREAK,
   R_PARKED, R_ACQ_START, R_W_TMR, R_W_SERVED, R_ADDR_OPS, R_LAT_HIST,
@@ -575,7 +650,7 @@ enum Ptr {
   R_WAKE_TMR, R_LOCK, R_NEXT_TKT, R_SERVING, R_TKT, R_FEB, R_LQBUF,
   R_LQHEAD, R_LQLEN, R_GGQ, R_G_INQ, R_CUR_GRP, R_TURN_SRV, R_GQHEAD,
   R_GQLEN, R_WAKE_GRP, R_TELE, R_TRACE_STEP, R_TRACE_WAIT, R_TRACE_STATE,
-  R_TRACE_QLEN, R_SCRATCH, R_PC, R_BAR_CNT, kNumPtrs
+  R_TRACE_QLEN, R_SCRATCH, R_PC, R_BAR_CNT, R_HOPS, R_ZIPF_THR, kNumPtrs
 };
 
 struct RunPtrs {
@@ -596,6 +671,8 @@ struct RunPtrs {
   int32_t* trace_qlen;
   unsigned char* scratch;
   int32_t *pc, *bar_cnt;
+  int32_t* hops;            // a hierarchical topology's hop count (0-d)
+  const int32_t* zipf_thr;  // zipf_n_thr thresholds, nondecreasing
 };
 static_assert(sizeof(RunPtrs) == kNumPtrs * sizeof(void*), "RunPtrs words");
 
@@ -605,11 +682,13 @@ enum Scalar {
   S_BACKOFF_CYC, S_BANK_OPS, S_NET_STALL, S_BAR_CYC, kNumScalars
 };
 
-// one cycle's counts, one set per cycle parity
+// one cycle's counts, one set per cycle parity (C_ACC, C_XCL and C_HOPS:
+// a hierarchical topology's accepted requests, those crossing the leaf
+// level, and the hops of the accepted atomic requests)
 enum Count {
   C_NWIN, C_XMSG, C_WAKE_LOAD, C_WACC, C_PARKED, C_FAIL, C_GRANT, C_DONE,
   C_ENQ, C_WAKES, C_SLEEP, C_BACKOFF, C_ACTIVE, C_QSUM, C_QMAX, C_BAR,
-  kNumCounts
+  C_ACC, C_XCL, C_HOPS, kNumCounts
 };
 
 constexpr int kTeleK = 15;  // obs.schema.TELE_K
@@ -619,14 +698,19 @@ constexpr size_t kMaxDynSmem = 227 * 1024 - 1024;
 
 // per-bank (and per-core flag) layout, in shared memory or the scratch
 struct Layout {
-  size_t ints, reqw, bytes, total;
+  size_t ints, reqw, xw, bytes, total;
 };
 
+// the keys, the per-bank words, the request words (one bit a core) and a
+// hierarchical topology's crossing request words (kMaxLevels x as many),
+// the per-bank bytes and the wake flags
 __host__ __device__ inline Layout run_layout(int n, int a) {
   Layout L;
+  const size_t nw = static_cast<size_t>((n + 31) / 32);
   L.ints = 16 * static_cast<size_t>(a);         // keys: 2 x a u64
   L.reqw = L.ints + 20 * static_cast<size_t>(a);  // 5 x a int32
-  L.bytes = L.reqw + 4 * static_cast<size_t>((n + 31) / 32);
+  L.xw = L.reqw + 4 * nw;
+  L.bytes = L.xw + 4 * kMaxLevels * nw;
   L.total = (L.bytes + a + n + 15) & ~static_cast<size_t>(15);
   return L;
 }
@@ -640,13 +724,32 @@ __device__ __forceinline__ int32_t jitter(uint32_t x) {
   return static_cast<int32_t>(hash24(x) & 31u);
 }
 
-// the address of a 24-bit hash h: uniform h % n_addrs, or the skew-0
-// Zipf stream floor(u * c + 1) - 1 with u = h / 2^24, each op rounded
+// the address of a 24-bit hash h: uniform h % n_addrs, or the Zipf
+// stream.  A skewed stream (n_thr > 0) is the count of its thresholds at
+// or below h (core/workloads/base.py::zipf_thresholds, built on the host
+// with the C library's powf and fmaf), a binary search of at most 14
+// steps over 16 383 entries; no float pow runs here.  The skew-0 stream
+// is floor(fma(u, c, 1)) - 1 with u = h / 2^24: one rounding, as the
+// reference's contracted 1 + u * c.
 __device__ __forceinline__ int32_t addr_of_hash(uint32_t h, int mode,
-                                                int n_addrs, float zipf_c) {
+                                                int n_addrs, float zipf_c,
+                                                const int32_t* thr,
+                                                int n_thr) {
   if (mode == kAddrZipf) {
+    if (n_thr > 0) {
+      int lo = 0, hi = n_thr;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (static_cast<uint32_t>(__ldg(thr + mid)) <= h) {
+          lo = mid + 1;
+        } else {
+          hi = mid;
+        }
+      }
+      return lo;
+    }
     const float u = __fmul_rn(static_cast<float>(h), 5.9604644775390625e-08f);
-    const float x = __fadd_rn(__fmul_rn(u, zipf_c), 1.0f);
+    const float x = __fmaf_rn(u, zipf_c, 1.0f);
     const int32_t v = static_cast<int32_t>(floorf(x)) - 1;
     return min(max(v, 0), n_addrs - 1);
   }
@@ -655,12 +758,15 @@ __device__ __forceinline__ int32_t addr_of_hash(uint32_t h, int mode,
 
 // core.sim's step_addr: the current micro-op's target of core i, its
 // step's address mode and fixed address given
-__device__ __forceinline__ int32_t step_addr(const RunParams& rp, int mode,
-                                             int fix, int i, int32_t opc) {
+__device__ __forceinline__ int32_t step_addr(const RunParams& rp,
+                                             const int32_t* zipf_thr,
+                                             int mode, int fix, int i,
+                                             int32_t opc) {
   if (mode == kAddrFixed) return fix;
   const uint32_t x = static_cast<uint32_t>(i) * 7919u + rp.seed +
                      static_cast<uint32_t>(opc) * 104729u;
-  return addr_of_hash(hash24(x), mode, rp.n_addrs, rp.zipf_c);
+  return addr_of_hash(hash24(x), mode, rp.n_addrs, rp.zipf_c, zipf_thr,
+                      rp.zipf_n_thr);
 }
 
 struct Core {
@@ -746,7 +852,22 @@ __device__ __forceinline__ void warp_add(int32_t* dst, int32_t v) {
 // applied in the census pass.  Between the two nothing reads a waiter's
 // state or timer (acceptance and the bank side read REQ cores, the wake
 // pass SLEEP ones), so the order is the reference's.
-template <class Cores, int kMaxThreads, bool kWide, bool kProg>
+//
+// kTopo (with kWide and kProg): the instance for launches that hold a
+// run on a hierarchical topology (its flat runs and one-step programs
+// take it too, a flat run as one level that no path crosses).  A request
+// pays its crossed levels' extra latency at issue.  In the acceptance pass a requester
+// crossing level l also needs a rank below bw[l] among that level's
+// requesters in rotated order: the first pass writes each level's
+// request words beside the request words (one ballot a level) and counts
+// them, and only when a level has more requesters than its budget does
+// the pass take the prefix counts of its words (the levels packed 16 bits
+// each into one word: three warp sums).  No barrier is added.  The
+// accepted requests, those crossing the leaf level and their hops are
+// ballot counts of that pass; thread 0 settles net_stall, the hops and
+// the telemetry's local/cross split when it folds the cycle.  The other
+// instances have this code compiled out.
+template <class Cores, int kMaxThreads, bool kWide, bool kProg, bool kTopo>
 __global__ void __launch_bounds__(kMaxThreads)
 engine_run_kernel(const int32_t* __restrict__ params,
                   const RunPtrs* __restrict__ ptrs, int kc) {
@@ -754,6 +875,7 @@ engine_run_kernel(const int32_t* __restrict__ params,
   __shared__ int32_t s_hist[kLatBins];
   __shared__ int32_t s_cnt[2][kNumCounts];
   __shared__ int32_t s_minopc[2];  // least opc of the atomic cores
+  __shared__ int32_t s_xreq[2][kMaxLevels];  // each level's requesters
   __shared__ int32_t s_lat_max;
   __shared__ int32_t s_par[kNumParams];
   __shared__ RunParams s_rp;
@@ -788,6 +910,11 @@ engine_run_kernel(const int32_t* __restrict__ params,
   const bool queue = fifo || hier;
   const bool workers = rp.n_workers > 0, tele = rp.tele_windows > 0;
   const bool trace = rp.trace != 0;
+  // the topology's words are read from shared memory, not held in
+  // registers through the cycle loop; a topology instance runs every run
+  // through the topology stages (a flat run as one level nothing crosses)
+  const Topo& tp = s_rp.topo;
+  constexpr bool topo = kTopo;
   // the program: its steps and whether it has a barrier step
   const int n_steps = kProg ? rp.prog_len : 1;
   const bool bars = kProg && rp.n_bar > 0;
@@ -803,6 +930,7 @@ engine_run_kernel(const int32_t* __restrict__ params,
   int32_t* ints = reinterpret_cast<int32_t*>(base + L.ints);
   int32_t* addr_ops = ints;
   uint32_t* reqw = reinterpret_cast<uint32_t*>(base + L.reqw);
+  uint32_t* xw = reinterpret_cast<uint32_t*>(base + L.xw);  // level l's
   bool* resv_valid = reinterpret_cast<bool*>(base + L.bytes);
   unsigned char* woken = base + L.bytes + a;
   // a block runs one family, so the families share the per-bank slots:
@@ -856,9 +984,17 @@ engine_run_kernel(const int32_t* __restrict__ params,
   if (tid == 0) {
     s_lat_max = 0;
     s_minopc[0] = s_minopc[1] = kBig;
+    for (int l = 0; l < kMaxLevels; ++l) s_xreq[0][l] = s_xreq[1][l] = 0;
   }
 
   Cores S(o, kc);
+  // the leaf clusters of this thread's first two cores, kept in registers
+  // (cores past them, in device memory, are divided out where needed)
+  const int ccl0 = topo ? core_cluster(tp, tid) : 0;
+  const int ccl1 = topo ? core_cluster(tp, tid + T) : 0;
+  auto ccl = [&](int k, int i) {
+    return k == 0 ? ccl0 : k == 1 ? ccl1 : core_cluster(tp, i);
+  };
 #pragma unroll
   for (int k = 0; k < S.count(); ++k) {
     const int i = tid + k * T;
@@ -876,14 +1012,28 @@ engine_run_kernel(const int32_t* __restrict__ params,
 
   // thread 0's run totals (int32, wrapping) and telemetry row
   int32_t msgs = 0, polls = 0, sleep_cyc = 0, backoff_cyc = 0,
-          active_cyc = 0, bank_ops = 0, net_stall = 0, bar_cyc = 0;
+          active_cyc = 0, bank_ops = 0, net_stall = 0, bar_cyc = 0,
+          hops = 0;
   int32_t stall_now = 0, acc_now = 0, stall_prev = 0, acc_prev = 0;
   int32_t row[kTeleK];
 #pragma unroll
   for (int j = 0; j < kTeleK; ++j) row[j] = 0;
 
-  // fold cycle c's counts into the totals (thread 0)
+  // fold cycle c's counts into the totals (thread 0); on a hierarchical
+  // topology stall_c + acc_c is the cycle's requesters, of which the
+  // acceptance pass counted those accepted
   auto fold = [&](const int32_t* cnt, int c, int32_t stall_c, int32_t acc_c) {
+    int32_t xcl = 0;
+    if (topo) {
+      const int32_t req = wadd(stall_c, acc_c);
+      acc_c = cnt[C_ACC];
+      stall_c = wsub(req, acc_c);
+      net_stall = wadd(net_stall, stall_c);
+      xcl = cnt[C_XCL];
+      // each accepted request's hop path twice, a worker load's hop twice
+      const int32_t h = wadd(cnt[C_HOPS], cnt[C_WACC]);
+      hops = wadd(hops, wadd(h, h));
+    }
     const int32_t nwin = cnt[C_NWIN];
     const int32_t msgs_now = wadd(wadd(nwin, nwin), cnt[C_XMSG]);
     msgs = wadd(msgs, msgs_now);
@@ -903,7 +1053,7 @@ engine_run_kernel(const int32_t* __restrict__ params,
           active_now, sleep_now, backoff_now, bar_now, cnt[C_GRANT],
           cnt[C_DONE],
           cnt[C_FAIL], cnt[C_ENQ], cnt[C_WAKES], msgs_now, stall_c,
-          acc_c, 0, cnt[C_QSUM]};
+          wsub(acc_c, xcl), xcl, cnt[C_QSUM]};
 #pragma unroll
       for (int j = 0; j < kTeleK - 1; ++j) row[j] = wadd(row[j], add[j]);
       row[kTeleK - 1] = max(row[kTeleK - 1], cnt[C_QMAX]);
@@ -939,6 +1089,7 @@ engine_run_kernel(const int32_t* __restrict__ params,
     for (int k = 0; k < S.count(); ++k) {
       const int i = tid + k * T;
       bool req = false;
+      unsigned xb = 0;  // the levels a fresh request crosses
       if (i < n) {
         Core c = S.load(k, i);
         const bool worker = workers && i < rp.n_workers;
@@ -950,10 +1101,11 @@ engine_run_kernel(const int32_t* __restrict__ params,
         if (start) {
           if (kProg) {
             const int pc = c.opc % n_steps;
-            c.addr = step_addr(rp, s_par[P_ADDR_MODE + pc],
+            c.addr = step_addr(rp, o.zipf_thr, s_par[P_ADDR_MODE + pc],
                                s_par[P_FIX_ADDR + pc], i, c.opc);
           } else {
-            c.addr = step_addr(rp, rp.addr_mode, rp.fix_addr, i, c.opc);
+            c.addr = step_addr(rp, o.zipf_thr, rp.addr_mode, rp.fix_addr,
+                               i, c.opc);
           }
           c.acq = cyc;
         }
@@ -962,6 +1114,10 @@ engine_run_kernel(const int32_t* __restrict__ params,
         if (start || rb || md) {
           c.st = kReq;
           c.tmr = rp.f.lat;
+          // the crossed levels' extra latency, once per issue
+          if (topo) {
+            c.tmr += cross_extra(tp, cross_bits(tp, ccl(k, i), c.addr));
+          }
         }
         const bool ra = t0 && c.st == kResp;
         const bool done = ra && c.nxt == kNxtWorkDone;
@@ -1005,11 +1161,20 @@ engine_run_kernel(const int32_t* __restrict__ params,
         if (workers) c.wtmr = max(c.wtmr - 1, 0);
         const bool fresh = c.st == kReq && c.tmr == 0 && !c.parked && !worker;
         req = fresh || (worker && c.wtmr == 0);
+        if (topo && fresh) xb = cross_bits(tp, ccl(k, i), c.addr);
         S.store(k, i, c);
       }
       const unsigned word = __ballot_sync(kFull, req);
       const int w = k * (T >> 5) + wid;
       if (lane == 0 && w < nw) reqw[w] = word;
+      if (topo) {
+#pragma unroll
+        for (int l = 0; l < kMaxLevels; ++l) {
+          const unsigned xword = __ballot_sync(kFull, xb >> l & 1u);
+          if (lane == 0 && w < nw) xw[l * nw + w] = xword;
+          if (lane == 0 && xword) atomicAdd(&s_xreq[par][l], __popc(xword));
+        }
+      }
     }
     if (bars) {
       const unsigned m =
@@ -1020,6 +1185,12 @@ engine_run_kernel(const int32_t* __restrict__ params,
     // last read in the previous cycle's census pass, next written in the
     // next cycle's core stage (after barrier 2)
     if (bars && tid == 0) s_minopc[par ^ 1] = kBig;
+    // the same for the levels' requester counts (read in the acceptance
+    // pass before barrier 2, written in the first pass)
+    if (topo && tid == 0) {
+#pragma unroll
+      for (int l = 0; l < kMaxLevels; ++l) s_xreq[par ^ 1][l] = 0;
+    }
 
     // the previous cycle's response load and parked count set the budget
     const int32_t resp_prev = wadd(wadd(prev[C_NWIN], prev[C_XMSG]),
@@ -1047,10 +1218,41 @@ engine_run_kernel(const int32_t* __restrict__ params,
       acc_prev = acc_now;
       stall_now = tot - acc_cnt;
       acc_now = acc_cnt;
-      net_stall = wadd(net_stall, stall_now);
+      if (!topo) net_stall = wadd(net_stall, stall_now);
+    }
+    // the levels' request counts in word w under mask m, 16 bits a level
+    auto xpop = [&](int w, unsigned m) {
+      unsigned v = 0;
+#pragma unroll
+      for (int l = 0; l < kMaxLevels; ++l) {
+        v |= static_cast<unsigned>(__popc(xw[l * nw + w] & m)) << (16 * l);
+      }
+      return v;
+    };
+    // a level whose requesters exceed its budget ranks them: all of them,
+    // and those of cores [0, j0), 16 bits a level (xrank is uniform)
+    bool xrank = false;
+    if (topo) {
+#pragma unroll
+      for (int l = 0; l < kMaxLevels; ++l) {
+        xrank = xrank || s_xreq[par][l] > tp.bw[l];
+      }
+    }
+    unsigned xtot = 0, xpj0 = 0;
+    if (xrank) {
+      for (int w = lane; w < nw; w += 32) {
+        const unsigned v = xpop(w, kFull);
+        xtot += v;
+        if (w < (j0 >> 5)) xpj0 += v;
+      }
+      xtot = __reduce_add_sync(kFull, xtot);
+      xpj0 = __reduce_add_sync(kFull, xpj0) +
+             xpop(j0 >> 5, (1u << (j0 & 31)) - 1u);
     }
 
-    int32_t l_wacc = 0;
+    // a hierarchical topology's counts: the accepted requests, the atomic
+    // ones, and those crossing each level (warp-uniform ballot counts)
+    int32_t l_wacc = 0, l_acc = 0, l_fresh = 0, l_x[kMaxLevels] = {};
 #pragma unroll
     for (int k = 0; k < S.count(); ++k) {
       const int i = tid + k * T;
@@ -1058,18 +1260,40 @@ engine_run_kernel(const int32_t* __restrict__ params,
       int32_t pre = 0;
       for (int w = lane; w < wk; w += 32) pre += __popc(reqw[w]);
       pre = static_cast<int32_t>(__reduce_add_sync(kFull, pre));
+      unsigned xpre = 0;
+      if (xrank) {
+        for (int w = lane; w < wk; w += 32) xpre += xpop(w, kFull);
+        xpre = __reduce_add_sync(kFull, xpre);
+      }
+      bool acc = false, fresh_acc = false;
+      unsigned xb = 0;
       if (i < n) {
         Core c = S.load(k, i);
         const bool worker = workers && i < rp.n_workers;
         const bool fresh = c.st == kReq && c.tmr == 0 && !c.parked && !worker;
         const bool w_arr = worker && c.wtmr == 0;
-        bool acc = false;
         if (fresh || w_arr) {
-          const int32_t pi1 =
-              pre + __popc(reqw[wk] & ((2u << (i & 31)) - 1u));  // P(i + 1)
+          const unsigned below = (2u << (i & 31)) - 1u;  // cores <= i
+          const int32_t pi1 = pre + __popc(reqw[wk] & below);  // P(i + 1)
           const int32_t r1 = i >= j0 ? pi1 - pj0 : tot - pj0 + pi1;
           acc = r1 - 1 < budget;
+          if (topo && fresh) xb = cross_bits(tp, ccl(k, i), c.addr);
+          if (xrank && xb) {
+            // and a slot of every level the request crosses
+            const unsigned xp1 = xpre + xpop(wk, below);
+#pragma unroll
+            for (int l = 0; l < kMaxLevels; ++l) {
+              if (xb >> l & 1u) {
+                const int32_t q1 = xp1 >> (16 * l) & 0xffffu;
+                const int32_t q0 = xpj0 >> (16 * l) & 0xffffu;
+                const int32_t qt = xtot >> (16 * l) & 0xffffu;
+                const int32_t rl = i >= j0 ? q1 - q0 : qt - q0 + q1;
+                if (rl - 1 >= tp.bw[l]) acc = false;
+              }
+            }
+          }
         }
+        fresh_acc = fresh && acc;
         if (workers) {
           const bool w_acc = w_arr && acc;
           if (w_acc) {
@@ -1089,6 +1313,23 @@ engine_run_kernel(const int32_t* __restrict__ params,
         }
         S.store(k, i, c);
       }
+      if (topo) {
+        l_acc += __popc(__ballot_sync(kFull, acc));
+        l_fresh += __popc(__ballot_sync(kFull, fresh_acc));
+#pragma unroll
+        for (int l = 0; l < kMaxLevels; ++l) {
+          l_x[l] += __popc(__ballot_sync(kFull, fresh_acc && (xb >> l & 1u)));
+        }
+      }
+    }
+    if (topo) {
+      // a request's hops are 1 + 2 a crossed level
+      int32_t l_hops = l_fresh;
+#pragma unroll
+      for (int l = 0; l < kMaxLevels; ++l) l_hops += 2 * l_x[l];
+      warp_count(&cur[C_ACC], l_acc);
+      warp_count(&cur[C_XCL], l_x[0]);
+      warp_count(&cur[C_HOPS], l_hops);
     }
     __syncthreads();  // 2: the key minimum of every bank
 
@@ -1266,6 +1507,7 @@ engine_run_kernel(const int32_t* __restrict__ params,
     o.scalars[S_BANK_OPS] = bank_ops;
     o.scalars[S_NET_STALL] = net_stall;
     o.scalars[S_BAR_CYC] = bar_cyc;
+    if (o.hops != nullptr) *o.hops = hops;
   }
   for (int j = tid; j < kLatBins; j += T) o.hist[j] = s_hist[j];
   for (int b = tid; b < a; b += T) {
@@ -1315,14 +1557,15 @@ engine_run_kernel(const int32_t* __restrict__ params,
 __global__ void engine_probe_kernel(const uint32_t* __restrict__ x,
                                     long long count, int what, int mode,
                                     int n_addrs, float zipf_c,
-                                    int32_t* __restrict__ out) {
+                                    const int32_t* __restrict__ thr,
+                                    int n_thr, int32_t* __restrict__ out) {
   for (long long j = blockIdx.x * static_cast<long long>(blockDim.x) +
                      threadIdx.x;
        j < count; j += static_cast<long long>(gridDim.x) * blockDim.x) {
     const uint32_t v = x[j];
     out[j] = what == 0   ? static_cast<int32_t>(hash24(v))
            : what == 1   ? jitter(v)
-                         : addr_of_hash(v, mode, n_addrs, zipf_c);
+                         : addr_of_hash(v, mode, n_addrs, zipf_c, thr, n_thr);
   }
 }
 
@@ -1344,31 +1587,34 @@ using RunKernel = void (*)(const int32_t*, const RunPtrs*, int);
 
 // the kernel instance, block size and cores a thread of runs of n cores
 // (a block of at most 256 threads may use up to 255 registers a thread),
-// with every family's branch when kWide, and the program code when kProg
-template <bool kWide, bool kProg>
+// with every family's branch when kWide, the program code when kProg and
+// the topology stages when kTopo
+template <bool kWide, bool kProg, bool kTopo>
 RunKernel run_kernel_of(int n, int* threads, int* kc) {
   *threads = n <= kRunThreads ? ((n + 31) / 32) * 32 : kRunThreads;
   *kc = (n + *threads - 1) / *threads;
   if (*kc > 2) {
-    return engine_run_kernel<GlobalCores, kRunThreads, kWide, kProg>;
+    return engine_run_kernel<GlobalCores, kRunThreads, kWide, kProg, kTopo>;
   }
   if (*kc == 2) {
-    return engine_run_kernel<RegCores<2>, kRunThreads, kWide, kProg>;
+    return engine_run_kernel<RegCores<2>, kRunThreads, kWide, kProg, kTopo>;
   }
   if (*threads <= 256) {
-    return engine_run_kernel<RegCores<1>, 256, kWide, kProg>;
+    return engine_run_kernel<RegCores<1>, 256, kWide, kProg, kTopo>;
   }
-  return engine_run_kernel<RegCores<1>, kRunThreads, kWide, kProg>;
+  return engine_run_kernel<RegCores<1>, kRunThreads, kWide, kProg, kTopo>;
 }
 
 // the instance `variant` names (kernel.py's INSTANCE_*): 0 without the
 // two-level queues' and nb_feb's branches, 1 with them, 2 with them and
-// the program code; null for another value
+// the program code, 3 with them, the program code and the topology
+// stages; null for another value
 RunKernel run_kernel_for(int n, int variant, int* threads, int* kc) {
   switch (variant) {
-    case 0: return run_kernel_of<false, false>(n, threads, kc);
-    case 1: return run_kernel_of<true, false>(n, threads, kc);
-    case 2: return run_kernel_of<true, true>(n, threads, kc);
+    case 0: return run_kernel_of<false, false, false>(n, threads, kc);
+    case 1: return run_kernel_of<true, false, false>(n, threads, kc);
+    case 2: return run_kernel_of<true, true, false>(n, threads, kc);
+    case 3: return run_kernel_of<true, true, true>(n, threads, kc);
     default: return nullptr;
   }
 }
@@ -1437,7 +1683,8 @@ extern "C" int engine_run_threads(int n) {
 // shared memory, the largest engine_run_smem_bytes of its runs.
 // `variant` picks the kernel instance (run_kernel_for): at least 1 when a
 // run's family is kHier, kEvent or kFeb, 2 when a run's program has more
-// than one step or a barrier step.  Returns a CUDA error code, or -1 when
+// than one step or a barrier step, 3 when a run has a hierarchical
+// topology.  Returns a CUDA error code, or -1 when
 // the caller's layout does not match this library's (n_params, n_ptrs per
 // run) or smem or variant is out of range.
 extern "C" int engine_run_launch(int n_runs, int n, const void* params,
@@ -1495,13 +1742,15 @@ extern "C" int engine_run_occupancy(int n, long long smem, int variant,
 
 // what: 0 -> _hash(x), 1 -> the backoff jitter _hash(x) % 32, 2 -> the
 // address of hash x in address mode `mode` over n_addrs (skew-0 factor
-// zipf_c).  x and out are device arrays of `count` elements.
+// zipf_c; a skewed stream's n_thr thresholds at thr, a device array, when
+// n_thr > 0).  x and out are device arrays of `count` elements.
 extern "C" int engine_probe_launch(const void* x, long long count, int what,
                                    int mode, int n_addrs, float zipf_c,
-                                   void* out, void* stream) {
+                                   const void* thr, int n_thr, void* out,
+                                   void* stream) {
   engine_probe_kernel<<<264, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(x), count, what, mode, n_addrs, zipf_c,
-      static_cast<int32_t*>(out));
+      static_cast<const int32_t*>(thr), n_thr, static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -18,8 +18,11 @@ hash; nothing runs at import time).  It holds two kernels:
   run's ``core.sim.simulate`` result dict, every tensor a view of ONE
   flat device buffer per launch, so a batch comes back to the host in
   one copy.  A launch that holds a workload program of more than one
-  step or with a barrier step runs on the program instance
-  (``launch_variant``).  ``run_cuda`` is its one-run case.
+  step or with a barrier step runs on the program instance, and one
+  that holds a run on a hierarchical topology on a topology instance
+  (``launch_variant``).  A skewed Zipf stream travels as its threshold
+  table (``core.workloads.base.zipf_thresholds``), one per distinct
+  stream in the launch's buffer.  ``run_cuda`` is its one-run case.
   ``run_scalars`` is the pure function that derives every per-run scalar
   it passes.
 """
@@ -39,8 +42,9 @@ from repro_torch.core.protocols.base import (KERNEL_AMO, KERNEL_EVENT,
                                              KERNEL_FEB, KERNEL_HIER,
                                              KERNEL_LOCK, KERNEL_LRSC,
                                              KERNEL_QUEUE, KERNEL_TICKET)
+from repro_torch.core import topologies as topo_registry
 from repro_torch.core.workloads.base import (ADDR_ZIPF, K_BARRIER,
-                                             zipf_factors)
+                                             zipf_factors, zipf_thresholds)
 from repro_torch.kernels import LAUNCHES, _build
 from repro_torch.kernels.engine_step.ref import _param_ns
 from repro_torch.obs.schema import TELE_K, window_len
@@ -215,11 +219,13 @@ def fused_step_cuda(proto, p, bank: Dict, *, cand_cyc, rot, addr, phase,
 #: ``Param`` enum; those of ``PARAM_SPANS`` span that many words each
 RUN_PARAMS = ("n", "a", "n_addrs", "cycles", "proto", "q_cap", "q_full",
               "lat", "acq_tmr", "wake_delay", "msg_rule", "prog_len",
-              "n_bar", "zipf_c", "exp_cap", "seed", "net_bw", "hol_block",
-              "n_workers", "n_atomic", "stagger", "trace", "tele_windows",
-              "tele_cw", "groups", "group_size", "group_cap",
-              "local_delay", "bo_tab", "pre_dur", "mod_dur", "addr_mode",
-              "fix_addr", "is_bar", "bar_prefix")
+              "n_bar", "zipf_c", "zipf_n_thr", "exp_cap", "seed", "net_bw",
+              "hol_block", "n_workers", "n_atomic", "stagger", "trace",
+              "tele_windows", "tele_cw", "groups", "group_size",
+              "group_cap", "local_delay", "topo_levels", "topo_core_size",
+              "topo_core_clusters", "topo_bank_clusters", "bo_tab",
+              "pre_dur", "mod_dur", "addr_mode", "fix_addr", "is_bar",
+              "bar_prefix", "level_extra", "level_bw")
 #: backoff bases passed: streak k reads entry min(k, BO_TAB - 1), and
 #: ``backoff << 32`` and beyond is 0 (``shl32``)
 BO_TAB = 34
@@ -227,10 +233,14 @@ BO_TAB = 34
 #: (each step's local work, modify duration, address mode, fixed address,
 #: barrier flag and the barrier steps before it) are words of the run
 MAX_STEPS = 16
+#: boundary levels a hierarchical topology may have on the run kernel:
+#: each level's extra latency and link budget are words of the run
+MAX_LEVELS = 2
 PARAM_SPANS = {"bo_tab": BO_TAB, "pre_dur": MAX_STEPS,
                "mod_dur": MAX_STEPS, "addr_mode": MAX_STEPS,
                "fix_addr": MAX_STEPS, "is_bar": MAX_STEPS,
-               "bar_prefix": MAX_STEPS}
+               "bar_prefix": MAX_STEPS, "level_extra": MAX_LEVELS,
+               "level_bw": MAX_LEVELS}
 #: int32 words a run's parameters take
 N_PARAM_WORDS = sum(PARAM_SPANS.get(k, 1) for k in RUN_PARAMS)
 #: its device pointers, in the order of the source's ``Ptr`` enum
@@ -241,7 +251,7 @@ RUN_PTRS = ("st", "tmr", "addr", "phase", "nxt", "opc", "ops", "arr_cyc",
             "serving", "tkt", "feb", "lqbuf", "lqhead", "lqlen", "ggq",
             "g_inq", "cur_grp", "turn_srv", "gqhead", "gqlen", "wake_grp",
             "tele", "trace_step", "trace_wait", "trace_state", "trace_qlen",
-            "scratch", "pc", "bar_cnt")
+            "scratch", "pc", "bar_cnt", "hops", "zipf_thr")
 #: the run's 0-d outputs, in the order of the source's ``Scalar`` enum
 RUN_SCALARS = ("resp_prev", "msgs", "polls", "sleep_cyc", "lat_max",
                "active_cyc", "backoff_cyc", "bank_ops", "net_stall",
@@ -266,19 +276,25 @@ def _bo_tab(backoff: int, exp_cap: int) -> tuple:
                  for k in range(BO_TAB))
 
 
-def run_scalars(p, proto, prog, banks=None) -> Dict[str, Any]:
+def run_scalars(p, proto, prog, banks=None, traced=False) -> Dict[str, Any]:
     """Every per-run scalar ``run_cuda`` passes to the kernel, derived from
     ``SimParams`` ``p``, the protocol and the workload's program as
     ``core.sim._simulate_plain`` derives them: Python ints (the seed
     reduced mod 2^32), ``zipf_c`` a float (the skew-0 Zipf factor, 0.0
-    without a Zipf step), ``bo_tab`` a tuple of ``BO_TAB`` ints, and the
+    without a Zipf step), ``bo_tab`` a tuple of ``BO_TAB`` ints, the
     step tables (``PARAM_SPANS``) tuples of ``MAX_STEPS`` ints, the
-    program's ``prog_len`` steps first and zeros past them.
+    program's ``prog_len`` steps first and zeros past them, and the
+    topology's level words tuples of ``MAX_LEVELS`` ints.  Beside them,
+    ``zipf_thr``: a skewed Zipf stream's thresholds (``zipf_n_thr`` of
+    them; ``traced`` picks the sweep's form), else None.
 
     ``a`` is the banks allocated, ``banks`` (default ``p.n_addrs``; a
     sweep passes the power-of-two bucket), and ``n_addrs`` the live
-    address count the stream hashes over.  A program of more than
-    ``MAX_STEPS`` steps is refused."""
+    address count the stream hashes over.  The topology's bank clusters
+    are placed over ``a``, as the plain loop compiles its tables.  A
+    program of more than ``MAX_STEPS`` steps is refused, and so is a
+    topology of more than ``MAX_LEVELS`` levels or one off the default
+    tree."""
     pt = prog.tables()
     L = prog.length
     if L > MAX_STEPS:
@@ -296,21 +312,31 @@ def run_scalars(p, proto, prog, banks=None) -> Dict[str, Any]:
     def steps(vals):
         return tuple(int(v) for v in vals) + (0,) * (MAX_STEPS - L)
 
-    zipf_c = 0.0
+    zipf_c, zipf_thr = 0.0, None
     if ADDR_ZIPF in prog.addr_mode:
-        _, c, inv = zipf_factors(n_addrs, p.zipf_skew)
-        if c is None or inv != 1.0:
-            raise NotImplementedError(
-                f"the engine_run kernel computes the zipf stream at skew 0 "
-                f"only (got zipf_skew={p.zipf_skew})")
-        zipf_c = c
+        c = zipf_factors(n_addrs, p.zipf_skew)
+        if c is None:
+            zipf_thr = zipf_thresholds(n_addrs, p.zipf_skew, traced)
+        else:
+            zipf_c = c
+    topo = topo_registry.get(p.topology)
+    levels = len(topo.levels)
+    if levels and (levels > MAX_LEVELS or not topo.uses_default_tree()
+                   or n >= 1 << 16):
+        raise NotImplementedError(
+            f"the engine_run kernel runs topologies of at most {MAX_LEVELS} "
+            f"levels on the default cluster tree, below 65 536 cores "
+            f"(topology {p.topology!r}, {levels} levels, {n} cores)")
+    core_size, core_clusters, bank_clusters = topo.leaf_geometry(p, n, a)
     return dict(
         n=n, a=a, n_addrs=n_addrs, cycles=p.cycles,
         proto=proto.kernel_code,
         q_cap=proto.q_cap(p, n), q_full=args.q_full, lat=p.lat,
         acq_tmr=args.acq_tmr, wake_delay=args.wake_delay,
         msg_rule=args.msg_rule,
-        prog_len=L, n_bar=sum(is_bar), zipf_c=zipf_c, exp_cap=exp_cap,
+        prog_len=L, n_bar=sum(is_bar), zipf_c=zipf_c,
+        zipf_n_thr=0 if zipf_thr is None else len(zipf_thr),
+        zipf_thr=zipf_thr, exp_cap=exp_cap,
         seed=int(p.seed) & _MASK32,
         net_bw=p.net_bw, hol_block=p.hol_block, n_workers=p.n_workers,
         n_atomic=n - min(p.n_workers, n), stagger=p.work + 1,
@@ -320,6 +346,11 @@ def run_scalars(p, proto, prog, banks=None) -> Dict[str, Any]:
                  if p.telemetry_windows else 0),
         groups=args.groups, group_size=args.group_size,
         group_cap=args.group_cap, local_delay=args.local_delay,
+        topo_levels=levels, topo_core_size=core_size,
+        topo_core_clusters=core_clusters, topo_bank_clusters=bank_clusters,
+        level_extra=_levels(lv.extra_lat for lv in topo.levels),
+        level_bw=_levels(max(p.net_bw // lv.bw_div, 1)
+                         for lv in topo.levels),
         bo_tab=_bo_tab(p.backoff, exp_cap),
         pre_dur=steps(int(m) * p.work + int(x)
                       for m, x in zip(pt["pre_mult"], pt["pre_add"])),
@@ -330,6 +361,12 @@ def run_scalars(p, proto, prog, banks=None) -> Dict[str, Any]:
                        for x in pt["addr_arg"]),
         is_bar=steps(is_bar),
         bar_prefix=steps(np.cumsum([0] + is_bar[:-1])))
+
+
+def _levels(vals) -> tuple:
+    """A topology's per-level words: its levels first, zeros past them."""
+    vals = tuple(int(v) for v in vals)
+    return vals + (0,) * (MAX_LEVELS - len(vals))
 
 
 def _pack_params(sc: Dict[str, Any]) -> list:
@@ -410,13 +447,14 @@ def _check_bank_layout(proto, p, n: int) -> None:
 def _layout_key(sc: Dict[str, Any]) -> tuple:
     """The arguments of :func:`_layout` from a run's scalars."""
     return (sc["proto"], sc["n"], sc["a"], sc["q_cap"], sc["groups"],
-            sc["group_cap"], sc["cycles"], sc["tele_windows"], sc["trace"])
+            sc["group_cap"], sc["cycles"], sc["tele_windows"], sc["trace"],
+            int(sc["topo_levels"] > 0))
 
 
 @functools.lru_cache(maxsize=4096)
 def _layout(code: int, n: int, a: int, q_cap: int, groups: int,
             group_cap: int, cycles: int, tele_windows: int,
-            trace: int) -> tuple:
+            trace: int, topo: int = 0) -> tuple:
     """``result_arrays``' items for a run of this shape (hashable: a
     launch groups its runs by it)."""
     i32 = torch.int32
@@ -436,6 +474,8 @@ def _layout(code: int, n: int, a: int, q_cap: int, groups: int,
                lat_hist=w((LAT_BINS,)), lat_max=SCALAR,
                active_cyc=SCALAR, backoff_cyc=SCALAR, bank_ops=SCALAR,
                net_stall=SCALAR, w_tmr=w((n,)), w_served=w((n,)))
+    if topo:
+        out["hops"] = w(())
     if tele_windows:
         out["tele"] = z((tele_windows, TELE_K))
     for k, (dt, value) in _BANK_LAYOUT[code].items():
@@ -475,7 +515,9 @@ def pack_runs(runs: Sequence[Tuple[Any, Any, Dict[str, Any]]], dev,
               scratch_bytes=None, started=None) -> Dict[str, Any]:
     """Lay out a launch of ``runs`` (``(p, proto, run_scalars)`` each) in
     ONE flat uint8 buffer on ``dev``: the runs' parameter words and
-    pointer tables (``RUN_PTRS``), then their result arrays (first those
+    pointer tables (``RUN_PTRS``), the skewed Zipf streams' threshold
+    tables (one copy of each distinct table), then their result arrays
+    (first those
     with an initial value, grouped by it, then those the kernel writes),
     then each run's scratch (``scratch_bytes(n, a)`` bytes, 0 without).
     Runs with the same ``result_arrays`` layout form a group, and each of
@@ -502,6 +544,11 @@ def pack_runs(runs: Sequence[Tuple[Any, Any, Dict[str, Any]]], dev,
                      dtype=np.int32)
     w_at = take(words.nbytes)
     p_at = take(8 * len(RUN_PTRS) * len(runs))
+    tables: Dict[int, tuple] = {}            # id(table) -> (table, at)
+    for _, _, sc in runs:
+        thr = sc.get("zipf_thr")
+        if thr is not None and id(thr) not in tables:
+            tables[id(thr)] = (thr, take(thr.nbytes))
     groups: Dict[tuple, list] = {}           # layout -> [run indices]
     for b, (p, proto, sc) in enumerate(runs):
         _check_bank_layout(proto, p, sc["n"])
@@ -550,6 +597,9 @@ def pack_runs(runs: Sequence[Tuple[Any, Any, Dict[str, Any]]], dev,
     hn = host.numpy()
     base = flat.data_ptr()
     hn[w_at:w_at + words.nbytes] = words.reshape(-1).view(np.uint8)
+    for thr, off in tables.values():
+        hn[off:off + thr.nbytes] = np.ascontiguousarray(
+            thr, dtype=np.int32).view(np.uint8)
     typed = {}                     # flat as each dtype, for the views
     outs: List[Dict[str, Any]] = [None] * len(runs)  # type: ignore
     ptrs = np.zeros((len(runs), len(RUN_PTRS)), dtype=np.int64)
@@ -584,6 +634,10 @@ def pack_runs(runs: Sequence[Tuple[Any, Any, Dict[str, Any]]], dev,
                             for k, v in sig}, scalars=views["scalars"][i])
     for b, off in scratch.items():
         ptrs[b, col["scratch"]] = base + off
+    for b, (_, _, sc) in enumerate(runs):
+        thr = sc.get("zipf_thr")
+        if thr is not None:
+            ptrs[b, col["zipf_thr"]] = base + tables[id(thr)][1]
     hn[p_at:p_at + ptrs.nbytes] = ptrs.reshape(-1).view(np.uint8)
     if started is not None:
         started.record()
@@ -603,17 +657,23 @@ def launch_smem(lib, scalars: Sequence[Dict[str, Any]]) -> int:
 #: the families only the run kernel's wide instances have a branch for
 WIDE_FAMILIES = (KERNEL_HIER, KERNEL_EVENT, KERNEL_FEB)
 #: the run kernel's instances (the source's ``run_kernel_for``): without
-#: the WIDE_FAMILIES' branches, with them, and with them and the program
-#: code (the program counter, per-step tables and barrier release)
-INSTANCE_NARROW, INSTANCE_WIDE, INSTANCE_PROG = 0, 1, 2
+#: the WIDE_FAMILIES' branches, with them, with them and the program
+#: code (the program counter, per-step tables and barrier release), and
+#: with all of that and the topology stages (extra latency at issue, the
+#: levels' link budgets, the hop count)
+INSTANCE_NARROW, INSTANCE_WIDE, INSTANCE_PROG, INSTANCE_TOPO = range(4)
 
 
 def launch_variant(scalars: Sequence[Dict[str, Any]]) -> int:
     """The run kernel's instance for a launch of runs with these
-    ``run_scalars``: INSTANCE_PROG when a run's program has more than
-    one step or a barrier step, else INSTANCE_WIDE when a run is of the
+    ``run_scalars``: INSTANCE_TOPO when a run is on a hierarchical
+    topology, else INSTANCE_PROG when a run's program has more than one
+    step or a barrier step, else INSTANCE_WIDE when a run is of the
     two-level queues or nb_feb, else INSTANCE_NARROW (the other families,
-    one-step programs: the instance without their code)."""
+    one-step programs on the flat topology: the instance without their
+    code)."""
+    if any(sc["topo_levels"] > 0 for sc in scalars):
+        return INSTANCE_TOPO
     if any(sc["prog_len"] > 1 or sc["n_bar"] > 0 for sc in scalars):
         return INSTANCE_PROG
     if any(sc["proto"] in WIDE_FAMILIES for sc in scalars):
@@ -622,7 +682,8 @@ def launch_variant(scalars: Sequence[Dict[str, Any]]) -> int:
 
 
 def run_cuda_batch(runs: Sequence[Tuple[Any, Any, Any, int]], device,
-                   started=None) -> List[Dict[str, torch.Tensor]]:
+                   started=None, traced=False
+                   ) -> List[Dict[str, torch.Tensor]]:
     """Runs of one core count in ONE launch of ``engine_run_kernel`` on
     the CUDA ``device``, one thread block each: ``runs`` holds
     ``(p, proto, prog, banks)`` per run, ``banks`` the banks allocated
@@ -630,7 +691,9 @@ def run_cuda_batch(runs: Sequence[Tuple[Any, Any, Any, int]], device,
     ``core.sim.simulate`` result dict, bit for bit, with its bank arrays
     at ``banks`` rows; every tensor is a view of the launch's one flat
     buffer.  ``started``, a CUDA event, is recorded on the stream when
-    the host has packed the launch, before its copies and the kernel."""
+    the host has packed the launch, before its copies and the kernel.
+    ``traced`` picks the sweep's form of a skewed Zipf stream (see
+    ``core.workloads.base.zipf_index``)."""
     dev = torch.device(device)
     if dev.type != "cuda":
         raise ValueError(f"run_cuda needs a CUDA device, got {dev}")
@@ -645,7 +708,8 @@ def run_cuda_batch(runs: Sequence[Tuple[Any, Any, Any, int]], device,
             raise ValueError(f"one launch runs one core count: {n} and "
                              f"{p.n_cores}")
         _require_branch(proto, "engine_run")
-        scalars.append((p, proto, run_scalars(p, proto, prog, banks)))
+        scalars.append((p, proto, run_scalars(p, proto, prog, banks,
+                                              traced)))
     lib = _run_library()
     packed = pack_runs(scalars, dev, lib.engine_run_scratch_bytes, started)
     scs = [sc for _, _, sc in scalars]

@@ -318,6 +318,9 @@ inline int __popc(unsigned v) { return __builtin_popcount(v); }
 // compiled with -ffp-contract=off: each op rounds on its own
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
+template <class V>
+inline V __ldg(const V* p) { return *p; }
 
 // the order the blocks of a grid run in: 0 in index order, 1 reversed
 inline int mock_block_order = 0;

@@ -114,13 +114,15 @@ def programs_registered(programs):
 
 
 def run_mock_batch(lib_path: str, kws: list, banks: list,
-                   order: int = 0, variant=None, programs=None) -> list:
+                   order: int = 0, variant=None, programs=None,
+                   traced: bool = False) -> list:
     """One launch of the mock build for the points ``kws``, block b's
     banks allocated at ``banks[b]``, the blocks run in index order (0)
     or reversed (1), on the kernel instance ``variant`` picks (default:
     the one the wrapper picks, ``launch_variant``): each block's result
     dict.  ``programs`` maps the names of workloads the points use that
-    are not built in to ``(Program fields, min_addrs)``."""
+    are not built in to ``(Program fields, min_addrs)``; ``traced`` picks
+    the sweep's form of a skewed Zipf stream."""
     from repro_torch.core import protocols, sim, workloads
     from repro_torch.kernels.engine_step import kernel as K
     for name, (fields, min_addrs) in (programs or {}).items():
@@ -132,7 +134,7 @@ def run_mock_batch(lib_path: str, kws: list, banks: list,
         p = sim.SimParams(**kw)
         proto = protocols.get(p.protocol)
         runs.append((p, proto, K.run_scalars(
-            p, proto, workloads.get(p.workload).program(p), bk)))
+            p, proto, workloads.get(p.workload).program(p), bk, traced)))
     n = runs[0][0].n_cores
     packed = K.pack_runs(runs, torch.device("cpu"),
                          lib.engine_run_scratch_bytes)
@@ -148,17 +150,19 @@ def run_mock_batch(lib_path: str, kws: list, banks: list,
 
 
 def check_batch(lib, tmp_path, kws: list, banks: list,
-                order: int = 0, variant=None, programs=None) -> list:
+                order: int = 0, variant=None, programs=None,
+                traced: bool = False) -> list:
     """The mock build's launch of ``kws`` (see :func:`run_mock_batch`) in
     a child process, while this one runs the plain loop of each point:
     the keys that differ (value, dtype, shape or order), per block.  A
     crash or a reported deadlock in the child fails the case, not the
     worker.  ``programs``: as :func:`run_mock_batch`'s, registered in
-    this process while the plain loop runs."""
+    this process while the plain loop runs; ``traced``: as its, for both
+    sides."""
     from repro_torch.core import sim
     out = tmp_path / "mock_out.pt"
     job = dict(batch=kws, banks=banks, order=order, variant=variant,
-               programs=programs, out=str(out))
+               programs=programs, traced=traced, out=str(out))
     proc = subprocess.Popen(
         [sys.executable, __file__, str(lib), json.dumps(job)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
@@ -166,7 +170,7 @@ def check_batch(lib, tmp_path, kws: list, banks: list,
     try:
         with programs_registered(programs):
             want = [sim._simulate_plain(sim.SimParams(**kw), "cpu",
-                                        banks=bk)
+                                        banks=bk, traced=traced)
                     for kw, bk in zip(kws, banks)]
         _, err = proc.communicate(timeout=600)
     finally:
@@ -190,4 +194,4 @@ if __name__ == "__main__":
     job = json.loads(sys.argv[2])
     torch.save(run_mock_batch(sys.argv[1], job["batch"], job["banks"],
                               job["order"], job["variant"],
-                              job["programs"]), job["out"])
+                              job["programs"], job["traced"]), job["out"])

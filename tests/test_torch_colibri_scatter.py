@@ -18,6 +18,7 @@ from repro_torch.kernels import LAUNCHES, _build
 from repro_torch.kernels import colibri_scatter as tcs
 from repro_torch.kernels.colibri_scatter.kernel import scatter_commit_cuda
 from repro_torch.kernels.engine_step import kernel as es_kernel
+from jax_cache import release_compiled  # noqa: F401
 
 SHAPES = [(100, 7, 1), (1000, 64, 8), (2048, 300, 16), (513, 1, 4)]
 #: dtype -> (rtol, atol) of tests/test_kernels.py

@@ -36,6 +36,7 @@ import torch
 
 from repro.kernels.colibri_scatter.kernel import scatter_commit
 from repro_torch.kernels.colibri_scatter import scatter_add_ref
+from jax_cache import release_compiled  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 SOURCE = ROOT / "src" / "repro_torch" / "csrc" / "colibri_scatter.cu"

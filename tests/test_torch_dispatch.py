@@ -17,6 +17,7 @@ import torch
 
 from repro.core import dispatch as JD
 from repro_torch.core import dispatch as D
+from jax_cache import release_compiled  # noqa: F401
 
 
 def _case(seed):

@@ -29,6 +29,7 @@ from repro_torch.core.workloads.base import ADDR_ZIPF, zipf_index
 from repro_torch.kernels import engine_step
 from repro_torch.kernels.engine_step import kernel as es_kernel
 from repro_torch.obs.schema import window_len
+from jax_cache import release_compiled  # noqa: F401
 
 PROTOS = ("amo", "lrsc", "lrscwait", "colibri", "amo_lock", "lrsc_lock",
           "ticket_lock", "mwait_lock", "colibri_hier", "hw_event", "nb_feb")
@@ -130,13 +131,17 @@ def test_run_scalars_are_what_the_plain_loop_derives(proto, workers):
             assert sc["trace"] == int(p.record_trace)
             assert sc["tele_cw"] == window_len(p.cycles, 5)
             if ADDR_ZIPF in sc["addr_mode"]:
-                # u * c + 1 with the host's c is zipf_index at skew 0
+                # fma(u, c, 1), one rounding, with the host's c is
+                # zipf_index at skew 0 (u * c + 1 rounded after each op
+                # is not: it differs at most counts that are not powers
+                # of two); float64 holds u * c + 1 exactly
                 h = torch.arange(0, 1 << 24, 4099, dtype=torch.int64)
-                u = h.to(torch.float32) * float(np.float32(2.0**-24))
-                x = u * sc["zipf_c"] + 1.0
+                u = h.to(torch.float64) * 2.0**-24
+                x = (u * sc["zipf_c"] + 1.0).to(torch.float32)
                 mine = (torch.floor(x).to(torch.int32) - 1).clamp_(
                     0, p.n_addrs - 1)
                 assert torch.equal(mine, zipf_index(h, p.n_addrs, 0))
+                assert sc["zipf_n_thr"] == 0 and sc["zipf_thr"] is None
 
 
 def test_run_scalars_bo_tab_past_32_doublings_is_zero():

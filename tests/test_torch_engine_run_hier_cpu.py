@@ -98,9 +98,12 @@ _MAX_DYN_SMEM = 227 * 1024 - 1024
 
 def _shared_layout_bytes(n: int, a: int) -> int:
     """The per-bank layout every family shares: the packed keys (2 x a
-    u64), five int32 words a bank, the request words, a flag byte a bank
-    and a wake flag a core, 16-byte aligned."""
-    return (16 * a + 20 * a + 4 * ((n + 31) // 32) + a + n + 15) & ~15
+    u64), five int32 words a bank, the request words and a hierarchical
+    topology's crossing request words (one set a level, MAX_LEVELS), a
+    flag byte a bank and a wake flag a core, 16-byte aligned."""
+    from repro_torch.kernels.engine_step.kernel import MAX_LEVELS
+    words = 4 * ((n + 31) // 32) * (1 + MAX_LEVELS)
+    return (16 * a + 20 * a + words + a + n + 15) & ~15
 
 
 @pytest.mark.parametrize("n,a", _kernel_shapes())

@@ -29,6 +29,7 @@ from repro_torch.core.sim import SimParams as TParams
 from repro_torch.kernels import engine_step
 from repro_torch.kernels.engine_step import kernel as es_kernel
 from repro_torch.kernels.engine_step.kernel import fused_step_cuda
+from jax_cache import release_compiled  # noqa: F401
 
 PROTOS = ("amo", "lrsc", "lrscwait", "colibri", "amo_lock", "lrsc_lock",
           "ticket_lock", "mwait_lock", "colibri_hier", "hw_event", "nb_feb")

@@ -17,6 +17,7 @@ from repro_torch.core import protocols as tprotocols
 from repro_torch.core.protocols.base import (KERNEL_QUEUE, KERNEL_TICKET,
                                              MSGS_ENQ, NEVER_FULL)
 from repro_torch.core.sim import SimParams
+from jax_cache import release_compiled  # noqa: F401
 
 
 @pytest.mark.parametrize("proto,kw", cases(("ticket_lock", "mwait_lock")))

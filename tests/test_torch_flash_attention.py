@@ -18,6 +18,7 @@ from repro.kernels.flash_attention.ref import attention_ref as j_ref
 from repro_torch.kernels import LAUNCHES, _build
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+from jax_cache import release_compiled  # noqa: F401
 
 #: (b, sq, skv, h, kv, hd): tests/test_kernels.py's shapes, then head dim
 #: 256 (recurrentgemma-2b's, 10 query heads on one KV head) and 32 (its

@@ -184,6 +184,72 @@ def test_program_study_on_gpu_equals_single_runs(cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("name", PROTOS)
+def test_topology_and_zipf_run_kernel_match_the_plain_loop(name,
+                                                           cuda_device):
+    """The run kernel's topology instance (cluster2 and cluster3, link
+    budgets that turn requests away, the skewed stream's threshold lookup
+    in the sweep's form) and the Zipf cases: one engine_run launch equals
+    the plain loop on every key, ``hops`` included."""
+    cs = _chip_smoke()
+    cases = [(p, tr) for p, tr in cs.topo_zipf_params()
+             if p.protocol == name]
+    assert cases
+    for p, traced in cases:
+        p = cs.dataclasses.replace(p, cycles=min(p.cycles, 150))
+        before = dict(LAUNCHES)
+        assert cs.run_case(p, cuda_device, traced) == (p.cycles, 0.0)
+        LAUNCHES.update(before)
+
+
+@pytest.mark.gpu
+def test_zipf_lookup_on_gpu_matches_the_cpu(cuda_device):
+    """The kernel's threshold search and the skew-0 fused multiply-add on
+    every 24-bit hash, against the CPU's zipf_index."""
+    from repro_torch.core.workloads.base import (ADDR_ZIPF, zipf_factors,
+                                                 zipf_index, zipf_thresholds)
+    cs = _chip_smoke()
+    h = torch.arange(1 << 24, dtype=torch.int64)
+    hu = h.to(torch.int32).to(cuda_device)
+    for b, skew, traced in cs.ZIPF_PROBES[:3]:
+        thr = torch.from_numpy(zipf_thresholds(b, skew, traced)).to(
+            cuda_device)
+        got = cs.probe(hu, 2, ADDR_ZIPF, b, 0.0, thr).cpu()
+        assert torch.equal(got, zipf_index(h, b, skew, traced))
+    for b in cs.ZIPF_FMA_BINS:
+        got = cs.probe(hu, 2, ADDR_ZIPF, b, zipf_factors(b, 0)).cpu()
+        assert torch.equal(got, zipf_index(h, b, 0))
+
+
+@pytest.mark.gpu
+def test_topology_study_on_gpu_equals_single_runs(cuda_device):
+    """A Study of flat and hierarchical points and skewed streams on the
+    card: one launch (the topology instance), every point equal to its
+    own single run and to the CPU's Study, ``hops`` only where the
+    topology has levels."""
+    from repro_torch.sync import Study
+    cs = _chip_smoke()
+    specs = [Spec(protocol=pr, topology=tp, clusters=c, n_cores=64,
+                  n_addrs=na, cycles=600, seed=s, net_bw=9,
+                  workload="zipf_histogram", zipf_skew=sk)
+             for s, (pr, tp, c, na, sk) in enumerate((
+                 ("colibri", "flat", 4, 4, 0), ("lrsc", "cluster2", 4, 4, 150),
+                 ("colibri_hier", "cluster3", 8, 3, 200),
+                 ("nb_feb", "cluster2", 4, 1000, 150),
+                 ("amo", "flat", 4, 64, 200)))]
+    before = dict(LAUNCHES)
+    got = Study.from_specs(specs).run()
+    assert LAUNCHES["engine_run"] - before["engine_run"] == 1
+    cpu = Study.from_specs(specs).run(device="cpu")
+    for spec, r, c in zip(specs, got, cpu):
+        assert r.ok
+        assert ("hops" in r.stats) == (spec.topology.name != "flat")
+        assert cs.swept_diff(r.stats, cs.single_run(spec).stats,
+                             spec.to_params()) == []
+        assert cs.int_keys_equal(r.stats, c.stats) == []
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("max_batch", [None, 2])
 def test_study_on_gpu_equals_single_runs(max_batch, cuda_device):
     """A small Study on the card: one engine_run launch per launch group

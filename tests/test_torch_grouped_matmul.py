@@ -20,6 +20,7 @@ from repro_torch.kernels import LAUNCHES, _build
 from repro_torch.kernels.grouped_matmul import (grouped_matmul,
                                                 grouped_matmul_ref)
 from repro_torch.kernels.grouped_matmul.kernel import grouped_matmul_cuda
+from jax_cache import release_compiled  # noqa: F401
 
 #: (e, c, d, f): tests/test_kernels.py's shapes, then an odd one (no
 #: dimension a multiple of 8: the kernel's ragged edges)

@@ -22,6 +22,7 @@ from repro_torch.core.protocols.base import (KERNEL_EVENT, KERNEL_FEB,
                                              MSGS_HIER, MSGS_NONE,
                                              NEVER_FULL)
 from repro_torch.core.sim import SimParams
+from jax_cache import release_compiled  # noqa: F401
 
 PROTOS = ("colibri_hier", "hw_event", "nb_feb")
 

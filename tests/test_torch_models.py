@@ -30,6 +30,7 @@ from repro_torch.convert import model_from_jax, to_torch, unstack_segments
 from repro_torch.models import attention as A
 from repro_torch.models import build
 from repro_torch.models import rglru as RG
+from jax_cache import release_compiled  # noqa: F401
 
 NAME = "recurrentgemma-2b-smoke"
 POL = Policy()

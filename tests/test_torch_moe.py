@@ -35,6 +35,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import build
 from repro_torch.models import moe as MoE
 from repro_torch.serving import Request, ServeEngine
+from jax_cache import release_compiled  # noqa: F401
 
 NAME = "kimi-k2-1t-a32b-smoke"
 POL = Policy()

@@ -12,6 +12,7 @@ alternation) with no poll for the polling-free protocols
 import pytest
 
 from program_points import PROTOS, assert_matches_reference
+from jax_cache import release_compiled  # noqa: F401
 
 
 @pytest.mark.parametrize("i,proto", list(enumerate(PROTOS)))

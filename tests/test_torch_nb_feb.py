@@ -17,6 +17,7 @@ from repro_torch.core.protocols.base import (OUT_DONE, OUT_GRANT, OUT_NONE,
                                              OUT_SLEEP, FusedCtx)
 from repro_torch.core.sim import SimParams
 from repro_torch.kernels.engine_step.ref import _param_ns
+from jax_cache import release_compiled  # noqa: F401
 
 
 @pytest.mark.parametrize("proto,kw", cases(("nb_feb",)))

@@ -20,6 +20,7 @@ from program_points import (OWN, PROTOS, assert_matches_reference,
                             own_program, program_identities)
 from repro.core import sim as jsim
 from repro.core import workloads as jworkloads
+from jax_cache import release_compiled  # noqa: F401
 
 
 @pytest.mark.parametrize("i,proto", list(enumerate(PROTOS)))
@@ -102,8 +103,8 @@ def test_chip_smoke_fig6_is_the_bench_queue_grid():
 
 def test_chip_smoke_workloads_is_the_bench_workloads_grid():
     """The workloads phase runs ``benchmarks/bench_workloads.py``'s grid
-    at its full length without ``zipf_histogram`` (its scenario's skew is
-    refused) and without the Zipf ladder: one core count, one launch."""
+    at its full length, ``zipf_histogram`` and the Zipf ladder included:
+    one core count, one launch."""
     import sys
     from pathlib import Path
     import repro.sync as jsync
@@ -112,22 +113,32 @@ def test_chip_smoke_workloads_is_the_bench_workloads_grid():
     from benchmarks import bench_workloads as bw
     cs = _chip_smoke()
     assert cs.GRID_CYCLES == 6_000
-    assert cs.GRID_WORKLOADS == tuple(w for w in bw.WORKLOADS
-                                      if w != "zipf_histogram")
+    assert cs.GRID_WORKLOADS == bw.WORKLOADS
+    assert cs.GRID_ZIPF_LADDER == bw.ZIPF_LADDER
     want = [jsync.Spec(protocol=pr, workload=wl, n_cores=bw.N_CORES,
                        cycles=cs.GRID_CYCLES, seed=seed, **bw._scenario(wl))
             for wl in cs.GRID_WORKLOADS for pr in bw.PROTOS
             for seed in bw.SEEDS]
+    want += [jsync.Spec(protocol=pr, workload="zipf_histogram",
+                        n_cores=bw.N_CORES, cycles=cs.GRID_CYCLES,
+                        **{**bw._scenario("zipf_histogram"),
+                           "zipf_skew": skew})
+             for pr in cs.GRID_LADDER_PROTOS for skew in bw.ZIPF_LADDER]
     got = cs.grid_specs()
     assert [g.to_dict() for g in got] == [
         tsync.Spec.from_json(w.to_json()).to_dict() for w in want]
     assert {g.to_params().n_cores for g in got} == {cs.GRID_CORES}
+    labels = cs.grid_labels()
+    assert labels[-6:] == [f"zipf_s{s / 100:.1f}" for _ in range(2)
+                           for s in bw.ZIPF_LADDER]
+    assert set(labels[:-6]) == set(bw.WORKLOADS)
 
 
 def test_chip_smoke_reference_rows_are_the_reports():
-    """``FIG6_REF`` and ``GRID_REF`` are the reference benchmarks' rows in
-    the committed ``reports/benchmarks.json``; the 2- and 8-core Fig. 6
-    points are recomputed here with the JAX package."""
+    """``FIG6_REF``, ``GRID_REF`` (the Zipf ladder's rows too) and
+    ``FIG3_SKEW_REF`` are the reference benchmarks' rows in the committed
+    ``reports/benchmarks.json``; the 2- and 8-core Fig. 6 points are
+    recomputed here with the JAX package."""
     import json
     from pathlib import Path
     import repro.sync as jsync
@@ -140,8 +151,13 @@ def test_chip_smoke_reference_rows_are_the_reports():
         for r in rep["fig6_queue"]["rows"]}
     assert cs.GRID_REF == {
         f"{r['workload']}/{r['protocol']}": (r["ops_per_cycle"], r["polls"])
-        for r in rep["workloads_grid"]["rows"]
-        if r["workload"] in cs.GRID_WORKLOADS}
+        for r in rep["workloads_grid"]["rows"]}
+    assert cs.FIG3_SKEW_REF == {
+        f"{r['protocol'].split('_')[0]}/{r['bins']}": (
+            r["throughput"], r["jain_fairness"], r["polls"], r["msgs"],
+            r["ops"])
+        for r in rep["fig3_histogram"]["rows"]
+        if r["protocol"].endswith(f"_zipf{cs.FIG3_SKEW / 100:.1f}")}
     for spec in cs.fig6_specs():
         n = spec.to_params().n_cores
         if n > 8:

@@ -41,6 +41,7 @@ import torch
 
 from repro.kernels.rglru_scan.ref import rglru_scan_ref as j_rglru
 from repro.kernels.rwkv6_wkv.ref import wkv_ref as j_wkv
+from jax_cache import release_compiled  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -25,6 +25,7 @@ from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_ref
 from repro_torch.kernels.rglru_scan.kernel import rglru_scan_cuda
 from repro_torch.models import layers as L
 from repro_torch.models import rglru as RG
+from jax_cache import release_compiled  # noqa: F401
 
 
 def _inputs(t, b, w, seed):

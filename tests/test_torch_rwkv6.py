@@ -30,6 +30,7 @@ from repro_torch.convert import model_from_jax, to_torch, unstack_segments
 from repro_torch.models import build
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv6 as RW
+from jax_cache import release_compiled  # noqa: F401
 
 NAME = "rwkv6-1.6b-smoke"
 POL = Policy()

@@ -26,6 +26,7 @@ from repro.models.rwkv6 import _wkv_scan as j_scan
 from repro_torch.kernels import LAUNCHES, _build
 from repro_torch.kernels.rwkv6_wkv import wkv, wkv_chunked, wkv_ref
 from repro_torch.kernels.rwkv6_wkv.kernel import wkv_cuda
+from jax_cache import release_compiled  # noqa: F401
 
 EXACT_TOL = dict(rtol=1e-4, atol=1e-4)
 CHUNKED_TOL = dict(rtol=2e-3, atol=2e-3)

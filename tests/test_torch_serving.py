@@ -25,6 +25,7 @@ from repro_torch.configs import get_config
 from repro_torch.convert import model_from_jax
 from repro_torch.models import build
 from repro_torch.serving import Request, ServeEngine
+from jax_cache import release_compiled  # noqa: F401
 
 #: name -> prompt lengths of one batch
 PROMPTS = {"smollm-135m-smoke": (5, 6, 7),

@@ -12,6 +12,7 @@ import torch
 from repro.core import sim as jsim
 from repro_torch.core import sim as tsim
 from repro_torch.faults import FaultPlan
+from jax_cache import release_compiled  # noqa: F401
 
 
 def _assert_results_equal(got, want):
@@ -70,8 +71,8 @@ def test_bank_state_keys_and_dtypes_follow_the_protocol():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("kw", [
-    dict(workload="zipf_histogram", zipf_skew=100),
-    dict(workload="zipf_histogram", zipf_skew=150),
+    dict(faults={"n_stall": 2, "stall_dur": 10}),
+    dict(faults={"n_bank_stall": 1, "bank_stall_dur": 10}),
     dict(faults={"msg_drop_bp": 100}),
     dict(faults=FaultPlan(n_kill=1)),
     dict(faults={"watchdog_cyc": 64}),
@@ -107,8 +108,14 @@ def test_unported_names_list_what_the_port_has():
         tsim.SimParams(workload="no_such_workload")
     assert tsim.SimParams(workload="ms_queue", n_addrs=2).workload \
         == "ms_queue"
-    with pytest.raises(ValueError, match="registered topologies: flat"):
-        tsim.SimParams(topology="cluster2")
+    # and every topology the reference does
+    from repro.core import topologies as jtopologies
+    from repro_torch.core import topologies as ttopologies
+    assert ttopologies.names() == jtopologies.names()
+    with pytest.raises(ValueError,
+                       match="registered topologies: cluster2, cluster3, "
+                             "flat"):
+        tsim.SimParams(topology="no_such_topology")
 
 
 def test_backend_accepts_auto_only():

@@ -17,6 +17,7 @@ from repro.obs import runreport as jrunreport
 from repro_torch import obs as tobs
 from repro_torch import sync as tsync
 from repro_torch.core import sweep as tsweep
+from jax_cache import release_compiled  # noqa: F401
 
 BASE = dict(n_cores=16, cycles=200)
 
@@ -103,13 +104,12 @@ def test_study_axis_errors():
 
 def test_a_refused_spec_raises_inside_a_study():
     """What the port does not run yet is refused, never an error record."""
-    st = tsync.Study(protocol="colibri", workload="zipf_histogram",
-                     zipf_skew=0, n_cores=8, cycles=50)
+    st = tsync.Study(protocol="colibri", n_cores=8, cycles=50)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        st.grid(zipf_skew=(0, 100)).run(device="cpu")
+        st.grid(faults=({}, {"n_kill": 1})).run(device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsync.Study.from_specs([jsync.Spec(workload="zipf_histogram",
-                                           zipf_skew=100).to_dict()])
+        tsync.Study.from_specs([jsync.Spec(faults={"n_kill": 1})
+                                .to_dict()])
 
 
 def test_study_without_device_needs_a_gpu(monkeypatch):

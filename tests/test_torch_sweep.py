@@ -26,6 +26,7 @@ from repro_torch.core import protocols as tprotocols
 from repro_torch.core import sim as tsim
 from repro_torch.core import sweep as tsweep
 from repro_torch.core.sim import SimParams
+from jax_cache import release_compiled  # noqa: F401
 
 #: the per-bank arrays a sweep pads to the bucket, with their bank axis
 BANK_AXIS = {"addr_ops": 0, "qbuf": 0, "qhead": 0, "qlen": 0,

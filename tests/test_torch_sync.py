@@ -21,6 +21,7 @@ from repro_torch.core import protocols as tprotocols
 from repro_torch.core.sim import SimParams
 from repro_torch.kernels import engine_step
 from test_protocols import GOLDEN, GOLDEN_CONFIGS, GOLDEN_EXTRA, _observe
+from jax_cache import release_compiled  # noqa: F401
 
 PROTOS = ("amo", "lrsc", "lrscwait", "colibri", "amo_lock", "lrsc_lock",
           "mwait_lock")
@@ -105,7 +106,10 @@ def test_spec_with_unported_feature_fails_in_the_port():
     port = tsync.Spec.from_json(ref.to_json())
     assert port.to_dict() == ref.to_dict()
     assert jsync.Spec.from_json(port.to_json()) == ref
-    ref = jsync.Spec(workload="zipf_histogram", zipf_skew=100)
+    ref = jsync.Spec(workload="zipf_histogram", zipf_skew=150,
+                     topology="cluster3")
+    assert tsync.Spec.from_json(ref.to_json()).to_dict() == ref.to_dict()
+    ref = jsync.Spec(faults={"n_kill": 1})
     with pytest.raises(NotImplementedError, match="ROADMAP item"):
         tsync.Spec.from_json(ref.to_json())
 

@@ -30,6 +30,7 @@ import torch
 
 from repro.kernels.flash_attention.ref import attention_ref as j_attention
 from repro.kernels.grouped_matmul.ref import grouped_matmul_ref as j_gmm
+from jax_cache import release_compiled  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -26,6 +26,7 @@ from repro_torch.core import metrics as tmetrics
 from repro_torch.core import sim as tsim
 from repro_torch.obs import perfetto as tperfetto
 from repro_torch.obs.schema import STATE_NAMES
+from jax_cache import release_compiled  # noqa: F401
 
 TRACE_KEYS = {"trace_step", "trace_wait", "trace_state", "trace_qlen"}
 FEATURES = dict(record_trace=True, telemetry_windows=64, cycles=4000)

@@ -19,6 +19,7 @@ from repro.obs import perfetto as jperfetto
 from repro_torch import sync as tsync
 from repro_torch.core import metrics as tmetrics
 from repro_torch.obs import perfetto as tperfetto
+from jax_cache import release_compiled  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

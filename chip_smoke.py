@@ -41,8 +41,15 @@ Phases, one JSON line each:
    sweep's form in turns, two more register layouts on cluster3 with
    Fig. 5 workers, and the Zipf cases (``ZIPF_KERNEL_CASES``: the
    threshold lookup in both forms, the log-uniform limit, the skew-0
-   fused multiply-add at 43 bins): every key of the result dict equal,
-   traces and ``hops`` included;
+   fused multiply-add at 43 bins); then the fault instance
+   (``fault_params``): every protocol at 256 × 4 under one mixed plan
+   (``FAULT_KERNEL_PLAN``: a holder kill, the watchdog, request and
+   wakeup drops, a bank stall, the progress detector; the watchdog must
+   recover and the detector flag a halt within the run), lrscwait and
+   ticket_lock traced under a uniform kill and a stall window, and
+   colibri_hier on cluster2, ms_queue for colibri and lrsc, and the two
+   other layouts with a plan: every key of the result dict equal,
+   traces, ``hops`` and the fault keys included;
 4. scatter_kernel — the colibri_scatter kernel against its plain
    version on the card at the reference tests' shapes (f32 and bf16),
    the trace path's shapes and two large ones, on uniform keys and with
@@ -193,6 +200,17 @@ Phases, one JSON line each:
    own instance and the topology instance), cluster2 and cluster3, and
    of the Zipf lookup (colibri and lrsc at 256 × 1 024, skew 0 beside
    150); the topology instance's registers, spill and blocks per SM;
+   faults — ``benchmarks/bench_faults.py``'s 38 fault points and the 9
+   healthy runs it divides by (64 cores, ``FAULTS_CYCLES``) as one
+   Study of ONE launch on the fault instance, each point against its
+   single run; the rows and the headline (9 of 9 protocols live with
+   the watchdog, 8 of 8 deadlocks detected without it) equal to
+   ``reports/benchmarks.faults.json``; the launch's card time and busy
+   share;
+   fault_time — µs per simulated cycle of colibri and lrsc at 256 × 1
+   under the benchmark's owner kill (the fault instance) beside the
+   empty plan (their own instance, the topology instance and the fault
+   instance); the fault instance's registers, spill and blocks per SM;
 12. kernel times — engine_run's device time per run at the five
    main-path points beside its byte bound and the barrier-only floor of
    its chain of cycles, and the plain loop's time at the first, whose
@@ -252,6 +270,7 @@ from repro_torch.models import moe  # noqa: E402
 from repro_torch.obs import perfetto  # noqa: E402
 from repro_torch.serving import Request, ServeEngine  # noqa: E402
 from repro_torch.obs.schema import STATE_NAMES  # noqa: E402
+from repro_torch.faults import FaultPlan  # noqa: E402
 from repro_torch.sync import Spec, run  # noqa: E402
 
 PROTOS = ("amo", "lrsc", "lrscwait", "colibri", "amo_lock", "lrsc_lock",
@@ -997,6 +1016,40 @@ ZIPF_KERNEL_CASES = (("lrsc", 1000, 150, False), ("colibri", 1000, 150,
 #: ZIPF_TIME_SKEW, all at FULL_WIDTH_CYCLES
 ZIPF_TIME_SKEW = 150
 
+# ---- faults: the fault instance of the run kernel, bench_faults.py
+#: the run_kernel phase's fault plan (``fault_params``): a holder kill at
+#: cycle 20, a 16-cycle watchdog, 3 % request and wakeup drops, one bank
+#: stalled over cycles 60-100 and an 80-cycle progress threshold (at
+#: 256 × 4 over RUN_KERNEL_CYCLES the queue protocols evict and
+#: redeliver, lrsc and ticket_lock are flagged halted)
+FAULT_KERNEL_PLAN = dict(n_kill=2, kill_cyc=20, watchdog_cyc=16,
+                         msg_drop_bp=300, n_bank_stall=1, bank_stall_cyc=60,
+                         bank_stall_dur=40, progress_cyc=80)
+#: the traced fault cases' plan: a uniform kill, a stall window past the
+#: horizon, drops and the watchdog
+FAULT_TRACED_PLAN = dict(n_kill=3, kill_cyc=30, kill_holder=0, n_stall=8,
+                         stall_cyc=40, stall_dur=400, msg_drop_bp=300,
+                         watchdog_cyc=16, progress_cyc=80)
+#: benchmarks/bench_faults.py (full size): cores, cycles, addresses, the
+#: owner kill (its watchdog varies per row), the liveness protocols, the
+#: drop curve's protocols and rates (basis points) and the watchdog
+#: ablation's timeouts
+FAULTS_CORES, FAULTS_CYCLES, FAULTS_ADDRS = 64, 12_000, 4
+FAULTS_KILL = dict(n_kill=2, kill_cyc=500, kill_holder=1, watchdog_cyc=64,
+                   progress_cyc=600)
+FAULTS_PROTOS = ("lrscwait", "colibri", "colibri_hier", "mwait_lock",
+                 "lrsc", "lrsc_lock", "amo_lock", "ticket_lock", "amo")
+FAULTS_DROP_PROTOS = ("lrscwait", "colibri", "mwait_lock")
+FAULTS_DROPS = (0, 50, 100, 200, 400)
+FAULTS_WD = (0, 32, 64, 128, 256)
+#: the committed report the faults phase's rows are held to, and the
+#: keys the reference's ``Result.to_row`` has added to every row since
+#: it was written, with their value at these points (flat runs)
+FAULTS_REPORT = ROOT / "reports" / "benchmarks.faults.json"
+FAULTS_ROW_ADDED = {"topology": "flat"}
+#: fault_time: these protocols at 256 × 1 over FULL_WIDTH_CYCLES
+FAULT_TIME_PROTOS = ("colibri", "lrsc")
+
 
 def reset_launches() -> None:
     for k in LAUNCHES:
@@ -1257,9 +1310,9 @@ def result_err(got: dict, want: dict) -> float:
 def run_case(p, dev, traced: bool = False) -> tuple:
     """The engine_run kernel against the plain loop on the card for one
     point, every key equal; returns the plain loop's engine_step
-    launches (one per cycle, counted from 0) and the largest absolute
-    difference over the keys.  ``traced``: both in the sweep's form of a
-    skewed Zipf stream."""
+    launches (one per cycle, counted from 0), the largest absolute
+    difference over the keys and the kernel's result.  ``traced``: both
+    in the sweep's form of a skewed Zipf stream."""
     what = (f"{p.protocol} n={p.n_cores} a={p.n_addrs} {p.workload} "
             f"seed={p.seed} trace={p.record_trace} groups={p.n_groups} "
             f"topology={p.topology} skew={p.zipf_skew} traced={traced}")
@@ -1277,7 +1330,7 @@ def run_case(p, dev, traced: bool = False) -> tuple:
     require(LAUNCHES["engine_run"] == 1, f"{what}: no engine_run launch")
     bad = result_diff(got, want)
     require(not bad, f"{what}: kernel differs from the plain loop on {bad}")
-    return plain["engine_step"], result_err(got, want)
+    return plain["engine_step"], result_err(got, want), got
 
 
 def phase_run_kernel(dev) -> dict:
@@ -1313,23 +1366,37 @@ def phase_run_kernel(dev) -> dict:
             **cfg, record_trace=traced, telemetry_windows=64 * traced))
     plain_launches, worst = 0, 0.0
     for p in params:
-        launches, err = run_case(p, dev)
+        launches, err, _ = run_case(p, dev)
         plain_launches += launches
         worst = max(worst, err)
     with own_program():
         programs = program_params()
         for p in programs:
-            launches, err = run_case(p, dev)
+            launches, err, _ = run_case(p, dev)
             plain_launches += launches
             worst = max(worst, err)
     topo = topo_zipf_params()
     for p, traced in topo:
-        launches, err = run_case(p, dev, traced)
+        launches, err, _ = run_case(p, dev, traced)
         plain_launches += launches
         worst = max(worst, err)
+    faults, recoveries, halts = fault_params(), 0, 0
+    for p in faults:
+        launches, err, got = run_case(p, dev)
+        plain_launches += launches
+        worst = max(worst, err)
+        if p.faults == FaultPlan(**FAULT_KERNEL_PLAN):
+            recoveries += int(got["recoveries"])
+            halts += int(got["halt_cyc"]) >= 0
+    require(recoveries > 0 and halts > 0,
+            f"run_kernel faults: {recoveries} recoveries and {halts} halts "
+            f"flagged under the mixed plan")
     reset_launches()                   # comparison runs: no path's count
-    emit(phase="run_kernel", cases=len(params) + len(programs) + len(topo),
+    emit(phase="run_kernel",
+         cases=len(params) + len(programs) + len(topo) + len(faults),
          program_cases=len(programs), topology_zipf_cases=len(topo),
+         fault_cases=len(faults), fault_recoveries=recoveries,
+         fault_halts=halts,
          shapes=KERNEL_SHAPES,
          layout_cases=LAYOUT_CASES, protocols=PROTO_CASES,
          program_workloads=PROGRAM_WORKLOADS + (OWN_PROGRAM,),
@@ -1338,8 +1405,41 @@ def phase_run_kernel(dev) -> dict:
          layout_case_cycles=LAYOUT_CASE_CYCLES,
          plain_engine_step_launches=plain_launches, max_abs_err=worst,
          equal=True)
-    return dict(cases=len(params) + len(programs) + len(topo),
+    return dict(cases=len(params) + len(programs) + len(topo) + len(faults),
                 plain_launches=plain_launches, max_abs_err=worst)
+
+
+def fault_params() -> list:
+    """The run_kernel phase's cases of the fault instance: every protocol
+    at 256 × TOPO_ADDRS over RUN_KERNEL_CYCLES under FAULT_KERNEL_PLAN;
+    lrscwait and ticket_lock traced (64 windows) under FAULT_TRACED_PLAN;
+    colibri_hier on cluster2 and ms_queue for colibri and lrsc under
+    FAULT_KERNEL_PLAN; the LAYOUT_CASES (colibri, lrsc_lock) under it,
+    sooner, over LAYOUT_CASE_CYCLES, traced."""
+    def pt(**kw):
+        kw.setdefault("n_cores", 256)
+        kw.setdefault("cycles", RUN_KERNEL_CYCLES)
+        kw.setdefault("faults", FaultPlan(**FAULT_KERNEL_PLAN))
+        return sim.SimParams(**kw)
+    out = [pt(protocol=pr, n_addrs=TOPO_ADDRS, seed=90 + i)
+           for i, pr in enumerate(PROTOS)]
+    out += [pt(protocol=pr, n_addrs=TOPO_ADDRS, seed=110 + i,
+               record_trace=True, telemetry_windows=64,
+               faults=FaultPlan(**FAULT_TRACED_PLAN))
+            for i, pr in enumerate(("lrscwait", "ticket_lock"))]
+    out.append(pt(protocol="colibri_hier", topology="cluster2",
+                  clusters=TOPO_CLUSTERS, n_addrs=TOPO_ADDRS,
+                  net_bw=TOPO_KERNEL_NET_BW, seed=120))
+    out += [pt(protocol=pr, workload="ms_queue", seed=130 + i,
+               **workloads.get("ms_queue").scenario)
+            for i, pr in enumerate(("colibri", "lrsc"))]
+    out += [pt(protocol=pr, n_cores=n, n_addrs=a, cycles=LAYOUT_CASE_CYCLES,
+               seed=140 + j, record_trace=True, telemetry_windows=8,
+               faults=FaultPlan(**dict(FAULT_KERNEL_PLAN, kill_cyc=5,
+                                       bank_stall_cyc=10, progress_cyc=20)))
+            for j, ((n, a), pr) in enumerate(zip(LAYOUT_CASES,
+                                                 ("colibri", "lrsc_lock")))]
+    return out
 
 
 def topo_zipf_params() -> list:
@@ -1834,12 +1934,14 @@ def barrier_floor_ms(threads: int, cycles: int, per_cycle: int,
     return t0.elapsed_time(t1)
 
 
-def run_block(protocol: str, n: int) -> tuple:
+def run_block(protocol: str, n: int, faults: bool = False) -> tuple:
     """engine_run's block for a run of ``n`` cores: (threads, block
     barriers per simulated cycle: 4 for the queue protocols, 2 for amo,
-    lrsc and the spin locks)."""
+    lrsc and the spin locks; one more on the fault instance, with a
+    plan, and one more again in a cycle that may kill a holder)."""
     threads = _build.library("engine_step").engine_run_threads(n)
-    return threads, 4 if protocols.get(protocol).uses_queue else 2
+    return threads, ((4 if protocols.get(protocol).uses_queue else 2)
+                     + int(faults))
 
 
 def run_bound(p) -> dict:
@@ -1854,7 +1956,7 @@ def run_bound(p) -> dict:
                                  proto.q_cap(p, p.n_cores), "cuda")
     n_bytes = sum(t.numel() * t.element_size()
                   for t in list(out.values()) + list(bank.values()))
-    threads, per_cycle = run_block(p.protocol, p.n_cores)
+    threads, per_cycle = run_block(p.protocol, p.n_cores, p.faults.enabled)
     return dict(bound_bytes=n_bytes,
                 bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
                 barriers_per_cycle=per_cycle, threads=threads,
@@ -2666,7 +2768,7 @@ def phase_topology(dev) -> dict:
         p = sim.SimParams(protocol=pr, topology=topo, clusters=TOPO_CLUSTERS,
                           n_cores=cores, n_addrs=TOPO_ADDRS,
                           cycles=TOPO_PLAIN_CYCLES)
-        launches, err = run_case(p, dev)
+        launches, err, _ = run_case(p, dev)
         plain_launches += launches
         worst = max(worst, err)
     reset_launches()                   # comparison runs: no path's count
@@ -2724,6 +2826,136 @@ def phase_topo_time() -> dict:
                zipf={k: {x: r[x] for x in keys} for k, r in zipf.items()},
                occupancy=occ)
     emit(phase="topo_time", **rec)
+    return rec
+
+
+def fault_specs() -> tuple:
+    """``benchmarks/bench_faults.py``'s points in its order, with names:
+    per FAULTS_PROTOS entry its healthy run (``healthy_*``, the rows'
+    divisor) and the owner kill with and without the watchdog; the drop
+    curve (watchdog on); the watchdog ablation on lrscwait."""
+    def spec(pr, **fp):
+        return Spec(protocol=pr, n_cores=FAULTS_CORES, n_addrs=FAULTS_ADDRS,
+                    cycles=FAULTS_CYCLES,
+                    faults=FaultPlan(**fp) if fp else None)
+    pts = []
+    for pr in FAULTS_PROTOS:
+        pts += [(f"healthy_{pr}", spec(pr)),
+                (f"kill_wd_{pr}", spec(pr, **FAULTS_KILL)),
+                (f"kill_nowd_{pr}", spec(pr, **dict(FAULTS_KILL,
+                                                    watchdog_cyc=0)))]
+    for pr in FAULTS_DROP_PROTOS:
+        pts += [(f"drop_{bp}bp_{pr}", spec(
+            pr, msg_drop_bp=bp, watchdog_cyc=FAULTS_KILL["watchdog_cyc"],
+            progress_cyc=FAULTS_KILL["progress_cyc"])) for bp in FAULTS_DROPS]
+    pts += [(f"wd_{wd}_lrscwait", spec("lrscwait", **dict(
+        FAULTS_KILL, watchdog_cyc=wd))) for wd in FAULTS_WD]
+    return [k for k, _ in pts], [s for _, s in pts]
+
+
+def fault_rows(by: dict) -> tuple:
+    """``bench_faults.rows()`` and ``headline()`` from the results by
+    ``fault_specs`` name."""
+    rows, wd = [], FAULTS_KILL["watchdog_cyc"]
+    for pr in FAULTS_PROTOS:
+        healthy = by[f"healthy_{pr}"].throughput
+        for tag in ("wd", "nowd"):
+            r = by[f"kill_{tag}_{pr}"]
+            rows.append(r.to_row(
+                figure="faults", row=f"kill_{tag}_{pr}",
+                watchdog_cyc=r.spec.faults.watchdog_cyc,
+                n_kill=FAULTS_KILL["n_kill"], healthy_throughput=healthy,
+                throughput_retention=(r.stats["survivor_throughput"]
+                                      / healthy if healthy else 0.0)))
+    for pr in FAULTS_DROP_PROTOS:
+        base = by[f"drop_0bp_{pr}"].throughput
+        for bp in FAULTS_DROPS:
+            r = by[f"drop_{bp}bp_{pr}"]
+            rows.append(r.to_row(
+                figure="faults", row=f"drop_{bp}bp_{pr}", msg_drop_bp=bp,
+                watchdog_cyc=wd, throughput_retention=(
+                    r.throughput / base if base else 0.0)))
+    for w in FAULTS_WD:
+        rows.append(by[f"wd_{w}_lrscwait"].to_row(
+            figure="faults", row=f"wd_{w}_lrscwait", watchdog_cyc=w,
+            n_kill=FAULTS_KILL["n_kill"]))
+    row = {r["row"]: r for r in rows}
+    held = [p for p in FAULTS_PROTOS if p != "amo"]
+    head = dict(
+        protocols_live_with_watchdog=float(sum(
+            bool(row[f"kill_wd_{p}"]["progress_ok"]) for p in FAULTS_PROTOS)),
+        protocols_total=float(len(FAULTS_PROTOS)),
+        deadlocks_detected_without_watchdog=float(sum(
+            not row[f"kill_nowd_{p}"]["progress_ok"] for p in held)),
+        deadlockable_protocols=float(len(held)))
+    for p in ("lrscwait", "colibri_hier"):
+        head[f"kill_wd_retention_{p}"] = \
+            row[f"kill_wd_{p}"]["throughput_retention"]
+    top = max(FAULTS_DROPS)
+    for p in FAULTS_DROP_PROTOS:
+        head[f"drop{top}bp_retention_{p}"] = \
+            row[f"drop_{top}bp_{p}"]["throughput_retention"]
+    return rows, head
+
+
+def phase_faults() -> dict:
+    """``bench_faults.py`` on the card as one Study of ONE engine_run
+    launch on the fault instance (38 fault points and the 9 healthy
+    runs, 64 cores), every point bit for bit equal to its single run;
+    the rows and the headline equal to the committed report's
+    (FAULTS_REPORT), key for key, each row with FAULTS_ROW_ADDED; the
+    launch's card time, the Study's wall against its single runs', the
+    busy share."""
+    names, specs = fault_specs()
+    chk = sweep_check("faults", specs, 1)
+    rows, head = fault_rows(dict(zip(names, chk["results"])))
+    ref = json.loads(FAULTS_REPORT.read_text())["faults"]
+    rows = json.loads(json.dumps(rows))
+    bad = [r["row"] for r, w in zip(rows, ref["rows"])
+           if r != dict(w, **FAULTS_ROW_ADDED)]
+    require(len(rows) == len(ref["rows"]) == 38 and not bad,
+            f"faults rows differ from {FAULTS_REPORT.name} at {bad}")
+    require(head == ref["headline"],
+            f"faults headline {head} != {ref['headline']}")
+    require(head["protocols_live_with_watchdog"] == head["protocols_total"]
+            and head["deadlocks_detected_without_watchdog"]
+            == head["deadlockable_protocols"],
+            f"faults headline {head}")
+    emit(phase="faults_rows", launches=chk["launches"], points=len(specs),
+         rows=len(rows), cycles=FAULTS_CYCLES, equal=True,
+         equal_to_reference=True, headline=head)
+    rec = study_time(specs, chk)
+    emit(phase="faults_time", **rec)
+    return dict(rec, headline=head)
+
+
+def phase_fault_time() -> dict:
+    """engine_run's device time (µs per simulated cycle) of
+    FAULT_TIME_PROTOS at 256 × 1 over FULL_WIDTH_CYCLES under the
+    benchmark's owner kill (FAULTS_KILL, the fault instance) beside the
+    empty plan on their own instance, on the topology instance (the
+    fault instance's code without the fault stages) and on the fault
+    instance; the fault instance's registers, spill and blocks per SM at
+    256 and 1 024 threads."""
+    keys = ("protocol", "n", "a", "cycles", "ms", "us_per_cycle",
+            "barrier_floor_ms", "barriers_per_cycle", "bound_ms")
+    pts = {}
+    for pr in FAULT_TIME_PROTOS:
+        def spec(**kw):
+            return Spec(protocol=pr, n_cores=256, n_addrs=1,
+                        cycles=FULL_WIDTH_CYCLES, **kw)
+        pts[f"{pr}/kill"] = time_run(spec(faults=FaultPlan(**FAULTS_KILL)),
+                                     plain=False)
+        pts[f"{pr}/none"] = time_run(spec(), plain=False)
+        for name, variant in (("topology", es_kernel.INSTANCE_TOPO),
+                              ("fault", es_kernel.INSTANCE_FAULT)):
+            with instance(variant):
+                pts[f"{pr}/none_on_{name}_instance"] = time_run(
+                    spec(), plain=False)
+    occ = [occupancy(n, 1, es_kernel.INSTANCE_FAULT) for n in (256, 1024)]
+    rec = dict(points={k: {x: r[x] for x in keys} for k, r in pts.items()},
+               occupancy=occ)
+    emit(phase="fault_time", **rec)
     return rec
 
 
@@ -3581,6 +3813,8 @@ def main() -> int:
     fig3_skew_run = timed(phase_fig3_skew)
     topo_run = timed(phase_topology, dev)
     topo_time = timed(phase_topo_time)
+    faults_run = timed(phase_faults)
+    fault_time = timed(phase_fault_time)
 
     t0 = time.perf_counter()
     runs = [time_run(full_width_spec(*pt), plain=i == 0)
@@ -3649,6 +3883,13 @@ def main() -> int:
         us_per_cycle_zipf_256x1024={
             k: r["us_per_cycle"] for k, r in topo_time["zipf"].items()},
         occupancy_topology=topo_time["occupancy"],
+        faults=dict({k: faults_run[k] for k in (
+            "launches", "points", "card_ms", "study_wall_s",
+            "single_walls_sum_s", "headline")},
+            busy_share=faults_run["device_busy_share"]),
+        us_per_cycle_faults_256x1={
+            k: r["us_per_cycle"] for k, r in fault_time["points"].items()},
+        occupancy_fault=fault_time["occupancy"],
         us_per_cycle_programs_256={
             f"{r['workload']}/{r['protocol']}": r["us_per_cycle"]
             for r in program_time["points"]},

@@ -228,4 +228,20 @@ def attach(res: Dict[str, np.ndarray], n_workers: int, cycles: int,
         w = res["w_served"][:n_workers]
         res["worker_rate"] = (float(w.sum()) / cycles / n_workers
                               if w.size else 0.0)
+    if "dead_mask" in res:
+        # graceful-degradation metrics: the engine emits these keys only
+        # when a FaultPlan is enabled
+        dm = np.asarray(res["dead_mask"])[n_workers:] if n_workers \
+            else np.asarray(res["dead_mask"])
+        res["stalled_cores"] = int(np.asarray(res["dead_mask"]).sum())
+        surv = ops[~dm] if dm.size else ops
+        res["survivor_throughput"] = (float(surv.sum()) / cycles
+                                      if surv.size else 0.0)
+        res["survivor_jain"] = jain_fairness(surv)
+        res["faults_injected"] = int(np.asarray(res["faults_injected"]))
+        res["recoveries"] = int(np.asarray(res.get("recoveries", 0)))
+        # liveness verdict: the forward-progress watchdog never flagged
+        # a halt
+        res["halt_cyc"] = int(np.asarray(res["halt_cyc"]))
+        res["progress_ok"] = bool(res["halt_cyc"] < 0)
     return res

@@ -15,9 +15,14 @@ when an arbitrated request reaches its bank:
 * ``on_wake``          — queue-based protocols: fire wake-up timers and
   move sleeping cores back to their critical section.
 
+* ``held`` / ``on_timeout`` — fault recovery: which banks are held
+  (a dead owner wedges them), and the reservation watchdog's action on
+  a bank held with no progress (evict a dead owner, re-send a lost
+  wakeup, force-free a wedged lock).
+
 The port drives every protocol through ``fused_access``; the masked
-``on_access`` form (the reference's XLA scan path) and the fault hooks
-(``held``/``on_timeout``) are not part of the port yet.
+``on_access`` form (the reference's XLA scan path) is not part of the
+port.
 """
 from __future__ import annotations
 
@@ -40,8 +45,9 @@ NXT_WORK_DONE, NXT_MOD, NXT_BACKOFF = 0, 1, 2
 # poll), OUT_SLEEP -> SLEEP with the timer untouched, OUT_NONE -> no
 # winner / no core-side effect.
 OUT_NONE, OUT_GRANT, OUT_DONE, OUT_FAIL, OUT_SLEEP = 0, 1, 2, 3, 4
-# recovery outcome codes of the reservation watchdog (kept so the code
-# table matches the reference; the port has no watchdog yet)
+# recovery outcome codes emitted by ``on_timeout`` (the reservation
+# watchdog): the bank's dead owner was evicted, or its lost wakeup was
+# re-sent
 OUT_EVICT, OUT_REDELIVER = 5, 6
 
 #: ``Protocol.kernel_code`` values: which bank-update branch of the CUDA
@@ -237,3 +243,67 @@ class Protocol:
         cs["tmr"] = torch.where(woken, ctx.mod_dur, cs["tmr"])
         bank["wake_tmr"] = wake_tmr
         return cs, bank, (wake_tmr == 1).sum(dtype=torch.int32)
+
+    # ---- fault recovery (repro_torch.faults) ----------------------------
+    def held(self, bank: Dict) -> Optional[torch.Tensor]:
+        """(a,) bool: which banks are currently *held* (a reservation,
+        lock or turn is outstanding, so a dead owner wedges the bank).
+        ``None`` (the default) means the protocol has no held state and
+        can never get stuck: the engine then runs no watchdog at all
+        (amo: every access commits at the bank)."""
+        return None
+
+    def on_timeout(self, ctx: Ctx, cs: Dict, bank: Dict,
+                   stuck_b: torch.Tensor, killed: torch.Tensor,
+                   owner: torch.Tensor
+                   ) -> Tuple[Dict, Dict, torch.Tensor]:
+        """Reservation-watchdog recovery, once a cycle while the plan
+        arms ``watchdog_cyc``: ``stuck_b`` (a,) are the banks held with
+        no service progress for ``watchdog_cyc`` cycles, ``killed`` (n,)
+        the permanently killed cores and ``owner`` (a,) the engine's
+        last grantee of each bank (``n``: unknown).  Returns ``(cs,
+        bank, kind)``: ``cs["msgs"]`` grown by the recovery's messages,
+        and ``kind`` (a,) an ``OUT_EVICT`` / ``OUT_REDELIVER`` /
+        ``OUT_NONE`` code per bank.  Default: no recovery."""
+        return cs, bank, torch.zeros((ctx.a,), dtype=torch.int32,
+                                     device=stuck_b.device)
+
+
+def _owner_dead(killed: torch.Tensor, owner: torch.Tensor, n: int):
+    """(a,) bool: the bank's recorded owner is known and killed."""
+    return (owner < n) & killed[owner.clamp(0, n - 1)]
+
+
+class FifoQueueRecovery:
+    """``held``/``on_timeout`` of the single-FIFO sleep protocols
+    (lrscwait, colibri, mwait_lock, nb_feb), where the queue head IS the
+    current owner: a stuck bank whose head core is permanently dead is
+    evicted (the head advances; the reservation passes to the next
+    waiter through a normal wake), and a stuck bank whose head is alive
+    had its wakeup lost: it is re-sent.  A mixin over :class:`Protocol`
+    subclasses with ``qbuf``/``qhead``/``qlen``/``wake_tmr`` bank state
+    and a ``wake_delay(p)`` policy."""
+
+    def held(self, bank):
+        return bank["qlen"] > 0
+
+    def on_timeout(self, ctx, cs, bank, stuck_b, killed, owner):
+        q_cap, n = ctx.q_cap, ctx.n
+        qhead, qlen = bank["qhead"], bank["qlen"]
+        head = bank["qbuf"][ctx.ba, qhead]
+        head_dead = (head >= 0) & killed[head.clamp(0, n - 1)]
+        evict_b = stuck_b & head_dead
+        qhead = torch.where(evict_b, torch.remainder(qhead + 1, q_cap),
+                            qhead)
+        qlen = qlen - evict_b.to(torch.int32)
+        redeliver_b = stuck_b & ~head_dead
+        # hand the reservation to the new head / re-send the lost wake
+        wake_b = (evict_b | redeliver_b) & (qlen > 0)
+        wake_tmr = bank["wake_tmr"].masked_fill(wake_b,
+                                                self.wake_delay(ctx.p))
+        cs["msgs"] = cs["msgs"] + 2 * wake_b.sum(dtype=torch.int32)
+        bank = dict(bank, qhead=qhead, qlen=qlen, wake_tmr=wake_tmr)
+        kind = torch.where(evict_b, OUT_EVICT,
+                           torch.where(redeliver_b & wake_b, OUT_REDELIVER,
+                                       OUT_NONE)).to(torch.int32)
+        return cs, bank, kind

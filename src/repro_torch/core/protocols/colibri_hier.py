@@ -14,18 +14,20 @@ re-registers at the global tail and hands the address over.
 Polling-free and retry-free: the local queues hold one outstanding RMW
 per member core, so an acquire never bounces.  Grantees bypass the local
 queues (a woken head is popped), so ``queue_depth`` counts the sleepers
-only.  :class:`TwoLevelQueues` is the fused path shared with
-``hw_event``; the fault hooks ``held``/``on_timeout`` (ROADMAP A5) and
-the masked ``on_access`` form (A6) are not ported yet.
+only.  :class:`TwoLevelQueues` is the fused path and the watchdog
+recovery shared with ``hw_event`` (the masked ``on_access`` form is
+ROADMAP A6).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.protocols.base import (KERNEL_HIER, MOD, MSGS_HIER,
-                                             OUT_DONE, OUT_GRANT, OUT_NONE,
+                                             OUT_DONE, OUT_EVICT, OUT_GRANT,
+                                             OUT_NONE, OUT_REDELIVER,
                                              OUT_SLEEP, Contract, FusedOut,
-                                             KernelArgs, Protocol)
+                                             KernelArgs, Protocol,
+                                             _owner_dead)
 from repro_torch.core.protocols.registry import register
 
 
@@ -179,6 +181,58 @@ class TwoLevelQueues(Protocol):
         if self.turn_budget:
             bank["turn_srv"] = turn_srv
         return bank, FusedOut(kind=kind, tmr=tmr, msgs=msgs)
+
+    # ---- fault recovery --------------------------------------------------
+    # The current holder is NOT queued (grantees skip the local queues;
+    # woken heads are popped), so an eviction cannot pop the dead core:
+    # it REPLAYS the release hand-off the dead owner would have made —
+    # wake the serving group's next local waiter, else hand the address
+    # to the next registered group (``lat + handoff_extra``), else go
+    # idle.  The engine's last grantee (``owner``) says whether the
+    # holder is dead.
+    def held(self, bank):
+        return bank["cur_grp"] >= 0
+
+    def on_timeout(self, ctx, cs, bank, stuck_b, killed, owner):
+        p, n, ba = ctx.p, ctx.n, ctx.ba
+        G, _, _ = self._geom(p, n)
+        i32 = torch.int32
+        lqlen = bank["lqlen"]
+        ggq, gqhead, gqlen = bank["ggq"], bank["gqhead"], bank["gqlen"]
+        g_inq, cur_grp = bank["g_inq"].clone(), bank["cur_grp"]
+        wake_tmr, wake_grp = bank["wake_tmr"], bank["wake_grp"]
+        evict_b = stuck_b & _owner_dead(killed, owner, n)
+        g = cur_grp.clamp(0, G - 1)
+        more_local = evict_b & (lqlen[ba * G + g] > 0)
+        wake_grp = torch.where(more_local, g, wake_grp)
+        wake_tmr = wake_tmr.masked_fill(more_local, self.local_delay)
+        end_b = evict_b & ~more_local
+        have_next = end_b & (gqlen > 0)
+        next_g = ggq[ba, gqhead]
+        cur_grp = torch.where(have_next, next_g, cur_grp)
+        # (a bank without a next group reads and writes back one flag)
+        g_inq[ba, next_g] = g_inq[ba, next_g] & ~have_next
+        gqhead = torch.where(have_next, torch.remainder(gqhead + 1, G),
+                             gqhead)
+        gqlen = gqlen - have_next.to(i32)
+        wake_grp = torch.where(have_next, next_g, wake_grp)
+        wake_tmr = wake_tmr.masked_fill(have_next,
+                                        p.lat + self.handoff_extra)
+        cur_grp = cur_grp.masked_fill(end_b & ~have_next, -1)
+        # live owner, no progress: the recorded wake was lost — re-send
+        redeliver_b = (stuck_b & ~evict_b
+                       & (lqlen[ba * G + wake_grp] > 0))
+        wake_tmr = wake_tmr.masked_fill(redeliver_b, self.local_delay)
+        cs["msgs"] = cs["msgs"] + 2 * (more_local | have_next
+                                       | redeliver_b).sum(dtype=i32)
+        bank = dict(bank, ggq=ggq, gqhead=gqhead, gqlen=gqlen, g_inq=g_inq,
+                    cur_grp=cur_grp, wake_tmr=wake_tmr, wake_grp=wake_grp)
+        if self.turn_budget:
+            bank["turn_srv"] = bank["turn_srv"].masked_fill(evict_b, 0)
+        kind = torch.where(evict_b, OUT_EVICT,
+                           torch.where(redeliver_b, OUT_REDELIVER,
+                                       OUT_NONE)).to(i32)
+        return cs, bank, kind
 
     def on_wake(self, ctx, cs, bank):
         """Fire wake-up timers: wake the head of the chosen group's local

@@ -14,8 +14,9 @@ reservation Qnodes replaced by hardware units: the same cluster-local
 queues and global FIFO of clusters, but no turn budget (a unit serves
 its cluster until the local wait set drains) and its own delays and
 messages.  The unit's cluster is a topology cluster on a hierarchical
-topology and an ``n_groups`` group on the flat crossbar, the only
-topology the port has so far (ROADMAP A4).
+topology and an ``n_groups`` group on the flat crossbar.  Its watchdog
+recovery is the two-level queues' hand-off replay, handing a group on
+after ``lat + 1``.
 """
 from __future__ import annotations
 

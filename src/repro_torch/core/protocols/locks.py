@@ -11,9 +11,10 @@
                     (retry traffic like ``amo_lock``) but grants strictly
                     in ticket order.
 
-The port drives them through ``fused_access`` only; the masked
-``on_access`` form (ROADMAP A6) and the fault hooks ``held``/
-``on_timeout`` (A5) are not ported yet.
+The port drives them through ``fused_access`` only (the masked
+``on_access`` form is ROADMAP A6).  Under the reservation watchdog a
+spin lock whose last grantee is dead is force-freed, and the ticket
+lock's ``serving`` skips a dead holder's ticket.
 """
 from __future__ import annotations
 
@@ -21,9 +22,10 @@ import torch
 
 from repro_torch.core.protocols.base import (KERNEL_LOCK, KERNEL_TICKET,
                                              MSGS_ACQ, MSGS_NONE, OUT_DONE,
-                                             OUT_FAIL, OUT_GRANT, OUT_NONE,
-                                             Contract, FusedOut, KernelArgs,
-                                             Protocol)
+                                             OUT_EVICT, OUT_FAIL, OUT_GRANT,
+                                             OUT_NONE, Contract, FusedOut,
+                                             KernelArgs, Protocol,
+                                             _owner_dead)
 from repro_torch.core.protocols.registry import register
 
 
@@ -62,6 +64,18 @@ class SpinLock(Protocol):
         msgs = 2 * fx.acq_b.to(torch.int32) if self.lr_pair else None
         bank = dict(bank, lock=(lock | got_b) & ~fx.rel_b)
         return bank, FusedOut(kind=kind, tmr=tmr, msgs=msgs)
+
+    # ---- fault recovery: timeout-and-retry ------------------------------
+    # a lock held with no release for watchdog_cyc whose holder is
+    # permanently dead is force-freed; the spinners' re-polls take it
+    def held(self, bank):
+        return bank["lock"]
+
+    def on_timeout(self, ctx, cs, bank, stuck_b, killed, owner):
+        free_b = stuck_b & _owner_dead(killed, owner, ctx.n)
+        bank = dict(bank, lock=bank["lock"] & ~free_b)
+        return cs, bank, torch.where(free_b, OUT_EVICT,
+                                     OUT_NONE).to(torch.int32)
 
 
 @register
@@ -118,3 +132,15 @@ class TicketLock(Protocol):
         xset = {"tkt": (torch.where(fx.rel_b, -1, my_tkt_b).to(torch.int32),
                         fx.acq_b | fx.rel_b)}
         return bank, FusedOut(kind=kind, tmr=tmr, xset=xset)
+
+    # ---- fault recovery: skip the dead ticket ---------------------------
+    def held(self, bank):
+        return bank["serving"] < bank["next_tkt"]
+
+    def on_timeout(self, ctx, cs, bank, stuck_b, killed, owner):
+        skip_b = stuck_b & _owner_dead(killed, owner, ctx.n)
+        # advance the serving counter past the dead holder's ticket; the
+        # next waiter's re-poll matches and takes the lock
+        bank = dict(bank, serving=bank["serving"] + skip_b.to(torch.int32))
+        return cs, bank, torch.where(skip_b, OUT_EVICT,
+                                     OUT_NONE).to(torch.int32)

@@ -8,9 +8,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.protocols.base import (KERNEL_LRSC, OUT_DONE, OUT_FAIL,
-                                             OUT_GRANT, OUT_NONE, Contract,
-                                             FusedOut, Protocol)
+from repro_torch.core.protocols.base import (KERNEL_LRSC, OUT_DONE,
+                                             OUT_EVICT, OUT_FAIL, OUT_GRANT,
+                                             OUT_NONE, Contract, FusedOut,
+                                             Protocol)
 from repro_torch.core.protocols.registry import register
 
 
@@ -46,3 +47,16 @@ class Lrsc(Protocol):
         tmr = torch.full_like(kind, fx.p.lat)
         bank = dict(bank, resv_core=resv_core, resv_valid=resv_valid)
         return bank, FusedOut(kind=kind, tmr=tmr)
+
+    # ---- fault recovery: expire the stale slot --------------------------
+    # hardware reservations time out; a slot pinned with no successful
+    # SC for watchdog_cyc is expired whatever its owner's state (a live
+    # owner just sees its SC fail and retries, which IS the lrsc
+    # recovery path)
+    def held(self, bank):
+        return bank["resv_valid"]
+
+    def on_timeout(self, ctx, cs, bank, stuck_b, killed, owner):
+        bank = dict(bank, resv_valid=bank["resv_valid"] & ~stuck_b)
+        return cs, bank, torch.where(stuck_b, OUT_EVICT,
+                                     OUT_NONE).to(torch.int32)

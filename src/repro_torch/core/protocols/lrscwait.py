@@ -13,13 +13,15 @@ import torch
 from repro_torch.core.protocols.base import (KERNEL_QUEUE, MSGS_ENQ_PEND,
                                              MSGS_NONE, OUT_DONE, OUT_FAIL,
                                              OUT_GRANT, OUT_NONE, OUT_SLEEP,
-                                             Contract, FusedOut, KernelArgs,
-                                             Protocol)
+                                             Contract, FifoQueueRecovery,
+                                             FusedOut, KernelArgs, Protocol)
 from repro_torch.core.protocols.registry import register
 
 
 @register
-class LrscWait(Protocol):
+class LrscWait(FifoQueueRecovery, Protocol):
+    # the FIFO watchdog recovery applies directly: the queue head IS the
+    # reservation owner (grantees enqueue too)
     name = "lrscwait"
     uses_queue = True
     # wait-class: contenders sleep in the bank queue; OUT_FAIL only at a

@@ -3,8 +3,9 @@
 Contenders enqueue at the bank and sleep (Mwait setup costs messages);
 the releaser wakes its successor directly — polling-free, but every
 critical section pays lock-management round trips that the direct
-LRSCwait RMW avoids.  The fault recovery of the reference
-(``FifoQueueRecovery``, ROADMAP A5) is not ported yet.
+LRSCwait RMW avoids.  The head of the queue is the lock holder, so the
+FIFO watchdog recovery (``FifoQueueRecovery``) applies: evict a dead
+holder, wake the successor.
 """
 from __future__ import annotations
 
@@ -13,12 +14,13 @@ import torch
 from repro_torch.core.protocols.base import (KERNEL_QUEUE, MSGS_ENQ,
                                              NEVER_FULL, OUT_DONE, OUT_GRANT,
                                              OUT_NONE, OUT_SLEEP, Contract,
-                                             FusedOut, KernelArgs, Protocol)
+                                             FifoQueueRecovery, FusedOut,
+                                             KernelArgs, Protocol)
 from repro_torch.core.protocols.registry import register
 
 
 @register
-class MwaitLock(Protocol):
+class MwaitLock(FifoQueueRecovery, Protocol):
     # same queue shape as lrscwait (head = lock holder)
     name = "mwait_lock"
     uses_queue = True

@@ -12,9 +12,9 @@ new head (the bit stays empty) or sets the bit full when nobody waits.
 The FIFO holds one entry per core, so there is no full-queue ``OUT_FAIL``
 path at any core count.  In every reachable state ``feb == (qlen ==
 0)``; the kernels carry the bit as state of its own all the same and
-update it as :meth:`NbFeb.fused_access` does.  The fault recovery of the
-reference (``FifoQueueRecovery`` and the bit's re-derivation, ROADMAP
-A5) is not ported yet.
+update it as :meth:`NbFeb.fused_access` does.  The watchdog recovery is
+the FIFO eviction (``FifoQueueRecovery``) followed by the bit's
+re-derivation ``feb = qlen == 0``.
 """
 from __future__ import annotations
 
@@ -23,12 +23,13 @@ import torch
 from repro_torch.core.protocols.base import (KERNEL_FEB, MSGS_NONE,
                                              NEVER_FULL, OUT_DONE, OUT_GRANT,
                                              OUT_NONE, OUT_SLEEP, Contract,
-                                             FusedOut, KernelArgs, Protocol)
+                                             FifoQueueRecovery, FusedOut,
+                                             KernelArgs, Protocol)
 from repro_torch.core.protocols.registry import register
 
 
 @register
-class NbFeb(Protocol):
+class NbFeb(FifoQueueRecovery, Protocol):
     name = "nb_feb"
     uses_queue = True
     contract = Contract(exclusive_grant=True, wait_class=True,
@@ -84,3 +85,11 @@ class NbFeb(Protocol):
         bank = dict(bank, feb=feb, qbuf=qbuf, qhead=qhead, qlen=qlen,
                     wake_tmr=wake_tmr)
         return bank, FusedOut(kind=kind, tmr=tmr)
+
+    def on_timeout(self, ctx, cs, bank, stuck_b, killed, owner):
+        # the FIFO eviction; evicting the LAST entry must also set the
+        # bit full again, or the bank refuses every later readFE
+        cs, bank, kind = super().on_timeout(ctx, cs, bank, stuck_b,
+                                            killed, owner)
+        bank["feb"] = bank["qlen"] == 0
+        return cs, bank, kind

@@ -32,10 +32,11 @@ per-step tables and the barrier release of ``ms_queue``,
 skew (in a single run's and a sweep's form, as the reference computes
 them), every topology (``flat``, and ``cluster2``/``cluster3``: extra
 latency at issue, per-level link budgets, the ``hops`` counter), Fig. 5
-workers, the per-cycle event traces (``record_trace``) and the
-windowed telemetry (``telemetry_windows``).  An enabled fault plan is
-refused at :class:`SimParams` construction with the ROADMAP item that
-will bring it.
+workers, the per-cycle event traces (``record_trace``), the
+windowed telemetry (``telemetry_windows``) and fault injection and
+recovery (``faults``: core kills and stalls, request and wakeup drops,
+bank stalls, the reservation watchdog and the progress detector; the
+empty plan adds no key and no work).
 """
 from __future__ import annotations
 
@@ -54,12 +55,13 @@ from repro_torch.core.metrics import LAT_BINS
 from repro_torch.core.protocols.base import (BACKOFF, BARWAIT, MOD,
                                              NXT_BACKOFF,
                                              NXT_MOD, NXT_WORK_DONE, OUT_DONE,
-                                             OUT_FAIL, OUT_GRANT, OUT_NONE,
-                                             OUT_SLEEP, P_ACQ, P_REL, REQ,
-                                             RESP, SLEEP, WORK, Ctx)
+                                             OUT_EVICT, OUT_FAIL, OUT_GRANT,
+                                             OUT_NONE, OUT_SLEEP, P_ACQ,
+                                             P_REL, REQ, RESP, SLEEP, WORK,
+                                             Ctx)
 from repro_torch.core.workloads.base import (ADDR_FIXED, ADDR_ZIPF,
                                              K_BARRIER, zipf_index)
-from repro_torch.faults import FaultPlan
+from repro_torch.faults import DROP_DENOM, FaultPlan
 from repro_torch.kernels import engine_step
 from repro_torch.kernels.engine_step.kernel import shl32
 from repro_torch.obs.schema import TELE_K, TELE_NSUM, window_len
@@ -113,7 +115,7 @@ class SimParams:
     clusters: int = 4                # leaf clusters (hierarchical topologies)
     record_trace: bool = False       # event traces (repro_torch.obs)
     telemetry_windows: int = 0       # windowed telemetry (repro_torch.obs)
-    faults: FaultPlan = FaultPlan()  # fault schedule (only the empty plan)
+    faults: FaultPlan = FaultPlan()  # fault injection & recovery
 
     _BOUNDS = (("n_cores", 1), ("cycles", 1), ("n_addrs", 1),
                ("q_slots", 1), ("n_groups", 1), ("unroll", 1),
@@ -165,17 +167,6 @@ class SimParams:
             raise ValueError(
                 f"workload {self.workload!r} needs n_addrs >= "
                 f"{wl.min_addrs} (got {self.n_addrs})")
-        _refuse_unported(self, wl.program(self))
-
-
-def _refuse_unported(p: SimParams, prog) -> None:
-    """Raise ``NotImplementedError`` for what the reference engine runs
-    and the port does not yet (a refusal, never a fallback)."""
-    def refuse(what, item):
-        raise NotImplementedError(
-            f"{what} is not ported to repro_torch yet (ROADMAP item {item})")
-    if p.faults.enabled:
-        refuse("an enabled FaultPlan", "A5")
 
 
 def _hash(x: torch.Tensor) -> torch.Tensor:
@@ -240,6 +231,18 @@ def _bucket_a(n_addrs: int) -> int:
     return 1 << max(n_addrs - 1, 0).bit_length()
 
 
+def _scatter_at_wakes(dst: torch.Tensor, woken: torch.Tensor,
+                      addr: torch.Tensor, vals) -> torch.Tensor:
+    """``dst`` (a,) with each woken core's bank set to that core's entry
+    of ``vals`` (n,) — the reference's ``dst.at[where(woken, addr,
+    a)].set(vals)``.  A cycle wakes at most one core a bank (each bank
+    wakes its queue's head), so no bank is written twice."""
+    a = dst.shape[0]
+    out = torch.cat([dst, dst.new_zeros(1)])
+    out.scatter_(0, torch.where(woken, addr, a).to(torch.int64), vals)
+    return out[:a]
+
+
 def simulate_batch(points: Sequence[SimParams], device, started=None
                    ) -> List[Dict[str, torch.Tensor]]:
     """Many engine runs on ``device``: one result dict per point, in
@@ -254,9 +257,11 @@ def simulate_batch(points: Sequence[SimParams], device, started=None
     point is the plain loop, :func:`_simulate_plain`, at the bucket.
     A skewed Zipf stream takes the reference sweep's form (its traced
     scalars, ``zipf_index(..., traced=True)``), which differs from a
-    single run's on a few hashes.  ``started``, a CUDA event, is
-    recorded when the host has packed the first launch, before the
-    card's work (GPU only)."""
+    single run's on a few hashes; a bank stall's victims are drawn
+    over the bucket, as the reference's sweep draws them over its bank
+    allocation, so they may differ from a single run's too.
+    ``started``, a CUDA event, is recorded when the host has packed the
+    first launch, before the card's work (GPU only)."""
     dev = torch.device(device)
     if dev.type != "cuda":
         return [_simulate_plain(p, dev, banks=_bucket_a(p.n_addrs),
@@ -399,6 +404,44 @@ def _simulate_plain(p: SimParams, device, banks=None, traced=False
     nxt_of_kind = torch.tensor(
         [NXT_MOD if k == OUT_GRANT else NXT_WORK_DONE if k == OUT_DONE
          else NXT_BACKOFF for k in kinds], dtype=i32, device=dev)
+    # ---- fault injection & recovery: decided once per run, so the empty
+    # plan issues no op and adds no key.  The victim sets are drawn on the
+    # host from the plan's seed (the bank-stall victims over the banks
+    # allocated); only a holder kill chooses its victims in the loop
+    fp = p.faults
+    use_faults = fp.enabled
+    holder_mode = use_faults and fp.n_kill > 0 and fp.kill_holder == 1
+    uni_kill = use_faults and fp.n_kill > 0 and fp.kill_holder == 0
+    has_stall = use_faults and fp.n_stall > 0
+    has_bstall = use_faults and fp.n_bank_stall > 0
+    has_drop = use_faults and fp.msg_drop_bp > 0
+    any_core_fault = holder_mode or uni_kill or has_stall
+    use_wd = (use_faults and fp.watchdog_cyc > 0
+              and proto.held(bank) is not None)
+    if use_faults:
+        no_core = zeros(n, torch.bool)
+        if uni_kill:
+            kill_m = torch.from_numpy(fp.kill_mask(n)).to(dev)
+        if has_stall:
+            stall_m = torch.from_numpy(fp.stall_mask(n)).to(dev)
+        if has_bstall:
+            bstall_m = torch.from_numpy(fp.bank_stall_mask(a)).to(dev)
+        prog_thr = fp.progress_threshold()
+        finj, last_ret = zeros(), zeros()
+        halt_cyc = torch.full((), -1, dtype=i32, device=dev)
+        if holder_mode:
+            kmask = zeros(n, torch.bool)
+            kleft = torch.full((), fp.n_kill, dtype=i32, device=dev)
+        if use_wd:
+            wd_srv, recoveries = zeros(a), zeros()
+            wd_own = torch.full((a,), n, dtype=i32, device=dev)
+        if has_drop:
+            # the Bernoulli streams' per-lane terms (the cycle's is added
+            # each cycle): requests by core, lost wakeups by bank
+            drop_base = (iota.to(torch.int64) * 9781
+                         + fp.fault_seed * 977 + 13)
+            wdrop_base = (ba.to(torch.int64) * 3643
+                          + fp.fault_seed * 389 + 7)
 
     def stream(opc, mode):
         """The uniform counter hash or the Zipf stream at ``opc``."""
@@ -423,6 +466,29 @@ def _simulate_plain(p: SimParams, device, banks=None, traced=False
         # ---- timers ----
         tmr = (tmr - 1).clamp_(min=0)
         t0 = tmr == 0
+
+        # ---- faults: dead (killed, or inside a stall window) cores
+        # freeze — their timers never fire, they send nothing — while
+        # their requests already in flight are still served ----
+        if any_core_fault:
+            if holder_mode:
+                killed = kmask
+            elif uni_kill and cyc >= fp.kill_cyc:
+                killed = kill_m
+            else:
+                killed = no_core
+            dead = killed
+            if has_stall and fp.stall_cyc <= cyc < fp.stall_cyc \
+                    + fp.stall_dur:
+                dead = dead | stall_m
+            t0 = t0 & ~dead
+        if use_faults:
+            if uni_kill and cyc == fp.kill_cyc:
+                finj = finj + min(fp.n_kill, n)
+            if has_stall and cyc == fp.stall_cyc:
+                finj = finj + min(fp.n_stall, n)
+            if has_bstall and cyc == fp.bank_stall_cyc:
+                finj = finj + min(fp.n_bank_stall, a)
 
         # ---- timer-expiry dispatch: WORK -> acquire, BACKOFF ->
         # reissue acquire, MOD -> release/SC ----
@@ -494,11 +560,15 @@ def _simulate_plain(p: SimParams, device, banks=None, traced=False
         if has_workers:
             w_tmr = (w_tmr - 1).clamp_(min=0)
             w_arr = is_worker & (w_tmr == 0)
+            if any_core_fault:
+                w_arr = w_arr & ~dead            # dead workers go silent
 
         # ---- network acceptance (rotating-fair, bounded bandwidth) ----
         fresh = (st == REQ) & (tmr == 0) & ~parked
         if has_workers:
             fresh = fresh & not_worker
+        if any_core_fault:
+            fresh = fresh & ~dead                # dead cores stop sending
         shift = (cyc * 97) % n
         rot = torch.roll(iota, -shift)                    # (iota+shift)%n
         all_req = (fresh | w_arr) if has_workers else fresh
@@ -514,6 +584,16 @@ def _simulate_plain(p: SimParams, device, banks=None, traced=False
             for cm, bw in zip(xmask, lvl_bw):
                 acc_x = accept_rotating_fair(all_req & cm, bw, shift)
                 accepted = accepted & (~cm | acc_x)
+        if has_drop:
+            # Bernoulli drop of newly accepted requests: the message dies
+            # in flight and the core retransmits next cycle; the wasted
+            # hop is billed into msgs
+            u = _hash(drop_base + cyc * 6271)
+            req_drop = (fresh & accepted
+                        & ((u % DROP_DENOM) < fp.msg_drop_bp))
+            accepted = accepted & ~req_drop
+            n_req_drop = req_drop.sum(dtype=i32)
+            finj = finj + n_req_drop
         if has_workers:
             w_acc = w_arr & accepted
             w_served = w_served + w_acc
@@ -534,6 +614,10 @@ def _simulate_plain(p: SimParams, device, banks=None, traced=False
 
         # ---- bank side: arbitration + protocol + histogram ----
         arrived = parked & (st == REQ)
+        if has_bstall and fp.bank_stall_cyc <= cyc < fp.bank_stall_cyc \
+                + fp.bank_stall_dur:
+            # a stalled bank takes no request; its parked ones wait
+            arrived = arrived & ~bstall_m[addr]
         fs = engine_step.fused_step(
             proto, p, bank, cand_cyc=arr_cyc.masked_fill(~arrived, _BIG),
             rot=rot, addr=addr, phase=phase, acq_start=acq_start,
@@ -560,23 +644,82 @@ def _simulate_plain(p: SimParams, device, banks=None, traced=False
             xc[f] = torch.where(winner & msk[addr], val[addr], xc[f])
         n_win = winner.sum(dtype=i32)
         polls = polls + fs["polls"]
-        msgs_now = 2 * n_win + fs["msgs"]
+        # side messages: the protocol's, the barrier release's and the
+        # watchdog's recoveries (they take network slots next cycle)
+        xmsgs = fs["msgs"]
         if has_bar:
-            msgs_now = msgs_now + bar_msgs
-        msgs = msgs + msgs_now
+            xmsgs = xmsgs + bar_msgs
         bank = fs["bank"]
         bank_ops = bank_ops + n_win
         if use_tele:
             # bank-access outcome tallies, before wake-ups
             oc = engine_step.outcome_counts(fs["kind"])
+        if use_tele or use_wd or holder_mode:
             st_pre_wake = st
 
         # ---- wakeups (queue-based protocols) ----
         wake_load = 0
+        if proto.uses_queue and has_drop:
+            # lost wakeup: a wake message firing this cycle drops; the
+            # sleeping head never hears it (only the watchdog recovers)
+            wt = bank["wake_tmr"]
+            uw = _hash(wdrop_base + cyc * 9176)
+            wdrop = (wt == 1) & ((uw % DROP_DENOM) < fp.msg_drop_bp)
+            bank = dict(bank, wake_tmr=wt.masked_fill(wdrop, 0))
+            finj = finj + wdrop.sum(dtype=i32)
         if proto.uses_queue:
             cs, bank, wake_load = proto.on_wake(ctx, dict(st=st, tmr=tmr),
                                                 bank)
             st, tmr = cs["st"], cs["tmr"]
+
+        # ---- fault recovery: holder kills, the reservation watchdog ----
+        if holder_mode or use_wd:
+            # a woken core is handed ownership as much as a granted one
+            woken = ((st_pre_wake == SLEEP) & (st != SLEEP)
+                     if proto.uses_queue else no_core)
+        if holder_mode and cyc >= fp.kill_cyc:
+            # the first kleft cores, by core index, handed ownership (a
+            # bank grant or a wake) at or after kill_cyc die holding it
+            cand = ((winner & (kind_c == OUT_GRANT)) | woken) & ~kmask
+            rank = torch.cumsum(cand.to(i32), 0, dtype=i32) - 1
+            newk = cand & (rank < kleft)
+            kmask = killed = kmask | newk
+            n_newk = newk.sum(dtype=i32)
+            kleft = kleft - n_newk
+            finj = finj + n_newk
+        if use_wd:
+            # per-bank service timer, re-armed by every sign of life (not
+            # held, a retire, a wake hand-off) but not by grants
+            held_b = proto.held(bank)
+            wd_own = torch.where(fs["kind"] == OUT_GRANT, fs["win"], wd_own)
+            wd_own = _scatter_at_wakes(wd_own, woken, addr, iota)
+            wd_srv = wd_srv.masked_fill(~held_b | (fs["kind"] == OUT_DONE),
+                                        cyc)
+            wd_srv = _scatter_at_wakes(wd_srv, woken, addr,
+                                       torch.full_like(iota, cyc))
+            stuck_b = held_b & (cyc - wd_srv >= fp.watchdog_cyc)
+            tcs, bank, rkind = proto.on_timeout(
+                ctx, dict(msgs=zeros()), bank, stuck_b,
+                killed if holder_mode or uni_kill else no_core, wd_own)
+            xmsgs = xmsgs + tcs["msgs"]
+            recoveries = recoveries + (rkind != OUT_NONE).sum(dtype=i32)
+            wd_srv = wd_srv.masked_fill(stuck_b, cyc)          # re-arm
+            # an eviction vacates the bank: forget the owner (the next
+            # grant or wake re-learns it)
+            wd_own = wd_own.masked_fill(rkind == OUT_EVICT, n)
+        if use_faults:
+            # forward-progress detector: no retirement anywhere for
+            # prog_thr cycles flags the halt cycle
+            last_ret = torch.where(done.any(), cyc, last_ret)
+            halt_cyc = torch.where(
+                (halt_cyc < 0) & (cyc - last_ret >= prog_thr), cyc,
+                halt_cyc)
+        msgs_now = 2 * n_win + xmsgs
+        if has_drop:
+            # a dropped request crossed the network once before dying
+            # (billed, but it takes no response slot)
+            msgs_now = msgs_now + n_req_drop
+        msgs = msgs + msgs_now
 
         # ---- completion-latency histogram (accumulated in the kernel)
         lat_hist = lat_hist + fs["hist"]
@@ -584,9 +727,7 @@ def _simulate_plain(p: SimParams, device, banks=None, traced=False
         # network slots taken next cycle by this cycle's responses,
         # worker loads, protocol side-messages, wake-ups and barrier
         # releases
-        resp_prev = n_win + fs["msgs"] + wake_load
-        if has_bar:
-            resp_prev = resp_prev + bar_msgs
+        resp_prev = n_win + xmsgs + wake_load
         if has_workers:
             resp_prev = resp_prev + w_acc.sum(dtype=i32)
         # ---- per-cycle state census ----
@@ -656,6 +797,22 @@ def _simulate_plain(p: SimParams, device, banks=None, traced=False
         out["tele"] = tele
     out.update(bank)
     out.update(xc)
+    if use_faults:
+        out.update(faults_injected=finj, last_ret=last_ret,
+                   halt_cyc=halt_cyc)
+        if holder_mode:
+            out.update(kmask=kmask, kleft=kleft)
+        # the cores dead at the horizon, for the survivor metrics
+        dm = kmask if holder_mode else no_core
+        if uni_kill and fp.kill_cyc < p.cycles:
+            dm = dm | kill_m
+        if has_stall and (fp.stall_cyc <= p.cycles - 1
+                          < fp.stall_cyc + fp.stall_dur):
+            dm = dm | stall_m
+        if use_wd:
+            out.update(wd_srv=wd_srv, wd_own=wd_own)
+        out.update(recoveries=recoveries if use_wd else zeros(),
+                   dead_mask=dm)
     if use_trace:
         # the retired micro-op's pre-advance program counter where a core
         # retired, else -1 (0 in a one-step program)

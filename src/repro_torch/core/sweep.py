@@ -31,7 +31,10 @@ Executor shape:
 Every point runs with its banks at the power-of-two bucket of its
 ``n_addrs`` (``_bucket_a``) and its addresses hashed over the live
 count, as in the reference: a swept point equals its single run on
-every key, the per-bank arrays padded with the initial bank state.
+every key, the per-bank arrays padded with the initial bank state —
+except where the reference's sweep differs from its single run too (a
+skewed Zipf stream's sweep form; bank-stall victims drawn over the
+bucket).
 
 Multi-device placement (the reference's ``NamedSharding``) is not
 ported: a sweep runs on the one ``device`` it is given.

@@ -149,6 +149,8 @@ constexpr int kNxtWorkDone = 0, kNxtMod = 1, kNxtBackoff = 2;
 // outcome codes (repro_torch.core.protocols.base.OUT_*)
 constexpr int kOutNone = 0, kOutGrant = 1, kOutDone = 2, kOutFail = 3,
               kOutSleep = 4;
+// the watchdog's recovery codes (OUT_EVICT, OUT_REDELIVER)
+constexpr int kOutEvict = 5, kOutRedeliver = 6;
 // request phases
 constexpr int kAcq = 0, kRel = 1;
 // protocol families (repro_torch.core.protocols.base.KERNEL_*)
@@ -509,7 +511,13 @@ constexpr int kMaxLevels = 2;
 // address mode, fixed address and barrier flag, and the barrier steps
 // before it (kMaxSteps words each, the program's prog_len first); a
 // hierarchical topology's extra latency and link budget, one word a
-// level each (kMaxLevels words each)
+// level each (kMaxLevels words each).  Last, the fault plan's words
+// (all 0 without one): the F_* flags, the kill cycle, the kills asked
+// for and those a uniform kill makes, the stall and bank-stall windows
+// [start, end) and their victims, the drop rate and the two drop
+// streams' salts, the watchdog's timeout and the progress threshold;
+// only the fault instance stages them (kNumBaseParams words before them:
+// a larger static shared array moved the other instances' registers)
 enum Param {
   P_N, P_A, P_N_ADDRS, P_CYCLES, P_PROTO, P_Q_CAP, P_Q_FULL, P_LAT,
   P_ACQ_TMR, P_WAKE_DELAY, P_MSG_RULE, P_PROG_LEN, P_N_BAR, P_ZIPF_C,
@@ -524,9 +532,14 @@ enum Param {
   P_IS_BAR = P_FIX_ADDR + kMaxSteps,
   P_BAR_PREFIX = P_IS_BAR + kMaxSteps,
   P_LEVEL_EXTRA = P_BAR_PREFIX + kMaxSteps,
-  P_LEVEL_BW = P_LEVEL_EXTRA + kMaxLevels
+  P_LEVEL_BW = P_LEVEL_EXTRA + kMaxLevels,
+  P_F_FLAGS = P_LEVEL_BW + kMaxLevels, P_KILL_CYC, P_N_KILL, P_N_KILL_EFF,
+  P_STALL_CYC, P_STALL_END, P_N_STALL_EFF, P_BSTALL_CYC, P_BSTALL_END,
+  P_N_BSTALL_EFF, P_DROP_BP, P_DROP_SALT, P_WDROP_SALT, P_WATCHDOG,
+  P_PROG_THR
 };
-constexpr int kNumParams = P_LEVEL_BW + kMaxLevels;
+constexpr int kNumParams = P_PROG_THR + 1;
+constexpr int kNumBaseParams = P_F_FLAGS;
 
 // a hierarchical topology on the default tree (core/topologies/base.py,
 // Topology.leaf_geometry):
@@ -650,7 +663,8 @@ enum Ptr {
   R_WAKE_TMR, R_LOCK, R_NEXT_TKT, R_SERVING, R_TKT, R_FEB, R_LQBUF,
   R_LQHEAD, R_LQLEN, R_GGQ, R_G_INQ, R_CUR_GRP, R_TURN_SRV, R_GQHEAD,
   R_GQLEN, R_WAKE_GRP, R_TELE, R_TRACE_STEP, R_TRACE_WAIT, R_TRACE_STATE,
-  R_TRACE_QLEN, R_SCRATCH, R_PC, R_BAR_CNT, R_HOPS, R_ZIPF_THR, kNumPtrs
+  R_TRACE_QLEN, R_SCRATCH, R_PC, R_BAR_CNT, R_HOPS, R_ZIPF_THR, R_KMASK,
+  R_DEAD_MASK, R_WD_SRV, R_WD_OWN, R_FAULT_MASKS, kNumPtrs
 };
 
 struct RunPtrs {
@@ -673,14 +687,38 @@ struct RunPtrs {
   int32_t *pc, *bar_cnt;
   int32_t* hops;            // a hierarchical topology's hop count (0-d)
   const int32_t* zipf_thr;  // zipf_n_thr thresholds, nondecreasing
+  // a fault plan's outputs: the holder kill's victims, the cores dead at
+  // the horizon, each bank's last service cycle and last owner (the
+  // watchdog's state, updated in place); and its victim masks, one byte
+  // each: the uniform kill's n, the stall's n, the bank stall's a
+  bool *kmask, *dead_mask;
+  int32_t *wd_srv, *wd_own;
+  const unsigned char* fault_masks;
 };
 static_assert(sizeof(RunPtrs) == kNumPtrs * sizeof(void*), "RunPtrs words");
 
 // the run's scalar outputs, in the order of kernel.RUN_SCALARS
 enum Scalar {
   S_RESP_PREV, S_MSGS, S_POLLS, S_SLEEP_CYC, S_LAT_MAX, S_ACTIVE_CYC,
-  S_BACKOFF_CYC, S_BANK_OPS, S_NET_STALL, S_BAR_CYC, kNumScalars
+  S_BACKOFF_CYC, S_BANK_OPS, S_NET_STALL, S_BAR_CYC, S_FAULTS_INJECTED,
+  S_LAST_RET, S_HALT_CYC, S_KLEFT, S_RECOVERIES, kNumScalars
 };
+
+// a fault plan's flags (P_F_FLAGS; kernel.py's F_*): any fault
+// machinery; a holder kill; a uniform kill; a stall window; a bank
+// stall; message drops; the watchdog (armed, and the family holds
+// banks); the uniform kill's and the stall's victims dead at the horizon
+constexpr int F_ON = 1, F_HOLDER = 2, F_UNIFORM = 4, F_STALL = 8,
+              F_BSTALL = 16, F_DROP = 32, F_WD = 64, F_DM_KILL = 128,
+              F_DM_STALL = 256;
+// a core's flag byte in the fault instance (the wake flags' bytes): the
+// wake flag, killed while holding, a stall victim, a uniform-kill victim
+constexpr unsigned char B_WOKEN = 1, B_KILLED = 2, B_STALL = 4,
+                        B_KILL = 8;
+// a cycle's fault counts, one set per cycle parity: whether a core
+// retired, requests and wakeups dropped, holders killed, recoveries
+enum FaultCount { F_RET, F_DROPS, F_WDROPS, F_KILLS, F_RECOV, kNumFCounts };
+constexpr int32_t kDropDenom = 10000;  // faults.DROP_DENOM
 
 // one cycle's counts, one set per cycle parity (C_ACC, C_XCL and C_HOPS:
 // a hierarchical topology's accepted requests, those crossing the leaf
@@ -833,6 +871,114 @@ __device__ __forceinline__ void warp_add(int32_t* dst, int32_t v) {
   if ((threadIdx.x & 31) == 0 && s) atomicAdd(dst, static_cast<int32_t>(s));
 }
 
+// Whether bank b is held (a reservation, lock or turn is outstanding, so
+// a dead owner wedges it): the protocols' `held`.  amo holds nothing and
+// runs no watchdog.
+template <bool kWide>
+__device__ __forceinline__ bool bank_held(const BankState& bs,
+                                          const Family& f, int b) {
+  switch (f.proto) {
+    case kLrsc: return bs.resv_valid[b];
+    case kQueue: return bs.qlen[b] > 0;
+    case kFeb: return kWide && bs.qlen[b] > 0;
+    case kLock: return bs.lock[b];
+    case kTicket: return bs.serving[b] < bs.next_tkt[b];
+    case kHier:
+    case kEvent: return kWide && bs.cur_grp[b] >= 0;
+    default: return false;
+  }
+}
+
+// The reservation watchdog's recovery at the stuck bank b: the
+// protocols' on_timeout.  `owner` is the bank's last grantee (n:
+// unknown), killed(x) whether core x is permanently dead.  Returns the
+// OUT_* recovery code and adds the recovery's messages to *msgs.
+template <bool kWide, class Killed>
+__device__ __forceinline__ int on_timeout(const BankState& bs,
+                                          const Family& f, const Groups& g,
+                                          int b, int n, int32_t owner,
+                                          const Killed& killed, int* msgs) {
+  const bool own_dead = owner < n && killed(owner);
+  switch (f.proto) {
+    case kQueue:
+    case kFeb: {
+      // the queue head is the owner: evict a dead head (the next waiter
+      // is woken), else its wakeup was lost: re-send it
+      const int32_t qh = bs.qhead[b];
+      const int32_t head = bs.qbuf[static_cast<long long>(b) * f.q_cap + qh];
+      const bool head_dead = head >= 0 && killed(min(head, n - 1));
+      int32_t ql = bs.qlen[b];
+      if (head_dead) {
+        bs.qhead[b] = (qh + 1) % f.q_cap;
+        ql -= 1;
+        bs.qlen[b] = ql;
+      }
+      const bool wake = ql > 0;
+      if (wake) {
+        bs.wake_tmr[b] = f.wake_delay;
+        *msgs += 2;
+      }
+      return head_dead ? kOutEvict : wake ? kOutRedeliver : kOutNone;
+    }
+    case kLrsc:
+      // the stale reservation expires, whatever its owner's state
+      bs.resv_valid[b] = false;
+      return kOutEvict;
+    case kLock:
+      if (!own_dead) return kOutNone;
+      bs.lock[b] = false;  // force-free; the spinners' re-polls take it
+      return kOutEvict;
+    case kTicket:
+      if (!own_dead) return kOutNone;
+      bs.serving[b] = wadd(bs.serving[b], 1);  // skip the dead ticket
+      return kOutEvict;
+    case kHier:
+    case kEvent: {
+      if (!kWide) return kOutNone;
+      // the holder is not queued: replay the hand-off a dead one would
+      // have made (the next local waiter, else the next registered
+      // group, else idle); a live one's wake was lost: re-send it
+      const int G = g.count;
+      const long long row = static_cast<long long>(b) * G;
+      int32_t cur = bs.cur_grp[b], wg = bs.wake_grp[b];
+      bool more_local = false, have_next = false, redeliver = false;
+      if (own_dead) {
+        const int32_t gg = min(max(cur, 0), G - 1);
+        more_local = bs.lqlen[row + gg] > 0;
+        if (more_local) {
+          wg = gg;
+          bs.wake_tmr[b] = g.local_delay;
+        } else {
+          int32_t gql = bs.gqlen[b];
+          have_next = gql > 0;
+          if (have_next) {
+            const int32_t gqh = bs.gqhead[b];
+            const int32_t nx = bs.ggq[row + gqh];
+            cur = nx;
+            bs.g_inq[row + nx] = false;
+            bs.gqhead[b] = (gqh + 1) % G;
+            bs.gqlen[b] = gql - 1;
+            wg = nx;
+            bs.wake_tmr[b] = f.wake_delay;
+          } else {
+            cur = -1;
+          }
+        }
+        if (f.proto == kHier) bs.turn_srv[b] = 0;
+        bs.cur_grp[b] = cur;
+        bs.wake_grp[b] = wg;
+      } else {
+        redeliver = bs.lqlen[row + wg] > 0;
+        if (redeliver) bs.wake_tmr[b] = g.local_delay;
+      }
+      if (more_local || have_next || redeliver) *msgs += 2;
+      return own_dead ? kOutEvict : redeliver ? kOutRedeliver : kOutNone;
+    }
+    default:
+      return kOutNone;
+  }
+}
+
 // kWide: the instance with every family's branch.  The two-level queues
 // and nb_feb's bit run only in it; the instance the other families run on
 // (kWide false) has their code compiled out: in one instance for all,
@@ -867,7 +1013,26 @@ __device__ __forceinline__ void warp_add(int32_t* dst, int32_t v) {
 // ballot counts of that pass; thread 0 settles net_stall, the hops and
 // the telemetry's local/cross split when it folds the cycle.  The other
 // instances have this code compiled out.
-template <class Cores, int kMaxThreads, bool kWide, bool kProg, bool kTopo>
+//
+// kFault (with kWide, kProg and kTopo): the instance for launches that
+// hold a run with a fault plan (the launch's other runs take it too, as
+// they would the topology instance).  Dead cores (a holder kill's or a
+// uniform kill's victims, a stall's inside its window) freeze in the core
+// stage; a fresh request drops in the acceptance pass and a stalled
+// bank's parked cores leave no key; a firing wake drops in the wake pass.
+// After the census, the first `kleft` cores by core index handed
+// ownership this cycle (granted at a bank, or woken) are killed: their
+// candidate bits are ballot words (in the levels' request words, free by
+// then), each core's rank a prefix count of them, with a barrier before
+// the ranks and one after the kill flags (only while kills are left).
+// Then each bank's watchdog re-arms on a sign of life and, stuck, runs its
+// family's on_timeout, and the queue depths are counted after it.  The
+// retire flag, the drops, kills and recoveries are counts per cycle
+// parity that thread 0 folds with the others (faults_injected,
+// recoveries, the progress detector's last_ret and halt_cyc).  The other
+// instances have this code compiled out.
+template <class Cores, int kMaxThreads, bool kWide, bool kProg, bool kTopo,
+          bool kFault>
 __global__ void __launch_bounds__(kMaxThreads)
 engine_run_kernel(const int32_t* __restrict__ params,
                   const RunPtrs* __restrict__ ptrs, int kc) {
@@ -876,8 +1041,9 @@ engine_run_kernel(const int32_t* __restrict__ params,
   __shared__ int32_t s_cnt[2][kNumCounts];
   __shared__ int32_t s_minopc[2];  // least opc of the atomic cores
   __shared__ int32_t s_xreq[2][kMaxLevels];  // each level's requesters
+  __shared__ int32_t s_fcnt[2][kNumFCounts];  // the fault counts
   __shared__ int32_t s_lat_max;
-  __shared__ int32_t s_par[kNumParams];
+  __shared__ int32_t s_par[kFault ? kNumParams : kNumBaseParams];
   __shared__ RunParams s_rp;
   __shared__ RunPtrs s_o;
 
@@ -888,7 +1054,7 @@ engine_run_kernel(const int32_t* __restrict__ params,
   // pointers.  A block of at most 256 threads keeps its scalars in
   // registers; a larger one (64 registers a thread) reads them from
   // shared memory, as it does the pointers, rather than spill.
-  for (int j = tid; j < kNumParams; j += T) {
+  for (int j = tid; j < (kFault ? kNumParams : kNumBaseParams); j += T) {
     s_par[j] = params[static_cast<size_t>(blockIdx.x) * kNumParams + j];
   }
   if (tid == 0) s_o = ptrs[blockIdx.x];
@@ -923,6 +1089,17 @@ engine_run_kernel(const int32_t* __restrict__ params,
     return (opc / n_steps) * rp.n_bar +
            s_par[P_BAR_PREFIX + opc % n_steps];
   };
+  // the fault plan (its words stay in shared memory)
+  int fflags = 0;
+  if constexpr (kFault) fflags = s_par[P_F_FLAGS];
+  const bool fon = (fflags & F_ON) != 0;
+  const bool holder = (fflags & F_HOLDER) != 0;
+  const bool uniform = (fflags & F_UNIFORM) != 0;
+  const bool stall = (fflags & F_STALL) != 0;
+  const bool bstall = (fflags & F_BSTALL) != 0;
+  const bool drop = (fflags & F_DROP) != 0;
+  const bool wd = (fflags & F_WD) != 0;
+  int32_t kleft = holder ? s_par[P_N_KILL] : 0;  // kills left (uniform)
 
   const Layout L = run_layout(n, a);
   unsigned char* base = L.total <= kMaxDynSmem ? smem_raw : o.scratch;
@@ -932,7 +1109,20 @@ engine_run_kernel(const int32_t* __restrict__ params,
   uint32_t* reqw = reinterpret_cast<uint32_t*>(base + L.reqw);
   uint32_t* xw = reinterpret_cast<uint32_t*>(base + L.xw);  // level l's
   bool* resv_valid = reinterpret_cast<bool*>(base + L.bytes);
+  // the wake flags; in the fault instance each core's B_* flag byte
   unsigned char* woken = base + L.bytes + a;
+  // core i permanently dead at cycle c (a holder kill's victim, or a
+  // uniform kill's from kill_cyc on), or dead (also inside a stall)
+  auto killed_at = [&](int i, int c) {
+    const unsigned char fl = woken[i];
+    return holder ? (fl & B_KILLED) != 0
+                  : uniform && c >= s_par[P_KILL_CYC] && (fl & B_KILL);
+  };
+  auto dead_at = [&](int i, int c) {
+    return killed_at(i, c) ||
+           (stall && (woken[i] & B_STALL) && c >= s_par[P_STALL_CYC] &&
+            c < s_par[P_STALL_END]);
+  };
   // a block runs one family, so the families share the per-bank slots:
   // the lock bits and nb_feb's full/empty bits are resv_valid's bytes,
   // next_tkt and serving are resv_core's and qhead's words, and the
@@ -978,9 +1168,20 @@ engine_run_kernel(const int32_t* __restrict__ params,
       bs.serving[b] = o.serving[b];
     }
   }
-  for (int i = tid; i < n; i += T) woken[i] = 0;
+  for (int i = tid; i < n; i += T) {
+    woken[i] = 0;
+    if constexpr (kFault) {
+      if (fon) {
+        woken[i] = (o.fault_masks[i] ? B_KILL : 0) |
+                   (o.fault_masks[n + i] ? B_STALL : 0);
+      }
+    }
+  }
   for (int j = tid; j < kLatBins; j += T) s_hist[j] = 0;
   for (int j = tid; j < 2 * kNumCounts; j += T) (&s_cnt[0][0])[j] = 0;
+  if constexpr (kFault) {
+    for (int j = tid; j < 2 * kNumFCounts; j += T) (&s_fcnt[0][0])[j] = 0;
+  }
   if (tid == 0) {
     s_lat_max = 0;
     s_minopc[0] = s_minopc[1] = kBig;
@@ -1015,6 +1216,9 @@ engine_run_kernel(const int32_t* __restrict__ params,
           active_cyc = 0, bank_ops = 0, net_stall = 0, bar_cyc = 0,
           hops = 0;
   int32_t stall_now = 0, acc_now = 0, stall_prev = 0, acc_prev = 0;
+  // and the fault plan's (faults_injected, recoveries, the progress
+  // detector's last retirement and halt cycle)
+  int32_t finj = 0, recov = 0, last_ret = 0, halt = -1;
   int32_t row[kTeleK];
 #pragma unroll
   for (int j = 0; j < kTeleK; ++j) row[j] = 0;
@@ -1035,7 +1239,25 @@ engine_run_kernel(const int32_t* __restrict__ params,
       hops = wadd(hops, wadd(h, h));
     }
     const int32_t nwin = cnt[C_NWIN];
-    const int32_t msgs_now = wadd(wadd(nwin, nwin), cnt[C_XMSG]);
+    int32_t msgs_now = wadd(wadd(nwin, nwin), cnt[C_XMSG]);
+    if constexpr (kFault) {
+      if (fon) {
+        const int32_t* fc = s_fcnt[c & 1];
+        // a dropped request crossed the network once (no response slot)
+        msgs_now = wadd(msgs_now, fc[F_DROPS]);
+        int32_t sched = 0;  // the scheduled faults taking effect at c
+        if (uniform && c == s_par[P_KILL_CYC]) sched += s_par[P_N_KILL_EFF];
+        if (stall && c == s_par[P_STALL_CYC]) sched += s_par[P_N_STALL_EFF];
+        if (bstall && c == s_par[P_BSTALL_CYC]) {
+          sched += s_par[P_N_BSTALL_EFF];
+        }
+        finj = wadd(finj, wadd(wadd(sched, fc[F_DROPS]),
+                               wadd(fc[F_WDROPS], fc[F_KILLS])));
+        recov = wadd(recov, fc[F_RECOV]);
+        if (fc[F_RET]) last_ret = c;
+        if (halt < 0 && c - last_ret >= s_par[P_PROG_THR]) halt = c;
+      }
+    }
     msgs = wadd(msgs, msgs_now);
     polls = wadd(polls, cnt[C_FAIL]);
     bank_ops = wadd(bank_ops, nwin);
@@ -1082,9 +1304,13 @@ engine_run_kernel(const int32_t* __restrict__ params,
       shift += shift_step;
       if (shift >= n) shift -= n;
     }
+    // a holder kill may take victims this cycle (uniform)
+    const bool kill_now =
+        kFault && holder && kleft > 0 && cyc >= s_par[P_KILL_CYC];
 
     // ---- timers, issue, retire, backoff, workers; the request words
     int32_t l_minopc = kBig;
+    bool l_ret = false;  // a core of this thread retired (fault instance)
 #pragma unroll
     for (int k = 0; k < S.count(); ++k) {
       const int i = tid + k * T;
@@ -1093,8 +1319,11 @@ engine_run_kernel(const int32_t* __restrict__ params,
       if (i < n) {
         Core c = S.load(k, i);
         const bool worker = workers && i < rp.n_workers;
+        // a dead core's timer runs, but it neither fires nor sends
+        bool dead = false;
+        if constexpr (kFault) dead = fon && dead_at(i, cyc);
         c.tmr = max(c.tmr - 1, 0);
-        const bool t0 = c.tmr == 0;
+        const bool t0 = c.tmr == 0 && !dead;
         const bool start = t0 && c.st == kWork && !worker;
         const bool rb = t0 && c.st == kBackoff;
         const bool md = t0 && c.st == kMod;
@@ -1158,9 +1387,11 @@ engine_run_kernel(const int32_t* __restrict__ params,
           o.trace_step[at] = done ? step : -1;
         }
         if (bars && !worker) l_minopc = min(l_minopc, c.opc);
+        if constexpr (kFault) l_ret = l_ret || done;
         if (workers) c.wtmr = max(c.wtmr - 1, 0);
-        const bool fresh = c.st == kReq && c.tmr == 0 && !c.parked && !worker;
-        req = fresh || (worker && c.wtmr == 0);
+        const bool fresh =
+            c.st == kReq && c.tmr == 0 && !c.parked && !worker && !dead;
+        req = fresh || (worker && c.wtmr == 0 && !dead);
         if (topo && fresh) xb = cross_bits(tp, ccl(k, i), c.addr);
         S.store(k, i, c);
       }
@@ -1180,6 +1411,10 @@ engine_run_kernel(const int32_t* __restrict__ params,
       const unsigned m =
           __reduce_min_sync(kFull, static_cast<unsigned>(l_minopc));
       if (lane == 0) atomicMin(&s_minopc[par], static_cast<int32_t>(m));
+    }
+    if constexpr (kFault) {
+      const unsigned rets = __ballot_sync(kFull, l_ret);
+      if (lane == 0 && rets) s_fcnt[par][F_RET] = 1;
     }
     __syncthreads();  // 1: request words, the least opc
     // last read in the previous cycle's census pass, next written in the
@@ -1253,6 +1488,10 @@ engine_run_kernel(const int32_t* __restrict__ params,
     // a hierarchical topology's counts: the accepted requests, the atomic
     // ones, and those crossing each level (warp-uniform ballot counts)
     int32_t l_wacc = 0, l_acc = 0, l_fresh = 0, l_x[kMaxLevels] = {};
+    int32_t l_drop = 0;  // requests dropped in flight (fault instance)
+    // a bank stall's window: its banks take no request
+    const bool bs_now = bstall && cyc >= s_par[P_BSTALL_CYC] &&
+                        cyc < s_par[P_BSTALL_END];
 #pragma unroll
     for (int k = 0; k < S.count(); ++k) {
       const int i = tid + k * T;
@@ -1270,8 +1509,11 @@ engine_run_kernel(const int32_t* __restrict__ params,
       if (i < n) {
         Core c = S.load(k, i);
         const bool worker = workers && i < rp.n_workers;
-        const bool fresh = c.st == kReq && c.tmr == 0 && !c.parked && !worker;
-        const bool w_arr = worker && c.wtmr == 0;
+        bool dead = false;
+        if constexpr (kFault) dead = fon && dead_at(i, cyc);
+        const bool fresh =
+            c.st == kReq && c.tmr == 0 && !c.parked && !worker && !dead;
+        const bool w_arr = worker && c.wtmr == 0 && !dead;
         if (fresh || w_arr) {
           const unsigned below = (2u << (i & 31)) - 1u;  // cores <= i
           const int32_t pi1 = pre + __popc(reqw[wk] & below);  // P(i + 1)
@@ -1292,6 +1534,20 @@ engine_run_kernel(const int32_t* __restrict__ params,
               }
             }
           }
+          if constexpr (kFault) {
+            if (drop && fresh && acc) {
+            // the Bernoulli drop of an accepted request: it dies in
+            // flight and the core retransmits next cycle
+              const uint32_t u = hash24(
+                  static_cast<uint32_t>(i) * 9781u +
+                  static_cast<uint32_t>(cyc) * 6271u +
+                  static_cast<uint32_t>(s_par[P_DROP_SALT]));
+              if (static_cast<int32_t>(u % kDropDenom) < s_par[P_DROP_BP]) {
+                acc = false;
+                ++l_drop;
+              }
+            }
+          }
         }
         fresh_acc = fresh && acc;
         if (workers) {
@@ -1307,7 +1563,11 @@ engine_run_kernel(const int32_t* __restrict__ params,
           c.parked = true;
           c.arr = cyc;
         }
-        if (c.parked && c.st == kReq) {
+        bool bank_stalled = false;
+        if constexpr (kFault) {
+          bank_stalled = bs_now && o.fault_masks[2 * n + c.addr];
+        }
+        if (c.parked && c.st == kReq && !bank_stalled) {
           const unsigned long long key = packed_key(c.arr, i, shift, n);
           atomicMin(&key_now[c.addr], key);
         }
@@ -1331,6 +1591,9 @@ engine_run_kernel(const int32_t* __restrict__ params,
       warp_count(&cur[C_XCL], l_x[0]);
       warp_count(&cur[C_HOPS], l_hops);
     }
+    if constexpr (kFault) {
+      if (drop) warp_add(&s_fcnt[par][F_DROPS], l_drop);
+    }
     __syncthreads();  // 2: the key minimum of every bank
 
     // thread 0 folds the previous cycle's counts (read by everyone
@@ -1339,7 +1602,12 @@ engine_run_kernel(const int32_t* __restrict__ params,
       if (cyc > 0) fold(prev, cyc - 1, stall_prev, acc_prev);
 #pragma unroll
       for (int j = 0; j < kNumCounts; ++j) s_cnt[par ^ 1][j] = 0;
+      if constexpr (kFault) {
+#pragma unroll
+        for (int j = 0; j < kNumFCounts; ++j) s_fcnt[par ^ 1][j] = 0;
+      }
     }
+    unsigned gbits = 0;  // the cores of this thread granted at a bank
     // ---- winners: the protocol's bank update and the outcome apply
 #pragma unroll
     for (int k = 0; k < S.count(); ++k) {
@@ -1370,6 +1638,13 @@ engine_run_kernel(const int32_t* __restrict__ params,
             c.parked = false;
             c.arr = -1;
             if (oc.xset) c.tkt = oc.xval;
+            if constexpr (kFault) {
+              if (kind == kOutGrant) gbits |= 1u << k;
+              // the watchdog learns the owner from a grant and re-arms
+              // on a retire
+              if (wd && kind == kOutGrant) o.wd_own[c.addr] = i;
+              if (wd && kind == kOutDone) o.wd_srv[c.addr] = cyc;
+            }
             if (kind == kOutGrant || kind == kOutDone || kind == kOutFail) {
               c.st = kResp;
               c.tmr = oc.tmr;
@@ -1388,10 +1663,23 @@ engine_run_kernel(const int32_t* __restrict__ params,
 
     // ---- banks: on_wake, queue depths (after the update)
     int32_t l_qsum = 0, l_qmax = 0;
-    for (int b = tid; (queue || trace) && b < a; b += T) {
+    // (the fault instance counts the queue depths after the watchdog)
+    for (int b = tid; (queue || (trace && !kFault)) && b < a; b += T) {
       int32_t ql = 0;
       if (queue) {
-        const int32_t wt = bs.wake_tmr[b];
+        int32_t wt = bs.wake_tmr[b];
+        if (kFault && drop && wt == 1) {
+          // a lost wakeup: the firing wake message drops, the sleeping
+          // head never hears it
+          const uint32_t u = hash24(static_cast<uint32_t>(b) * 3643u +
+                                    static_cast<uint32_t>(cyc) * 9176u +
+                                    static_cast<uint32_t>(
+                                        s_par[P_WDROP_SALT]));
+          if (static_cast<int32_t>(u % kDropDenom) < s_par[P_DROP_BP]) {
+            wt = 0;
+            atomicAdd(&s_fcnt[par][F_WDROPS], 1);
+          }
+        }
         const int32_t wt2 = max(wt - 1, 0);
         bs.wake_tmr[b] = wt2;
         if (hier) {
@@ -1405,7 +1693,9 @@ engine_run_kernel(const int32_t* __restrict__ params,
             if (wl > 0) {
               const int32_t lh = o.lqhead[wq];
               const int32_t head = o.lqbuf[wq * g.cap + lh];
-              if (head >= 0 && head < n) woken[head] = 1;
+              if (head >= 0 && head < n) {
+                woken[head] |= B_WOKEN;
+              }
               o.lqhead[wq] = (lh + 1) % g.cap;
               o.lqlen[wq] = wl - 1;
               bs.qlen[b] -= 1;
@@ -1417,14 +1707,18 @@ engine_run_kernel(const int32_t* __restrict__ params,
           if (wt == 1 && ql > 0) {
             const int32_t head =
                 o.qbuf[static_cast<size_t>(b) * rp.f.q_cap + bs.qhead[b]];
-            if (head >= 0 && head < n) woken[head] = 1;
+            if (head >= 0 && head < n) {
+              woken[head] |= B_WOKEN;
+            }
           }
         }
         if (wt2 == 1) atomicAdd(&cur[C_WAKE_LOAD], 1);
       }
-      l_qsum = wadd(l_qsum, ql);
-      l_qmax = max(l_qmax, ql);
-      if (trace) o.trace_qlen[static_cast<size_t>(cyc) * a + b] = ql;
+      if constexpr (!kFault) {
+        l_qsum = wadd(l_qsum, ql);
+        l_qmax = max(l_qmax, ql);
+        if (trace) o.trace_qlen[static_cast<size_t>(cyc) * a + b] = ql;
+      }
     }
     if (queue) __syncthreads();  // 4: the wake flags
 
@@ -1435,14 +1729,29 @@ engine_run_kernel(const int32_t* __restrict__ params,
     for (int k = 0; k < S.count(); ++k) {
       const int i = tid + k * T;
       bool sl = false, bo = false, ac = false, pk = false, bw = false;
+      bool cand = false;  // a holder kill's candidate (fault instance)
       if (i < n) {
         Core c = S.load(k, i);
-        if (queue && woken[i]) {
-          woken[i] = 0;
-          l_wakes += c.st == kSleep;
+        if (queue && (woken[i] & B_WOKEN)) {
+          woken[i] &= static_cast<unsigned char>(~B_WOKEN);
+          // a woken sleeper is handed ownership (a woken core that was
+          // not asleep is not)
+          const bool slept = c.st == kSleep;
+          l_wakes += slept;
+          if constexpr (kFault) {
+            if (wd && slept) {
+              o.wd_own[c.addr] = i;
+              o.wd_srv[c.addr] = cyc;
+            }
+            cand = slept;
+          }
           c.st = kMod;
           c.tmr = kProg ? s_par[P_MOD_DUR + c.opc % n_steps] : rp.mod_dur;
           S.store(k, i, c);
+        }
+        if constexpr (kFault) {
+          cand = kill_now && (cand || (gbits >> k & 1u)) &&
+                 !(woken[i] & B_KILLED);
         }
         if (bars && c.st == kBarWait) {
           // the barrier release: every waiter whose arrivals are at most
@@ -1470,6 +1779,11 @@ engine_run_kernel(const int32_t* __restrict__ params,
       if (workers) l_active += __popc(__ballot_sync(kFull, ac));
       if (rp.hol_block) l_parked += __popc(__ballot_sync(kFull, pk));
       if (bars) l_bar += __popc(__ballot_sync(kFull, bw));
+      if (kFault && kill_now) {
+        const unsigned word = __ballot_sync(kFull, cand);
+        const int w = k * (T >> 5) + wid;
+        if (lane == 0 && w < nw) xw[w] = word;
+      }
     }
     if (bars) {
       warp_count(&cur[C_BAR], l_bar);
@@ -1482,6 +1796,68 @@ engine_run_kernel(const int32_t* __restrict__ params,
       warp_count(&cur[C_ACTIVE], l_active);
     }
     if (rp.hol_block) warp_count(&cur[C_PARKED], l_parked);
+    if constexpr (kFault) {
+      // 5: the wake and retire stamps, the candidates (a run without a
+      // plan has nothing to wait for: each bank's thread counts its own)
+      if (fon) __syncthreads();
+      if (kill_now) {
+        // the holder kill: the first kleft candidates by core index die
+        // (each core's rank: the candidates in the words before its own
+        // and below it in its own)
+        int32_t tot = 0;
+        for (int w = lane; w < nw; w += 32) tot += __popc(xw[w]);
+        tot = static_cast<int32_t>(
+            __reduce_add_sync(kFull, static_cast<unsigned>(tot)));
+#pragma unroll
+        for (int k = 0; k < S.count(); ++k) {
+          const int i = tid + k * T;
+          const int wk = k * (T >> 5) + wid;  // this warp's word (uniform)
+          int32_t pre = 0;
+          for (int w = lane; w < min(wk, nw); w += 32) pre += __popc(xw[w]);
+          pre = static_cast<int32_t>(
+              __reduce_add_sync(kFull, static_cast<unsigned>(pre)));
+          if (i < n && wk < nw) {
+            const unsigned word = xw[wk];
+            if ((word >> lane & 1u) &&
+                pre + __popc(word & ((1u << lane) - 1u)) < kleft) {
+              woken[i] |= B_KILLED;
+            }
+          }
+        }
+        const int32_t nk = min(tot, kleft);
+        if (tid == 0) s_fcnt[par][F_KILLS] += nk;
+        kleft -= nk;
+        __syncthreads();  // 6: the kill flags
+      }
+      // ---- banks: the reservation watchdog, then the queue depths
+      auto killed_now = [&](int x) { return killed_at(x, cyc); };
+      for (int b = tid; b < a; b += T) {
+        if (wd) {
+          // re-armed by every sign of life (not held, a retire, a wake
+          // hand-off: those stamped this cycle) and by a timeout
+          const bool held = bank_held<kWide>(bs, rp.f, b);
+          int32_t srv = held ? o.wd_srv[b] : cyc;
+          if (held && wsub(cyc, srv) >= s_par[P_WATCHDOG]) {
+            int xm = 0;
+            const int rk = on_timeout<kWide>(bs, rp.f, s_rp.g, b, n,
+                                             o.wd_own[b], killed_now, &xm);
+            if (xm) atomicAdd(&cur[C_XMSG], xm);
+            if (rk != kOutNone) atomicAdd(&s_fcnt[par][F_RECOV], 1);
+            // an eviction vacates the bank: forget the owner
+            if (rk == kOutEvict) o.wd_own[b] = n;
+            srv = cyc;
+          }
+          o.wd_srv[b] = srv;
+          if (has_feb) bs.feb[b] = bs.qlen[b] == 0;
+        }
+        if (queue || trace) {
+          const int32_t ql = queue ? bs.qlen[b] : 0;
+          l_qsum = wadd(l_qsum, ql);
+          l_qmax = max(l_qmax, ql);
+          if (trace) o.trace_qlen[static_cast<size_t>(cyc) * a + b] = ql;
+        }
+      }
+    }
     if (tele) {
       warp_add(&cur[C_WAKES], l_wakes);
       warp_add(&cur[C_QSUM], l_qsum);
@@ -1508,6 +1884,13 @@ engine_run_kernel(const int32_t* __restrict__ params,
     o.scalars[S_NET_STALL] = net_stall;
     o.scalars[S_BAR_CYC] = bar_cyc;
     if (o.hops != nullptr) *o.hops = hops;
+    if (kFault && fon) {
+      o.scalars[S_FAULTS_INJECTED] = finj;
+      o.scalars[S_LAST_RET] = last_ret;
+      o.scalars[S_HALT_CYC] = halt;
+      o.scalars[S_KLEFT] = kleft;
+      o.scalars[S_RECOVERIES] = recov;
+    }
   }
   for (int j = tid; j < kLatBins; j += T) o.hist[j] = s_hist[j];
   for (int b = tid; b < a; b += T) {
@@ -1549,6 +1932,13 @@ engine_run_kernel(const int32_t* __restrict__ params,
       o.ops[i] = kProg ? c.opc / n_steps : c.opc;
       o.pc[i] = kProg ? c.opc % n_steps : 0;
       o.bar_cnt[i] = bars ? bar_count(c.opc) : 0;
+      if (kFault && fon) {
+        const unsigned char fl = woken[i];
+        if (holder) o.kmask[i] = (fl & B_KILLED) != 0;
+        o.dead_mask[i] = (fl & B_KILLED) ||
+                         ((fflags & F_DM_KILL) && (fl & B_KILL)) ||
+                         ((fflags & F_DM_STALL) && (fl & B_STALL));
+      }
     }
   }
 }
@@ -1589,32 +1979,37 @@ using RunKernel = void (*)(const int32_t*, const RunPtrs*, int);
 // (a block of at most 256 threads may use up to 255 registers a thread),
 // with every family's branch when kWide, the program code when kProg and
 // the topology stages when kTopo
-template <bool kWide, bool kProg, bool kTopo>
+template <bool kWide, bool kProg, bool kTopo, bool kFault>
 RunKernel run_kernel_of(int n, int* threads, int* kc) {
   *threads = n <= kRunThreads ? ((n + 31) / 32) * 32 : kRunThreads;
   *kc = (n + *threads - 1) / *threads;
   if (*kc > 2) {
-    return engine_run_kernel<GlobalCores, kRunThreads, kWide, kProg, kTopo>;
+    return engine_run_kernel<GlobalCores, kRunThreads, kWide, kProg, kTopo,
+                             kFault>;
   }
   if (*kc == 2) {
-    return engine_run_kernel<RegCores<2>, kRunThreads, kWide, kProg, kTopo>;
+    return engine_run_kernel<RegCores<2>, kRunThreads, kWide, kProg, kTopo,
+                             kFault>;
   }
   if (*threads <= 256) {
-    return engine_run_kernel<RegCores<1>, 256, kWide, kProg, kTopo>;
+    return engine_run_kernel<RegCores<1>, 256, kWide, kProg, kTopo, kFault>;
   }
-  return engine_run_kernel<RegCores<1>, kRunThreads, kWide, kProg, kTopo>;
+  return engine_run_kernel<RegCores<1>, kRunThreads, kWide, kProg, kTopo,
+                           kFault>;
 }
 
 // the instance `variant` names (kernel.py's INSTANCE_*): 0 without the
 // two-level queues' and nb_feb's branches, 1 with them, 2 with them and
 // the program code, 3 with them, the program code and the topology
-// stages; null for another value
+// stages, 4 with all of that and the fault stages; null for another
+// value
 RunKernel run_kernel_for(int n, int variant, int* threads, int* kc) {
   switch (variant) {
-    case 0: return run_kernel_of<false, false, false>(n, threads, kc);
-    case 1: return run_kernel_of<true, false, false>(n, threads, kc);
-    case 2: return run_kernel_of<true, true, false>(n, threads, kc);
-    case 3: return run_kernel_of<true, true, true>(n, threads, kc);
+    case 0: return run_kernel_of<false, false, false, false>(n, threads, kc);
+    case 1: return run_kernel_of<true, false, false, false>(n, threads, kc);
+    case 2: return run_kernel_of<true, true, false, false>(n, threads, kc);
+    case 3: return run_kernel_of<true, true, true, false>(n, threads, kc);
+    case 4: return run_kernel_of<true, true, true, true>(n, threads, kc);
     default: return nullptr;
   }
 }
@@ -1684,7 +2079,7 @@ extern "C" int engine_run_threads(int n) {
 // `variant` picks the kernel instance (run_kernel_for): at least 1 when a
 // run's family is kHier, kEvent or kFeb, 2 when a run's program has more
 // than one step or a barrier step, 3 when a run has a hierarchical
-// topology.  Returns a CUDA error code, or -1 when
+// topology, 4 when a run has a fault plan.  Returns a CUDA error code, or -1 when
 // the caller's layout does not match this library's (n_params, n_ptrs per
 // run) or smem or variant is out of range.
 extern "C" int engine_run_launch(int n_runs, int n, const void* params,

@@ -1,9 +1,11 @@
 """Fault schedules (``repro_torch.faults``).
 
 :class:`FaultPlan` is the declarative fault schedule ``Spec(faults=...)``
-accepts.  The port carries the plan so that ``Spec``/``SimParams`` keep
-the reference's shape and JSON; its engine runs only the default
-no-fault plan and refuses an enabled one.
+accepts: deterministic core kills and stalls, request and wakeup drops
+and bank stalls, with the reservation watchdog and the progress
+detector.  The engine runs an enabled plan in the plain loop (CPU) and
+in the run kernel's fault instance (GPU), bit for bit as the reference;
+the empty plan adds no key and no work.
 """
 from repro_torch.faults.plan import DROP_DENOM, FaultPlan
 

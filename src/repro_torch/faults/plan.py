@@ -13,9 +13,9 @@ value that ``Spec(faults=...)`` lowers into the engine.
 Everything is **static and seed-derived**: victim sets are drawn
 host-side from ``fault_seed`` (``numpy`` RNG) and the Bernoulli
 message-drop stream is a counter hash of (lane, cycle, ``fault_seed``),
-so the same plan always injects the same faults.  The port's engine
-runs only the empty plan so far (ROADMAP item A5); this module is the
-reference's, so that ``Spec`` keeps its shape and JSON.
+so the same plan always injects the same faults, in the plain loop and
+on the card alike.  This module is the reference's, so that ``Spec``
+keeps its shape and JSON.
 
 Injection knobs
 ---------------

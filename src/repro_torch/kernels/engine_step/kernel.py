@@ -20,9 +20,12 @@ hash; nothing runs at import time).  It holds two kernels:
   one copy.  A launch that holds a workload program of more than one
   step or with a barrier step runs on the program instance, and one
   that holds a run on a hierarchical topology on a topology instance
-  (``launch_variant``).  A skewed Zipf stream travels as its threshold
+  (``launch_variant``), and one that holds a run with a fault plan on
+  the fault instance.  A skewed Zipf stream travels as its threshold
   table (``core.workloads.base.zipf_thresholds``), one per distinct
-  stream in the launch's buffer.  ``run_cuda`` is its one-run case.
+  stream in the launch's buffer, and a fault plan's host-drawn victim
+  masks as one byte a core (kills, stalls) and a bank (bank stalls).
+  ``run_cuda`` is its one-run case.
   ``run_scalars`` is the pure function that derives every per-run scalar
   it passes.
 """
@@ -225,7 +228,10 @@ RUN_PARAMS = ("n", "a", "n_addrs", "cycles", "proto", "q_cap", "q_full",
               "group_cap", "local_delay", "topo_levels", "topo_core_size",
               "topo_core_clusters", "topo_bank_clusters", "bo_tab",
               "pre_dur", "mod_dur", "addr_mode", "fix_addr", "is_bar",
-              "bar_prefix", "level_extra", "level_bw")
+              "bar_prefix", "level_extra", "level_bw", "f_flags", "kill_cyc",
+              "n_kill", "n_kill_eff", "stall_cyc", "stall_end", "n_stall_eff",
+              "bstall_cyc", "bstall_end", "n_bstall_eff", "drop_bp",
+              "drop_salt", "wdrop_salt", "watchdog", "prog_thr")
 #: backoff bases passed: streak k reads entry min(k, BO_TAB - 1), and
 #: ``backoff << 32`` and beyond is 0 (``shl32``)
 BO_TAB = 34
@@ -251,13 +257,24 @@ RUN_PTRS = ("st", "tmr", "addr", "phase", "nxt", "opc", "ops", "arr_cyc",
             "serving", "tkt", "feb", "lqbuf", "lqhead", "lqlen", "ggq",
             "g_inq", "cur_grp", "turn_srv", "gqhead", "gqlen", "wake_grp",
             "tele", "trace_step", "trace_wait", "trace_state", "trace_qlen",
-            "scratch", "pc", "bar_cnt", "hops", "zipf_thr")
+            "scratch", "pc", "bar_cnt", "hops", "zipf_thr", "kmask",
+            "dead_mask", "wd_srv", "wd_own", "fault_masks")
 #: the run's 0-d outputs, in the order of the source's ``Scalar`` enum
 RUN_SCALARS = ("resp_prev", "msgs", "polls", "sleep_cyc", "lat_max",
                "active_cyc", "backoff_cyc", "bank_ops", "net_stall",
-               "bar_cyc")
+               "bar_cyc", "faults_injected", "last_ret", "halt_cyc", "kleft",
+               "recoveries")
+#: a fault plan's flags (``f_flags``, the source's ``F_*``): any fault
+#: machinery, a holder kill, a uniform kill, a stall window, a bank
+#: stall, message drops, the watchdog (armed, and the protocol holds
+#: banks), the uniform kill's and the stall's victims dead at the horizon
+(F_ON, F_HOLDER, F_UNIFORM, F_STALL, F_BSTALL, F_DROP, F_WD, F_DM_KILL,
+ F_DM_STALL) = (1 << j for j in range(9))
+#: the words of a run without a fault plan
+_NO_FAULT = dict.fromkeys(RUN_PARAMS[RUN_PARAMS.index("f_flags"):], 0)
 
 _MASK32 = 0xFFFFFFFF
+_INT32_MAX = 2**31 - 1
 
 
 def shl32(v: int, k: int) -> int:
@@ -286,7 +303,10 @@ def run_scalars(p, proto, prog, banks=None, traced=False) -> Dict[str, Any]:
     program's ``prog_len`` steps first and zeros past them, and the
     topology's level words tuples of ``MAX_LEVELS`` ints.  Beside them,
     ``zipf_thr``: a skewed Zipf stream's thresholds (``zipf_n_thr`` of
-    them; ``traced`` picks the sweep's form), else None.
+    them; ``traced`` picks the sweep's form), else None; the fault
+    plan's words (``f_flags`` through ``prog_thr``, all 0 without one)
+    and ``fault_masks``, its victim masks (:func:`_fault_words`), else
+    None.
 
     ``a`` is the banks allocated, ``banks`` (default ``p.n_addrs``; a
     sweep passes the power-of-two bucket), and ``n_addrs`` the live
@@ -328,7 +348,9 @@ def run_scalars(p, proto, prog, banks=None, traced=False) -> Dict[str, Any]:
             f"levels on the default cluster tree, below 65 536 cores "
             f"(topology {p.topology!r}, {levels} levels, {n} cores)")
     core_size, core_clusters, bank_clusters = topo.leaf_geometry(p, n, a)
+    faults, fault_masks = _fault_words(p, proto, n, a)
     return dict(
+        **faults, fault_masks=fault_masks,
         n=n, a=a, n_addrs=n_addrs, cycles=p.cycles,
         proto=proto.kernel_code,
         q_cap=proto.q_cap(p, n), q_full=args.q_full, lat=p.lat,
@@ -363,6 +385,51 @@ def run_scalars(p, proto, prog, banks=None, traced=False) -> Dict[str, Any]:
         bar_prefix=steps(np.cumsum([0] + is_bar[:-1])))
 
 
+def _fault_words(p, proto, n: int, a: int):
+    """A run's fault words (``_NO_FAULT``'s keys) and its victim masks,
+    one uint8 a core for the uniform kill and for the stall, then one a
+    bank for the bank stall, drawn over the ``a`` banks allocated (None
+    without a plan).  The drop streams' salts are the reference's
+    ``fault_seed * 977 + 13`` and ``fault_seed * 389 + 7`` mod 2^32."""
+    fp = p.faults
+    if not fp.enabled:
+        return _NO_FAULT, None
+    # the watchdog runs where the protocol holds banks (amo holds none)
+    holds = proto.held(proto.init_bank_state(p, 1, n, 1, "cpu")) is not None
+    holder = fp.n_kill > 0 and fp.kill_holder == 1
+    uniform = fp.n_kill > 0 and fp.kill_holder == 0
+    stall, bstall = fp.n_stall > 0, fp.n_bank_stall > 0
+    flags = (F_ON | F_HOLDER * holder | F_UNIFORM * uniform
+             | F_STALL * stall | F_BSTALL * bstall
+             | F_DROP * (fp.msg_drop_bp > 0)
+             | F_WD * (fp.watchdog_cyc > 0 and holds)
+             | F_DM_KILL * (uniform and fp.kill_cyc < p.cycles)
+             | F_DM_STALL * (stall and fp.stall_cyc <= p.cycles - 1
+                             < fp.stall_cyc + fp.stall_dur))
+
+    def clip(v):
+        return min(int(v), _INT32_MAX)
+
+    none = np.zeros(n, dtype=bool)
+    masks = np.concatenate([
+        fp.kill_mask(n) if uniform else none,
+        fp.stall_mask(n) if stall else none,
+        fp.bank_stall_mask(a) if bstall else np.zeros(a, dtype=bool),
+    ]).astype(np.uint8)
+    return dict(
+        f_flags=flags, kill_cyc=clip(fp.kill_cyc), n_kill=clip(fp.n_kill),
+        n_kill_eff=min(fp.n_kill, n), stall_cyc=clip(fp.stall_cyc),
+        stall_end=clip(fp.stall_cyc + fp.stall_dur),
+        n_stall_eff=min(fp.n_stall, n),
+        bstall_cyc=clip(fp.bank_stall_cyc),
+        bstall_end=clip(fp.bank_stall_cyc + fp.bank_stall_dur),
+        n_bstall_eff=min(fp.n_bank_stall, a), drop_bp=fp.msg_drop_bp,
+        drop_salt=(fp.fault_seed * 977 + 13) & _MASK32,
+        wdrop_salt=(fp.fault_seed * 389 + 7) & _MASK32,
+        watchdog=clip(fp.watchdog_cyc),
+        prog_thr=clip(fp.progress_threshold())), masks
+
+
 def _levels(vals) -> tuple:
     """A topology's per-level words: its levels first, zeros past them."""
     vals = tuple(int(v) for v in vals)
@@ -379,7 +446,7 @@ def _pack_params(sc: Dict[str, Any]) -> list:
             words += list(v)
         elif k == "zipf_c":
             words.append(int(np.float32(v).view(np.int32)))
-        elif k == "seed":
+        elif k in ("seed", "drop_salt", "wdrop_salt"):       # uint32 bits
             words.append(v - (1 << 32) if v >= 1 << 31 else v)
         else:
             words.append(int(v))
@@ -448,15 +515,17 @@ def _layout_key(sc: Dict[str, Any]) -> tuple:
     """The arguments of :func:`_layout` from a run's scalars."""
     return (sc["proto"], sc["n"], sc["a"], sc["q_cap"], sc["groups"],
             sc["group_cap"], sc["cycles"], sc["tele_windows"], sc["trace"],
-            int(sc["topo_levels"] > 0))
+            int(sc["topo_levels"] > 0),
+            sc["f_flags"] & (F_ON | F_HOLDER | F_WD))
 
 
 @functools.lru_cache(maxsize=4096)
 def _layout(code: int, n: int, a: int, q_cap: int, groups: int,
             group_cap: int, cycles: int, tele_windows: int,
-            trace: int, topo: int = 0) -> tuple:
+            trace: int, topo: int = 0, faults: int = 0) -> tuple:
     """``result_arrays``' items for a run of this shape (hashable: a
-    launch groups its runs by it)."""
+    launch groups its runs by it); ``faults`` holds the ``F_ON``,
+    ``F_HOLDER`` and ``F_WD`` flags of its plan."""
     i32 = torch.int32
 
     def w(shape, dtype=i32):
@@ -482,6 +551,14 @@ def _layout(code: int, n: int, a: int, q_cap: int, groups: int,
         out[k] = (dt, bank_shape(k, a, q_cap, groups, group_cap), value)
     for k, (dt, _) in _CORE_LAYOUT.get(code, {}).items():
         out[k] = w((n,), dt)                 # the kernel writes its start
+    if faults:
+        out.update(faults_injected=SCALAR, last_ret=SCALAR,
+                   halt_cyc=SCALAR)
+        if faults & F_HOLDER:
+            out.update(kmask=w((n,), torch.bool), kleft=SCALAR)
+        if faults & F_WD:                    # updated in place
+            out.update(wd_srv=z((a,)), wd_own=(i32, (a,), n))
+        out.update(recoveries=SCALAR, dead_mask=w((n,), torch.bool))
     if trace:
         out.update(trace_step=w((cycles, n)), trace_wait=w((cycles, n)),
                    trace_state=w((cycles, n), torch.int8),
@@ -549,6 +626,9 @@ def pack_runs(runs: Sequence[Tuple[Any, Any, Dict[str, Any]]], dev,
         thr = sc.get("zipf_thr")
         if thr is not None and id(thr) not in tables:
             tables[id(thr)] = (thr, take(thr.nbytes))
+    masks = {b: take(sc["fault_masks"].nbytes)   # run -> at
+             for b, (_, _, sc) in enumerate(runs)
+             if sc.get("fault_masks") is not None}
     groups: Dict[tuple, list] = {}           # layout -> [run indices]
     for b, (p, proto, sc) in enumerate(runs):
         _check_bank_layout(proto, p, sc["n"])
@@ -600,6 +680,9 @@ def pack_runs(runs: Sequence[Tuple[Any, Any, Dict[str, Any]]], dev,
     for thr, off in tables.values():
         hn[off:off + thr.nbytes] = np.ascontiguousarray(
             thr, dtype=np.int32).view(np.uint8)
+    for b, off in masks.items():
+        fm = runs[b][2]["fault_masks"]
+        hn[off:off + fm.nbytes] = fm
     typed = {}                     # flat as each dtype, for the views
     outs: List[Dict[str, Any]] = [None] * len(runs)  # type: ignore
     ptrs = np.zeros((len(runs), len(RUN_PTRS)), dtype=np.int64)
@@ -638,6 +721,8 @@ def pack_runs(runs: Sequence[Tuple[Any, Any, Dict[str, Any]]], dev,
         thr = sc.get("zipf_thr")
         if thr is not None:
             ptrs[b, col["zipf_thr"]] = base + tables[id(thr)][1]
+        if b in masks:
+            ptrs[b, col["fault_masks"]] = base + masks[b]
     hn[p_at:p_at + ptrs.nbytes] = ptrs.reshape(-1).view(np.uint8)
     if started is not None:
         started.record()
@@ -658,20 +743,26 @@ def launch_smem(lib, scalars: Sequence[Dict[str, Any]]) -> int:
 WIDE_FAMILIES = (KERNEL_HIER, KERNEL_EVENT, KERNEL_FEB)
 #: the run kernel's instances (the source's ``run_kernel_for``): without
 #: the WIDE_FAMILIES' branches, with them, with them and the program
-#: code (the program counter, per-step tables and barrier release), and
-#: with all of that and the topology stages (extra latency at issue, the
-#: levels' link budgets, the hop count)
-INSTANCE_NARROW, INSTANCE_WIDE, INSTANCE_PROG, INSTANCE_TOPO = range(4)
+#: code (the program counter, per-step tables and barrier release), with
+#: all of that and the topology stages (extra latency at issue, the
+#: levels' link budgets, the hop count), and with all of that and the
+#: fault stages (dead cores, drops, bank stalls, the holder kill, the
+#: reservation watchdog, the progress detector)
+INSTANCE_NARROW, INSTANCE_WIDE, INSTANCE_PROG, INSTANCE_TOPO, \
+    INSTANCE_FAULT = range(5)
 
 
 def launch_variant(scalars: Sequence[Dict[str, Any]]) -> int:
     """The run kernel's instance for a launch of runs with these
-    ``run_scalars``: INSTANCE_TOPO when a run is on a hierarchical
+    ``run_scalars``: INSTANCE_FAULT when a run has a fault plan, else
+    INSTANCE_TOPO when a run is on a hierarchical
     topology, else INSTANCE_PROG when a run's program has more than one
     step or a barrier step, else INSTANCE_WIDE when a run is of the
     two-level queues or nb_feb, else INSTANCE_NARROW (the other families,
     one-step programs on the flat topology: the instance without their
     code)."""
+    if any(sc["f_flags"] for sc in scalars):
+        return INSTANCE_FAULT
     if any(sc["topo_levels"] > 0 for sc in scalars):
         return INSTANCE_TOPO
     if any(sc["prog_len"] > 1 or sc["n_bar"] > 0 for sc in scalars):

@@ -93,8 +93,53 @@ def to_trace_events(result: Any, include_work: bool = False,
                    "name": "retire", "cat": "atomic", "s": "t",
                    "ts": int(cyc),
                    "args": {"step": int(step), "wait_cycles": int(wait)}})
-    # (the reference's fault-injection overlays come with the port of
-    # faults: the port refuses every enabled FaultPlan)
+    # ---- fault-injection overlays ----------------------------------------
+    # host-synthesized from the plan's deterministic schedule plus the
+    # engine's dead_mask/halt_cyc outputs: DEAD spans on killed cores,
+    # STALL spans over the scheduled stall windows, BANK_STALL spans on
+    # stalled bank tracks, and one global instant when the forward-
+    # progress watchdog flagged a halt
+    spec = getattr(result, "spec", None)
+    fp = getattr(spec, "faults", None) if spec is not None else None
+    if fp is not None and fp.enabled:
+        horizon = int(spec.costs.cycles)
+        get = result.get if hasattr(result, "get") else (lambda k, d=None: d)
+        dead = np.asarray(get("dead_mask", np.zeros(0, bool)))
+        kill_ts = int(fp.kill_cyc if fp.n_kill else fp.stall_cyc)
+        for c in np.flatnonzero(dead):
+            if c >= ncores:
+                continue
+            # holder kills fire at the victim's first post-kill_cyc
+            # ownership handoff; kill_cyc is the earliest possible start
+            ev.append({"ph": "X", "pid": _PID_CORES, "tid": int(c),
+                       "name": "DEAD", "cat": "fault", "cname": "black",
+                       "ts": kill_ts, "dur": max(horizon - kill_ts, 1)})
+        if fp.n_stall:
+            dur = min(fp.stall_cyc + fp.stall_dur, horizon) - fp.stall_cyc
+            for c in np.flatnonzero(fp.stall_mask(log.n_cores)):
+                if c >= ncores or dur <= 0:
+                    continue
+                ev.append({"ph": "X", "pid": _PID_CORES, "tid": int(c),
+                           "name": "STALL", "cat": "fault",
+                           "cname": "terrible",
+                           "ts": int(fp.stall_cyc), "dur": int(dur)})
+        if fp.n_bank_stall and log.qlen is not None:
+            dur = (min(fp.bank_stall_cyc + fp.bank_stall_dur, horizon)
+                   - fp.bank_stall_cyc)
+            for b in np.flatnonzero(fp.bank_stall_mask(log.qlen.shape[1])):
+                if dur <= 0:
+                    continue
+                ev.append({"ph": "X", "pid": _PID_BANKS, "tid": int(b),
+                           "name": "BANK_STALL", "cat": "fault",
+                           "cname": "terrible",
+                           "ts": int(fp.bank_stall_cyc), "dur": int(dur)})
+        halt = int(np.asarray(get("halt_cyc", -1)))
+        if halt >= 0:
+            ev.append({"ph": "i", "pid": _PID_CORES, "name": "HALT",
+                       "cat": "fault", "s": "g", "ts": halt,
+                       "args": {"detail": "forward-progress watchdog: "
+                                          "no retirement for the "
+                                          "progress threshold"}})
     # ---- per-bank queue-depth counters (ph "C", emit-on-change) ---------
     if log.qlen is not None:
         q = log.qlen

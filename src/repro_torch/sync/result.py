@@ -24,6 +24,12 @@ _METRIC_KEYS = ("throughput", "jain_fairness", "energy_pj_per_op",
                 "lat_p50", "lat_p95", "lat_max",
                 "fairness_min", "fairness_max", "fairness_span")
 
+#: fault/recovery metrics: present only when the spec ran with an
+#: enabled FaultPlan, so fault-free reports stay unchanged
+_FAULT_KEYS = ("faults_injected", "recoveries", "stalled_cores",
+               "progress_ok", "halt_cyc",
+               "survivor_throughput", "survivor_jain")
+
 
 def _scalar(v: Any) -> Any:
     """Plain-Python, JSON-safe scalar: numpy scalars unwrap, non-finite
@@ -132,6 +138,24 @@ class Result:
         v = self.stats.get("error")
         return None if v is None else str(v)
 
+    @property
+    def progress_ok(self) -> Optional[bool]:
+        """Liveness verdict under fault injection: ``True`` if the
+        forward-progress watchdog never flagged a halt, ``False`` for a
+        detected livelock/deadlock, ``None`` when the spec ran without
+        faults enabled."""
+        v = self.stats.get("progress_ok")
+        return None if v is None else bool(v)
+
+    @property
+    def faults_injected(self) -> int:
+        return int(np.asarray(self.stats.get("faults_injected", 0)))
+
+    @property
+    def recoveries(self) -> int:
+        """Watchdog-driven recovery actions (evictions + redeliveries)."""
+        return int(np.asarray(self.stats.get("recoveries", 0)))
+
     # ---- observability views --------------------------------------------
     def timeseries(self):
         """The windowed telemetry of this point as a typed
@@ -180,6 +204,9 @@ class Result:
             out["atomics"] = int(self.stats["atomics"])
         if self.worker_rate is not None:
             out["worker_rate"] = self.worker_rate
+        for k in _FAULT_KEYS:
+            if k in self.stats:
+                out[k] = _scalar(self.stats[k])
         if "error" in self.stats:
             out["error"] = str(self.stats["error"])
             if "error_stage" in self.stats:

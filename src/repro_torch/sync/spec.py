@@ -18,8 +18,10 @@ organised into five sub-groups instead of the engine's flat
                modify time, horizon, seed, the event-trace and telemetry
                switches, and the reference's unroll and backend (kept
                for JSON compatibility)
-``faults``     the fault schedule (:class:`repro_torch.faults.
-               FaultPlan`); the port runs only the empty plan
+``faults``     fault injection & recovery (:class:`repro_torch.faults.
+               FaultPlan`): core kills/stalls, message drops, bank
+               stalls, the reservation watchdog and the forward-
+               progress detector; all-zero = off
 =============  ==========================================================
 
 Construction is deliberately forgiving about *shape* and strict about
@@ -37,8 +39,7 @@ Every constructor path validates at construction time: an unknown
 protocol/workload name raises a ``ValueError`` listing the registry's
 available names, and impossible field values (``n_cores <= 0``,
 ``cycles <= 0``, ``n_addrs`` below the workload's minimum, ...) raise
-immediately, and so does a feature the port does not run yet
-(``NotImplementedError``).  Validation lives in ONE place
+immediately.  Validation lives in ONE place
 (``SimParams.__post_init__``): a ``Spec`` lowers onto the engine's
 ``SimParams`` via :meth:`to_params`, and constructing that
 ``SimParams`` eagerly at ``Spec`` construction is what validates it.

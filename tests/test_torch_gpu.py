@@ -108,7 +108,7 @@ def test_run_kernel_matches_the_plain_loop(name, traced, cuda_device):
                       n_cores=n, n_addrs=a, cycles=cycles, seed=-(2**33) - 3,
                       record_trace=traced, telemetry_windows=16 * traced)
         before = dict(LAUNCHES)
-        assert cs.run_case(p, cuda_device) == (p.cycles, 0.0)
+        assert cs.run_case(p, cuda_device)[:2] == (p.cycles, 0.0)
         assert LAUNCHES["engine_run"] == 1
         LAUNCHES.update(before)
 
@@ -130,7 +130,7 @@ def test_program_run_kernel_matches_the_plain_loop(wl, traced, cuda_device):
                           record_trace=traced, telemetry_windows=16 * traced,
                           **cs.workloads.get(wl).scenario)
             before = dict(LAUNCHES)
-            assert cs.run_case(p, cuda_device) == (p.cycles, 0.0)
+            assert cs.run_case(p, cuda_device)[:2] == (p.cycles, 0.0)
             LAUNCHES.update(before)
 
 
@@ -152,7 +152,7 @@ def test_own_program_and_barrier_workers_on_gpu(cuda_device):
                    for i, name in enumerate(PROTOS)]
         for p in params:
             before = dict(LAUNCHES)
-            assert cs.run_case(p, cuda_device) == (p.cycles, 0.0)
+            assert cs.run_case(p, cuda_device)[:2] == (p.cycles, 0.0)
             LAUNCHES.update(before)
 
 
@@ -198,8 +198,54 @@ def test_topology_and_zipf_run_kernel_match_the_plain_loop(name,
     for p, traced in cases:
         p = cs.dataclasses.replace(p, cycles=min(p.cycles, 150))
         before = dict(LAUNCHES)
-        assert cs.run_case(p, cuda_device, traced) == (p.cycles, 0.0)
+        assert cs.run_case(p, cuda_device, traced)[:2] == (p.cycles, 0.0)
         LAUNCHES.update(before)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", PROTOS)
+def test_fault_run_kernel_matches_the_plain_loop(name, cuda_device):
+    """The run kernel's fault instance under chip_smoke's mixed plan (a
+    holder kill, the watchdog, request and wakeup drops, a bank stall,
+    the progress detector) and its other fault cases: one engine_run
+    launch equals the plain loop on every key, the fault keys included."""
+    cs = _chip_smoke()
+    cases = [p for p in cs.fault_params() if p.protocol == name]
+    assert cases
+    for p in cases:
+        p = cs.dataclasses.replace(p, cycles=min(p.cycles, 150))
+        before = dict(LAUNCHES)
+        assert cs.run_case(p, cuda_device)[:2] == (p.cycles, 0.0)
+        LAUNCHES.update(before)
+
+
+@pytest.mark.gpu
+def test_fault_study_on_gpu_equals_single_runs(cuda_device):
+    """A Study of faulted and fault-free points, n_addrs off the buckets
+    with a bank stall, on the card: one launch (the fault instance),
+    every point equal to the CPU's Study and, where the bank-stall draw
+    does not depend on the bucket, to its own single run."""
+    from repro_torch.faults import FaultPlan
+    from repro_torch.sync import Study
+    cs = _chip_smoke()
+    plan = FaultPlan(n_kill=2, kill_cyc=50, watchdog_cyc=24,
+                     msg_drop_bp=200, n_bank_stall=1, bank_stall_cyc=80,
+                     bank_stall_dur=100, progress_cyc=300)
+    specs = [Spec(protocol=pr, n_cores=64, n_addrs=na, cycles=600, seed=s,
+                  faults=fp)
+             for s, (pr, na, fp) in enumerate((
+                 ("colibri", 4, plan), ("lrsc", 3, plan), ("amo", 5, None),
+                 ("ticket_lock", 4, None), ("hw_event", 5, plan)))]
+    before = dict(LAUNCHES)
+    got = Study.from_specs(specs).run()
+    assert LAUNCHES["engine_run"] - before["engine_run"] == 1
+    cpu = Study.from_specs(specs).run(device="cpu")
+    for spec, r, c in zip(specs, got, cpu):
+        assert r.ok and ("dead_mask" in r.stats) == spec.faults.enabled
+        assert cs.int_keys_equal(r.stats, c.stats) == []
+        if spec.topology.n_addrs == 4 or not spec.faults.enabled:
+            assert cs.swept_diff(r.stats, cs.single_run(spec).stats,
+                                 spec.to_params()) == []
 
 
 @pytest.mark.gpu
@@ -293,7 +339,7 @@ def test_colibri_hier_group_counts_on_gpu(groups, cuda_device):
                   n_addrs=16, cycles=300, seed=7 + groups,
                   record_trace=True, telemetry_windows=8)
     before = dict(LAUNCHES)
-    assert cs.run_case(p, cuda_device) == (p.cycles, 0.0)
+    assert cs.run_case(p, cuda_device)[:2] == (p.cycles, 0.0)
     LAUNCHES.update(before)
     proto = protocols.get("colibri_hier")
     rng = np.random.default_rng(groups)

@@ -5,6 +5,8 @@ dict as ``repro.core.sim.execute``: the same keys, every integer/bool
 array equal with the same dtype, and the derived float metrics ``==``.
 Also here: the port's construction-time refusals and its device rule.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -78,8 +80,15 @@ def test_bank_state_keys_and_dtypes_follow_the_protocol():
     dict(faults={"watchdog_cyc": 64}),
 ])
 def test_unported_features_are_refused(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP item"):
-        tsim.SimParams(**kw)
+    """The five fault plans the port once refused now run, and equal the
+    reference on every key."""
+    from lock_points import assert_execute_matches_reference
+    plan = tsim.SimParams(**kw).faults
+    assert plan.enabled
+    got = assert_execute_matches_reference(
+        "colibri", dict(n_cores=16, n_addrs=2, cycles=300, seed=4,
+                        faults=dataclasses.asdict(plan)))
+    assert "dead_mask" in got and "halt_cyc" in got
 
 
 def test_skew_is_ignored_where_no_zipf_stream_runs():

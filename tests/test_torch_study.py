@@ -103,13 +103,38 @@ def test_study_axis_errors():
 
 
 def test_a_refused_spec_raises_inside_a_study():
-    """What the port does not run yet is refused, never an error record."""
-    st = tsync.Study(protocol="colibri", n_cores=8, cycles=50)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        st.grid(faults=({}, {"n_kill": 1})).run(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsync.Study.from_specs([jsync.Spec(faults={"n_kill": 1})
-                                .to_dict()])
+    """A grid of fault plans, once refused, runs inside a Study and
+    equals the reference's, faulted and fault-free points alike; a spec
+    the run kernel does not take (a topology deeper than its levels) is
+    still refused, never an error record."""
+    def study(pkg):
+        return pkg.Study(protocol="colibri", n_cores=8, cycles=120) \
+            .grid(faults=({}, {"n_kill": 1, "watchdog_cyc": 16}))
+    want = study(jsync).run()
+    got = study(tsync).run(device="cpu")
+    for g, w in zip(got, want):
+        assert g.ok
+        _same(g, w)
+    assert got[1].faults_injected == 1 and got[0].progress_ok is None
+    specs = [jsync.Spec(faults={"n_kill": 1}, n_cores=8,
+                        cycles=50).to_dict()]
+    assert tsync.Study.from_specs(specs).run(device="cpu")[0].ok
+    from repro_torch.core import protocols, sim, workloads
+    from repro_torch.kernels.engine_step import kernel as K
+    from repro_torch.core.topologies import base as tbase, registry
+    class Deep(tbase.Topology):
+        name = "deep_levels"
+        levels = tuple(tbase.LinkLevel(f"l{i}", extra_lat=1, bw_div=1)
+                       for i in range(K.MAX_LEVELS + 1))
+    registry.register(Deep)
+    try:
+        p = sim.SimParams(protocol="colibri", n_cores=8,
+                          topology="deep_levels", faults={"n_kill": 1})
+        with pytest.raises(NotImplementedError, match="deep_levels"):
+            K.run_scalars(p, protocols.get("colibri"),
+                          workloads.get(p.workload).program(p))
+    finally:
+        del registry._REGISTRY["deep_levels"]
 
 
 def test_study_without_device_needs_a_gpu(monkeypatch):

@@ -8,6 +8,7 @@ package loads in the other; and the reference values ``chip_smoke.py``
 holds the GPU run against are recomputed here with the JAX package, so
 they cannot drift.
 """
+import hashlib
 import importlib.util
 import json
 from pathlib import Path
@@ -109,9 +110,11 @@ def test_spec_with_unported_feature_fails_in_the_port():
     ref = jsync.Spec(workload="zipf_histogram", zipf_skew=150,
                      topology="cluster3")
     assert tsync.Spec.from_json(ref.to_json()).to_dict() == ref.to_dict()
-    ref = jsync.Spec(faults={"n_kill": 1})
-    with pytest.raises(NotImplementedError, match="ROADMAP item"):
-        tsync.Spec.from_json(ref.to_json())
+    ref = jsync.Spec(faults={"n_kill": 1, "watchdog_cyc": 64,
+                             "msg_drop_bp": 25})
+    port = tsync.Spec.from_json(ref.to_json())
+    assert port.to_dict() == ref.to_dict() and port.faults.enabled
+    assert jsync.Spec.from_json(port.to_json()) == ref
 
 
 def test_result_json_round_trip():
@@ -192,6 +195,58 @@ def test_chip_smoke_fig4_is_the_bench_locks_grid():
     assert {g.to_params().n_cores for g in got} == {256}
     assert set(cs.LOCK_TIME_POINTS) == {(pr, 256, 1)
                                         for pr in bench_locks.LOCKS}
+
+
+def test_chip_smoke_faults_is_the_bench_faults_grid(monkeypatch):
+    """The faults phase's Study holds ``benchmarks/bench_faults.py``'s
+    points at their full size, in its order (each protocol's healthy
+    run first), all of one core count (one launch), and derives its rows
+    and headline as the benchmark does: both run on the same stand-in
+    results give the same rows, named as the committed report's."""
+    import sys
+    sys.path.insert(0, str(ROOT))
+    from benchmarks import bench_faults
+    cs = _chip_smoke()
+
+    class Stub:
+        def __init__(self, spec):
+            key = json.dumps(spec.to_dict(), sort_keys=True)
+            h = int(hashlib.sha256(key.encode()).hexdigest()[:8], 16)
+            self.spec, self.throughput = spec, (h % 97) / 100
+            self.stats = {"survivor_throughput": (h % 89) / 100}
+            self.ok = h % 3 > 0
+
+        def to_row(self, **extra):
+            return dict(extra, protocol=self.spec.protocol.name,
+                        progress_ok=self.ok, throughput=self.throughput)
+
+    seen = []
+
+    def fake_run(spec):
+        seen.append(spec.to_dict())
+        return Stub(spec)
+
+    monkeypatch.setattr(bench_faults, "run", fake_run)
+    want_rows = bench_faults.rows()
+    want_head = bench_faults.headline(want_rows)
+    names, specs = cs.fault_specs()
+    assert [s.to_dict() for s in specs] == [
+        tsync.Spec.from_json(jsync.Spec.from_dict(d).to_json()).to_dict()
+        for d in seen]
+    assert {s.to_params().n_cores for s in specs} == {64}
+    assert len(specs) == 47 and len(want_rows) == 38
+    rows, head = cs.fault_rows({n: Stub(s) for n, s in zip(names, specs)})
+    assert rows == want_rows and head == want_head
+    ref = json.loads(cs.FAULTS_REPORT.read_text())["faults"]
+    assert [r["row"] for r in ref["rows"]] == [r["row"] for r in rows]
+    # the report predates the topology group: the reference's row of a
+    # faulted point today has its keys and FAULTS_ROW_ADDED's
+    one = jsync.run(jsync.Spec(protocol="lrscwait", n_cores=8, cycles=60,
+                               faults={"n_kill": 1, "watchdog_cyc": 8}))
+    row = one.to_row(**{k: 0 for k in ref["rows"][0]
+                        if k not in one.to_row()})
+    assert set(row) == set(ref["rows"][0]) | set(cs.FAULTS_ROW_ADDED)
+    assert {k: row[k] for k in cs.FAULTS_ROW_ADDED} == cs.FAULTS_ROW_ADDED
 
 
 def test_chip_smoke_hier_is_one_launch_of_every_group_count():

@@ -21,6 +21,14 @@ Phases, one JSON line each:
    lengths, and the two-level queues in the shape the protocols reach,
    ``random_hier_bank``): every output, bank array and per-core write
    must be equal;
+   model_check — the model checker's full gate
+   (``repro_torch.analysis.model_check``: all eleven protocols, every
+   configuration, the kill pass) with the engine_step kernel as the
+   fused twin: each distinct delivery one launch of the one-candidate
+   step, its bank state, kind and per-core writes held to ``on_access``
+   under every rule; 0 findings, states and transitions equal to the
+   same gate with ``fused_access`` on the CPU; its launches and
+   seconds;
    run_kernel — the engine_run kernel (one launch per run) against the
    plain loop (``sim._simulate_plain``, one engine_step launch per
    cycle) on the card, for each ``PROTO_CASES`` entry at every such
@@ -251,6 +259,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import convert  # noqa: E402
+from repro_torch.analysis import model_check  # noqa: E402
+from repro_torch.analysis.report import fail_fast  # noqa: E402
 from repro_torch.core import metrics, protocols, sim, workloads  # noqa: E402
 from repro_torch.core.workloads.base import (  # noqa: E402
     ADDR_ZIPF, zipf_factors, zipf_index, zipf_thresholds)
@@ -731,7 +741,7 @@ LAYOUT_CASE_CYCLES = 48
 #: the Fig. 3 uniform lines (benchmarks/bench_histogram.py): four
 #: protocols and lrscwait with 8 queue slots, at these bin counts, 256
 #: cores, FULL_WIDTH_CYCLES; the skewed companion lines (zipf_skew=150)
-#: are left out: the port refuses skew (ROADMAP A3)
+#: are the fig3_skew phase's (``FIG3_SKEW_PROTOS`` at ``FIG3_SKEW``)
 SWEEP_LINES = (("amo", 256), ("lrsc", 256), ("lrscwait", 256),
                ("colibri", 256), ("lrscwait", 8))
 #: launch groups of the Fig. 3 Study (one per core count: 256, and the
@@ -1331,6 +1341,51 @@ def run_case(p, dev, traced: bool = False) -> tuple:
     bad = result_diff(got, want)
     require(not bad, f"{what}: kernel differs from the plain loop on {bad}")
     return plain["engine_step"], result_err(got, want), got
+
+
+def phase_model_check(dev) -> dict:
+    """The model checker's full gate (``repro_torch.analysis``: all eleven
+    protocols, every configuration, the kill pass) with the engine_step
+    kernel in the fused twin's place: each distinct delivery one launch
+    of the one-candidate step on the card, its bank state, kind and
+    per-core writes held to ``on_access`` on the host (``handler-mismatch``
+    and every other rule).  0 findings, and states and transitions equal
+    to the same gate with ``fused_access`` on the CPU."""
+    t0 = time.perf_counter()
+    cpu = {r.subject: r.stats for r in model_check.check_all()}
+    cpu_s = time.perf_counter() - t0
+    seam = model_check.HookDriver.fused_side
+    model_check.HookDriver.fused_side = model_check.stepped(
+        engine_step.fused_step, dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        reps = model_check.check_all()
+    finally:
+        model_check.HookDriver.fused_side = seam
+    seconds = time.perf_counter() - t0
+    launches = LAUNCHES["engine_step"]
+    rows = {r.subject: dict(states=r.stats["states"],
+                            transitions=r.stats["transitions"],
+                            findings=len(r.findings)) for r in reps}
+    emit(phase="model_check", protocols=rows,
+         states=sum(r["states"] for r in rows.values()),
+         transitions=sum(r["transitions"] for r in rows.values()),
+         findings=sum(r["findings"] for r in rows.values()),
+         engine_step_launches=launches, seconds=seconds,
+         launches_per_s=launches / seconds, cpu_seconds=cpu_s)
+    require(all(r.ok for r in reps), "model check with the engine_step "
+                                     "kernel:\n" + fail_fast(reps, limit=10))
+    for r in reps:
+        want = cpu[r.subject]
+        require((r.stats["states"], r.stats["transitions"])
+                == (want["states"], want["transitions"]),
+                f"model check {r.subject}: {r.stats['states']} states, "
+                f"{r.stats['transitions']} transitions on the card against "
+                f"{want['states']}, {want['transitions']} on the CPU")
+    require(launches > 0 and LAUNCHES["engine_run"] == 0,
+            f"model check launches: {dict(LAUNCHES)}")
+    return dict(launches=launches, seconds=seconds)
 
 
 def phase_run_kernel(dev) -> dict:
@@ -3795,6 +3850,7 @@ def main() -> int:
     smi = CARD["card"]
 
     worst = timed(phase_kernel, dev)
+    mc_run = timed(phase_model_check, dev)
     run_check = timed(phase_run_kernel, dev)
     scatter_worst = timed(phase_scatter_kernel, dev)
     lm_kernels = lm_phases(dev)
@@ -3910,6 +3966,8 @@ def main() -> int:
         replaces="src/repro/kernels/engine_step/kernel.py:45",
         launches=main_run["step_launches"],
         plain_loop_launches=run_check["plain_launches"],
+        model_check_launches=mc_run["launches"],
+        model_check_seconds=mc_run["seconds"],
         max_abs_err=worst,
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by="bytes", library_ms=None, call_ms=head["call_ms"],

@@ -8,8 +8,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.protocols.base import (KERNEL_AMO, OUT_DONE, OUT_NONE,
-                                             Contract, FusedOut, Protocol)
+from repro_torch.core.protocols.base import (KERNEL_AMO, NXT_WORK_DONE,
+                                             OUT_DONE, OUT_NONE, Contract,
+                                             FusedOut, Protocol, respond)
 from repro_torch.core.protocols.registry import register
 
 
@@ -20,6 +21,10 @@ class Amo(Protocol):
     contract = Contract(exclusive_grant=True, retry_free=True,
                         wait_class=False, max_hot_scatters=2)
     kernel_code = KERNEL_AMO
+
+    def on_access(self, ctx, cs, bank):
+        respond(cs, ctx.is_acq, ctx.p.lat, NXT_WORK_DONE)
+        return cs, bank
 
     def fused_access(self, fx, bank):
         # the AMO commits at the bank: every acquire winner retires in

@@ -9,6 +9,10 @@ when an arbitrated request reaches its bank:
 * ``init_bank_state``  — the per-bank dict of tensors (reservation
   slots, queues, ...) carried from cycle to cycle.
 * ``init_core_state``  — optional per-core protocol state.
+* ``on_access``        — the masked-update form of this cycle's bank
+  winners (at most one per bank): the per-core writes done directly over
+  the ``(n,)`` core arrays, split into acquire (``ctx.is_acq``) and
+  release (``ctx.is_rel``) lanes, as the reference's engine runs it.
 * ``fused_access``     — the bank-centric update of this cycle's bank
   winners, with per-core effects returned as ``OUT_*`` outcome codes.
   It is the plain form of the ``engine_step`` kernel's protocol stage.
@@ -20,9 +24,10 @@ when an arbitrated request reaches its bank:
   a bank held with no progress (evict a dead owner, re-send a lost
   wakeup, force-free a wedged lock).
 
-The port drives every protocol through ``fused_access``; the masked
-``on_access`` form (the reference's XLA scan path) is not part of the
-port.
+The engine drives every protocol through ``fused_access`` only.
+``on_access`` exists for the static analyses (``repro_torch.analysis``):
+the model checker holds ``fused_access`` (and the ``engine_step`` kernel
+in its place) to it on every reachable state of small configurations.
 """
 from __future__ import annotations
 
@@ -119,17 +124,28 @@ class Contract:
 
 @dataclasses.dataclass
 class Ctx:
-    """Per-cycle view handed to :meth:`Protocol.on_wake`.
+    """Per-cycle view handed to :meth:`Protocol.on_access`,
+    :meth:`Protocol.on_wake` and :meth:`Protocol.on_timeout`.
 
-    The reference's ``Ctx`` also carries the masked-update lanes
-    (``is_acq``, ``win_core``, ...) of its ``on_access`` form; the port
-    runs only the fused form, so it carries what ``on_wake`` reads.
+    The masked-update lanes (``is_acq`` ... ``rel_b``) are what
+    ``on_access`` reads; the engine, which runs only the fused form,
+    leaves them ``None``.
     """
     p: Any                   # resolved SimParams-like namespace
     n: int                   # cores
     a: int                   # banks allocated
     q_cap: int               # queue slots per bank
+    is_acq: Optional[torch.Tensor] = None   # (n,) bool acquire winners
+    is_rel: Optional[torch.Tensor] = None   # (n,) bool release winners
+    wa: Optional[torch.Tensor] = None       # (n,) int32 each core's bank
+    wc: Optional[torch.Tensor] = None       # (n,) int32 core ids
     ba: Optional[torch.Tensor] = None       # (a,) int32 bank ids
+    #: (a,) int32: each bank's winning core, or ``n`` without one (at
+    #: most one winner a bank, so bank state updates are dense; gather
+    #: core values at ``win_core.clamp(max=n - 1)``)
+    win_core: Optional[torch.Tensor] = None
+    acq_b: Optional[torch.Tensor] = None    # (a,) bool winner acquires
+    rel_b: Optional[torch.Tensor] = None    # (a,) bool winner releases
     #: (n,) int32: each core's current micro-op's modify duration
     #: (cycles), the step table's entry at its program counter; wake
     #: paths grant with it
@@ -206,6 +222,17 @@ class Protocol:
         return {}
 
     # ---- handlers ----
+    def on_access(self, ctx: Ctx, cs: Dict, bank: Dict
+                  ) -> Tuple[Dict, Dict]:
+        """Masked-update form of this cycle's bank winners: write the
+        winners' ``cs`` lanes (``st``/``tmr``/``nxt``, the 0-d ``polls``
+        and ``msgs`` counters, the protocol's per-core state) and the
+        bank state directly; return ``(cs, bank)``.  Must equal the
+        reference protocol's ``on_access`` bit for bit, and
+        :meth:`fused_access` plus the engine's outcome apply."""
+        raise NotImplementedError(
+            f"protocol {self.name!r} does not provide on_access")
+
     def fused_access(self, fx: FusedCtx, bank: Dict
                      ) -> Tuple[Dict, FusedOut]:
         """Dense bank update of this cycle's winners; must equal the
@@ -267,6 +294,32 @@ class Protocol:
         ``OUT_NONE`` code per bank.  Default: no recovery."""
         return cs, bank, torch.zeros((ctx.a,), dtype=torch.int32,
                                      device=stuck_b.device)
+
+
+def respond(cs: Dict, mask: torch.Tensor, tmr, nxt) -> None:
+    """``on_access``'s answer to the cores of ``mask``: state RESP, timer
+    ``tmr`` and next state ``nxt`` (ints or (n,) int32 tensors)."""
+    cs["st"] = cs["st"].masked_fill(mask, RESP)
+    cs["tmr"] = torch.where(mask, tmr, cs["tmr"])
+    cs["nxt"] = torch.where(mask, nxt, cs["nxt"])
+
+
+def enqueue(qbuf: torch.Tensor, put_b: torch.Tensor, qhead: torch.Tensor,
+            qlen: torch.Tensor, win: torch.Tensor, q_cap: int
+            ) -> torch.Tensor:
+    """``qbuf`` (a, slots) with each bank of ``put_b`` holding its winner
+    ``win`` in slot ``(qhead + qlen) % q_cap`` (a masked write: the other
+    banks keep the slot's old value)."""
+    slot_b = torch.remainder(qhead + qlen, q_cap)
+    ba = torch.arange(qbuf.shape[0], device=qbuf.device)
+    qbuf = qbuf.clone()
+    qbuf[ba, slot_b] = torch.where(put_b, win, qbuf[ba, slot_b])
+    return qbuf
+
+
+def count(mask: torch.Tensor) -> torch.Tensor:
+    """0-d int32 number of set lanes (a counter's increment)."""
+    return mask.sum(dtype=torch.int32)
 
 
 def _owner_dead(killed: torch.Tensor, owner: torch.Tensor, n: int):

@@ -14,20 +14,20 @@ re-registers at the global tail and hands the address over.
 Polling-free and retry-free: the local queues hold one outstanding RMW
 per member core, so an acquire never bounces.  Grantees bypass the local
 queues (a woken head is popped), so ``queue_depth`` counts the sleepers
-only.  :class:`TwoLevelQueues` is the fused path and the watchdog
-recovery shared with ``hw_event`` (the masked ``on_access`` form is
-ROADMAP A6).
+only.  :class:`TwoLevelQueues` holds the masked and the fused form and
+the watchdog recovery shared with ``hw_event``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.protocols.base import (KERNEL_HIER, MOD, MSGS_HIER,
+                                             NXT_MOD, NXT_WORK_DONE,
                                              OUT_DONE, OUT_EVICT, OUT_GRANT,
                                              OUT_NONE, OUT_REDELIVER,
-                                             OUT_SLEEP, Contract, FusedOut,
-                                             KernelArgs, Protocol,
-                                             _owner_dead)
+                                             OUT_SLEEP, SLEEP, Contract,
+                                             FusedOut, KernelArgs, Protocol,
+                                             _owner_dead, count, respond)
 from repro_torch.core.protocols.registry import register
 
 
@@ -93,11 +93,48 @@ class TwoLevelQueues(Protocol):
         a = bank["cur_grp"].shape[0]
         return bank["lqlen"].reshape(a, -1).sum(dim=1)
 
+    def _msg_weights(self):
+        """Side messages per event of an access (``bank_update``'s masks)."""
+        return (("enq_b", self.msgs_enq), ("reg_b", self.msgs_reg),
+                ("more_local_b", self.msgs_local),
+                ("re_reg_b", self.msgs_rereg),
+                ("have_next_b", self.msgs_handoff))
+
+    def on_access(self, ctx, cs, bank):
+        """The masked form: :meth:`bank_update` over the winners, and
+        their answers written to the ``(n,)`` core lanes."""
+        bank, up = self.bank_update(ctx.p, ctx.n, bank, ctx.win_core,
+                                    ctx.acq_b, ctx.rel_b)
+        idle = up["idle_b"][ctx.wa]
+        respond(cs, ctx.is_acq & idle, ctx.p.lat, NXT_MOD)
+        cs["st"] = cs["st"].masked_fill(ctx.is_acq & ~idle, SLEEP)
+        cs["msgs"] = cs["msgs"] + sum(w * count(up[k])
+                                      for k, w in self._msg_weights())
+        respond(cs, ctx.is_rel, ctx.p.lat, NXT_WORK_DONE)
+        return cs, bank
+
     def fused_access(self, fx, bank):
-        # the reference's statements in its order: later ones read the
-        # state that earlier ones wrote (lqlen after the enqueue, gqlen
-        # after a registration, ggq's head after a re-registration)
-        G, gsz, cap_l = self._geom(fx.p, fx.n)
+        bank, up = self.bank_update(fx.p, fx.n, bank, fx.win, fx.acq_b,
+                                    fx.rel_b)
+        i32 = torch.int32
+        msgs = sum(w * up[k].to(i32) for k, w in self._msg_weights())
+        kind = torch.where(
+            up["grant_b"], OUT_GRANT,
+            torch.where(up["enq_b"], OUT_SLEEP,
+                        torch.where(fx.rel_b, OUT_DONE, OUT_NONE))
+        ).to(i32)
+        tmr = torch.full_like(kind, fx.p.lat)
+        return bank, FusedOut(kind=kind, tmr=tmr, msgs=msgs)
+
+    def bank_update(self, p, n, bank, win, acq_b, rel_b):
+        """The bank side of an access, dense over the banks: the new bank
+        state, and the per-bank masks of what happened (``idle_b``,
+        ``grant_b``, ``enq_b``, ``reg_b``, ``more_local_b``,
+        ``re_reg_b``, ``have_next_b``).  The reference's statements in
+        its order: later ones read the state that earlier ones wrote
+        (lqlen after the enqueue, gqlen after a registration, ggq's head
+        after a re-registration)."""
+        G, gsz, cap_l = self._geom(p, n)
         i32 = torch.int32
         lqbuf, lqhead, lqlen = bank["lqbuf"], bank["lqhead"], bank["lqlen"]
         ggq, gqhead, gqlen = bank["ggq"], bank["gqhead"], bank["gqlen"]
@@ -106,7 +143,7 @@ class TwoLevelQueues(Protocol):
         wake_tmr, wake_grp = bank["wake_tmr"], bank["wake_grp"]
         a = cur_grp.shape[0]
         ba = torch.arange(a, dtype=i32, device=cur_grp.device)
-        g_b = (fx.win.clamp(max=fx.n - 1) // gsz).clamp_(max=G - 1)
+        g_b = (win.clamp(max=n - 1) // gsz).clamp_(max=G - 1)
         lq_b = ba * G + g_b
         # every bank owns its rows (lq_b, and ba of the (a, G) arrays), so
         # a masked write is a gather, a where and a scatter to distinct
@@ -115,43 +152,39 @@ class TwoLevelQueues(Protocol):
 
         # ---- acquire ----
         idle_b = cur_grp < 0
-        grant_b = fx.acq_b & idle_b
+        grant_b = acq_b & idle_b
         cur_grp = torch.where(grant_b, g_b, cur_grp)
         if self.turn_budget:
             turn_srv = turn_srv.masked_fill(grant_b, 0)
-        enq_b = fx.acq_b & ~idle_b
+        enq_b = acq_b & ~idle_b
         slot_b = torch.remainder(lqhead[lq_b] + lqlen[lq_b], cap_l)
-        lqbuf[lq_b, slot_b] = torch.where(enq_b, fx.win, lqbuf[lq_b, slot_b])
+        lqbuf[lq_b, slot_b] = torch.where(enq_b, win, lqbuf[lq_b, slot_b])
         lqlen = lqlen.index_add(0, lq_b, enq_b.to(i32))
-        msgs = self.msgs_enq * enq_b.to(i32)
         reg_b = enq_b & (cur_grp != g_b) & ~g_inq[ba, g_b]
         gslot_b = torch.remainder(gqhead + gqlen, G)
         ggq[ba, gslot_b] = torch.where(reg_b, g_b, ggq[ba, gslot_b])
         gqlen = gqlen + reg_b.to(i32)
         g_inq[ba, g_b] = g_inq[ba, g_b] | reg_b
-        msgs = msgs + self.msgs_reg * reg_b.to(i32)
 
         # ---- release (the releaser's group is always cur_grp) ----
         if self.turn_budget:
             srv_b = turn_srv + 1
-            exhausted_b = fx.rel_b & (srv_b >= gsz) & (gqlen > 0)
+            exhausted_b = rel_b & (srv_b >= gsz) & (gqlen > 0)
         else:
-            exhausted_b = torch.zeros_like(fx.rel_b)
-        more_local_b = fx.rel_b & (lqlen[lq_b] > 0) & ~exhausted_b
+            exhausted_b = re_reg_b = torch.zeros_like(rel_b)
+        more_local_b = rel_b & (lqlen[lq_b] > 0) & ~exhausted_b
         wake_grp = torch.where(more_local_b, g_b, wake_grp)
         wake_tmr = wake_tmr.masked_fill(more_local_b, self.local_delay)
-        msgs = msgs + self.msgs_local * more_local_b.to(i32)
         if self.turn_budget:
             turn_srv = torch.where(more_local_b, srv_b, turn_srv)
             # yielding with waiters left: re-register at the global tail
-            re_reg_b = fx.rel_b & (lqlen[lq_b] > 0) & exhausted_b
+            re_reg_b = rel_b & (lqlen[lq_b] > 0) & exhausted_b
             tail_b = torch.remainder(gqhead + gqlen, G)
             ggq[ba, tail_b] = torch.where(re_reg_b, g_b, ggq[ba, tail_b])
             gqlen = gqlen + re_reg_b.to(i32)
             g_inq[ba, g_b] = g_inq[ba, g_b] | re_reg_b
-            msgs = msgs + self.msgs_rereg * re_reg_b.to(i32)
         # turn over: local queue drained, or budget spent with competitors
-        end_turn_b = fx.rel_b & ((lqlen[lq_b] == 0) | exhausted_b)
+        end_turn_b = rel_b & ((lqlen[lq_b] == 0) | exhausted_b)
         have_next_b = end_turn_b & (gqlen > 0)
         next_g_b = ggq[ba, gqhead]
         cur_grp = torch.where(have_next_b, next_g_b, cur_grp)
@@ -162,25 +195,20 @@ class TwoLevelQueues(Protocol):
         gqlen = gqlen - have_next_b.to(i32)
         wake_grp = torch.where(have_next_b, next_g_b, wake_grp)
         wake_tmr = wake_tmr.masked_fill(have_next_b,
-                                        fx.p.lat + self.handoff_extra)
+                                        p.lat + self.handoff_extra)
         if self.turn_budget:
             turn_srv = turn_srv.masked_fill(have_next_b, 0)
-        msgs = msgs + self.msgs_handoff * have_next_b.to(i32)
         # nothing left anywhere: the address goes idle
         cur_grp = cur_grp.masked_fill(end_turn_b & ~have_next_b, -1)
 
-        kind = torch.where(
-            grant_b, OUT_GRANT,
-            torch.where(enq_b, OUT_SLEEP,
-                        torch.where(fx.rel_b, OUT_DONE, OUT_NONE))
-        ).to(i32)
-        tmr = torch.full_like(kind, fx.p.lat)
         bank = dict(bank, lqbuf=lqbuf, lqhead=lqhead, lqlen=lqlen, ggq=ggq,
                     gqhead=gqhead, gqlen=gqlen, g_inq=g_inq,
                     cur_grp=cur_grp, wake_tmr=wake_tmr, wake_grp=wake_grp)
         if self.turn_budget:
             bank["turn_srv"] = turn_srv
-        return bank, FusedOut(kind=kind, tmr=tmr, msgs=msgs)
+        return bank, dict(idle_b=idle_b, grant_b=grant_b, enq_b=enq_b,
+                          reg_b=reg_b, more_local_b=more_local_b,
+                          re_reg_b=re_reg_b, have_next_b=have_next_b)
 
     # ---- fault recovery --------------------------------------------------
     # The current holder is NOT queued (grantees skip the local queues;

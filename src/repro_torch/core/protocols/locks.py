@@ -11,21 +11,21 @@
                     (retry traffic like ``amo_lock``) but grants strictly
                     in ticket order.
 
-The port drives them through ``fused_access`` only (the masked
-``on_access`` form is ROADMAP A6).  Under the reservation watchdog a
-spin lock whose last grantee is dead is force-freed, and the ticket
-lock's ``serving`` skips a dead holder's ticket.
+Under the reservation watchdog a spin lock whose last grantee is dead
+is force-freed, and the ticket lock's ``serving`` skips a dead holder's
+ticket.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.protocols.base import (KERNEL_LOCK, KERNEL_TICKET,
-                                             MSGS_ACQ, MSGS_NONE, OUT_DONE,
+                                             MSGS_ACQ, MSGS_NONE, NXT_BACKOFF,
+                                             NXT_MOD, NXT_WORK_DONE, OUT_DONE,
                                              OUT_EVICT, OUT_FAIL, OUT_GRANT,
                                              OUT_NONE, Contract, FusedOut,
                                              KernelArgs, Protocol,
-                                             _owner_dead)
+                                             _owner_dead, count, respond)
 from repro_torch.core.protocols.registry import register
 
 
@@ -49,6 +49,22 @@ class SpinLock(Protocol):
 
     def init_bank_state(self, p, a, n, q_cap, device):
         return dict(lock=torch.zeros((a,), dtype=torch.bool, device=device))
+
+    def on_access(self, ctx, cs, bank):
+        lock = bank["lock"]
+        free = ~lock[ctx.wa]
+        got = ctx.is_acq & free
+        fail = ctx.is_acq & ~free
+        respond(cs, ctx.is_acq, self.acq_tmr(ctx.p),
+                torch.where(got, NXT_MOD,
+                            torch.where(fail, NXT_BACKOFF, cs["nxt"])))
+        cs["polls"] = cs["polls"] + count(fail)
+        if self.lr_pair:
+            cs["msgs"] = cs["msgs"] + 2 * count(ctx.is_acq)
+        respond(cs, ctx.is_rel, ctx.p.lat, NXT_WORK_DONE)
+        # dense bank update: a winner is either acq or rel, never both
+        bank = dict(bank, lock=(lock | (ctx.acq_b & ~lock)) & ~ctx.rel_b)
+        return cs, bank
 
     def fused_access(self, fx, bank):
         lock = bank["lock"]
@@ -112,6 +128,29 @@ class TicketLock(Protocol):
     def init_core_state(self, p, n, device):
         return dict(tkt=torch.full((n,), -1, dtype=torch.int32,
                                    device=device))
+
+    def on_access(self, ctx, cs, bank):
+        wa, is_acq, is_rel = ctx.wa, ctx.is_acq, ctx.is_rel
+        next_tkt, serving = bank["next_tkt"], bank["serving"]
+        tkt = cs["tkt"]
+        # the first attempt draws a ticket; re-polls keep the one they hold
+        draw = is_acq & (tkt < 0)
+        my_tkt = torch.where(draw, next_tkt[wa], tkt)
+        draw_b = ctx.acq_b & (tkt[ctx.win_core.clamp(max=ctx.n - 1)] < 0)
+        next_tkt = next_tkt + draw_b.to(torch.int32)
+        tkt = torch.where(is_acq, my_tkt, tkt)
+        got = is_acq & (my_tkt == serving[wa])
+        fail = is_acq & ~got
+        respond(cs, is_acq, ctx.p.lat,
+                torch.where(got, NXT_MOD,
+                            torch.where(fail, NXT_BACKOFF, cs["nxt"])))
+        cs["polls"] = cs["polls"] + count(fail)
+        # release: advance the serving counter, drop the ticket
+        serving = serving + ctx.rel_b.to(torch.int32)
+        cs["tkt"] = tkt.masked_fill(is_rel, -1)
+        respond(cs, is_rel, ctx.p.lat, NXT_WORK_DONE)
+        bank = dict(bank, next_tkt=next_tkt, serving=serving)
+        return cs, bank
 
     def fused_access(self, fx, bank):
         next_tkt, serving = bank["next_tkt"], bank["serving"]

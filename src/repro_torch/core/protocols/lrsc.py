@@ -8,10 +8,11 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.protocols.base import (KERNEL_LRSC, OUT_DONE,
+from repro_torch.core.protocols.base import (KERNEL_LRSC, NXT_BACKOFF,
+                                             NXT_MOD, NXT_WORK_DONE, OUT_DONE,
                                              OUT_EVICT, OUT_FAIL, OUT_GRANT,
                                              OUT_NONE, Contract, FusedOut,
-                                             Protocol)
+                                             Protocol, count, respond)
 from repro_torch.core.protocols.registry import register
 
 
@@ -30,6 +31,26 @@ class Lrsc(Protocol):
             resv_core=torch.full((a,), -1, dtype=torch.int32, device=device),
             resv_valid=torch.zeros((a,), dtype=torch.bool, device=device),
         )
+
+    def on_access(self, ctx, cs, bank):
+        lat, win = ctx.p.lat, ctx.win_core
+        resv_core, resv_valid = bank["resv_core"], bank["resv_valid"]
+        # bank state is dense over banks: a bank's one winner is an
+        # acquire or a release, never both
+        got_resv_b = ctx.acq_b & ~resv_valid
+        resv_core = torch.where(got_resv_b, win, resv_core)
+        respond(cs, ctx.is_acq, lat, NXT_MOD)
+        # SC: succeeds iff holding the reservation; owner's SC releases it
+        owner_b = ctx.rel_b & resv_valid & (resv_core == win)
+        owner = ctx.is_rel & owner_b[ctx.wa]
+        fail = ctx.is_rel & ~owner
+        resv_valid = (resv_valid | got_resv_b) & ~owner_b
+        respond(cs, ctx.is_rel, lat,
+                torch.where(owner, NXT_WORK_DONE,
+                            torch.where(fail, NXT_BACKOFF, cs["nxt"])))
+        cs["polls"] = cs["polls"] + count(fail)
+        bank = dict(bank, resv_core=resv_core, resv_valid=resv_valid)
+        return cs, bank
 
     def fused_access(self, fx, bank):
         resv_core, resv_valid = bank["resv_core"], bank["resv_valid"]

@@ -11,10 +11,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.protocols.base import (KERNEL_QUEUE, MSGS_ENQ_PEND,
-                                             MSGS_NONE, OUT_DONE, OUT_FAIL,
-                                             OUT_GRANT, OUT_NONE, OUT_SLEEP,
-                                             Contract, FifoQueueRecovery,
-                                             FusedOut, KernelArgs, Protocol)
+                                             MSGS_NONE, NXT_BACKOFF, NXT_MOD,
+                                             NXT_WORK_DONE, OUT_DONE,
+                                             OUT_FAIL, OUT_GRANT, OUT_NONE,
+                                             OUT_SLEEP, SLEEP, Contract,
+                                             FifoQueueRecovery, FusedOut,
+                                             KernelArgs, Protocol, count,
+                                             enqueue, respond)
 from repro_torch.core.protocols.registry import register
 
 
@@ -53,6 +56,36 @@ class LrscWait(FifoQueueRecovery, Protocol):
             qhead=z(), qlen=z(), wake_tmr=z(),
         )
 
+    def on_access(self, ctx, cs, bank):
+        p, wa, q_cap = ctx.p, ctx.wa, ctx.q_cap
+        is_acq, acq_b, rel_b = ctx.is_acq, ctx.acq_b, ctx.rel_b
+        qhead, qlen = bank["qhead"], bank["qlen"]
+        empty = qlen[wa] == 0
+        full = qlen[wa] >= q_cap
+        grant = is_acq & empty
+        enq = is_acq & ~empty & ~full
+        rej = is_acq & full                  # finite-q immediate fail
+        put_b = acq_b & (qlen < q_cap)
+        qbuf = enqueue(bank["qbuf"], put_b, qhead, qlen, ctx.win_core,
+                       q_cap)
+        respond(cs, grant, p.lat, NXT_MOD)
+        cs["st"] = cs["st"].masked_fill(enq, SLEEP)
+        respond(cs, rej, p.lat, NXT_BACKOFF)
+        cs["polls"] = cs["polls"] + count(rej)
+        if self.successor_updates:           # SuccessorUpdate round trip
+            cs["msgs"] = cs["msgs"] + 2 * count(enq)
+        # SCwait: always valid (only the head ever gets a response)
+        qhead = torch.where(rel_b, torch.remainder(qhead + 1, q_cap), qhead)
+        qlen = qlen + put_b.to(torch.int32) - rel_b.to(torch.int32)
+        respond(cs, ctx.is_rel, p.lat, NXT_WORK_DONE)
+        pend_b = rel_b & (qlen > 0)
+        wake_tmr = torch.where(pend_b, self.wake_delay(p), bank["wake_tmr"])
+        if self.successor_updates:           # WakeUpRequest round trip
+            cs["msgs"] = cs["msgs"] + 2 * count(pend_b)
+        bank = dict(bank, qbuf=qbuf, qhead=qhead, qlen=qlen,
+                    wake_tmr=wake_tmr)
+        return cs, bank
+
     def fused_access(self, fx, bank):
         q_cap = fx.q_cap
         qbuf, qhead, qlen = bank["qbuf"], bank["qhead"], bank["qlen"]
@@ -62,12 +95,7 @@ class LrscWait(FifoQueueRecovery, Protocol):
         enq_b = fx.acq_b & ~empty_b & ~full_b
         rej_b = fx.acq_b & full_b                # finite-q immediate fail
         put_b = fx.acq_b & ~full_b
-        slot_b = torch.remainder(qhead + qlen, q_cap)
-        # the winner lands in its queue slot; banks without a put keep
-        # the slot's old value (a masked write, no index out of range)
-        ba = torch.arange(qbuf.shape[0], device=qbuf.device)
-        qbuf = qbuf.clone()
-        qbuf[ba, slot_b] = torch.where(put_b, fx.win, qbuf[ba, slot_b])
+        qbuf = enqueue(qbuf, put_b, qhead, qlen, fx.win, q_cap)
         kind = torch.where(
             grant_b, OUT_GRANT,
             torch.where(enq_b, OUT_SLEEP,

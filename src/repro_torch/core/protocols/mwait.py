@@ -12,10 +12,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.protocols.base import (KERNEL_QUEUE, MSGS_ENQ,
-                                             NEVER_FULL, OUT_DONE, OUT_GRANT,
-                                             OUT_NONE, OUT_SLEEP, Contract,
+                                             NEVER_FULL, NXT_MOD,
+                                             NXT_WORK_DONE, OUT_DONE,
+                                             OUT_GRANT, OUT_NONE, OUT_SLEEP,
+                                             SLEEP, Contract,
                                              FifoQueueRecovery, FusedOut,
-                                             KernelArgs, Protocol)
+                                             KernelArgs, Protocol, count,
+                                             enqueue, respond)
 from repro_torch.core.protocols.registry import register
 
 
@@ -51,18 +54,34 @@ class MwaitLock(FifoQueueRecovery, Protocol):
             qhead=z(), qlen=z(), wake_tmr=z(),
         )
 
+    def on_access(self, ctx, cs, bank):
+        p, q_cap, acq_b, rel_b = ctx.p, ctx.q_cap, ctx.acq_b, ctx.rel_b
+        qhead, qlen = bank["qhead"], bank["qlen"]
+        empty = qlen[ctx.wa] == 0
+        grant = ctx.is_acq & empty
+        enq = ctx.is_acq & ~empty
+        qbuf = enqueue(bank["qbuf"], acq_b, qhead, qlen, ctx.win_core,
+                       q_cap)
+        respond(cs, grant, p.lat, NXT_MOD)
+        cs["st"] = cs["st"].masked_fill(enq, SLEEP)
+        cs["msgs"] = cs["msgs"] + 2 * count(enq)         # Mwait setup
+        qhead = torch.where(rel_b, torch.remainder(qhead + 1, q_cap), qhead)
+        qlen = qlen + acq_b.to(torch.int32) - rel_b.to(torch.int32)
+        respond(cs, ctx.is_rel, p.lat, NXT_WORK_DONE)
+        pend_b = rel_b & (qlen > 0)
+        # the releaser wakes its successor
+        wake_tmr = torch.where(pend_b, self.wake_delay(p), bank["wake_tmr"])
+        bank = dict(bank, qbuf=qbuf, qhead=qhead, qlen=qlen,
+                    wake_tmr=wake_tmr)
+        return cs, bank
+
     def fused_access(self, fx, bank):
         q_cap = fx.q_cap
         qbuf, qhead, qlen = bank["qbuf"], bank["qhead"], bank["qlen"]
         empty_b = qlen == 0
         grant_b = fx.acq_b & empty_b
         enq_b = fx.acq_b & ~empty_b
-        slot_b = torch.remainder(qhead + qlen, q_cap)
-        # every acquire winner lands in its queue slot; the other banks
-        # keep the slot's old value (a masked write)
-        ba = torch.arange(qbuf.shape[0], device=qbuf.device)
-        qbuf = qbuf.clone()
-        qbuf[ba, slot_b] = torch.where(fx.acq_b, fx.win, qbuf[ba, slot_b])
+        qbuf = enqueue(qbuf, fx.acq_b, qhead, qlen, fx.win, q_cap)
         kind = torch.where(
             grant_b, OUT_GRANT,
             torch.where(enq_b, OUT_SLEEP,

@@ -21,10 +21,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.protocols.base import (KERNEL_FEB, MSGS_NONE,
-                                             NEVER_FULL, OUT_DONE, OUT_GRANT,
-                                             OUT_NONE, OUT_SLEEP, Contract,
+                                             NEVER_FULL, NXT_MOD,
+                                             NXT_WORK_DONE, OUT_DONE,
+                                             OUT_GRANT, OUT_NONE, OUT_SLEEP,
+                                             SLEEP, Contract,
                                              FifoQueueRecovery, FusedOut,
-                                             KernelArgs, Protocol)
+                                             KernelArgs, Protocol, enqueue,
+                                             respond)
 from repro_torch.core.protocols.registry import register
 
 
@@ -54,6 +57,32 @@ class NbFeb(FifoQueueRecovery, Protocol):
             qhead=z(), qlen=z(), wake_tmr=z(),
         )
 
+    def on_access(self, ctx, cs, bank):
+        p, q_cap, acq_b, rel_b = ctx.p, ctx.q_cap, ctx.acq_b, ctx.rel_b
+        feb = bank["feb"]
+        qhead, qlen = bank["qhead"], bank["qlen"]
+        # readFE: bit full -> take the word (the bit flips empty); bit
+        # empty -> join the waiter FIFO and sleep.  Never fails
+        grant = ctx.is_acq & feb[ctx.wa]
+        enq = ctx.is_acq & ~feb[ctx.wa]
+        # every acquirer enters the FIFO (the grantee at its head)
+        qbuf = enqueue(bank["qbuf"], acq_b, qhead, qlen, ctx.win_core,
+                       q_cap)
+        feb = feb & ~acq_b
+        respond(cs, grant, p.lat, NXT_MOD)
+        cs["st"] = cs["st"].masked_fill(enq, SLEEP)
+        # writeEF: pop the owner; hand off to the new head, or set the
+        # bit full when the FIFO drained
+        qhead = torch.where(rel_b, torch.remainder(qhead + 1, q_cap), qhead)
+        qlen = qlen + acq_b.to(torch.int32) - rel_b.to(torch.int32)
+        respond(cs, ctx.is_rel, p.lat, NXT_WORK_DONE)
+        pend_b = rel_b & (qlen > 0)
+        feb = feb | (rel_b & (qlen == 0))
+        wake_tmr = torch.where(pend_b, self.wake_delay(p), bank["wake_tmr"])
+        bank = dict(bank, feb=feb, qbuf=qbuf, qhead=qhead, qlen=qlen,
+                    wake_tmr=wake_tmr)
+        return cs, bank
+
     def fused_access(self, fx, bank):
         q_cap = fx.q_cap
         feb = bank["feb"]
@@ -62,10 +91,7 @@ class NbFeb(FifoQueueRecovery, Protocol):
         # fails, and every acquirer lands in its queue slot
         grant_b = fx.acq_b & feb
         enq_b = fx.acq_b & ~feb
-        slot_b = torch.remainder(qhead + qlen, q_cap)
-        ba = torch.arange(qbuf.shape[0], device=qbuf.device)
-        qbuf = qbuf.clone()
-        qbuf[ba, slot_b] = torch.where(fx.acq_b, fx.win, qbuf[ba, slot_b])
+        qbuf = enqueue(qbuf, fx.acq_b, qhead, qlen, fx.win, q_cap)
         feb = feb & ~fx.acq_b
         kind = torch.where(
             grant_b, OUT_GRANT,

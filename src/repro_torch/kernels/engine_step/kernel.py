@@ -5,8 +5,8 @@ The source is ``repro_torch/csrc/engine_step.cu``, built and loaded by
 hash; nothing runs at import time).  It holds two kernels:
 
 * ``fused_step_cuda`` launches ``engine_step_kernel``, one cycle's bank
-  side, on PyTorch's current stream and adds one to
-  ``LAUNCHES["engine_step"]`` per launch.  It updates the bank-state
+  side, on PyTorch's current stream (through ``step_launch``) and adds
+  one to ``LAUNCHES["engine_step"]`` per launch.  It updates the bank-state
   tensors in place and returns them in the result dict.  The plain loop
   (``core.sim._simulate_plain``) calls it once per cycle on the card.
 * ``run_cuda_batch`` launches ``engine_run_kernel`` once for a batch of
@@ -153,16 +153,30 @@ def bank_shape(key: str, a: int, q_cap: int, groups: int,
     return (a,)
 
 
-def fused_step_cuda(proto, p, bank: Dict, *, cand_cyc, rot, addr, phase,
-                    acq_start, core: Dict, cyc: int, shift: int, lat: int,
-                    n: int, a: int, q_cap: int, cycles: int) -> Dict:
+def fused_step_cuda(proto, p, bank: Dict, *, cand_cyc, **kw) -> Dict:
     """Launch the CUDA kernel; same contract as ``ref.fused_step_ref``,
     except that the bank tensors are updated in place."""
-    code = proto.kernel_code
-    _require_branch(proto, "engine_step", core)
     dev = cand_cyc.device
     if dev.type != "cuda":
         raise ValueError(f"fused_step_cuda needs CUDA tensors, got {dev}")
+    # the library is built at the call, after step_launch's checks
+    out = step_launch(lambda *args: _launcher()(*args), proto, p, bank,
+                      cand_cyc=cand_cyc,
+                      stream=torch.cuda.current_stream(dev).cuda_stream, **kw)
+    LAUNCHES["engine_step"] += 1
+    return out
+
+
+def step_launch(launch, proto, p, bank: Dict, *, cand_cyc, rot, addr,
+                phase, acq_start, core: Dict, cyc: int, shift: int, lat: int,
+                n: int, a: int, q_cap: int, cycles: int, stream=None) -> Dict:
+    """One call of ``engine_step_launch`` (``launch``, the library's entry
+    or a build of the same source for another device) on the tensors'
+    device: the arguments checked and packed, the outputs allocated.
+    ``fused_step_cuda`` is its CUDA case."""
+    code = proto.kernel_code
+    _require_branch(proto, "engine_step", core)
+    dev = cand_cyc.device
     for name, t in (("cand_cyc", cand_cyc), ("rot", rot), ("addr", addr),
                     ("phase", phase), ("acq_start", acq_start)):
         _check(name, t, (n,), torch.int32, dev)
@@ -197,7 +211,7 @@ def fused_step_cuda(proto, p, bank: Dict, *, cand_cyc, rot, addr, phase,
 
     banks = (ctypes.c_void_p * len(STEP_BANK))(
         *(ptr(bank, k) for k in STEP_BANK))
-    err = _launcher()(
+    err = launch(
         cand_cyc.data_ptr(), rot.data_ptr(), addr.data_ptr(),
         phase.data_ptr(), acq_start.data_ptr(), ctypes.addressof(banks),
         ptr(core, "tkt"), ptr(xset, "tkt", 0), ptr(xset, "tkt", 1),
@@ -205,12 +219,10 @@ def fused_step_cuda(proto, p, bank: Dict, *, cand_cyc, rot, addr, phase,
         stats.data_ptr(), hist.data_ptr(),
         n, a, code, q_cap, args.q_full, cyc, shift, lat, args.acq_tmr,
         args.wake_delay, args.msg_rule, cycles, args.groups,
-        args.group_size, args.group_cap, args.local_delay,
-        torch.cuda.current_stream(dev).cuda_stream)
+        args.group_size, args.group_cap, args.local_delay, stream)
     if err != 0:
         raise RuntimeError(f"engine_step kernel launch failed: CUDA error "
                            f"{err}")
-    LAUNCHES["engine_step"] += 1
     return dict(valid=valid, win=win, kind=kind, tmr=tmr, bank=bank,
                 xset=xset, polls=stats[0], msgs=stats[1], hist=hist,
                 lat_max=stats[2])
@@ -242,6 +254,11 @@ MAX_STEPS = 16
 #: boundary levels a hierarchical topology may have on the run kernel:
 #: each level's extra latency and link budget are words of the run
 MAX_LEVELS = 2
+#: cores a run on a hierarchical topology may have on the run kernel: the
+#: acceptance pass packs each level's count of crossing requesters into a
+#: 16-bit field of one word (the integer-range pass proves this limit
+#: sound and tight)
+MAX_TOPO_CORES = 1 << 16
 PARAM_SPANS = {"bo_tab": BO_TAB, "pre_dur": MAX_STEPS,
                "mod_dur": MAX_STEPS, "addr_mode": MAX_STEPS,
                "fix_addr": MAX_STEPS, "is_bar": MAX_STEPS,
@@ -320,7 +337,9 @@ def run_scalars(p, proto, prog, banks=None, traced=False) -> Dict[str, Any]:
     if L > MAX_STEPS:
         raise NotImplementedError(
             f"the engine_run kernel runs programs of at most {MAX_STEPS} "
-            f"steps (workload {p.workload!r} has {L}; ROADMAP item A3)")
+            f"steps, by design: a program's step tables are words of each "
+            f"run's parameters (workload {p.workload!r} has {L}; the plain "
+            f"loop, device='cpu', runs it)")
     n, n_addrs = p.n_cores, p.n_addrs
     a = n_addrs if banks is None else banks
     if a < n_addrs:
@@ -342,11 +361,11 @@ def run_scalars(p, proto, prog, banks=None, traced=False) -> Dict[str, Any]:
     topo = topo_registry.get(p.topology)
     levels = len(topo.levels)
     if levels and (levels > MAX_LEVELS or not topo.uses_default_tree()
-                   or n >= 1 << 16):
+                   or n >= MAX_TOPO_CORES):
         raise NotImplementedError(
             f"the engine_run kernel runs topologies of at most {MAX_LEVELS} "
-            f"levels on the default cluster tree, below 65 536 cores "
-            f"(topology {p.topology!r}, {levels} levels, {n} cores)")
+            f"levels on the default cluster tree, below {MAX_TOPO_CORES} "
+            f"cores (topology {p.topology!r}, {levels} levels, {n} cores)")
     core_size, core_clusters, bank_clusters = topo.leaf_geometry(p, n, a)
     faults, fault_masks = _fault_words(p, proto, n, a)
     return dict(

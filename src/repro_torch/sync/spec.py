@@ -104,6 +104,33 @@ class Costs:
     telemetry_windows: int = 0  # windowed telemetry (Result.timeseries())
 
 
+#: Certified field envelope for the static analyses
+#: (``repro_torch.analysis``): inclusive (lo, hi) bounds per Spec field,
+#: the reference's ``repro.sync.spec.ANALYSIS_BOUNDS``.  The integer-range
+#: pass proves the port's integer arithmetic safe over every Spec inside
+#: it (lower bounds mirror ``SimParams._BOUNDS``; upper bounds are the
+#: certification scale).  A Spec outside the envelope still runs; it is
+#: just not covered by the certificate.
+ANALYSIS_BOUNDS: Dict[str, tuple] = {
+    "n_cores": (1, 16_384),
+    "cycles": (1, 2**31 - 1),
+    "n_addrs": (1, 16_384),
+    "lat": (0, 2**16),
+    "work": (0, 2**16),
+    "modify": (0, 2**16),
+    "backoff": (0, 2**20),
+    "backoff_exp": (1, 8),
+    "q_slots": (1, 16_384),
+    "net_bw": (1, 2**20),
+    "hol_block": (0, 2**20),
+    "n_workers": (0, 16_384),
+    "n_groups": (1, 16_384),
+    "zipf_skew": (0, 10_000),
+    "telemetry_windows": (0, 2**16),
+    "unroll": (1, 64),
+    "clusters": (1, 4_096),
+}
+
 #: (spec attribute, group class) in declaration order.  ``faults`` is
 #: special in ONE way: it lowers onto a single ``SimParams.faults``
 #: field instead of being flattened (see ``_lower``).

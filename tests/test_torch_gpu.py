@@ -3,7 +3,8 @@ simulator's engine, one engine_run launch per run held against the
 per-cycle loop, the workload programs on its program instance, a Study
 as one launch per core count held against its single runs, and
 recurrentgemma-2b-smoke, rwkv6-1.6b-smoke and kimi-k2-1t-a32b-smoke
-served by ServeEngine).
+served by ServeEngine, and the model checker with the step kernel as
+its fused twin).
 
 Every test here is marked ``gpu`` and skips without a CUDA device (the
 CUDA kernel has no CPU mode).  The file imports neither JAX nor the
@@ -723,3 +724,26 @@ def test_gmm_kernel_result_does_not_depend_on_the_slots(shape, dtype,
     some = torch.arange(shape[1] // 4 - 1, -1, -1, device=cuda_device)
     assert torch.equal(grouped_matmul.grouped_matmul(x[:, some].contiguous(),
                                                      w), out[:, some])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", PROTOS)
+def test_model_check_with_the_step_kernel(name, cuda_device):
+    """The quick model check with engine_step_kernel as the fused twin:
+    0 findings, the counts of the check with fused_access, one launch a
+    distinct delivery (``chip_smoke.py``'s model_check phase runs the
+    full gate)."""
+    from repro_torch.analysis import model_check
+    want = model_check.check_protocol(name, quick=True)
+    seam = model_check.HookDriver.fused_side
+    model_check.HookDriver.fused_side = model_check.stepped(
+        engine_step.fused_step, cuda_device)
+    before = LAUNCHES["engine_step"]
+    try:
+        got = model_check.check_protocol(name, quick=True)
+    finally:
+        model_check.HookDriver.fused_side = seam
+    assert got.ok, [f.render() for f in got.findings]
+    assert (got.stats["states"], got.stats["transitions"]) == (
+        want.stats["states"], want.stats["transitions"])
+    assert LAUNCHES["engine_step"] > before

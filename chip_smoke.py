@@ -9,9 +9,10 @@ Phases, one JSON line each:
    name and power limit of the card;
 2. build — compiles the ``engine_step`` (the per-cycle ``engine_step``
    and the whole-run ``engine_run`` kernels), ``colibri_scatter``,
-   ``flash_attention``, ``rglru_scan``, ``rwkv6_wkv`` and
-   ``grouped_matmul`` CUDA libraries from the checkout, one ``nvcc``
-   each, in parallel, and reports each kernel's ``ptxas`` line;
+   ``flash_attention``, ``flash_attention_bwd``, ``rglru_scan``,
+   ``rwkv6_wkv`` and ``grouped_matmul`` CUDA libraries from the
+   checkout, one ``nvcc`` each, in parallel, and reports each kernel's
+   ``ptxas`` line;
 3. kernel — the engine_step kernel against its plain PyTorch version on
    the card, for each of the eleven protocols (colibri_hier at 1, 3 and
    4 groups: ``PROTO_CASES``) at every (cores, banks) shape the later
@@ -111,6 +112,31 @@ Phases, one JSON line each:
    beside their bounds, their plain versions and the library call
    (flash: ``scaled_dot_product_attention``, also at head dim 112;
    grouped_matmul: ``torch.bmm``);
+5b. the training path, smollm-135m (the dense family):
+   flash_bwd_kernel — the flash-attention backward kernels
+   (``csrc/flash_attention_bwd.cu``, dq then dk/dv) against their plain
+   version on the card, on the forward kernel's o and lse, at
+   ``FLASH_BWD_SHAPES`` (smollm's heads at 1 024 tokens in f32 and bf16,
+   a ragged non-causal hd-128 one, train_b's own shape): the forward's
+   o within ``FLASH_TOL`` and its lse within ``FLASH_LSE_TOL`` of the
+   plain forward, dq, dk, dv within ``FLASH_BWD_TOL``, two
+   launches bit for bit, the forward with lse bit for bit the forward
+   without;
+   train_a — full width (d 576, 9 heads on 3, hd 64, d_ff 1 536, vocab
+   49 152, tied), 2 layers, f32, B 2 x 512 tokens: the loss, every
+   gradient leaf and the parameters after 2 AdamW steps on the card
+   against the port's CPU run from the same weights, within
+   ``TRAIN_A_TOL``;
+   train_b — the training main path: full width and depth (30 layers,
+   bf16, remat, f32 moments) through ``launch.train.run_training``,
+   4 096 tokens, the global batch cut from 256 to 8, AdamW at
+   ``TRAIN_OPT``: 6 steps with a checkpoint every 3, then a run that
+   crashes at step 4 and resumes, equal to the first bit for bit;
+   exactly ``TRAIN_B_LAUNCHES`` every step, losses finite and falling, ms
+   per step, tokens/s, the busy share of a profiled step, peak memory;
+   train_kernel_time — the backward's device time per call at train_b's
+   shape beside its bound, its plain version and the backward of
+   ``scaled_dot_product_attention`` on the same tensors, timed alone;
 6. exact — ``zipf_index`` (skew 0, and the skewed streams of
    ``ZIPF_PROBES`` in either form) and ``_hash`` on the card against the
    CPU over 2^24 inputs, and the engine_run kernel's own device code
@@ -246,6 +272,7 @@ import dataclasses
 import gc
 import hashlib
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -282,6 +309,11 @@ from repro_torch.serving import Request, ServeEngine  # noqa: E402
 from repro_torch.obs.schema import STATE_NAMES  # noqa: E402
 from repro_torch.faults import FaultPlan  # noqa: E402
 from repro_torch.sync import Spec, run  # noqa: E402
+from repro_torch import optim, tree  # noqa: E402
+from repro_torch.tree import flatten  # noqa: E402
+from repro_torch.configs.base import ShapeSpec  # noqa: E402
+from repro_torch.data import SyntheticPipeline  # noqa: E402
+import repro_torch.launch.train as train_mod  # noqa: E402
 
 PROTOS = ("amo", "lrsc", "lrscwait", "colibri", "amo_lock", "lrsc_lock",
           "ticket_lock", "mwait_lock", "colibri_hier", "hw_event", "nb_feb")
@@ -718,9 +750,51 @@ MOE_SERVE_B_LAUNCHES = {"flash_attention": 2, "grouped_matmul": 3}
 
 #: the LM path's kernels: a serve point must launch each exactly as often
 #: as its table says (0 where it names none)
-LM_KERNELS = ("flash_attention", "rglru_scan", "rwkv6_wkv", "grouped_matmul")
+LM_KERNELS = ("flash_attention", "rglru_scan", "rwkv6_wkv", "grouped_matmul",
+              "flash_attention_bwd_dq", "flash_attention_bwd_dkdv")
 
-KERNELS = ("engine_step", "colibri_scatter", "flash_attention", "rglru_scan",
+# ---- the training path: smollm-135m through run_training -------------
+TRAIN_ARCH = "smollm-135m"
+#: (b, sq, skv, h, kv, hd, causal, dtype) of the flash_bwd_kernel phase:
+#: smollm-135m's heads at 1 024 tokens, a ragged non-causal hd-128 one,
+#: and train_b's own shape (the last)
+FLASH_BWD_SHAPES = ((2, 1024, 1024, 9, 3, 64, True, "float32"),
+                    (2, 1024, 1024, 9, 3, 64, True, "bfloat16"),
+                    (1, 777, 777, 4, 1, 128, False, "float32"),
+                    (1, 777, 777, 4, 1, 128, False, "bfloat16"),
+                    (8, 4096, 4096, 9, 3, 64, True, "bfloat16"))
+FLASH_BWD_HEAD = FLASH_BWD_SHAPES[-1]
+#: dtype -> (rtol, atol) of dq, dk, dv against the plain version, atol a
+#: fraction of that gradient's largest magnitude: f32 sums in another
+#: order; bf16 also rounds P and dS to bf16 before its products and the
+#: gradients to bf16 (the plain version keeps f32)
+FLASH_BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}
+#: dtype -> atol of the forward's lse against the plain logsumexp (bf16:
+#: the kernel's denominator sums P rounded to bf16)
+FLASH_LSE_TOL = {"float32": 1e-5, "bfloat16": 4e-3}
+#: train_a: full width, 2 layers, f32, B 2 x 512 tokens, 2 AdamW steps,
+#: card against the port's CPU run from the same weights
+TRAIN_A = dict(layers=2, batch=2, seq=512, steps=2, seed=43)
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=2)      # examples/train_e2e.py's
+#: train_a's tolerances: the loss (relative); each gradient leaf against
+#: a fraction of its largest magnitude (f32 through cuBLAS and the kernels
+#: against MKL and the plain versions, other sum orders); every parameter
+#: after the steps, element by element, absolute: about three times the
+#: worst element measured on the H100 (3.5e-5), a fifteenth of the
+#: learning rates summed (1.5e-3, as far as two Adam steps move a weight
+#: one way), so a flipped or lost update of any element fails
+TRAIN_A_TOL = dict(loss=1e-5, grad=1e-4, param=1e-4)
+#: train_b: full width and depth, bf16, remat, f32 moments; train_4k's
+#: 4 096 tokens, the global batch cut from 256 to 8; 6 steps with a
+#: checkpoint every 3, then a run that crashes at step 4 and resumes
+TRAIN_B = dict(batch=8, seq=4096, steps=6, ckpt_every=3, crash_at=4)
+#: launches of each kernel per train_b step: the forward once per layer
+#: and again in the remat recompute, each backward kernel once per layer
+TRAIN_B_LAUNCHES = {"flash_attention": 60, "flash_attention_bwd_dq": 30,
+                    "flash_attention_bwd_dkdv": 30}
+
+KERNELS = ("engine_step", "colibri_scatter", "flash_attention",
+           "flash_attention_bwd", "rglru_scan",
            "rwkv6_wkv", "grouped_matmul")
 
 #: simulated cycles of each run_kernel case: HIER_PROTOS' at 200, the
@@ -1864,13 +1938,18 @@ NOT_DEVICE_WORK = ("Activity Buffer Request", "Lazy Function Loading")
 
 def device_rows(prof) -> list:
     """(name, count, device µs) of every device activity (kernels,
-    memsets, copies) a ``torch.profiler`` run recorded."""
+    memsets, copies) a ``torch.profiler`` run recorded.  Host-side ranges
+    that carry their children's device time (``aten::`` ops, autograd
+    nodes such as ``MmBackward0``, an autograd Function's own range) are
+    not device activities: counting them would count a kernel twice."""
+    from torch.autograd import DeviceType
     rows = []
     for ev in prof.key_averages():
         dt = getattr(ev, "device_time_total", None)
         if dt is None:
             dt = getattr(ev, "cuda_time_total", 0)
         if dt and ev.key and ev.key not in NOT_DEVICE_WORK \
+                and getattr(ev, "device_type", None) != DeviceType.CPU \
                 and not ev.key.startswith(("aten::", "cuda")):
             rows.append((ev.key, ev.count, dt))
     rows.sort(key=lambda r: -r[2])
@@ -3750,6 +3829,353 @@ def time_gmm(dev) -> list:
     return recs
 
 
+# ---- the training path (smollm-135m) -----------------------------------
+
+def flash_bwd_check(dev, shape, seed) -> dict:
+    """The forward with lse (o and lse) and the backward kernel against
+    the plain versions at ``shape``, the backward on the forward kernel's
+    o and lse; two launches
+    bit for bit; the forward with lse bit for bit the forward without."""
+    b, sq, skv, h, kv, hd, causal, dtype = shape
+    q, k, v = flash_inputs(dev, b, sq, skv, h, kv, hd, dtype, seed)
+    do = torch.randn(q.shape, generator=torch.Generator(device=dev)
+                     .manual_seed(seed + 1), device=dev).to(q.dtype)
+    o, lse = fa_kernel.flash_attention_fwd_lse_cuda(q, k, v, causal=causal)
+    bare = fa_kernel.flash_attention_cuda(q, k, v, causal=causal)
+    got = fa_kernel.flash_attention_bwd_cuda(q, k, v, o, do, lse,
+                                             causal=causal)
+    again = fa_kernel.flash_attention_bwd_cuda(q, k, v, o, do, lse,
+                                               causal=causal)
+    torch.cuda.synchronize()
+    what = f"{(b, sq, skv, h, kv, hd)} causal={causal} {dtype}"
+    require(torch.equal(o, bare),
+            f"{what}: the forward with lse differs from the one without")
+    require(all(torch.equal(x, y) for x, y in zip(got, again)),
+            f"{what}: two backward launches differ")
+    o_ref, lse_ref = flash_attention.flash_attention_fwd_lse_ref(
+        q, k, v, causal=causal)
+    o_err = float((o.float() - o_ref.float()).abs().max())
+    require(torch.allclose(o.float(), o_ref.float(), rtol=FLASH_TOL[dtype][0],
+                           atol=FLASH_TOL[dtype][1]),
+            f"{what}: the forward's o differs from the plain version's by "
+            f"{o_err}")
+    lse_err = float((lse - lse_ref).abs().max())
+    require(lse_err <= FLASH_LSE_TOL[dtype],
+            f"{what}: lse differs from the plain version's by {lse_err}")
+    del o_ref, lse_ref
+    want = flash_attention.flash_attention_bwd_ref(q, k, v, o, do, lse,
+                                                   causal=causal)
+    rtol, atol = FLASH_BWD_TOL[dtype]
+    errs, scales = {}, {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        require(g.dtype == w.dtype and g.shape == w.shape,
+                f"{what}: {name} {g.dtype}{tuple(g.shape)}")
+        gf, wf = g.float(), w.float()
+        scales[name] = float(wf.abs().max())
+        errs[name] = float((gf - wf).abs().max())
+        require(bool(torch.isfinite(gf).all()) and torch.allclose(
+            gf, wf, rtol=rtol, atol=atol * scales[name]),
+            f"{what}: {name} differs from the plain version by "
+            f"{errs[name]} (largest {scales[name]})")
+    del want, got, again
+    return dict(shape=shape, o_err=o_err, lse_err=lse_err, **errs,
+                largest=scales)
+
+
+def phase_flash_bwd_kernel(dev) -> dict:
+    worst = dict.fromkeys(FLASH_BWD_TOL, 0.0)
+    cases = []
+    for i, shape in enumerate(FLASH_BWD_SHAPES):
+        rec = flash_bwd_check(dev, shape, 60 + i)
+        cases.append(rec)
+        worst[shape[-1]] = max(worst[shape[-1]], rec["dq"], rec["dk"],
+                               rec["dv"])
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit(phase="flash_bwd_kernel", cases=cases, tolerance=FLASH_BWD_TOL,
+         lse_tolerance=FLASH_LSE_TOL, max_abs_err=worst, equal=True,
+         deterministic=True, lse_forward_bits_equal=True)
+    return worst
+
+
+def flash_bwd_bound(b, sq, skv, h, kv, hd, causal, dtype) -> dict:
+    """The least time the card could take for one backward call: q, k, v,
+    o, do and lse read once, dq, dk, dv written once, over 3.35 TB/s; the
+    gradient's five products over the unmasked (query, key) pairs (S
+    recomputed, dO V^T, P^T dO, dS K, dS^T Q), 2 hd flops each, over the
+    type's peak."""
+    size = torch.tensor([], dtype=getattr(torch, dtype)).element_size()
+    n_bytes = (4 * b * sq * h * hd + 4 * b * skv * kv * hd) * size \
+        + b * h * sq * 4
+    pairs = (sum(min(i + 1, skv) for i in range(sq)) if causal
+             else sq * skv)
+    flops = 10 * hd * pairs * b * h
+    peak = BF16_FLOPS if dtype == "bfloat16" else F32_FLOPS
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
+    return dict(bound_bytes=n_bytes, bound_flops=flops,
+                bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_flash_bwd(dev, shape=FLASH_BWD_HEAD) -> dict:
+    """The backward kernels' device time per call (both launches) at
+    ``shape`` beside the plain version's, the bound and the backward of
+    ``scaled_dot_product_attention`` on the same tensors (heads first, KV
+    heads repeated), timed alone; and the forward kernel with lse."""
+    b, sq, skv, h, kv, hd, causal, dtype = shape
+    q, k, v = flash_inputs(dev, b, sq, skv, h, kv, hd, dtype, seed=7)
+    do = torch.randn(q.shape, device=dev).to(q.dtype)
+    before = dict(LAUNCHES)
+    o, lse = fa_kernel.flash_attention_fwd_lse_cuda(q, k, v, causal=causal)
+    rec = dict(shape=shape,
+               ms=device_ms(lambda: fa_kernel.flash_attention_bwd_cuda(
+                   q, k, v, o, do, lse, causal=causal), 10),
+               fwd_lse_ms=device_ms(
+                   lambda: fa_kernel.flash_attention_fwd_lse_cuda(
+                       q, k, v, causal=causal), 10),
+               plain_ms=device_ms(lambda: flash_attention.
+                                  flash_attention_bwd_ref(
+                                      q, k, v, o, do, lse, causal=causal), 3),
+               **flash_bwd_bound(*shape))
+    gc.collect()
+    torch.cuda.empty_cache()
+    qs, ks, vs = (t.repeat_interleave(h // t.shape[2], dim=2)
+                  .transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=causal)
+    dos = do.transpose(1, 2).contiguous()
+    rec["library_ms"] = device_ms(lambda: torch.autograd.grad(
+        out, (qs, ks, vs), dos, retain_graph=True), 10)
+    LAUNCHES.update(before)                 # timing runs are not counted
+    return rec
+
+
+def phase_train_a(dev) -> dict:
+    """Full width, 2 layers, f32: the loss, every gradient leaf and the
+    parameters after 2 AdamW steps on the card against the port's CPU run
+    from the same weights and batches."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ta = TRAIN_A
+    cfg = lm_cfg(TRAIN_ARCH, ta, param_dtype="float32",
+                 compute_dtype="float32")
+    shape = ShapeSpec("train_a", ta["seq"], ta["batch"], "train")
+    opt_cfg = dataclasses.replace(
+        optim.AdamWConfig(**TRAIN_OPT),
+        state_dtype=cfg.parallel.opt_state_dtype, total_steps=10)
+    card = build(cfg, dev).init(ta["seed"]).train_mode()
+    cpu = build(cfg, "cpu").load_params(card.params()).train_mode()
+    runs = {}
+    t_cpu = 0.0
+    for name, model, where in (("cpu", cpu, "cpu"), ("card", card, dev)):
+        t0 = time.perf_counter()
+        pipe = SyntheticPipeline(cfg, shape, device=where)
+        reset_launches()
+        loss, _ = model.loss(pipe.batch(0))
+        loss.backward()
+        loss = loss.detach()
+        grads = [p.grad.detach().cpu().clone() for p in model.parameters()]
+        for p in model.parameters():
+            p.grad = None
+        step = train_mod.make_train_step(model, opt_cfg)
+        state = optim.init(opt_cfg, model.params())
+        losses = []
+        for i in range(ta["steps"]):
+            state, met = step(state, pipe.batch(i))
+            losses.append(float(met["loss"]))
+        runs[name] = dict(loss=loss.item(), grads=grads, losses=losses,
+                          launches=dict(LAUNCHES),
+                          params=[p.detach().cpu() for p in
+                                  model.parameters()])
+        if name == "cpu":
+            t_cpu = time.perf_counter() - t0
+    c, g = runs["cpu"], runs["card"]
+    tol = TRAIN_A_TOL
+    loss_err = max(abs(a - b) / abs(b) for a, b in
+                   zip([g["loss"]] + g["losses"], [c["loss"]] + c["losses"]))
+    require(loss_err <= tol["loss"],
+            f"card losses {[g['loss']] + g['losses']} differ from the CPU's "
+            f"{[c['loss']] + c['losses']} by {loss_err} (relative)")
+    names = [n for n, _ in card.named_parameters()]
+    grad_errs = {}
+    for n, a, b in zip(names, g["grads"], c["grads"]):
+        scale = float(b.abs().max())
+        grad_errs[n] = float((a - b).abs().max()) / max(scale, 1e-30)
+        require(bool(torch.isfinite(a).all())
+                and grad_errs[n] <= tol["grad"],
+                f"gradient {n}: card differs from CPU by {grad_errs[n]} of "
+                f"its largest magnitude {scale}")
+    lr_sum = sum(float(optim.schedule(opt_cfg, torch.tensor(i + 1)))
+                 for i in range(ta["steps"]))
+    param_max, param_over = 0.0, {}
+    for n, a, b in zip(names, g["params"], c["params"]):
+        d = (a - b).abs()
+        over = int((d > 1e-5).sum())
+        param_max = max(param_max, float(d.max()))
+        if over:
+            param_over[n] = over
+        require(float(d.max()) <= tol["param"],
+                f"parameter {n} after {ta['steps']} steps: "
+                f"{int((d > tol['param']).sum())} of {d.numel()} elements "
+                f"beyond {tol['param']}, max {float(d.max())}")
+    per_step = {k: g["launches"][k] for k in TRAIN_B_LAUNCHES}
+    require(per_step["flash_attention_bwd_dq"] > 0
+            and per_step["flash_attention_bwd_dkdv"] > 0,
+            f"the card's training launched {per_step}")
+    emit(phase="train_a", arch=TRAIN_ARCH, layers=cfg.num_layers,
+         d_model=cfg.d_model, vocab=cfg.vocab_size, dtype="float32",
+         batch=ta["batch"], seq=ta["seq"], steps=ta["steps"],
+         remat=cfg.parallel.remat, loss_cpu=[c["loss"]] + c["losses"],
+         loss_card=[g["loss"]] + g["losses"], loss_rel_err=loss_err,
+         grad_rel_err_max=max(grad_errs.values()),
+         grad_rel_err=grad_errs, param_abs_err_max=param_max,
+         params_beyond_1e5=param_over, lr_sum=lr_sum, tolerance=tol, launches=per_step,
+         cpu_seconds=t_cpu, equal=True)
+    return dict(loss_err=loss_err, grad_err=max(grad_errs.values()))
+
+
+def phase_train_b(dev) -> dict:
+    """The training main path: smollm-135m at full width and depth (bf16,
+    remat, f32 moments) through ``run_training``: 6 steps with a
+    checkpoint every 3, then a run that crashes at step 4 and resumes,
+    whose parameters and moments must equal the first run's bit for bit.
+    Every step's launches, ms, the busy share of a profiled step and peak
+    memory."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    tb = TRAIN_B
+    cfg = get_config(TRAIN_ARCH)
+    shape = ShapeSpec("train_4k_cut", tb["seq"], tb["batch"], "train")
+    root = ROOT / "build" / "train_b_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    records, made = [], train_mod.make_train_step
+
+    def probed(*args, **kwargs):               # times each step of the runs
+        fn = made(*args, **kwargs)
+
+        def step(state, batch):
+            torch.cuda.synchronize()
+            before = dict(LAUNCHES)
+            rec = dict(run=len(runs))
+            t0 = time.perf_counter()
+            if len(runs) == 0 and len(records) == 2:   # a steady step
+                prof = {}
+
+                def call():
+                    prof["out"] = fn(state, batch)
+                rec["profile"] = profile_call(call)
+                out = prof["out"]
+            else:
+                out = fn(state, batch)
+            torch.cuda.synchronize()
+            rec.update(seconds=time.perf_counter() - t0,
+                       loss=float(out[1]["loss"]),
+                       launches={k: LAUNCHES[k] - before[k]
+                                 for k in TRAIN_B_LAUNCHES})
+            records.append(rec)
+            return out
+        return step
+
+    runs = []
+    kw = dict(cfg=cfg, shape=shape, steps=tb["steps"],
+              ckpt_every=tb["ckpt_every"], log_every=100,
+              opt=optim.AdamWConfig(**TRAIN_OPT), device="cuda")
+    train_mod.make_train_step = probed
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        ref = train_mod.run_training(train_mod.TrainRun(
+            ckpt_dir=str(root / "a"), **kw), resume=False)
+        wall = time.perf_counter() - t0
+        launches = {k: LAUNCHES[k] for k in TRAIN_B_LAUNCHES}
+        peak = torch.cuda.max_memory_allocated()
+        runs.append("a")
+        run_b = train_mod.TrainRun(ckpt_dir=str(root / "b"), **kw)
+        crashed = False
+        try:
+            train_mod.run_training(run_b, crash_at=tb["crash_at"])
+        except RuntimeError as e:
+            crashed = "simulated failure" in str(e)
+        runs.append("b")
+        resumed = train_mod.run_training(run_b, resume=True)
+    finally:
+        train_mod.make_train_step = made
+        shutil.rmtree(root, ignore_errors=True)
+    mismatch = [p for (p, a), (_, b) in zip(
+        flatten({"p": ref["params"], "o": ref["opt_state"]}),
+        flatten({"p": resumed["params"], "o": resumed["opt_state"]}))
+        if not torch.equal(a, b)]
+    first = [r for r in records if r["run"] == 0]
+    losses = [r["loss"] for r in first]
+    n_params = sum(p.numel() for p in tree.leaves(ref["params"]))
+    require(crashed, "the run with crash_at did not fail as simulated")
+    require(len(first) == tb["steps"]
+            and len([r for r in records if r["run"] == 1]) == tb["crash_at"]
+            and len([r for r in records if r["run"] == 2])
+            == tb["steps"] - tb["ckpt_every"],
+            f"steps per run: {[r['run'] for r in records]}")
+    require(not mismatch, f"the resumed run differs from the uninterrupted "
+                          f"one at {mismatch[:5]} ({len(mismatch)} leaves)")
+    require(all(np.isfinite(x) for x in losses) and losses[-1] < losses[0],
+            f"losses {losses}")
+    require(all(r["launches"] == TRAIN_B_LAUNCHES for r in records),
+            f"launches per step {[r['launches'] for r in records]}, want "
+            f"{TRAIN_B_LAUNCHES}")
+    steady = sorted(r["seconds"] for r in first[1:] if "profile" not in r)
+    step_s = steady[len(steady) // 2]
+    prof = next(r["profile"] for r in first if "profile" in r)
+    tokens = tb["batch"] * tb["seq"]
+    emit(phase="train_b", arch=TRAIN_ARCH, layers=cfg.num_layers,
+         params=n_params, dtype=cfg.param_dtype,
+         opt_state_dtype=cfg.parallel.opt_state_dtype,
+         remat=cfg.parallel.remat, batch=tb["batch"], seq=tb["seq"],
+         reduced={"global_batch": [256, tb["batch"]]},
+         steps=tb["steps"], losses=losses,
+         resumed_losses=[r["loss"] for r in records if r["run"] == 2],
+         resume_bit_identical=True, leaves_compared=len(flatten(
+             {"p": ref["params"], "o": ref["opt_state"]})),
+         ms_per_step=step_s * 1e3,
+         step_ms=[r["seconds"] * 1e3 for r in first],
+         tokens_per_s=tokens / step_s, run_wall_s=wall,
+         device_busy_share=prof["device_busy_share"], profile=prof,
+         peak_memory_bytes=peak, launches=launches,
+         launches_per_step=TRAIN_B_LAUNCHES)
+    return dict(launches=launches, ms_per_step=step_s * 1e3)
+
+
+def train_phases(dev) -> list:
+    """The training path's phases; its entry of the kernels line."""
+    bwd_worst = timed(phase_flash_bwd_kernel, dev)
+    timed(phase_train_a, dev)
+    main_run = timed(phase_train_b, dev)
+    t0 = time.perf_counter()
+    bwd_t = time_flash_bwd(dev)
+    emit(phase="train_kernel_time", seconds=time.perf_counter() - t0,
+         flash_attention_bwd=bwd_t)
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return [dict(name="flash_attention_bwd", route="cuda",
+                 source="src/repro_torch/csrc/flash_attention_bwd.cu",
+                 replaces="none: the reference differentiates plain "
+                          "blocked_attention (src/repro/models/"
+                          "attention.py:62) with XLA",
+                 launches=main_run["launches"]["flash_attention_bwd_dq"]
+                 + main_run["launches"]["flash_attention_bwd_dkdv"],
+                 launches_by_kernel={
+                     k: main_run["launches"][k]
+                     for k in ("flash_attention_bwd_dq",
+                               "flash_attention_bwd_dkdv")},
+                 forward_launches=main_run["launches"]["flash_attention"],
+                 max_abs_err=max(bwd_worst.values()),
+                 **{k: bwd_t[k] for k in keys},
+                 max_abs_err_by_dtype=bwd_worst, shape=bwd_t["shape"],
+                 fwd_lse_ms=bwd_t["fwd_lse_ms"],
+                 train_ms_per_step=main_run["ms_per_step"])]
+
+
 def lm_phases(dev) -> list:
     """The serve paths' phases; their entries of the kernels line."""
     flash_worst = timed(phase_flash_kernel, dev)
@@ -3833,6 +4259,8 @@ def setup():
     for mod in (es_kernel, cs_kernel, fa_kernel, rg_kernel, rw_kernel,
                 gm_kernel):
         mod._launcher()
+    fa_kernel._lse_launcher()
+    fa_kernel._bwd_launchers()
     emit(phase="build", seconds=time.perf_counter() - t0,
          libraries={k: Path(v["path"]).name for k, v in builds.items()},
          ptxas={k: [ln.strip() for ln in v["log"].splitlines()
@@ -3854,6 +4282,7 @@ def main() -> int:
     run_check = timed(phase_run_kernel, dev)
     scatter_worst = timed(phase_scatter_kernel, dev)
     lm_kernels = lm_phases(dev)
+    train_kernels = train_phases(dev)
     timed(phase_exact, dev)
     timed(phase_golden)
     main_run = timed(phase_main)
@@ -3999,7 +4428,7 @@ def main() -> int:
         skewed_ms=skew["ms"], max_abs_err_by_dtype=scatter_worst,
         shape=dict(t=head["t"], bins=head["bins"], d=head["d"],
                    dtype=head["dtype"])))
-    kernels += lm_kernels
+    kernels += lm_kernels + train_kernels
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

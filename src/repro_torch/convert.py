@@ -11,18 +11,27 @@ the reference's state to the port and to compare the two.
 ``model_from_jax`` builds the port's LM from the reference's parameter
 tree (as numpy arrays), so that both packages run on the same weights;
 ``unstack_segments`` turns the reference's per-segment stacked layer
-trees (params or decode caches) into the port's one tree per layer.
+trees (params or decode caches) into the port's one tree per layer, and
+``stack_segments`` back.  ``params_to_numpy``, ``adamw_state_from_jax``
+and ``adamw_state_to_numpy`` carry parameters (or gradients) and AdamW
+moments between the two layouts; ``load_jax_checkpoint`` reads a
+checkpoint that the reference's ``Checkpointer`` wrote into the port's
+parameters and optimizer state.
 """
 from __future__ import annotations
 
-from typing import Any, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import optim
+from repro_torch.checkpoint import Checkpointer
 from repro_torch.core.sim import resolve_device
 from repro_torch.models import Model, build
-from repro_torch.models.transformer import plan_segments
+from repro_torch.models.transformer import init_params, plan_segments
+from repro_torch.optim import AdamWState
+from repro_torch.tree import map_leaves
 
 
 def to_torch(tree: Any, device=None) -> Any:
@@ -60,6 +69,8 @@ def unstack_segments(cfg, segments: List[Any]) -> List[Any]:
     def take(tree, r):
         if isinstance(tree, dict):
             return {k: take(v, r) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):    # an int8 moment (q, scale)
+            return tuple(take(v, r) for v in tree)
         return tree[r]
 
     layers = []
@@ -79,3 +90,94 @@ def model_from_jax(cfg, params_np: dict, device=None) -> Model:
     tree = {k: v for k, v in params_np.items() if k != "segments"}
     tree["layers"] = unstack_segments(cfg, params_np["segments"])
     return build(cfg, dev).load_params(to_torch(tree, dev))
+
+
+def stack_segments(cfg, layers: List[Any]) -> List[Any]:
+    """The inverse of ``unstack_segments``: one tree per layer (numpy
+    arrays or tensors) -> the reference's ``[segment tree, ...]``, each
+    leaf stacked along a leading repeat axis."""
+    def stack(trees):
+        first = trees[0]
+        if isinstance(first, dict):
+            return {k: stack([t[k] for t in trees]) for k in first}
+        if isinstance(first, (list, tuple)):   # an int8 moment (q, scale)
+            return tuple(stack([t[i] for t in trees])
+                         for i in range(len(first)))
+        if isinstance(first, torch.Tensor):
+            return torch.stack(trees)
+        return np.stack(trees)
+
+    segments, i = [], 0
+    for unit, repeats in plan_segments(cfg):
+        n = len(unit)
+        segments.append({f"u{j}": stack([layers[i + r * n + j]
+                                         for r in range(repeats)])
+                         for j in range(n)})
+        i += n * repeats
+    return segments
+
+
+def _to_layers(cfg, tree: Dict[str, Any]) -> Dict[str, Any]:
+    """A reference tree (``segments`` stacked) -> the port's (``layers``)."""
+    out = {k: v for k, v in tree.items() if k != "segments"}
+    out["layers"] = unstack_segments(cfg, tree["segments"])
+    return out
+
+
+def _to_segments(cfg, tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's tree (``layers``) -> the reference's (``segments``)."""
+    out = {k: v for k, v in tree.items() if k != "layers"}
+    out["segments"] = stack_segments(cfg, tree["layers"])
+    return out
+
+
+def params_to_numpy(cfg, tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's parameters (or gradients, or one moment tree) -> numpy
+    in the reference's layout (``segments`` stacked), bfloat16 as
+    float32."""
+    def host(t):
+        if isinstance(t, tuple):
+            return tuple(host(x) for x in t)
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return _to_segments(cfg, map_leaves(host, tree))
+
+
+def adamw_state_from_jax(cfg, state_np, device=None) -> AdamWState:
+    """The reference's ``AdamWState`` as numpy arrays (``step``, ``m``,
+    ``v`` in its layout; int8 moments ``(q, scale)`` pairs) -> the port's
+    on ``device`` (the GPU by default)."""
+    dev = resolve_device(device)
+    step, m, v = state_np
+    return AdamWState(to_torch(np.asarray(step), dev),
+                      to_torch(_to_layers(cfg, m), dev),
+                      to_torch(_to_layers(cfg, v), dev))
+
+
+def adamw_state_to_numpy(cfg, state: AdamWState):
+    """The port's ``AdamWState`` -> ``(step, m, v)`` as numpy in the
+    reference's layout (wrap in ``repro.optim.AdamWState`` to use it
+    there), bfloat16 moments as float32."""
+    return (state.step.detach().cpu().numpy(), params_to_numpy(cfg, state.m),
+            params_to_numpy(cfg, state.v))
+
+
+def load_jax_checkpoint(cfg, directory: str, step: int, device=None,
+                        state_dtype: Optional[str] = None) -> Dict[str, Any]:
+    """A checkpoint that the reference's ``Checkpointer`` wrote of
+    ``{"params": ..., "opt": AdamWState}`` (``<directory>/step_<step>``)
+    -> ``{"params": the port's parameter tree, "opt": the port's
+    AdamWState}`` on ``device`` (the GPU by default); its moments stored
+    as ``state_dtype`` (``cfg.parallel.opt_state_dtype`` by default)."""
+    dev = resolve_device(device)
+    params = init_params(cfg, None, dev)
+    opt = optim.init(optim.AdamWConfig(
+        state_dtype=state_dtype or cfg.parallel.opt_state_dtype), params)
+    got = Checkpointer(directory).restore(step, {
+        "params": _to_segments(cfg, params),
+        "opt": AdamWState(opt.step, _to_segments(cfg, opt.m),
+                          _to_segments(cfg, opt.v))})
+    opt = got["opt"]
+    return {"params": _to_layers(cfg, got["params"]),
+            "opt": AdamWState(opt.step, _to_layers(cfg, opt.m),
+                              _to_layers(cfg, opt.v))}

@@ -74,6 +74,13 @@
 // products at the f32 CUDA-core rate, 67 TFLOP/s (80 us for the hd-256
 // shape's 5.4 GFLOP).
 //
+// Optional output, for the backward (flash_attention_bwd.cu): each query
+// row's natural-log log-sum-exp of its scaled, masked scores, f32 (B, H,
+// Sq), written after the key loop from the running max and denominator
+// (flash_attention_lse_launch).  The serving entry, flash_attention_launch,
+// passes a null pointer: nothing else of the kernel changes, so o has the
+// same bits with and without it.
+//
 // Dynamic shared memory, above the 48 KB default at most head dims (the
 // launcher raises each instantiation's limit once): tc, 64 query rows and
 // 2 stages of 32-key K and V tiles, (hd + 8) bf16 a row: 101 376 bytes
@@ -88,6 +95,7 @@
 
 namespace {
 
+#ifndef CUDA_CPU_MOCK  // tests/test_torch_flash_bwd_cpu.py supplies these
 // 16 bytes global -> shared without passing through registers; zeros
 // instead when !valid (the source is then not read).
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -105,6 +113,7 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
+#endif
 
 // ---- float32: the CUDA-core design ----------------------------------
 
@@ -215,8 +224,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
-                       int sq, int skv, int heads, int kv_heads, int causal,
-                       float scale) {
+                       float* __restrict__ lse, int sq, int skv, int heads,
+                       int kv_heads, int causal, float scale) {
   constexpr int KS = kv_row<HD>();
   constexpr int DPL = (HD + 31) / 32;     // output columns per lane
   static_assert(HD % DPL == 0, "lanes own whole column groups");
@@ -360,6 +369,11 @@ flash_attention_kernel(const float* __restrict__ q,
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int f = f0 + row0 + r;
+    if (lse != nullptr && f < rows && lane == 0) {
+      // m and the scores are already scaled (q was): lse = m + ln l
+      lse[(static_cast<int64_t>(b) * heads + g * group + f % group) * sq +
+          f / group] = m[r] + logf(l[r]);
+    }
     if (f < rows && col_ok) {
       const float inv = 1.0f / fmaxf(l[r], 1e-30f);
 #pragma unroll
@@ -370,9 +384,9 @@ flash_attention_kernel(const float* __restrict__ q,
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int batch,
-           int sq, int skv, int heads, int kv_heads, int causal, float scale,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int batch, int sq, int skv, int heads, int kv_heads, int causal,
+           float scale, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<HD>();
   static bool attr_set = false;    // per instantiation
   if (!attr_set) {
@@ -386,8 +400,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
   const dim3 grid((rows + kBQ - 1) / kBQ, batch * kv_heads);
   flash_attention_kernel<HD><<<grid, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), sq, skv, heads,
-      kv_heads, causal, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, sq, skv,
+      heads, kv_heads, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -420,6 +434,7 @@ struct Cfg {
   static constexpr int kMinBlocks = HD > 128 ? 1 : 4;
 };
 
+#ifndef CUDA_CPU_MOCK
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
@@ -455,6 +470,7 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+#endif
 
 // (lo, hi) -> one register of two bf16, lo in the low half, each rounded
 // to nearest even
@@ -467,6 +483,7 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t r) {
   return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&r));
 }
 
+#ifndef CUDA_CPU_MOCK
 // 2^x in one MUFU instruction (results below 2^-126 flush to 0: a
 // probability that small is 0 in bf16 P and in the f32 sums alike)
 __device__ __forceinline__ float ex2(float x) {
@@ -474,6 +491,7 @@ __device__ __forceinline__ float ex2(float x) {
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
+#endif
 
 // Start copying the kBK keys from kt, vt (key k0's rows; n_keys = Skv - k0
 // of them exist) into one stage (ks, vs).
@@ -502,8 +520,9 @@ __global__ void __launch_bounds__(kThreads, Cfg<HD>::kMinBlocks)
 flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v,
-                       __nv_bfloat16* __restrict__ o, int sq, int skv,
-                       int heads, int kv_heads, int causal, float scale) {
+                       __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                       int sq, int skv, int heads, int kv_heads, int causal,
+                       float scale) {
   constexpr int BK = kBK, RS = Cfg<HD>::kRow, CPR = HD / 8, BQ = kBQ;
   constexpr int NS = BK / 8;              // 8-key column tiles of S
   constexpr int NO = HD / 8;              // 8-column tiles of O
@@ -683,6 +702,12 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int f = fr + 8 * r;
+    if (lse != nullptr && f < rows && (lane & 3) == 0) {
+      // the running max is unscaled: lse = max * scale + ln l
+      lse[(static_cast<int64_t>(b) * heads + g * group + f % group) * sq +
+          f / group] = m[r] * scale + logf(l[r]);
+    }
     l[r] = 1.0f / fmaxf(l[r], 1e-30f);
   }
   __nv_bfloat16* orow = qs + (wrow + (lane >> 2)) * RS + (lane & 3) * 2;
@@ -705,9 +730,9 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int batch,
-           int sq, int skv, int heads, int kv_heads, int causal, float scale,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int batch, int sq, int skv, int heads, int kv_heads, int causal,
+           float scale, cudaStream_t stream) {
   constexpr int bytes = Cfg<HD>::kSmemBytes;
   static bool attr_set = false;    // per instantiation
   if (!attr_set) {
@@ -723,7 +748,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      sq, skv, heads, kv_heads, causal, scale);
+      lse, sq, skv, heads, kv_heads, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -733,38 +758,38 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
 // cores.
 template <int HD>
 int launch_dtype(int dtype, const void* q, const void* k, const void* v,
-                 void* o, int batch, int sq, int skv, int heads, int kv_heads,
-                 int causal, float scale, cudaStream_t s) {
+                 void* o, float* lse, int batch, int sq, int skv, int heads,
+                 int kv_heads, int causal, float scale, cudaStream_t s) {
   if (dtype == 0) {
-    return cc::launch<HD>(q, k, v, o, batch, sq, skv, heads, kv_heads, causal,
-                          scale, s);
+    return cc::launch<HD>(q, k, v, o, lse, batch, sq, skv, heads, kv_heads,
+                          causal, scale, s);
   }
   if (dtype == 1) {
-    return tc::launch<HD>(q, k, v, o, batch, sq, skv, heads, kv_heads, causal,
-                          scale, s);
+    return tc::launch<HD>(q, k, v, o, lse, batch, sq, skv, heads, kv_heads,
+                          causal, scale, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 int launch_hd(int hd, int dtype, const void* q, const void* k, const void* v,
-              void* o, int batch, int sq, int skv, int heads, int kv_heads,
-              int causal, float scale, cudaStream_t s) {
+              void* o, float* lse, int batch, int sq, int skv, int heads,
+              int kv_heads, int causal, float scale, cudaStream_t s) {
   switch (hd) {
     case 32:
-      return launch_dtype<32>(dtype, q, k, v, o, batch, sq, skv, heads,
-                              kv_heads, causal, scale, s);
+      return launch_dtype<32>(dtype, q, k, v, o, lse, batch, sq, skv,
+                              heads, kv_heads, causal, scale, s);
     case 64:
-      return launch_dtype<64>(dtype, q, k, v, o, batch, sq, skv, heads,
-                              kv_heads, causal, scale, s);
+      return launch_dtype<64>(dtype, q, k, v, o, lse, batch, sq, skv,
+                              heads, kv_heads, causal, scale, s);
     case 112:
-      return launch_dtype<112>(dtype, q, k, v, o, batch, sq, skv, heads,
-                               kv_heads, causal, scale, s);
+      return launch_dtype<112>(dtype, q, k, v, o, lse, batch, sq, skv,
+                              heads, kv_heads, causal, scale, s);
     case 128:
-      return launch_dtype<128>(dtype, q, k, v, o, batch, sq, skv, heads,
-                               kv_heads, causal, scale, s);
+      return launch_dtype<128>(dtype, q, k, v, o, lse, batch, sq, skv,
+                              heads, kv_heads, causal, scale, s);
     case 256:
-      return launch_dtype<256>(dtype, q, k, v, o, batch, sq, skv, heads,
-                               kv_heads, causal, scale, s);
+      return launch_dtype<256>(dtype, q, k, v, o, lse, batch, sq, skv,
+                              heads, kv_heads, causal, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -775,12 +800,16 @@ int launch_hd(int hd, int dtype, const void* q, const void* k, const void* v,
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it).  q, o
 // (batch, sq, heads, hd) and k, v (batch, skv, kv_heads, hd), row-major;
 // hd in {32, 64, 112, 128, 256}; heads a multiple of kv_heads; every pointer
-// on a 16-byte boundary.
-extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int batch,
-                                      int sq, int skv, int heads,
-                                      int kv_heads, int hd, int causal,
-                                      float scale, int dtype, void* stream) {
+// on a 16-byte boundary.  lse, when not null, is float32 (batch, heads, sq):
+// each query row's natural-log log-sum-exp of its scaled, masked scores,
+// which the backward (flash_attention_bwd.cu) recomputes P from; a null lse
+// is written nowhere and changes nothing else.
+extern "C" int flash_attention_lse_launch(const void* q, const void* k,
+                                          const void* v, void* o, float* lse,
+                                          int batch, int sq, int skv,
+                                          int heads, int kv_heads, int hd,
+                                          int causal, float scale, int dtype,
+                                          void* stream) {
   if (batch <= 0 || sq <= 0 || skv <= 0 || kv_heads <= 0 ||
       heads % kv_heads != 0 || batch * kv_heads > 65535 ||
       static_cast<int64_t>(sq) * (heads / kv_heads) > (1 << 30) ||
@@ -789,6 +818,17 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
        15) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_hd(hd, dtype, q, k, v, o, batch, sq, skv, heads, kv_heads,
-                   causal, scale, static_cast<cudaStream_t>(stream));
+  return launch_hd(hd, dtype, q, k, v, o, lse, batch, sq, skv, heads,
+                   kv_heads, causal, scale, static_cast<cudaStream_t>(stream));
+}
+
+// The serving entry: no lse.
+extern "C" int flash_attention_launch(const void* q, const void* k,
+                                      const void* v, void* o, int batch,
+                                      int sq, int skv, int heads,
+                                      int kv_heads, int hd, int causal,
+                                      float scale, int dtype, void* stream) {
+  return flash_attention_lse_launch(q, k, v, o, nullptr, batch, sq, skv,
+                                    heads, kv_heads, hd, causal, scale, dtype,
+                                    stream);
 }

@@ -9,7 +9,8 @@ check) and are woken exactly when it fires.
 
 A copy of the reference's ``repro/distributed/coordinator.py`` (threading
 only).  In the port it is used by the serving engine's request queue;
-``ElasticController`` is not ported yet.
+``ElasticController`` is not ported yet; the checkpointer
+(``repro_torch.checkpoint``) notifies one when a save is published.
 """
 from __future__ import annotations
 

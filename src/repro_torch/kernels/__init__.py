@@ -17,7 +17,9 @@ import torch
 
 LAUNCHES: Dict[str, int] = {"engine_step": 0, "engine_run": 0,
                             "colibri_scatter": 0,
-                            "flash_attention": 0, "rglru_scan": 0,
+                            "flash_attention": 0,
+                            "flash_attention_bwd_dq": 0,
+                            "flash_attention_bwd_dkdv": 0, "rglru_scan": 0,
                             "rwkv6_wkv": 0, "grouped_matmul": 0}
 
 

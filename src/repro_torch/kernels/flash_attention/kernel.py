@@ -1,11 +1,16 @@
 """The CUDA ``flash_attention`` kernel: bind and launch.
 
-The source is ``repro_torch/csrc/flash_attention.cu``, built and loaded
-by ``repro_torch.kernels._build`` (``nvcc`` at first use, cached by
-content hash; nothing runs at import time).
+The sources are ``repro_torch/csrc/flash_attention.cu`` (the forward)
+and ``flash_attention_bwd.cu`` (its gradient), built and loaded by
+``repro_torch.kernels._build`` (``nvcc`` at first use, cached by content
+hash; nothing runs at import time).
 
-``flash_attention_cuda`` launches the kernel on PyTorch's current stream
-and adds one to ``LAUNCHES["flash_attention"]`` per launch.
+``flash_attention_cuda`` launches the forward on PyTorch's current stream
+and adds one to ``LAUNCHES["flash_attention"]`` per launch;
+``flash_attention_fwd_lse_cuda`` launches the same kernel with the row
+log-sum-exp as a second output (also counted under ``"flash_attention"``),
+and ``flash_attention_bwd_cuda`` the backward's two kernels, counted under
+``"flash_attention_bwd_dq"`` and ``"flash_attention_bwd_dkdv"``.
 """
 from __future__ import annotations
 
@@ -20,6 +25,8 @@ from repro_torch.kernels import LAUNCHES, _build
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims the kernel is instantiated for
 HEAD_DIMS = (32, 64, 112, 128, 256)
+#: head dims the backward kernels are instantiated for
+BWD_HEAD_DIMS = (32, 64, 112, 128)
 
 
 @functools.lru_cache(maxsize=1)
@@ -31,16 +38,34 @@ def _launcher():
     return fn
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool = True) -> torch.Tensor:
-    """q ``(B, Sq, H, hd)``, k and v ``(B, Skv, KV, hd)``, contiguous and
-    on 16-byte boundaries, all float32 or all bfloat16, ``H % KV == 0``,
-    hd in ``HEAD_DIMS`` -> ``(B, Sq, H, hd)`` in q's dtype.  Query head h
-    reads KV head ``h // (H // KV)``.  Raises on anything the kernel does
-    not take."""
+@functools.lru_cache(maxsize=1)
+def _lse_launcher():
+    fn = _build.library("flash_attention").flash_attention_lse_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 \
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=1)
+def _bwd_launchers():
+    lib = _build.library("flash_attention_bwd")
+    dq, dkdv = lib.flash_attention_bwd_dq_launch, \
+        lib.flash_attention_bwd_dkdv_launch
+    for fn in (dq, dkdv):
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return dq, dkdv
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           head_dims=HEAD_DIMS, what: str = "flash_attention_cuda"):
+    """Raise unless q ``(B, Sq, H, hd)``, k and v ``(B, Skv, KV, hd)`` are
+    what the kernels take; return (b, sq, skv, h, kv, hd)."""
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
-        raise ValueError(f"flash_attention_cuda needs CUDA tensors on one "
+        raise ValueError(f"{what} needs CUDA tensors on one "
                          f"device, got {q.device}, {k.device}, {v.device}")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must all be float32 or all bfloat16, got "
@@ -54,8 +79,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[0] != b or k.shape[3] != hd or h % kv:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
                          f"match (batch, head dim, H % KV == 0)")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
+    if hd not in head_dims:
+        raise ValueError(f"head dim {hd} not in {head_dims}")
     if min(b, sq, skv) < 1 or b * kv > 65535:
         raise ValueError(f"need B, Sq, Skv >= 1 and B * KV <= 65535, got "
                          f"{b}, {sq}, {skv}, {b * kv}")
@@ -63,13 +88,91 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("q, k and v must be contiguous")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k and v must start on 16-byte boundaries")
-    out = torch.empty_like(q)
-    err = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      out.data_ptr(), b, sq, skv, h, kv, hd, int(causal),
-                      hd ** -0.5, DTYPES[q.dtype],
-                      torch.cuda.current_stream(dev).cuda_stream)
+    return b, sq, skv, h, kv, hd
+
+
+def _raise_on(err: int, what: str) -> None:
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = True) -> torch.Tensor:
+    """q ``(B, Sq, H, hd)``, k and v ``(B, Skv, KV, hd)``, contiguous and
+    on 16-byte boundaries, all float32 or all bfloat16, ``H % KV == 0``,
+    hd in ``HEAD_DIMS`` -> ``(B, Sq, H, hd)`` in q's dtype.  Query head h
+    reads KV head ``h // (H // KV)``.  Raises on anything the kernel does
+    not take."""
+    b, sq, skv, h, kv, hd = _check(q, k, v)
+    out = torch.empty_like(q)
+    _raise_on(_launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          out.data_ptr(), b, sq, skv, h, kv, hd, int(causal),
+                          hd ** -0.5, DTYPES[q.dtype],
+                          torch.cuda.current_stream(q.device).cuda_stream),
+              "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+def flash_attention_fwd_lse_cuda(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, causal: bool = True):
+    """``flash_attention_cuda`` that also returns each query row's
+    natural-log log-sum-exp of its scaled, masked scores: ``(o, lse)``,
+    lse float32 ``(B, H, Sq)`` (what the backward recomputes P from).
+    The same kernel: o has the bits ``flash_attention_cuda`` gives."""
+    b, sq, skv, h, kv, hd = _check(q, k, v,
+                                   what="flash_attention_fwd_lse_cuda")
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    _raise_on(_lse_launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                              out.data_ptr(), lse.data_ptr(), b, sq, skv, h,
+                              kv, hd, int(causal), hd ** -0.5,
+                              DTYPES[q.dtype],
+                              torch.cuda.current_stream(q.device).cuda_stream),
+              "flash_attention")
+    LAUNCHES["flash_attention"] += 1
+    return out, lse
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             do: torch.Tensor, lse: torch.Tensor,
+                             causal: bool = True):
+    """The gradient of flash attention: ``(dq, dk, dv)`` in q's dtype and
+    shapes of q, k, v, from the forward's inputs, its output ``o``, the
+    output's gradient ``do`` (both ``(B, Sq, H, hd)``, q's dtype,
+    contiguous, 16-byte aligned) and its ``lse`` (float32 ``(B, H, Sq)``).
+    Two launches on the current stream: the dq kernel (which also writes
+    each row's D = rowsum(do * o)), then the dk/dv kernel, which sums the
+    group's query heads in the block: no atomics, the same bits every
+    call.  hd must be in ``BWD_HEAD_DIMS``; raises on anything the kernels
+    do not take."""
+    b, sq, skv, h, kv, hd = _check(q, k, v, BWD_HEAD_DIMS,
+                                   "flash_attention_bwd_cuda")
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device \
+                or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
+                             f"{q.dtype}{tuple(q.shape)} on {q.device}, got "
+                             f"{t.dtype}{tuple(t.shape)} on {t.device}")
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32 \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous float32 {(b, h, sq)} on "
+                         f"{q.device}, got {lse.dtype}{tuple(lse.shape)}")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty_like(lse)
+    launch_dq, launch_dkdv = _bwd_launchers()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    dims = (b, sq, skv, h, kv, hd, int(causal), hd ** -0.5, DTYPES[q.dtype],
+            stream)
+    _raise_on(launch_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                        delta.data_ptr(), dq.data_ptr(), *dims),
+              "flash_attention_bwd_dq")
+    LAUNCHES["flash_attention_bwd_dq"] += 1
+    _raise_on(launch_dkdv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                          dk.data_ptr(), dv.data_ptr(), *dims),
+              "flash_attention_bwd_dkdv")
+    LAUNCHES["flash_attention_bwd_dkdv"] += 1
+    return dq, dk, dv

@@ -8,20 +8,69 @@ heads as the reference op (``repro/kernels/flash_attention/ops.py``)
 feeds its kernel.
 There is no fallback from one to the other: a CUDA launch that cannot
 run raises.
+
+When a gradient is wanted (grad mode on and q, k or v requiring it), the
+op is ``FlashAttention``, a ``torch.autograd.Function``: on CUDA tensors
+its forward is the kernel with the row log-sum-exp as a second output and
+its backward the hand-written backward kernels
+(``kernel.flash_attention_bwd_cuda``); on CPU tensors both are the plain
+versions.  Serving (no gradient) takes the plain call above.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import aligned
-from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.kernel import (
+    BWD_HEAD_DIMS, flash_attention_bwd_cuda, flash_attention_cuda,
+    flash_attention_fwd_lse_cuda)
+from repro_torch.kernels.flash_attention.ref import (
+    flash_attention_bwd_ref, flash_attention_fwd_lse_ref, flash_attention_ref)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with its gradient: the kernels on CUDA tensors, the
+    plain versions on CPU tensors.  The forward keeps q, k, v, o and the
+    row log-sum-exp; the backward recomputes P from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        dev = q.device.type
+        if dev == "cuda":
+            if q.shape[-1] not in BWD_HEAD_DIMS:
+                raise ValueError(
+                    f"head dim {q.shape[-1]}: the flash-attention backward "
+                    f"kernel takes {BWD_HEAD_DIMS}")
+            q, k, v = aligned(q), aligned(k), aligned(v)
+            o, lse = flash_attention_fwd_lse_cuda(q, k, v, causal=causal)
+        elif dev == "cpu":
+            o, lse = flash_attention_fwd_lse_ref(q, k, v, causal=causal)
+        else:
+            raise ValueError(f"flash_attention runs on cuda or cpu tensors, "
+                             f"not {dev}")
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        if q.device.type == "cuda":
+            dq, dk, dv = flash_attention_bwd_cuda(q, k, v, o, aligned(do),
+                                                  lse, causal=ctx.causal)
+        else:
+            dq, dk, dv = flash_attention_bwd_ref(q, k, v, o, do, lse,
+                                                 causal=ctx.causal)
+        return dq, dk, dv, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """q: ``(B, Sq, H, hd)``; k, v: ``(B, Skv, KV, hd)`` with
     ``H % KV == 0``.  Returns ``(B, Sq, H, hd)`` in q's dtype."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal)
     dev = q.device.type
     if dev == "cuda":
         return flash_attention_cuda(aligned(q), aligned(k), aligned(v),

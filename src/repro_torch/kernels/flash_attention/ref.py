@@ -7,6 +7,12 @@ reference op (``repro/kernels/flash_attention/ops.py``) feeds its kernel:
 KV heads repeated to the query heads, heads folded into the batch.  It
 is what the CPU path runs and what the CUDA kernel is held against on
 the card.  Scores and softmax in float32, output in q's dtype.
+
+``flash_attention_fwd_lse_ref`` adds each query row's log-sum-exp, and
+``flash_attention_bwd_ref`` is the gradient as the backward kernel
+(``csrc/flash_attention_bwd.cu``) computes it: P recomputed from the
+scores and that log-sum-exp, D = rowsum(dO o O), dS = P o (dO V^T - D),
+all in float32 (float64 for float64 inputs), the group's query heads summed into their KV head.
 """
 from __future__ import annotations
 
@@ -15,18 +21,23 @@ import torch
 NEG_INF = -1e30
 
 
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in float32, or float64 if it is (the gradient check's)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True) -> torch.Tensor:
     """q: ``(BH, Sq, hd)``; k, v: ``(BH, Skv, hd)`` -> ``(BH, Sq, hd)``."""
     hd = q.shape[-1]
-    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * hd ** -0.5
+    s = torch.einsum("bqd,bkd->bqk", _wide(q), _wide(k)) * hd ** -0.5
     if causal:
         sq, skv = q.shape[1], k.shape[1]
         mask = (torch.arange(sq, device=q.device)[:, None]
                 >= torch.arange(skv, device=q.device)[None, :])
         s = torch.where(mask[None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+    return torch.einsum("bqk,bkd->bqd", p, _wide(v)).to(q.dtype)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -42,3 +53,63 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vf = v.transpose(1, 2).reshape(b * h, -1, hd)
     out = attention_ref(qf, kf, vf, causal=causal)
     return out.reshape(b, h, sq, hd).transpose(1, 2)
+
+
+def _heads_first(q, k, v):
+    """q ``(B, Sq, H, hd)``, k/v ``(B, Skv, KV, hd)`` -> float32 ``(B, H,
+    S, hd)`` each, KV heads repeated to the query heads."""
+    g = q.shape[2] // k.shape[2]
+    return (_wide(q).transpose(1, 2),
+            _wide(k).repeat_interleave(g, dim=2).transpose(1, 2),
+            _wide(v).repeat_interleave(g, dim=2).transpose(1, 2))
+
+
+def _scaled_scores(qh, kh, causal: bool):
+    """scale * q k^T ``(B, H, Sq, Skv)`` and the mask of the keys each
+    query sees (None when it sees all)."""
+    s = torch.einsum("bhqd,bhkd->bhqk", qh, kh) * qh.shape[-1] ** -0.5
+    if not causal:
+        return s, None
+    sq, skv = qh.shape[2], kh.shape[2]
+    mask = (torch.arange(sq, device=qh.device)[:, None]
+            >= torch.arange(skv, device=qh.device)[None, :])
+    return s, mask
+
+
+def flash_attention_fwd_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, *, causal: bool = True):
+    """``(flash_attention_ref(q, k, v), lse)``: lse float32 ``(B, H, Sq)``,
+    the natural-log log-sum-exp of each row's scaled, masked scores."""
+    s, mask = _scaled_scores(*_heads_first(q, k, v)[:2], causal)
+    if mask is not None:
+        s = torch.where(mask, s, NEG_INF)
+    return flash_attention_ref(q, k, v, causal=causal), \
+        torch.logsumexp(s, dim=-1)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            do: torch.Tensor, lse: torch.Tensor, *,
+                            causal: bool = True):
+    """``(dq, dk, dv)`` in the dtypes and shapes of q, k, v: the gradient
+    of ``flash_attention_ref`` at output gradient ``do``, recomputed from
+    the forward's output ``o`` and ``lse`` (float32 ``(B, H, Sq)``)."""
+    b, sq, h, hd = q.shape
+    kv = k.shape[2]
+    qh, kh, vh = _heads_first(q, k, v)
+    doh, oh = _wide(do).transpose(1, 2), _wide(o).transpose(1, 2)
+    s, mask = _scaled_scores(qh, kh, causal)
+    p = torch.exp(s - lse[..., None])
+    if mask is not None:
+        p = torch.where(mask, p, 0.0)
+    delta = (doh * oh).sum(-1)                                 # (B, H, Sq)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, doh)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", doh, vh) - delta[..., None])
+    scale = hd ** -0.5
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kh) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qh) * scale
+
+    def per_kv_head(t):            # (B, H, Skv, hd) -> (B, Skv, KV, hd)
+        return t.reshape(b, kv, h // kv, -1, hd).sum(2).transpose(1, 2)
+    return (dq.transpose(1, 2).to(q.dtype), per_kv_head(dk).to(k.dtype),
+            per_kv_head(dv).to(v.dtype))

@@ -1,8 +1,11 @@
 """Attention blocks of the port: grouped-query attention (GQA), the twin
 of the GQA half of the reference's ``repro/models/attention.py``.
 
-Prefill attention (``gqa_apply``) goes through the ``flash_attention``
-op: the CUDA kernel on the card, its plain version on the CPU.  For the
+Prefill and training attention (``gqa_apply``) goes through the
+``flash_attention`` op: the CUDA kernel on the card, its plain version on
+the CPU; when a gradient is wanted, through its autograd op
+(``FlashAttention``: the forward kernel with the row log-sum-exp, the
+backward kernel).  For the
 ``attn`` layers that is the reference's ``blocked_attention(causal=True)``.
 For the ``local`` layers the reference takes ``sliding_window_attention``;
 for a prompt no longer than the window the window masks nothing and the
@@ -83,9 +86,9 @@ def _qkv(cfg: ModelConfig, p: Params, x):
 
 def gqa_apply(cfg: ModelConfig, p: Params, x, positions, *, window: int = 0,
               kv_out: bool = False):
-    """Full-sequence causal attention (prefill). Returns (out, (k, v)) with
-    ``kv_out``, else (out, None).  With a ``window``, a prompt longer than
-    it raises ``NotImplementedError``."""
+    """Full-sequence causal attention (prefill, training). Returns (out,
+    (k, v)) with ``kv_out``, else (out, None).  With a ``window``, a
+    prompt longer than it raises ``NotImplementedError``."""
     b, s = x.shape[:2]
     if window and s > window:
         raise NotImplementedError(

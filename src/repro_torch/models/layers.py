@@ -16,12 +16,12 @@ The twin of the reference's ``repro/models/layers.py``:
   than ``jax.random`` from the same seed, so parity tests convert the
   reference's weights (``repro_torch.convert.model_from_jax``).
 
-The reference's ``sinusoidal_positions`` and ``cross_entropy`` are not
-ported yet: no ported path uses them.
+The reference's ``sinusoidal_positions`` is not ported yet: no ported
+path uses it.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterable, Optional
+from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -216,3 +216,33 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     x1, x2 = xr[..., : rot // 2], xr[..., rot // 2:]           # rotate-half layout
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return torch.cat([out.to(x.dtype), x[..., rot:]], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Cross entropy
+# ---------------------------------------------------------------------------
+
+def token_losses(logits: torch.Tensor, labels: torch.Tensor,
+                 z_loss: float = 1e-4):
+    """Per token, float32: (nll with z-loss, correct, mask), each zero
+    where labels == -1."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.take_along_dim(
+        lf, labels.clamp(min=0).long()[..., None], dim=-1)[..., 0]
+    nll = lse - gold
+    if z_loss:
+        nll = nll + z_loss * lse ** 2
+    mask = (labels >= 0).float()
+    return nll * mask, (lf.argmax(-1) == labels) * mask, mask
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  z_loss: float = 1e-4) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean token CE in float32 with optional z-loss. labels == -1 is
+    masked.
+
+    Returns (loss, accuracy)."""
+    nll, correct, mask = token_losses(logits, labels, z_loss)
+    denom = torch.clamp(mask.sum(), min=1.0)
+    return nll.sum() / denom, correct.sum() / denom

@@ -1,7 +1,9 @@
 """Unified model API of the port: ``build(cfg)`` → ``Model``, an
-``nn.Module`` with the serving entry points of the reference's
-``repro/models/model_zoo.py`` (``init``, ``init_cache``, ``prefill``,
-``decode_step``, ``logits``).
+``nn.Module`` with the entry points of the reference's
+``repro/models/model_zoo.py``: serving (``init``, ``init_cache``,
+``prefill``, ``decode_step``, ``logits``) and training (``hidden``,
+``loss``, after ``train_mode()`` hands out trainable parameters; the
+dense family only, ``transformer.check_trainable``).
 
 The model lives on one device, chosen when it is built: the GPU unless
 the caller passes ``device="cpu"`` (``repro_torch.core.sim.
@@ -14,7 +16,7 @@ half the card (kimi-k2-1t-a32b's MoE layer) seeds and loads in place.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import Any, Dict, List, Tuple
 
 import torch
 from torch import nn
@@ -23,6 +25,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sim import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as TF
+from repro_torch.tree import leaves
 
 Params = TF.Params
 
@@ -86,10 +89,34 @@ class Model(nn.Module):
         manual_seed(seed)``, with the reference's initialisers, one leaf
         at a time (a large leaf ``L.DRAW_CHUNK`` elements at a time)."""
         draw = L.Draw(torch.Generator(device=self.device).manual_seed(seed),
-                      _leaves(self.params()))
+                      leaves(self.params()))
         TF.init_params(self.cfg, draw, self.device)
         draw.done()
         return self
+
+    # ---- training ----
+    def train_mode(self, on: bool = True) -> "Model":
+        """Hand out the weights trainable (``requires_grad``), or frozen
+        again for serving.  Training refuses what the port cannot
+        differentiate (``transformer.check_trainable``)."""
+        if on:
+            TF.check_trainable(self.cfg)
+        self.requires_grad_(on)
+        return self
+
+    def hidden(self, batch: Dict[str, Any]
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """batch ``{"tokens": (B,S)}`` -> (hidden (B,S,d), aux loss)."""
+        return TF.forward(self.cfg, self.params(), batch["tokens"])
+
+    def loss(self, batch: Dict[str, Any]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """batch ``{"tokens", "labels"}`` (labels -1 masked) -> (loss,
+        {"loss", "acc", "aux"}): the mean token cross entropy with the
+        reference's z-loss, over chunked logits."""
+        h, aux = self.hidden(batch)
+        loss, acc = TF.loss_fn(self.cfg, self.params(), h, batch["labels"])
+        return loss, {"loss": loss, "acc": acc, "aux": aux}
 
     # ---- serving ----
     def init_cache(self, batch: int, seq: int) -> List[Params]:
@@ -112,15 +139,6 @@ class Model(nn.Module):
     @torch.no_grad()
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         return TF.logits(self.cfg, self.top.tree(), hidden)
-
-
-def _leaves(tree):
-    """The tensors of a params tree, in its order."""
-    if isinstance(tree, torch.Tensor):
-        yield tree
-    else:
-        for v in tree.values() if isinstance(tree, dict) else tree:
-            yield from _leaves(v)
 
 
 def build(cfg: ModelConfig, device=None) -> Model:

@@ -1,5 +1,5 @@
-"""Decoder-only LM assembly of the port: the serving half of the
-reference's ``repro/models/transformer.py``.
+"""Decoder-only LM assembly of the port: the twin of the reference's
+``repro/models/transformer.py``, serving and (dense family) training.
 
 The reference groups layers into *segments* (maximal runs of the
 repeating block-pattern unit) and stacks each segment's params along a
@@ -15,8 +15,16 @@ MLPs, the ``rwkv`` time-mix with its ``rwkv_cm`` channel-mix, the MoE
 models' FFNs (``dense`` for the leading layers, ``moe``: routed experts
 plus the shared expert), ``prefill`` and ``decode_step``.  MLA, the
 encoder and the VLM frontend raise ``NotImplementedError`` when a model
-is built; ``forward`` and ``loss_fn`` are training and not ported yet
-(ROADMAP A9).
+is built.
+
+Training (``apply_block``, ``forward``, ``loss_fn``) takes the layers
+whose kernels have a backward: ``attn`` mixers with dense MLPs, the
+``dense`` family (``check_trainable`` refuses the rest, naming the
+ROADMAP item that brings it).  ``cfg.parallel.remat`` recomputes each
+layer in the backward (``torch.utils.checkpoint``, non-reentrant), as the
+reference's ``jax.checkpoint`` of its scan body; ``loss_fn`` recomputes
+each 1 024-token chunk's logits, so the (B, S, V) float32 logits are
+never held.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
@@ -107,6 +116,32 @@ def check_supported(cfg: ModelConfig) -> None:
             f"and MoE FFNs")
 
 
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` unless every layer of ``cfg`` is an
+    ``attn`` mixer with a dense MLP (the layers whose kernels have a
+    backward), naming the ROADMAP item that brings the rest."""
+    check_supported(cfg)
+    kinds = set(cfg.layer_kinds())
+    missing = []
+    if "local" in kinds:
+        missing.append("local attention (a windowed flash-attention "
+                       "backward kernel, ROADMAP A9.8a)")
+    if "rglru" in kinds:
+        missing.append("rglru layers (an rglru_scan backward kernel, "
+                       "ROADMAP A9.8b)")
+    if "rwkv" in kinds:
+        missing.append("rwkv layers (an rwkv6_wkv backward kernel, ROADMAP "
+                       "A9.8c)")
+    if cfg.moe is not None:
+        missing.append("MoE FFNs (a grouped_matmul backward kernel, ROADMAP "
+                       "A9.8d)")
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: training {', '.join(missing)} is not ported yet; "
+            f"the port trains attn layers with dense MLPs (the dense "
+            f"family)")
+
+
 # ---------------------------------------------------------------------------
 # Per-block init / apply
 # ---------------------------------------------------------------------------
@@ -148,6 +183,17 @@ def _ffn_apply(cfg: ModelConfig, ffn: str, p: Params, h):
     if mk == "geglu":
         return L.geglu_apply(p["mlp"], h)
     return L.mlp_apply(p["mlp"], h, "silu" if mk == "swiglu" else "gelu")
+
+
+def apply_block(cfg: ModelConfig, sig: LayerSig, p: Params, x, positions):
+    """Full-sequence training block (state-free): an ``attn`` mixer and
+    a dense MLP (``check_trainable``).  Returns (x, aux), aux 0."""
+    h = L.norm_apply(cfg.norm, p["norm1"], x, cfg.norm_eps)
+    a, _ = A.gqa_apply(cfg, p["attn"], h, positions)
+    x = x + a
+    h = L.norm_apply(cfg.norm, p["norm2"], x, cfg.norm_eps)
+    return x + _ffn_apply(cfg, sig[1], p, h), torch.zeros(
+        (), dtype=torch.float32, device=x.device)
 
 
 def block_cache_init(cfg: ModelConfig, sig: LayerSig, batch: int, seq: int,
@@ -253,9 +299,10 @@ def apply_block_decode(cfg: ModelConfig, sig: LayerSig, p: Params,
 # ---------------------------------------------------------------------------
 
 class ParamTree(nn.Module):
-    """A nested dict of tensors as a module: each tensor a frozen
-    ``nn.Parameter`` (inference only: no gradients), each dict a
-    submodule, under the dict's own keys."""
+    """A nested dict of tensors as a module: each tensor an
+    ``nn.Parameter``, frozen as made (serving: no gradients) until
+    ``requires_grad_`` (``Model.train_mode``) hands them out trainable,
+    each dict a submodule, under the dict's own keys."""
 
     def __init__(self, tree: Params):
         super().__init__()
@@ -334,6 +381,50 @@ def prefill(cfg: ModelConfig, params: Params, tokens, cache: List[Params]):
         new_cache.append(nc)
     x = L.norm_apply(cfg.norm, params["final_norm"], x, cfg.norm_eps)
     return x, new_cache
+
+
+def forward(cfg: ModelConfig, params: Params, tokens
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens: (B,S) -> (hidden (B,S,d), aux loss), the training forward;
+    with ``cfg.parallel.remat`` each layer is recomputed in the backward."""
+    check_trainable(cfg)
+    x = _embed(cfg, params, tokens)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for sig, lp in zip(layer_sigs(cfg), params["layers"]):
+        if cfg.parallel.remat:
+            x, aux = checkpoint(apply_block, cfg, sig, lp, x, positions,
+                                use_reentrant=False)
+        else:
+            x, aux = apply_block(cfg, sig, lp, x, positions)
+        aux_total = aux_total + aux
+    x = L.norm_apply(cfg.norm, params["final_norm"], x, cfg.norm_eps)
+    return x, aux_total
+
+
+def _chunk_loss(head, hx, lx):
+    """One sequence chunk's (nll sum with z-loss, correct, count)."""
+    nll, correct, mask = L.token_losses(hx @ head.to(hx.dtype), lx)
+    return nll.sum(), correct.sum(), mask.sum()
+
+
+def loss_fn(cfg: ModelConfig, params: Params, hidden, labels,
+            chunk: int = 1024) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Streaming CE over SEQUENCE chunks of ``chunk`` tokens: each chunk's
+    (B, chunk, V) float32 logits are recomputed in the backward, never
+    held for the whole sequence.  Labels -1 are masked.  Returns (loss,
+    accuracy)."""
+    s = hidden.shape[1]
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    c = min(chunk, s)
+    zero = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    nll, correct, denom = zero, zero, zero
+    for c0 in range(0, s, c):
+        n, k, m = checkpoint(_chunk_loss, head, hidden[:, c0:c0 + c],
+                             labels[:, c0:c0 + c], use_reentrant=False)
+        nll, correct, denom = nll + n, correct + k, denom + m
+    denom = torch.clamp(denom, min=1.0)
+    return nll / denom, correct / denom
 
 
 def logits(cfg: ModelConfig, params: Params, hidden) -> torch.Tensor:

@@ -3,8 +3,9 @@ simulator's engine, one engine_run launch per run held against the
 per-cycle loop, the workload programs on its program instance, a Study
 as one launch per core count held against its single runs, and
 recurrentgemma-2b-smoke, rwkv6-1.6b-smoke and kimi-k2-1t-a32b-smoke
-served by ServeEngine, and the model checker with the step kernel as
-its fused twin).
+served by ServeEngine, the model checker with the step kernel as its
+fused twin, and the flash-attention backward kernels with
+smollm-135m-smoke's training through them).
 
 Every test here is marked ``gpu`` and skips without a CUDA device (the
 CUDA kernel has no CPU mode).  The file imports neither JAX nor the
@@ -747,3 +748,86 @@ def test_model_check_with_the_step_kernel(name, cuda_device):
     assert (got.stats["states"], got.stats["transitions"]) == (
         want.stats["states"], want.stats["transitions"])
     assert LAUNCHES["engine_step"] > before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 200, 200, 9, 3, 64, True, "bfloat16"),
+                                   (1, 130, 95, 4, 1, 128, False, "float32"),
+                                   (1, 100, 100, 8, 2, 112, True, "bfloat16"),
+                                   (2, 70, 70, 4, 2, 32, True, "float32")])
+def test_flash_backward_kernel_matches_plain_version(shape, cuda_device):
+    """dq, dk, dv and the forward's lse against the plain versions; two
+    backward launches give the same bits; the forward with lse gives the
+    bits of the forward without (``chip_smoke.flash_bwd_check``)."""
+    cs = _chip_smoke()
+    before = dict(LAUNCHES)
+    rec = cs.flash_bwd_check(cuda_device, shape, seed=shape[1])
+    assert LAUNCHES["flash_attention_bwd_dq"] == \
+        before["flash_attention_bwd_dq"] + 2
+    assert LAUNCHES["flash_attention_bwd_dkdv"] == \
+        before["flash_attention_bwd_dkdv"] + 2
+    assert rec["lse_err"] <= cs.FLASH_LSE_TOL[shape[-1]]
+
+
+@pytest.mark.gpu
+def test_flash_autograd_op_runs_the_kernels(cuda_device):
+    """A gradient through the op on CUDA tensors: the lse forward kernel
+    and the two backward kernels, once each; the gradients equal the
+    backward kernel's own."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    cs = _chip_smoke()
+    q, k, v = (t.requires_grad_() for t in cs.flash_inputs(
+        cuda_device, 2, 64, 64, 4, 2, 64, "bfloat16", seed=9))
+    before = dict(LAUNCHES)
+    out = flash_attention.flash_attention(q, k, v, causal=True)
+    do = torch.randn_like(out)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert {k_: LAUNCHES[k_] - before[k_] for k_ in (
+        "flash_attention", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkdv")} == {
+        "flash_attention": 1, "flash_attention_bwd_dq": 1,
+        "flash_attention_bwd_dkdv": 1}
+    o, lse = fa.flash_attention_fwd_lse_cuda(q.detach(), k.detach(),
+                                             v.detach(), causal=True)
+    want = fa.flash_attention_bwd_cuda(q.detach(), k.detach(), v.detach(),
+                                       o, do, lse, causal=True)
+    for g, w in zip((q.grad, k.grad, v.grad), want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_flash_backward_refuses_other_head_dims(cuda_device):
+    from repro_torch.kernels.flash_attention import kernel as fa
+    cs = _chip_smoke()
+    q, k, v = cs.flash_inputs(cuda_device, 1, 16, 16, 2, 1, 256, "bfloat16",
+                              seed=1)
+    with pytest.raises(ValueError, match="head dim 256"):
+        flash_attention.FlashAttention.apply(q.requires_grad_(), k, v, True)
+    lse = torch.zeros(1, 2, 16, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim 256"):
+        fa.flash_attention_bwd_cuda(q.detach(), k, v, q.detach(), q.detach(),
+                                    lse)
+
+
+@pytest.mark.gpu
+def test_training_smoke_resumes_bit_identical(cuda_device, tmp_path):
+    """smollm-135m-smoke through run_training on the card: the kernels'
+    launches, and a crash then resume equal to the uninterrupted run."""
+    from repro_torch.tree import flatten
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.train import TrainRun, run_training
+    kw = dict(cfg=get_config("smollm-135m-smoke"),
+              shape=ShapeSpec("smoke", 128, 4, "train"), steps=6,
+              ckpt_every=2, log_every=100, device="cuda")
+    before = dict(LAUNCHES)
+    ref = run_training(TrainRun(ckpt_dir=str(tmp_path / "a"), **kw))
+    assert LAUNCHES["flash_attention_bwd_dq"] - \
+        before["flash_attention_bwd_dq"] == 6 * 2
+    run_b = TrainRun(ckpt_dir=str(tmp_path / "b"), **kw)
+    with pytest.raises(RuntimeError, match="simulated failure"):
+        run_training(run_b, crash_at=3)
+    resumed = run_training(run_b, resume=True)
+    for (p, a), (_, b) in zip(flatten(ref["params"]),
+                              flatten(resumed["params"])):
+        assert torch.equal(a, b), p

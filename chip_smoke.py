@@ -117,7 +117,8 @@ Phases, one JSON line each:
    (``csrc/flash_attention_bwd.cu``, dq then dk/dv) against their plain
    version on the card, on the forward kernel's o and lse, at
    ``FLASH_BWD_SHAPES`` (smollm's heads at 1 024 tokens in f32 and bf16,
-   a ragged non-causal hd-128 one, train_b's own shape): the forward's
+   a ragged non-causal hd-128 one, bf16 at hd 112 causal with GQA and at
+   hd 32, train_b's own shape): the forward's
    o within ``FLASH_TOL`` and its lse within ``FLASH_LSE_TOL`` of the
    plain forward, dq, dk, dv within ``FLASH_BWD_TOL``, two
    launches bit for bit, the forward with lse bit for bit the forward
@@ -134,9 +135,12 @@ Phases, one JSON line each:
    crashes at step 4 and resumes, equal to the first bit for bit;
    exactly ``TRAIN_B_LAUNCHES`` every step, losses finite and falling, ms
    per step, tokens/s, the busy share of a profiled step, peak memory;
-   train_kernel_time — the backward's device time per call at train_b's
-   shape beside its bound, its plain version and the backward of
+   train_kernel_time — the backward's device time per call and per
+   launch (dq, dk/dv) at train_b's shape beside its bound (five products)
+   and the kernels' own (seven), its plain version and the backward of
    ``scaled_dot_product_attention`` on the same tensors, timed alone;
+   also the forward with lse beside ``scaled_dot_product_attention``'s
+   forward;
 6. exact — ``zipf_index`` (skew 0, and the skewed streams of
    ``ZIPF_PROBES`` in either form) and ``_hash`` on the card against the
    CPU over 2^24 inputs, and the engine_run kernel's own device code
@@ -757,11 +761,14 @@ LM_KERNELS = ("flash_attention", "rglru_scan", "rwkv6_wkv", "grouped_matmul",
 TRAIN_ARCH = "smollm-135m"
 #: (b, sq, skv, h, kv, hd, causal, dtype) of the flash_bwd_kernel phase:
 #: smollm-135m's heads at 1 024 tokens, a ragged non-causal hd-128 one,
-#: and train_b's own shape (the last)
+#: the tensor-core design's two-box rows (hd 112, causal, GQA) and its
+#: half-empty boxes (hd 32), and train_b's own shape (the last)
 FLASH_BWD_SHAPES = ((2, 1024, 1024, 9, 3, 64, True, "float32"),
                     (2, 1024, 1024, 9, 3, 64, True, "bfloat16"),
                     (1, 777, 777, 4, 1, 128, False, "float32"),
                     (1, 777, 777, 4, 1, 128, False, "bfloat16"),
+                    (1, 1024, 1024, 8, 2, 112, True, "bfloat16"),
+                    (2, 1000, 1000, 4, 2, 32, False, "bfloat16"),
                     (8, 4096, 4096, 9, 3, 64, True, "bfloat16"))
 FLASH_BWD_HEAD = FLASH_BWD_SHAPES[-1]
 #: dtype -> (rtol, atol) of dq, dk, dv against the plain version, atol a
@@ -3903,33 +3910,45 @@ def flash_bwd_bound(b, sq, skv, h, kv, hd, causal, dtype) -> dict:
     o, do and lse read once, dq, dk, dv written once, over 3.35 TB/s; the
     gradient's five products over the unmasked (query, key) pairs (S
     recomputed, dO V^T, P^T dO, dS K, dS^T Q), 2 hd flops each, over the
-    type's peak."""
+    type's peak.  Also the kernels' own bound: the seven products of the
+    two-launch design (S and dO V^T in both launches), and each launch's
+    share of them (dq three, dkdv four)."""
     size = torch.tensor([], dtype=getattr(torch, dtype)).element_size()
     n_bytes = (4 * b * sq * h * hd + 4 * b * skv * kv * hd) * size \
         + b * h * sq * 4
     pairs = (sum(min(i + 1, skv) for i in range(sq)) if causal
              else sq * skv)
-    flops = 10 * hd * pairs * b * h
+    product = 2 * hd * pairs * b * h           # flops of one product
+    flops = 5 * product
     peak = BF16_FLOPS if dtype == "bfloat16" else F32_FLOPS
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
     return dict(bound_bytes=n_bytes, bound_flops=flops,
                 bound_ms=max(t_bytes, t_ops) * 1e3,
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound7_flops=7 * product, bound7_ms=7 * product / peak * 1e3,
+                bound7_dq_ms=3 * product / peak * 1e3,
+                bound7_dkdv_ms=4 * product / peak * 1e3)
 
 
 def time_flash_bwd(dev, shape=FLASH_BWD_HEAD) -> dict:
-    """The backward kernels' device time per call (both launches) at
-    ``shape`` beside the plain version's, the bound and the backward of
+    """The backward kernels' device time per call (both launches) and per
+    launch (``dq_ms``, ``dkdv_ms``) at ``shape`` beside the plain
+    version's, the bounds and the backward of
     ``scaled_dot_product_attention`` on the same tensors (heads first, KV
-    heads repeated), timed alone; and the forward kernel with lse."""
+    heads repeated), timed alone; the forward kernel with lse and
+    ``scaled_dot_product_attention``'s forward (``library_fwd_ms``)."""
     b, sq, skv, h, kv, hd, causal, dtype = shape
     q, k, v = flash_inputs(dev, b, sq, skv, h, kv, hd, dtype, seed=7)
     do = torch.randn(q.shape, device=dev).to(q.dtype)
     before = dict(LAUNCHES)
     o, lse = fa_kernel.flash_attention_fwd_lse_cuda(q, k, v, causal=causal)
-    rec = dict(shape=shape,
-               ms=device_ms(lambda: fa_kernel.flash_attention_bwd_cuda(
-                   q, k, v, o, do, lse, causal=causal), 10),
+
+    def bwd():
+        return fa_kernel.flash_attention_bwd_cuda(q, k, v, o, do, lse,
+                                                  causal=causal)
+    rec = dict(shape=shape, ms=device_ms(bwd, 10),
+               dq_ms=device_ms(bwd, 10, "dq_kernel"),
+               dkdv_ms=device_ms(bwd, 10, "dkdv_kernel"),
                fwd_lse_ms=device_ms(
                    lambda: fa_kernel.flash_attention_fwd_lse_cuda(
                        q, k, v, causal=causal), 10),
@@ -3939,16 +3958,27 @@ def time_flash_bwd(dev, shape=FLASH_BWD_HEAD) -> dict:
                **flash_bwd_bound(*shape))
     gc.collect()
     torch.cuda.empty_cache()
+    rec["library_fwd_ms"], rec["library_ms"] = sdpa_ms(q, k, v, do, causal)
+    LAUNCHES.update(before)                 # timing runs are not counted
+    return rec
+
+
+def sdpa_ms(q, k, v, do, causal) -> tuple:
+    """Device ms of ``scaled_dot_product_attention``'s forward and of its
+    backward (``torch.autograd.grad``) on the kernels' ``(B, S, H, hd)``
+    tensors, heads first and KV heads repeated (the copies not timed)."""
+    h = q.shape[2]
     qs, ks, vs = (t.repeat_interleave(h // t.shape[2], dim=2)
                   .transpose(1, 2).contiguous().requires_grad_()
                   for t in (q, k, v))
-    out = torch.nn.functional.scaled_dot_product_attention(
-        qs, ks, vs, is_causal=causal)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fwd_ms = device_ms(lambda: sdpa(qs.detach(), ks.detach(), vs.detach(),
+                                    is_causal=causal), 10)
+    out = sdpa(qs, ks, vs, is_causal=causal)
     dos = do.transpose(1, 2).contiguous()
-    rec["library_ms"] = device_ms(lambda: torch.autograd.grad(
+    bwd_ms = device_ms(lambda: torch.autograd.grad(
         out, (qs, ks, vs), dos, retain_graph=True), 10)
-    LAUNCHES.update(before)                 # timing runs are not counted
-    return rec
+    return fwd_ms, bwd_ms
 
 
 def phase_train_a(dev) -> dict:
@@ -4172,7 +4202,9 @@ def train_phases(dev) -> list:
                  max_abs_err=max(bwd_worst.values()),
                  **{k: bwd_t[k] for k in keys},
                  max_abs_err_by_dtype=bwd_worst, shape=bwd_t["shape"],
-                 fwd_lse_ms=bwd_t["fwd_lse_ms"],
+                 **{k: bwd_t[k] for k in ("dq_ms", "dkdv_ms", "bound7_ms",
+                                          "bound7_dq_ms", "bound7_dkdv_ms",
+                                          "fwd_lse_ms", "library_fwd_ms")},
                  train_ms_per_step=main_run["ms_per_step"])]
 
 

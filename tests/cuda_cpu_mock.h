@@ -119,6 +119,8 @@ inline void* mock_sched_sp;
 inline int mock_cur = 0, mock_live = 0, mock_bar_arrived = 0;
 inline unsigned mock_bar_gen = 0;
 inline const std::function<void()>* mock_body = nullptr;
+// called before each block runs (a stand-in's per-block state)
+inline void (*mock_on_block)() = nullptr;
 
 // back to the scheduler; returns when it resumes this fiber
 inline void mock_to_scheduler() {
@@ -207,6 +209,7 @@ inline void mock_run_block(long long b, int block, size_t smem,
   mock_live = block;
   mock_bar_arrived = 0;
   mock_body = &body;
+  if (mock_on_block) mock_on_block();
   for (int t = 0; t < block; ++t) {
     MockFiber& f = *mock_fiber[t];
     f.wait = kMockRun;

@@ -6,20 +6,36 @@ plain versions.
 compiled with g++ against ``tests/cuda_cpu_mock.h`` (the CUDA threads of
 a block as fibers on one OS thread, barriers and warp exchanges as
 switches in a fixed order), as ``tests/engine_mock.py`` builds the engine
-kernel.  The PTX helpers each source keeps under ``#ifndef
-CUDA_CPU_MOCK`` are replaced by the CPU stand-ins below:
+kernel, and ``tests/cuda_cpu_mock_hopper.h`` (mbarriers, TMA's byte
+bookkeeping, the warpgroup, wgmma descriptors; shared with
+``tests/test_torch_recurrence_kernels_cpu.py``).  The PTX helpers each
+source keeps under ``#ifndef CUDA_CPU_MOCK`` are replaced by the CPU
+stand-ins below:
 
-* ``mma.sync.m16n8k16`` (bf16 x bf16 -> f32): each thread's four sums from
-  the warp's A fragments (a0 (g, 2t), a1 (g+8, 2t), a2 (g, 2t+8), a3
-  (g+8, 2t+8), two bf16 each) and B fragments (b0 (k 2t, n g), b1 (k
-  2t+8, n g)), g = lane / 4, t = lane % 4, summed in k order;
-* ``ldmatrix`` x4 (and ``.trans``): lanes 8i..8i+7 give matrix i's row
+* the backward's bf16 ``wgmma`` m64nNk16: each thread's accumulators
+  (warp w of its warpgroup: rows 16 w + g (+ 8), columns 8 n + 2 t
+  (+ 1), g = lane / 4, t = lane % 4) from A by its shared-memory
+  descriptor or from the warp's register fragments (a0 (g, 2t), a1 (g+8,
+  2t), a2 (g, 2t+8), a3 (g+8, 2t+8), two bf16 each) and B by its
+  descriptor, K-major or N-major (the transpose bit); each element read
+  where the descriptor's start, LBO, SBO and layout type (the 128-byte
+  swizzle included) put it, the card's canonical layouts;
+* TMA boxes: synchronous copies of 64 columns, written with the 128-byte
+  swizzle, columns past hd and positions past the sequence as 0, on a
+  1 024-byte boundary, their bytes completing the mbarrier's phase;
+  mbarriers: phases of arrivals and bytes, parity waits that let the
+  block's other threads run; ``setmaxnreg`` and the wgmma wait: barriers
+  of the warpgroup (every thread of it must reach them);
+* for the forward: ``mma.sync.m16n8k16`` (bf16 x bf16 -> f32): each
+  thread's four sums from the warp's A fragments (as above) and B
+  fragments (b0 (k 2t, n g), b1 (k 2t+8, n g)), summed in k order;
+  ``ldmatrix`` x4 (and ``.trans``): lanes 8i..8i+7 give matrix i's row
   addresses, each thread receives row lane / 4, elements 2 (lane % 4), +1
-  (of the transpose with ``.trans``);
-* ``cp.async``: a synchronous 16-byte copy, or zeros; ``ex2``: ``exp2f``;
-* bf16: round to nearest even on 16-bit patterns.
+  (of the transpose with ``.trans``); ``cp.async``: a synchronous 16-byte
+  copy, or zeros;
+* ``ex2``: ``exp2f``; bf16: round to nearest even on 16-bit patterns.
 
-This checks the kernels' indexing, masking, staging and fragment
+This checks the kernels' indexing, masking, staging, ring and fragment
 bookkeeping, not the GPU's compiler or speed (``chip_smoke.py``'s
 flash_bwd_kernel phase and ``tests/test_torch_gpu.py`` run the real
 build on the card).  Skips without g++.
@@ -40,12 +56,15 @@ from repro_torch.kernels.flash_attention import (flash_attention_bwd_ref,
 ROOT = Path(__file__).resolve().parents[1]
 CSRC = ROOT / "src" / "repro_torch" / "csrc"
 MOCK = Path(__file__).resolve().parent / "cuda_cpu_mock.h"
+HOPPER = Path(__file__).resolve().parent / "cuda_cpu_mock_hopper.h"
 
 PRELUDE = r"""
 #define CUDA_CPU_MOCK 1
 #include "@MOCK@"
+#include "@HOPPER@"
 #undef __launch_bounds__
 #define __launch_bounds__(...)
+#define __grid_constant__
 constexpr int cudaErrorInvalidValue = 1;
 struct alignas(8) float2 { float x, y; };
 struct alignas(16) float4 { float x, y, z, w; };
@@ -87,7 +106,7 @@ inline void __syncwarp(unsigned = 0xffffffffu) {
   mock_warp_exchange(0, o);
 }
 // every lane's values, once all 32 lanes of the warp have given theirs
-inline uint64_t mock_lanes[8][32][8];
+inline uint64_t mock_lanes[16][32][8];
 inline uint64_t* mock_put(int n, const uint64_t* v) {
   const int w = threadIdx.x / 32, l = threadIdx.x % 32;
   for (int i = 0; i < n; ++i) mock_lanes[w][l][i] = v[i];
@@ -124,6 +143,12 @@ inline void cp_async16(void* dst, const void* src, bool valid) {
   if (valid) std::memcpy(dst, src, 16);
   else std::memset(dst, 0, 16);
 }
+inline void cp_async4(void* dst, const void* src, bool valid) {
+  if (valid) std::memcpy(dst, src, 4);
+  else std::memset(dst, 0, 4);
+}
+// the copies above land at once: the arrival follows them
+inline void cp_async_arrive(uint64_t* bar) { mbar_arrive(bar); }
 inline void cp_async_commit() {}
 template <int N>
 inline void cp_async_wait() {}
@@ -185,6 +210,83 @@ inline void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
   __syncwarp();
 }
 
+// TMA: the (batch, seq, heads, hd) bf16 array of a map, boxes of 64
+// columns x `rows` positions written with the 128-byte swizzle; columns
+// past hd and positions past seq as 0
+struct TensorMap {
+  const uint16_t* base;
+  int hd, heads, seq, batch, rows;
+};
+inline int make_map(TensorMap* m, const void* base, int hd, int heads,
+                    int seq, int batch, int rows) {
+  if (reinterpret_cast<uintptr_t>(base) % 16 || rows < 1 || rows > 256)
+    mock_fail("TMA map: base off 16 bytes or box rows out of range");
+  *m = TensorMap{static_cast<const uint16_t*>(base), hd, heads, seq, batch,
+                 rows};
+  return 0;
+}
+inline void tma_load(void* dst, const TensorMap* m, int c0, int h, int s,
+                     int b, uint64_t* bar) {
+  mock_box_aligned(dst, 1024);    // the swizzle's 8-row pattern
+  const uint32_t at = smem_addr(dst);
+  if (at + 128u * m->rows > mock_dynamic_smem.size())
+    mock_fail("TMA box past the end of shared memory");
+  for (int r = 0; r < m->rows; ++r)
+    for (int c = 0; c < 64; ++c) {
+      const uint16_t x = c0 + c < m->hd && s + r < m->seq
+          ? m->base[((static_cast<int64_t>(b) * m->seq + s + r) * m->heads
+                     + h) * m->hd + c0 + c] : 0;
+      std::memcpy(mock_smem() + mock_sw128(at + 128 * r + 2 * c), &x, 2);
+    }
+  mock_complete(bar, 128LL * m->rows);
+}
+
+// bf16 wgmma m64nNk16: this thread's accumulators (warp w of its
+// warpgroup: rows 16 w + g (+ 8), columns 8 n + 2 t (+ 1)) from A by its
+// descriptor (K-major) or as the warp's register fragments (mma.sync
+// m16n8k16's A: a0 (g, 2t..), a1 (g+8, 2t..), a2 (g, 2t+8..), a3 (g+8,
+// 2t+8..)) and B by its descriptor, K-major or (trans) N-major; exact
+// products of bf16, summed in f32 in k order
+inline float mock_bf16_at(uint64_t d, int mn, int k, bool mn_major) {
+  uint16_t h;
+  std::memcpy(&h, mock_smem() + mock_desc_offset(d, mn, k, 2, mn_major), 2);
+  return __bfloat162float({h});
+}
+template <int R>
+inline void mock_wgmma_bf16(float (&d)[R], uint64_t a, const uint32_t* areg,
+                            uint64_t b, bool b_trans, int add) {
+  const int w = (threadIdx.x / 32) % 4, l = threadIdx.x % 32;
+  const int g = l / 4, t = l % 4;
+  uint32_t lanes[32][4];
+  if (areg) mock_warp_regs(areg, lanes);
+  // this thread's two rows of A and R / 2 columns of B, each read once
+  float av[2][16], bv[R / 2][16];
+  for (int h = 0; h < 2; ++h) {
+    const int rl = g + 8 * h;
+    for (int k = 0; k < 16; ++k)
+      av[h][k] = areg ? mock_half(lanes[(rl % 8) * 4 + (k % 8) / 2]
+                                       [(rl >= 8) + 2 * (k >= 8)], k)
+                      : mock_bf16_at(a, 16 * w + rl, k, false);
+  }
+  for (int n = 0; n < R / 2; ++n)
+    for (int k = 0; k < 16; ++k)
+      bv[n][k] = mock_bf16_at(b, 8 * (n / 2) + 2 * t + n % 2, k, b_trans);
+  for (int e = 0; e < R; ++e) {
+    const float* ar = av[(e / 2) % 2];
+    const float* br = bv[2 * (e / 4) + e % 2];
+    float s = add ? d[e] : 0.0f;
+    for (int k = 0; k < 16; ++k) s += ar[k] * br[k];
+    d[e] = s;
+  }
+}
+inline void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int add) {
+  mock_wgmma_bf16(d, a, nullptr, b, false, add);
+}
+template <int R>
+inline void wgmma_rs(float (&d)[R], const uint32_t (&a)[4], uint64_t b) {
+  mock_wgmma_bf16(d, 0, a, b, true, 1);
+}
+
 // kernel<<<grid, block, smem, stream>>>(args...) with a 1-D or 2-D grid
 template <class K, class... A>
 void mock_launch2(dim3 grid, int block, size_t smem, cudaStream_t, K kern,
@@ -211,7 +313,8 @@ def mock_source(name: str) -> str:
     src = (CSRC / f"{name}.cu").read_text()
     src = src.replace("#include <cuda_bf16.h>", "")
     src = src.replace("#include <cuda_runtime.h>",
-                      PRELUDE.replace("@MOCK@", str(MOCK)))
+                      PRELUDE.replace("@MOCK@", str(MOCK))
+                      .replace("@HOPPER@", str(HOPPER)))
     src = src.replace("extern __shared__ float4 smem4[];",
                       "float4* smem4 = reinterpret_cast<float4*>(mock_smem());")
     return re.sub(r"([\w<>:]+?)<<<(.*?)>>>\(", r"mock_launch2(\2, \1, ", src,
@@ -292,15 +395,24 @@ def inputs(b, sq, skv, h, kv, hd, dtype, seed):
 #: takes, causal and not
 SHAPES = [(2, 70, 70, 4, 2, 32, True), (1, 45, 77, 3, 1, 64, False),
           (1, 66, 66, 3, 3, 112, True), (1, 40, 40, 2, 1, 128, False)]
+#: bf16 only, the tensor-core design's hazards: more query tiles a head
+#: than ring stages (and a last key block with fewer), Skv > Sq and a
+#: second consumer with no keys, hd 112's two boxes a row causal with
+#: GQA, hd 32 with more key tiles than stages in dq
+BF16_SHAPES = [(1, 300, 300, 3, 1, 64, True), (1, 70, 150, 2, 2, 128, False),
+               (1, 150, 150, 4, 2, 112, True), (2, 200, 200, 2, 1, 32, False)]
+CASES = [(s, dt) for s in SHAPES for dt in (torch.float32, torch.bfloat16)] \
+    + [(s, torch.bfloat16) for s in BF16_SHAPES]
 #: dtype -> (rtol, atol) of the gradients against the plain version: f32
 #: sums in another order; bf16 also rounds P and dS to bf16 before the
 #: products (the plain version keeps f32) and the outputs to bf16
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (3e-2, 3e-2)}
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize(
+    "shape,dtype", CASES,
+    ids=["x".join(map(str, s)) + "-" + str(dt).split(".")[-1]
+         for s, dt in CASES])
 def test_backward_kernel_source_matches_plain(libs, shape, dtype):
     *dims, causal = shape
     q, k, v, do = inputs(*dims, dtype, seed=list(dims))

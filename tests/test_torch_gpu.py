@@ -754,7 +754,8 @@ def test_model_check_with_the_step_kernel(name, cuda_device):
 @pytest.mark.parametrize("shape", [(2, 200, 200, 9, 3, 64, True, "bfloat16"),
                                    (1, 130, 95, 4, 1, 128, False, "float32"),
                                    (1, 100, 100, 8, 2, 112, True, "bfloat16"),
-                                   (2, 70, 70, 4, 2, 32, True, "float32")])
+                                   (2, 70, 70, 4, 2, 32, True, "float32"),
+                                   (2, 70, 70, 4, 2, 32, True, "bfloat16")])
 def test_flash_backward_kernel_matches_plain_version(shape, cuda_device):
     """dq, dk, dv and the forward's lse against the plain versions; two
     backward launches give the same bits; the forward with lse gives the

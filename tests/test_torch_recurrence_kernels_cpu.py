@@ -14,12 +14,15 @@ few PTX helpers each source keeps under
   state (start, LBO, SBO; no swizzle, K-major) or, for a register A,
   from the warp's m16n8k8 A fragments (a0 (g, t), a1 (g+8, t), a2 (g,
   t+4), a3 (g+8, t+4)), reading the top 19 bits of each operand; the
-  wait is a barrier of warpgroup 0's 128 threads (the card's wgmma reads
-  are done by then);
+  wait is a barrier of the warpgroup's 128 threads (the card's wgmma
+  reads are done by then);
 * the TMA boxes: synchronous copies that check the alignment the card
   needs and read past an array's end as 0; the mbarrier: phases that
-  complete when the bytes expected have been copied, and a wait on one
-  lets the other threads run (``mock_yield``);
+  complete when their arrivals are in and the bytes expected have been
+  copied, and a wait on one lets the other threads run (``mock_yield``).
+  The mbarrier, warpgroup and descriptor stand-ins are
+  ``tests/cuda_cpu_mock_hopper.h``'s, shared with
+  ``tests/test_torch_flash_bwd_cpu.py``;
 * acquire/release flags: ``std::atomic_ref``.
 
 Blocks run one after another, so the rglru look-back always finds the
@@ -46,13 +49,12 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 CSRC = ROOT / "src" / "repro_torch" / "csrc"
 MOCK = Path(__file__).resolve().parent / "cuda_cpu_mock.h"
+HOPPER = Path(__file__).resolve().parent / "cuda_cpu_mock_hopper.h"
 
 PRELUDE = r"""
 #define CUDA_CPU_MOCK 1
 #include "@MOCK@"
-#include <cstdio>
-#include <cstdlib>
-#include <map>
+#include "@HOPPER@"
 #undef __launch_bounds__
 #define __launch_bounds__(...)
 #define __grid_constant__
@@ -70,10 +72,6 @@ inline uint32_t __float_as_uint(float f) {
   std::memcpy(&u, &f, 4);
   return u;
 }
-inline void mock_fail(const char* what) {
-  std::fprintf(stderr, "mock: %s\n", what);
-  std::abort();
-}
 inline void __syncwarp(unsigned = 0xffffffffu) {
   uint64_t o[32];
   mock_warp_exchange(0, o);
@@ -88,84 +86,20 @@ inline float __shfl_sync(unsigned, float v, int src) {
   __syncwarp();
   return r;
 }
-// the 128 threads of warpgroup 0: a barrier of their own, reused block
-// after block (the other threads run on while they wait)
-inline int mock_wg_arrived = 0;
-inline unsigned mock_wg_gen = 0;
-inline void mock_wg0_sync() {
-  const unsigned gen = mock_wg_gen;
-  if (++mock_wg_arrived == 128) {
-    mock_wg_arrived = 0;
-    ++mock_wg_gen;
-    return;
-  }
-  while (mock_wg_gen == gen) mock_yield();
-}
-
-// an mbarrier of one arrival: its transaction bytes still pending and the
-// phases completed (copies here are synchronous, so a phase completes
-// when its copies have all been issued)
-struct MockBar {
-  long long pending = 0;
-  int done = 0;
-};
-inline std::map<const void*, std::unique_ptr<MockBar>> mock_bars;
-inline MockBar& mock_bar(const void* p) {
-  auto& b = mock_bars[p];
-  if (!b) b = std::make_unique<MockBar>();
-  return *b;
-}
-inline void mbar_init(uint64_t* bar) {
-  mock_bar(bar).pending = 0;
-  mock_bar(bar).done = 0;
-}
-inline void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  mock_bar(bar).pending += bytes;
-}
-inline void mock_complete(uint64_t* bar, long long bytes) {
-  MockBar& b = mock_bar(bar);
-  const long long left = b.pending -= bytes;
-  if (left < 0) mock_fail("mbarrier: more bytes copied than expected");
-  if (left == 0) ++b.done;
-}
-// the phase of that parity has completed
-inline void mbar_wait(uint64_t* bar, uint32_t parity = 0) {
-  MockBar& b = mock_bar(bar);
-  for (int spin = 0; b.done % 2 == static_cast<int>(parity); ++spin) {
-    if (spin > 20000000) mock_fail("mbarrier: a phase never completed");
-    mock_yield();
-  }
-}
-inline void mock_box_aligned(const float* dst) {
-  if ((reinterpret_cast<const unsigned char*>(dst) - mock_smem()) % 128)
-    mock_fail("TMA box off a 128-byte boundary of shared memory");
-}
-inline void fence_proxy_async() {}
 @MAPS@
 
-// wgmma.  A descriptor as the card reads it: the tile's shared-memory
-// offset, LBO and SBO, each in 16-byte units
+// wgmma (tf32).  A descriptor as the source builds it: no swizzle, the
+// tile's shared-memory offset, LBO and SBO, each in 16-byte units
 inline uint64_t desc(const float* p, int lbo = 128, int sbo = 256) {
-  const uint64_t a = static_cast<uint64_t>(
-      reinterpret_cast<const unsigned char*>(p) - mock_smem());
-  return (a >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16)
+  return (smem_addr(p) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16)
          | (static_cast<uint64_t>(sbo >> 4) << 32);
 }
-// element (row, k) of the tile a descriptor points to
+// element (row, k) of the K-major tile a descriptor points to
 inline float mock_at(uint64_t d, int row, int k) {
-  const unsigned char* base = mock_smem() + ((d & 0x3FFF) << 4);
-  const int lbo = static_cast<int>((d >> 16) & 0x3FFF) << 4;
-  const int sbo = static_cast<int>((d >> 32) & 0x3FFF) << 4;
   float x;
-  std::memcpy(&x, base + (row / 8) * sbo + (k / 4) * lbo + (row % 8) * 16
-                      + (k % 4) * 4, 4);
+  std::memcpy(&x, mock_smem() + mock_desc_offset(d, row, k, 4, false), 4);
   return x;
 }
-inline void wgmma_fence() {}
-template <class T, int N>
-inline void reg_fence(T (&)[N]) {}
-// every lane's wgmma reads are done once the warpgroup has waited
-inline void wgmma_commit_wait() { mock_wg0_sync(); }
 // d (+)= a b for this thread's accumulators (warp w of the warpgroup: rows
 // 16 w + g (+ 8), columns 8 n + 2 t (+ 1)), operands' top 19 bits; a (64
 // x 8) by a descriptor, or (areg) as each warp's m16n8k8 A fragments
@@ -175,28 +109,29 @@ inline void mock_wgmma(float (&d)[R], uint64_t a, const uint32_t* areg,
   auto tf = [](float x) {
     return __uint_as_float(__float_as_uint(x) & 0xffffe000u);
   };
-  const int wl = threadIdx.x / 32, w = wl % 4, l = threadIdx.x % 32;
+  const int w = (threadIdx.x / 32) % 4, l = threadIdx.x % 32;
   const int g = l / 4, t = l % 4;
-  if (areg) {
-    for (int e = 0; e < 4; ++e)
-      mock_lanes[wl][l][e] = __uint_as_float(areg[e]);
-    __syncwarp();
+  uint32_t lanes[32][4];
+  if (areg) mock_warp_regs(areg, lanes);
+  // this thread's two rows of A and R / 2 columns of B, each read once
+  float av[2][8], bv[R / 2][8];
+  for (int h = 0; h < 2; ++h) {
+    const int rl = g + 8 * h;
+    for (int k = 0; k < 8; ++k)
+      av[h][k] = tf(areg ? __uint_as_float(lanes[(rl % 8) * 4 + k % 4]
+                                                [(rl >= 8) + 2 * (k >= 4)])
+                         : mock_at(a, 16 * w + rl, k));
   }
-  float out[R];
+  for (int n = 0; n < R / 2; ++n)
+    for (int k = 0; k < 8; ++k)
+      bv[n][k] = tf(mock_at(b, 8 * (n / 2) + 2 * t + n % 2, k));
   for (int e = 0; e < R; ++e) {
-    const int rl = g + 8 * ((e / 2) % 2), row = 16 * w + rl;
-    const int col = 8 * (e / 4) + 2 * t + e % 2;
+    const float* ar = av[(e / 2) % 2];
+    const float* br = bv[2 * (e / 4) + e % 2];
     float s = add ? d[e] : 0.0f;
-    for (int k = 0; k < 8; ++k) {
-      const float av = areg ? mock_lanes[wl][(rl % 8) * 4 + k % 4]
-                                        [(rl >= 8) + 2 * (k >= 4)]
-                            : mock_at(a, row, k);
-      s += tf(av) * tf(mock_at(b, col, k));
-    }
-    out[e] = s;
+    for (int k = 0; k < 8; ++k) s += ar[k] * br[k];
+    d[e] = s;
   }
-  if (areg) __syncwarp();
-  for (int e = 0; e < R; ++e) d[e] = out[e];
 }
 inline void wgmma16(float (&d)[8], uint64_t a, uint64_t b, int add) {
   mock_wgmma(d, a, nullptr, b, add);
@@ -281,6 +216,7 @@ def mock_source(name: str) -> str:
     src = (CSRC / f"{name}.cu").read_text()
     src = src.replace("#include <cuda_runtime.h>",
                       PRELUDE.replace("@MOCK@", str(MOCK))
+                      .replace("@HOPPER@", str(HOPPER))
                       .replace("@MAPS@", MAPS[name]))
     src = re.sub(r"extern __shared__ __align__\(\d+\) float (\w+)\[\];",
                  r"float* \1 = reinterpret_cast<float*>(mock_smem());", src)

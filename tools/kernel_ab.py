@@ -5,6 +5,7 @@ in turns.
     python3 tools/kernel_ab.py --base DIR            # the four LM kernels
     python3 tools/kernel_ab.py --base DIR --only rglru,rwkv
     python3 tools/kernel_ab.py --base DIR --only scatter
+    python3 tools/kernel_ab.py --base DIR --only flash_bwd
     python3 tools/kernel_ab.py --base DIR --engine   # the simulator
 
 DIR is another checkout of this repository (for instance ``git archive
@@ -32,6 +33,17 @@ model's ``(T, B, w)`` views of ``(B, T, w)`` tensors (``this_model_ms``;
 the base design took those only through two ``.contiguous()`` copies,
 which its row adds as ``base_copies_ms``).  ``--only`` picks the
 kernels: ``flash``, ``gmm``, ``rglru``, ``rwkv``, ``scatter``.
+
+``flash_bwd`` (not in the default set): DIR's
+``flash_attention_bwd.cu`` against this tree's, both bound through this
+tree's C signatures (the two entries have not changed), at
+``FLASH_BWD_AB`` (train_b's shape and a bf16 hd-128 one), on the forward
+kernel's o and lse: base, this, this, base, each call both launches.
+Both builds' dq, dk and dv are held to the plain version within
+``chip_smoke.FLASH_BWD_TOL`` (atol a fraction of each gradient's largest
+magnitude).  Each row also holds both bounds (the gradient's five
+products, ``bound_ms``, and the two-launch design's seven,
+``bound7_ms``) and ``scaled_dot_product_attention``'s backward.
 
 ``scatter`` (not in the default set): DIR's ``colibri_scatter.cu``
 against this tree's, on pre-sorted streams, at every
@@ -93,9 +105,14 @@ BASE_RGLRU_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 \
 #: ``colibri_commit_launch``: keys, vals, out, T, d, bins, dtype, stream
 BASE_SCATTER_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] \
     + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+#: (b, sq, skv, h, kv, hd, causal, dtype) of ``--only flash_bwd``:
+#: train_b's shape and a bf16 hd-128 one (16 query heads on 4, 2 048
+#: tokens, causal)
+FLASH_BWD_AB = (cs.FLASH_BWD_HEAD, (4, 2048, 2048, 16, 4, 128, True,
+                                    "bfloat16"))
 KERNELS = ("flash", "gmm", "rglru", "rwkv")
 #: kinds --only also takes, outside the default set
-EXTRA = ("scatter",)
+EXTRA = ("scatter", "flash_bwd")
 
 
 def base_library(base: Path, name: str) -> ctypes.CDLL:
@@ -293,6 +310,8 @@ def main() -> int:
         rwkv_rows(args.base, dev)
     if "scatter" in only:
         scatter_rows(args.base, dev)
+    if "flash_bwd" in only:
+        flash_bwd_rows(args.base, dev)
     print(cs.smi_line(), flush=True)
     return 0
 
@@ -396,6 +415,79 @@ def scatter_rows(base: Path, dev) -> None:
                    base_err=errs[0], this_err=errs[1],
                    **cs.scatter_bound(t, bins, d, sv.element_size()))
         print(json.dumps(rec), flush=True)
+
+
+
+def bwd_call(fns, q, k, v, o, do, lse, causal):
+    """The two backward launches through ``fns`` (dq, dk/dv entries):
+    (dq, dk, dv)."""
+    dq_fn, dkdv_fn = fns
+    b, sq, h, hd = q.shape
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty_like(lse)
+    dims = (b, sq, k.shape[1], h, k.shape[2], hd, int(causal), hd ** -0.5,
+            fa.DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
+    for err in (dq_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                      delta.data_ptr(), dq.data_ptr(), *dims),
+                dkdv_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                        dk.data_ptr(), dv.data_ptr(), *dims)):
+        if err:
+            raise RuntimeError(f"flash_attention_bwd launch: CUDA error {err}")
+    return dq, dk, dv
+
+
+def bwd_agrees(got, want, dtype) -> float:
+    """The largest |difference| of dq, dk, dv from the plain version's,
+    each within ``FLASH_BWD_TOL`` (atol times its largest magnitude)."""
+    rtol, atol = cs.FLASH_BWD_TOL[dtype]
+    worst = 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        gf, wf = g.float(), w.float()
+        err = float((gf - wf).abs().max())
+        if not torch.allclose(gf, wf, rtol=rtol,
+                              atol=atol * float(wf.abs().max())):
+            raise RuntimeError(f"{name} differs from the plain version by "
+                               f"{err}")
+        worst = max(worst, err)
+    return worst
+
+
+def flash_bwd_rows(base: Path, dev) -> None:
+    """The flash-attention backward at ``FLASH_BWD_AB``: base against
+    this tree."""
+    lib = base_library(base, "flash_attention_bwd")
+    this_fns = fa._bwd_launchers()
+    base_fns = (lib.flash_attention_bwd_dq_launch,
+                lib.flash_attention_bwd_dkdv_launch)
+    for fn, ref in zip(base_fns, this_fns):
+        fn.argtypes, fn.restype = ref.argtypes, ref.restype
+    for shape in FLASH_BWD_AB:
+        b, sq, skv, h, kv, hd, causal, dtype = shape
+        q, k, v = cs.flash_inputs(dev, b, sq, skv, h, kv, hd, dtype, seed=5)
+        do = torch.randn(q.shape, generator=torch.Generator(device=dev)
+                         .manual_seed(6), device=dev).to(q.dtype)
+        o, lse = fa.flash_attention_fwd_lse_cuda(q, k, v, causal=causal)
+        want = cs.flash_attention.flash_attention_bwd_ref(q, k, v, o, do,
+                                                          lse, causal=causal)
+        errs = [bwd_agrees(bwd_call(fns, q, k, v, o, do, lse, causal), want,
+                           dtype) for fns in (base_fns, this_fns)]
+        del want
+        torch.cuda.empty_cache()
+        rec = dict(kernel="flash_attention_bwd", shape=shape,
+                   **turns(lambda: bwd_call(base_fns, q, k, v, o, do, lse,
+                                            causal),
+                           lambda: bwd_call(this_fns, q, k, v, o, do, lse,
+                                            causal), 10),
+                   base_err=errs[0], this_err=errs[1],
+                   **cs.flash_bwd_bound(*shape))
+        rec["speedup"] = rec["base_ms"] / rec["this_ms"]
+        rec["library_fwd_ms"], rec["library_ms"] = cs.sdpa_ms(q, k, v, do,
+                                                              causal)
+        print(json.dumps(rec), flush=True)
+        del q, k, v, o, do, lse
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -108,9 +108,28 @@ Phases, one JSON line each:
    through ``ServeEngine``: exactly 2 flash_attention and 3
    grouped_matmul launches per prefill and 3 grouped_matmul launches per
    decode step;
+   flash_window — the flash kernel's window and MLA's head dims against
+   the plain version within ``FLASH_TOL`` (``FLASH_WINDOW_SHAPES``, f32
+   and bf16): long_serve_b's band (6 144 tokens, window 2 048), a window
+   past the sequence (the causal kernel's bits), mla_serve_b's 192/128
+   shape and a ragged one;
+   mla_serve_a — deepseek-v3-671b at full width, 2 layers (dense, MoE;
+   the MoE layers start at 1), experts cut to 32, f32, card logits
+   against the CPU's as moe_serve_a; mla_serve_b — a main path: full
+   width with all 256 experts, depth cut to 4 (the three dense layers
+   and the first MoE layer), bf16, four 512-token requests and 16 new
+   tokens each: exactly 4 flash_attention (at 192/128) and 3
+   grouped_matmul launches per prefill, 3 grouped_matmul per decode
+   step;
+   long_serve_a — recurrentgemma-2b, one (rglru, rglru, local) unit, f32,
+   two 4 096-token prompts (twice the window), card against CPU as
+   serve_a; long_serve_b — a main path: full width and depth, bf16, two
+   6 144-token prompts, 16 new each: 8 windowed flash_attention and 18
+   rglru_scan launches per prefill;
    lm_kernel_time — the four kernels' device time at the serve shapes
    beside their bounds, their plain versions and the library call
-   (flash: ``scaled_dot_product_attention``, also at head dim 112;
+   (flash: ``scaled_dot_product_attention``, also at head dim 112, at
+   the band (with a boolean band mask) and at 192/128;
    grouped_matmul: ``torch.bmm``);
 5b. the training path, smollm-135m (the dense family):
    flash_bwd_kernel — the flash-attention backward kernels
@@ -717,9 +736,10 @@ MOE_ARCH = "kimi-k2-1t-a32b"
 #: (E, C, d, f) of the serve path's expert GEMMs, bf16: gate/up (384, C,
 #: 7168) @ (384, 7168, 2048) and down (384, C, 2048) @ (384, 2048, 7168)
 #: at moe_serve_b's capacity, C = 56 in the prefill (4 x 512 tokens) and
-#: 8 in decode
-GMM_SERVE = tuple((384, c, d, f) for c in (56, 8)
-                  for d, f in ((7168, 2048), (2048, 7168)))
+#: 8 in decode; then deepseek-v3-671b's at mla_serve_b's, 256 experts,
+#: C = 80 in the prefill and 8 in decode
+GMM_SERVE = tuple((e, c, d, f) for e, cs in ((384, (56, 8)), (256, (80, 8)))
+                  for c in cs for d, f in ((7168, 2048), (2048, 7168)))
 #: (E, C, d, f) and dtype of the gmm_kernel phase: the reference tests'
 #: shapes (tests/test_kernels.py) and an odd one (no dimension a multiple
 #: of 8) in both dtypes, then the serve shapes
@@ -751,6 +771,38 @@ NEAR_TIE = 1e-5
 #: (dense, MoE), bf16; 4 requests x 512 tokens, 16 new each
 MOE_SERVE_B = dict(layers=2, requests=4, prompt=512, new=16, seed=37)
 MOE_SERVE_B_LAUNCHES = {"flash_attention": 2, "grouped_matmul": 3}
+
+# ---- the LM serve paths: deepseek-v3-671b (MLA), long local prompts ---
+MLA_ARCH = "deepseek-v3-671b"
+#: (b, s, h, kv, hd, hdv, window, dtype) of the flash_window phase, all
+#: causal over s queries and s keys: long_serve_b's band (10 heads on 1,
+#: hd 256, window 2 048), a window past the sequence (which must give the
+#: causal kernel's bits), mla_serve_b's prefill (128 heads, q/k 192, v
+#: 128) and a ragged 192/128 one, in f32 and bf16
+FLASH_WINDOW_SHAPES = tuple(
+    (b, s, h, kv, hd, hdv, w, dt) for dt in ("float32", "bfloat16")
+    for b, s, h, kv, hd, hdv, w in ((2, 6144, 10, 1, 256, 256, 2048),
+                                    (2, 512, 10, 1, 256, 256, 4096),
+                                    (4, 512, 128, 128, 192, 128, 0),
+                                    (1, 777, 16, 16, 192, 128, 0)))
+#: long_serve_b's and mla_serve_b's prefill shapes: the kernels line's
+#: times at the band and at 192/128
+FLASH_BAND = FLASH_WINDOW_SHAPES[4]
+FLASH_MLA = FLASH_WINDOW_SHAPES[6]
+#: mla_serve_a: full width, 2 layers (the MoE layers start at 1, so one
+#: dense and one MoE), experts cut to 32 so that the CPU holds the f32
+#: copy (~16.3 GB), f32, as moe_serve_a
+MLA_SERVE_A = dict(layers=2, experts=32, moe_start=1, requests=2,
+                   prompt=256, new=8, seed=47)
+MLA_SERVE_A_LAUNCHES = {"flash_attention": 2, "grouped_matmul": 3}
+#: mla_serve_b: full width with all 256 experts, depth cut to 4 (the
+#: three dense layers and the first MoE layer), bf16; 4 x 512 tokens
+MLA_SERVE_B = dict(layers=4, requests=4, prompt=512, new=16, seed=53)
+MLA_SERVE_B_LAUNCHES = {"flash_attention": 4, "grouped_matmul": 3}
+#: long_serve_a: recurrentgemma-2b as serve_a, prompts twice the window
+LONG_SERVE_A = dict(layers=3, requests=2, prompt=4096, new=8, seed=59)
+#: long_serve_b: full width and depth, bf16, 2 x 6 144 tokens, 16 new
+LONG_SERVE_B = dict(requests=2, prompt=6144, new=16, seed=61)
 
 #: the LM path's kernels: a serve point must launch each exactly as often
 #: as its table says (0 where it names none)
@@ -3183,14 +3235,15 @@ def time_trace_streams(dev, streams: dict) -> list:
 
 # ---- the LM serve path ---------------------------------------------------
 
-def flash_inputs(dev, b, sq, skv, h, kv, hd, dtype, seed):
-    """Seeded standard-normal q ``(b, sq, h, hd)`` and k, v ``(b, skv,
-    kv, hd)`` on the card."""
+def flash_inputs(dev, b, sq, skv, h, kv, hd, dtype, seed, hdv=None):
+    """Seeded standard-normal q ``(b, sq, h, hd)``, k ``(b, skv, kv,
+    hd)`` and v ``(b, skv, kv, hdv)`` (hdv = hd by default) on the
+    card."""
     g = torch.Generator(device=dev).manual_seed(seed)
     dt = getattr(torch, dtype)
     return tuple(torch.randn(shape, generator=g, device=dev).to(dt)
                  for shape in ((b, sq, h, hd), (b, skv, kv, hd),
-                               (b, skv, kv, hd)))
+                               (b, skv, kv, hdv or hd)))
 
 
 def phase_flash_kernel(dev) -> dict:
@@ -3397,14 +3450,22 @@ def router_diffs(cpu: RouterLog, card: RouterLog, k: int) -> list:
     return diffs
 
 
+#: the keys of a serve point that cut its config (``lm_cfg``)
+CUT_KEYS = ("layers", "experts", "moe_start")
+
+
 def lm_cfg(arch: str, cut: dict, **kw):
     """``arch``'s config cut as ``cut`` says (``layers``: depth;
-    ``experts``: the MoE layers' routed experts), with ``kw`` replaced."""
+    ``experts``: the MoE layers' routed experts; ``moe_start``: the first
+    MoE layer), with ``kw`` replaced."""
     cfg = get_config(arch)
     if "layers" in cut:
         kw["num_layers"] = cut["layers"]
-    if "experts" in cut:
-        kw["moe"] = dataclasses.replace(cfg.moe, num_experts=cut["experts"])
+    moe_kw = {k: cut[c] for k, c in (("num_experts", "experts"),
+                                     ("moe_layer_start", "moe_start"))
+              if c in cut}
+    if moe_kw:
+        kw["moe"] = dataclasses.replace(cfg.moe, **moe_kw)
     return dataclasses.replace(cfg, **kw)
 
 
@@ -3468,6 +3529,8 @@ def serve_a(dev, arch: str, sa: dict, want: dict, phase: str,
             f"card tokens {card_tokens} != CPU tokens {cpu_tokens}")
     emit(phase=phase, arch=arch, layers=sa["layers"],
          experts=cfg.moe.num_experts if cfg.moe is not None else None,
+         reduced=dict({k: sa[k] for k in CUT_KEYS if k in sa},
+                      dtype="float32"),
          requests=sa["requests"], prompt=sa["prompt"], new=sa["new"],
          dtype="float32", max_abs_err_by_step=errs, max_abs_err=max(errs),
          tolerance=SERVE_A_TOL, launches=launches,
@@ -3612,6 +3675,7 @@ def serve_b(dev, arch: str, sb: dict, want: dict, phase: str,
             f"{want_decode} per step")
     decode_s = sum(c["seconds"] for c in dec)
     emit(phase=phase, arch=arch, layers=cfg.num_layers,
+         reduced={k: sb[k] for k in CUT_KEYS if k in sb},
          params=n_params, weight_bytes=weight_bytes, dtype=cfg.param_dtype,
          requests=sb["requests"],
          prompt=sb["prompt"], new=sb["new"], init_s=init_s,
@@ -3708,16 +3772,89 @@ def phase_moe_serve_b(dev) -> dict:
                    "moe_serve_b", MOE_DECODE_LAUNCHES)
 
 
-def flash_bound(b, sq, skv, h, kv, hd, causal, dtype) -> dict:
+def phase_flash_window(dev) -> dict:
+    """The flash kernel with a window and at 192/128 against its plain
+    version at ``FLASH_WINDOW_SHAPES``; a window past the sequence gives
+    the causal kernel's bits, one request alone its rows' bits in the
+    batch."""
+    gc.collect()                       # earlier phases' models
+    torch.cuda.empty_cache()
+    worst = dict.fromkeys(FLASH_TOL, 0.0)
+    cases = []
+    for i, (b, s, h, kv, hd, hdv, window, dtype) in enumerate(
+            FLASH_WINDOW_SHAPES):
+        q, k, v = flash_inputs(dev, b, s, s, h, kv, hd, dtype, 100 + i, hdv)
+        out = flash_attention.flash_attention(q, k, v, window=window)
+        ref = flash_attention.flash_attention_ref(q, k, v, window=window)
+        torch.cuda.synchronize()
+        what = f"{(b, s, h, kv, hd, hdv)} window={window} {dtype}"
+        require(out.dtype == q.dtype and tuple(out.shape) == (b, s, h, hdv),
+                f"{what}: output {out.dtype}{tuple(out.shape)}")
+        rtol, atol = FLASH_TOL[dtype]
+        err = float((out.float() - ref.float()).abs().max())
+        require(torch.allclose(out.float(), ref.float(), rtol=rtol,
+                               atol=atol),
+                f"{what}: kernel differs from plain by {err}")
+        if window >= s:
+            require(torch.equal(out, flash_attention.flash_attention(
+                q, k, v)), f"{what}: differs from the causal kernel")
+        if b > 1:
+            solo = flash_attention.flash_attention(
+                q[-1:].contiguous(), k[-1:].contiguous(), v[-1:].contiguous(),
+                window=window)
+            require(torch.equal(solo, out[-1:]),
+                    f"{what}: the last request alone differs from its rows "
+                    f"in the batch")
+        cases.append(dict(shape=(b, s, h, kv, hd, hdv), window=window,
+                          dtype=dtype, max_abs_err=err,
+                          ref_max=float(ref.float().abs().max())))
+        worst[dtype] = max(worst[dtype], err)
+        del q, k, v, out, ref
+    emit(phase="flash_window", cases=cases, max_abs_err=worst,
+         tolerance=FLASH_TOL, equal=True, batch_invariant=True,
+         window_past_sequence_bit_equal=True)
+    return worst
+
+
+def phase_mla_serve_a(dev) -> dict:
+    """deepseek-v3-671b, 2 layers (dense, MoE), 32 experts, f32."""
+    return serve_a(dev, MLA_ARCH, MLA_SERVE_A, MLA_SERVE_A_LAUNCHES,
+                   "mla_serve_a", MOE_DECODE_LAUNCHES, tokens_equal=True)
+
+
+def phase_mla_serve_b(dev) -> dict:
+    """deepseek-v3-671b, 4 layers (3 dense, 1 MoE), all 256 experts,
+    bf16."""
+    return serve_b(dev, MLA_ARCH, MLA_SERVE_B, MLA_SERVE_B_LAUNCHES,
+                   "mla_serve_b", MOE_DECODE_LAUNCHES)
+
+
+def phase_long_serve_a(dev) -> dict:
+    """recurrentgemma-2b, one (rglru, rglru, local) unit, f32, prompts
+    twice the window."""
+    return serve_a(dev, SERVE_ARCH, LONG_SERVE_A, SERVE_A_LAUNCHES,
+                   "long_serve_a")
+
+
+def phase_long_serve_b(dev) -> dict:
+    """recurrentgemma-2b, 26 layers, bf16, 6 144-token prompts."""
+    return serve_b(dev, SERVE_ARCH, LONG_SERVE_B, SERVE_B_LAUNCHES,
+                   "long_serve_b")
+
+
+def flash_bound(b, sq, skv, h, kv, hd, causal, dtype, window=0,
+                hdv=None) -> dict:
     """The least time the card could take for one flash call: q, k, v
     read once (KV heads not repeated), o written once, over 3.35 TB/s;
-    the products of the unmasked (query, key) pairs, 4 * hd flops each,
-    over the type's peak."""
+    the products of the unmasked (query, key) pairs, 2 * hd flops each
+    for S and 2 * hdv for P V, over the type's peak (causal: key j <= i;
+    a window also i - j < window)."""
+    hdv = hdv or hd
     size = torch.tensor([], dtype=getattr(torch, dtype)).element_size()
-    n_bytes = (2 * b * sq * h * hd + 2 * b * skv * kv * hd) * size
-    pairs = (sum(min(i + 1, skv) for i in range(sq)) if causal
-             else sq * skv)
-    flops = 4 * hd * pairs * b * h
+    n_bytes = (b * sq * h * (hd + hdv) + b * skv * kv * (hd + hdv)) * size
+    pairs = (sum(min(i + 1, skv, window or skv) for i in range(sq))
+             if causal else sq * skv)
+    flops = 2 * (hd + hdv) * pairs * b * h
     peak = BF16_FLOPS if dtype == "bfloat16" else F32_FLOPS
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
     return dict(bound_bytes=n_bytes, bound_flops=flops,
@@ -3725,24 +3862,39 @@ def flash_bound(b, sq, skv, h, kv, hd, causal, dtype) -> dict:
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_flash(dev, shape=FLASH_HEAD) -> dict:
+def time_flash(dev, shape=FLASH_HEAD, window=0, hdv=None) -> dict:
+    """The kernel, its plain version and ``scaled_dot_product_attention``
+    (heads first, KV heads repeated; a band as a boolean mask; v at its
+    own head dim) at ``shape``, with ``window`` and v's head dim."""
     b, sq, skv, h, kv, hd, causal, dtype = shape
-    q, k, v = flash_inputs(dev, b, sq, skv, h, kv, hd, dtype, seed=5)
+    q, k, v = flash_inputs(dev, b, sq, skv, h, kv, hd, dtype, 5, hdv)
     # the library call's layout: heads first, KV heads repeated
     qs, ks, vs = (t.repeat_interleave(h // t.shape[2], dim=2)
                   .transpose(1, 2).contiguous() for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    if window:
+        i = torch.arange(sq, device=dev)[:, None]
+        j = torch.arange(skv, device=dev)[None, :]
+        band = (j <= i) & (i - j < window)
+        library = lambda: sdpa(qs, ks, vs, attn_mask=band)   # noqa: E731
+    else:
+        library = lambda: sdpa(qs, ks, vs, is_causal=causal)  # noqa: E731
     launches = LAUNCHES["flash_attention"]
-    rec = dict(shape=shape,
+    rec = dict(shape=shape, window=window, hdv=hdv or hd,
                ms=device_ms(lambda: fa_kernel.flash_attention_cuda(
-                   q, k, v, causal=causal), 20),
+                   q, k, v, causal=causal, window=window), 20),
                plain_ms=device_ms(lambda: flash_attention.flash_attention_ref(
-                   q, k, v, causal=causal), 10),
-               library_ms=device_ms(lambda: sdpa(qs, ks, vs,
-                                                 is_causal=causal), 20),
-               **flash_bound(*shape))
+                   q, k, v, causal=causal, window=window), 10),
+               library_ms=device_ms(library, 20),
+               **flash_bound(*shape, window=window, hdv=hdv))
     LAUNCHES["flash_attention"] = launches     # timing runs are not counted
     return rec
+
+
+def time_flash_window(dev, shape) -> dict:
+    """``time_flash`` at a ``FLASH_WINDOW_SHAPES`` entry (causal)."""
+    b, s, h, kv, hd, hdv, window, dtype = shape
+    return time_flash(dev, (b, s, s, h, kv, hd, True, dtype), window, hdv)
 
 
 def rglru_bound(t, b, w) -> dict:
@@ -4220,13 +4372,23 @@ def lm_phases(dev) -> list:
     gmm_worst = timed(phase_gmm_kernel, dev)
     timed(phase_moe_serve_a, dev)
     moe_run = timed(phase_moe_serve_b, dev)
+    window_worst = timed(phase_flash_window, dev)
+    timed(phase_mla_serve_a, dev)
+    mla_run = timed(phase_mla_serve_b, dev)
+    timed(phase_long_serve_a, dev)
+    long_run = timed(phase_long_serve_b, dev)
     t0 = time.perf_counter()
     flash_t, rglru_t, rwkv_t = time_flash(dev), time_rglru(dev), \
         time_rwkv(dev)
     flash_moe_t, gmm_t = time_flash(dev, FLASH_MOE), time_gmm(dev)
+    band_t = time_flash_window(dev, FLASH_BAND)
+    mla_t = time_flash_window(dev, FLASH_MLA)
     emit(phase="lm_kernel_time", seconds=time.perf_counter() - t0,
          flash_attention=flash_t, flash_attention_hd112=flash_moe_t,
+         flash_attention_band=band_t, flash_attention_mla=mla_t,
          rglru_scan=rglru_t, rwkv6_wkv=rwkv_t, grouped_matmul=gmm_t)
+    flash_worst = {k: max(flash_worst[k], window_worst[k])
+                   for k in flash_worst}
     gmm_head = next(r for r in gmm_t if r["shape"] == GMM_HEAD)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return [
@@ -4237,11 +4399,19 @@ def lm_phases(dev) -> list:
              max_abs_err=max(flash_worst.values()),
              **{k: flash_t[k] for k in keys},
              max_abs_err_by_dtype=flash_worst, shape=flash_t["shape"],
-             hd112={k: flash_moe_t[k] for k in keys + ("shape",)}),
+             hd112={k: flash_moe_t[k] for k in keys + ("shape",)},
+             band={k: band_t[k] for k in keys + ("shape", "window")},
+             mla={k: mla_t[k] for k in keys + ("shape", "hdv")},
+             launches_by_path={
+                 "serve_b": main_run["launches"]["flash_attention"],
+                 "moe_serve_b": moe_run["launches"]["flash_attention"],
+                 "mla_serve_b": mla_run["launches"]["flash_attention"],
+                 "long_serve_b": long_run["launches"]["flash_attention"]}),
         dict(name="rglru_scan", route="cuda",
              source="src/repro_torch/csrc/rglru_scan.cu",
              replaces="src/repro/kernels/rglru_scan/kernel.py:20",
              launches=main_run["launches"]["rglru_scan"],
+             launches_long_serve_b=long_run["launches"]["rglru_scan"],
              max_abs_err=rglru_worst, **{k: rglru_t[k] for k in keys},
              shape=rglru_t["shape"], kernel_ms=rglru_t["kernel_ms"],
              contiguous_ms=rglru_t["contiguous_ms"]),
@@ -4255,6 +4425,7 @@ def lm_phases(dev) -> list:
              source="src/repro_torch/csrc/grouped_matmul.cu",
              replaces="src/repro/kernels/grouped_matmul/kernel.py:17",
              launches=moe_run["launches"]["grouped_matmul"],
+             launches_mla_serve_b=mla_run["launches"]["grouped_matmul"],
              max_abs_err=max(gmm_worst.values()),
              **{k: gmm_head[k] for k in keys},
              max_abs_err_by_dtype=gmm_worst, shape=gmm_head["shape"],

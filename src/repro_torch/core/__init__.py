@@ -6,4 +6,8 @@
 * ``topologies`` — registry of NoC shapes.
 * ``metrics``    — single derivation layer for the paper's metric triple.
 * ``costmodel``  — area/energy models calibrated to Tables I–II.
+* ``colibri``    — message-level protocol model (correctness: Section IV-A).
 """
+from repro_torch.core import colibri
+
+__all__ = ["colibri"]

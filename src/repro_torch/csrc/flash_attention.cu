@@ -11,11 +11,18 @@
 //   o[b, i, h, :] = sum_j softmax_j(scale * q[b, i, h] . k[b, j, g]) v[b, j, g]
 //
 // with g = h / (H / KV), scale = hd^-0.5, j over [0, Skv), and j <= i when
-// causal.  q, o are (B, Sq, H, hd) and k, v (B, Skv, KV, hd), row-major,
-// all float32 or all bfloat16; the softmax statistics and the sums are
-// float32, the output is written in the inputs' type.  The reference op
-// repeats each KV head H/KV times before its kernel; this kernel reads
-// query head h's KV head g in place instead, which is the same function.
+// causal; with a window W > 0 (causal only) also i - j < W, the band of
+// the reference's sliding_window_attention (src/repro/models/
+// attention.py::sliding_window_attention), which the local layers of the
+// LM prefill take.  q is (B, Sq, H, hd), k (B, Skv, KV, hd), v (B, Skv,
+// KV, hdv) and o (B, Sq, H, hdv), row-major, all float32 or all bfloat16;
+// hdv is hd, or 128 under hd 192 (MLA's q/k of 128 + 64 against its v of
+// 128: src/repro/models/attention.py::mla_apply pads v to 192 instead,
+// and keeps the first 128 columns of o).  The softmax statistics and the
+// sums are float32, the output is written in the inputs' type.  The
+// reference op repeats each KV head H/KV times before its kernel; this
+// kernel reads query head h's KV head g in place instead, which is the
+// same function.
 //
 // Both designs pack the rows of a KV head as its query heads at each
 // position, flattened as (position, head in the group): rows f = i * G +
@@ -30,8 +37,13 @@
 // running max, denominator and accumulator in f32 registers across tiles
 // (the TPU kernel carries them in VMEM scratch across its sequential
 // grid axis).  Causal blocks stop at the tile holding their last row's
-// position and are launched longest first.  The launcher picks the
-// design by dtype, in this one library, one launch per call:
+// position and are launched longest first; with a window a block starts
+// at the tile holding its first row's position - W + 1, and masks per
+// element (i - j >= W) beside the causal test, so a window that is not
+// a multiple of the key tile is exact.  W = 0 takes no other path than
+// before the window existed: the same tiles and the same bits.  The
+// launcher picks the design by dtype, in this one library, one launch
+// per call:
 //
 // bfloat16 -> tensor cores (namespace tc).  One block of 4 warps per
 // (64-row tile, b * KV + g), 16 rows a warp, 32-key K/V tiles.  S = Q K^T
@@ -77,16 +89,22 @@
 // Optional output, for the backward (flash_attention_bwd.cu): each query
 // row's natural-log log-sum-exp of its scaled, masked scores, f32 (B, H,
 // Sq), written after the key loop from the running max and denominator
-// (flash_attention_lse_launch).  The serving entry, flash_attention_launch,
-// passes a null pointer: nothing else of the kernel changes, so o has the
-// same bits with and without it.
+// (flash_attention_lse_launch).  The serving entry,
+// flash_attention_window_launch, passes a null pointer: nothing else of
+// the kernel changes, so o has the same bits with and without it.  The
+// lse entry takes neither a window nor hdv != hd (the backward has
+// neither).
 //
 // Dynamic shared memory, above the 48 KB default at most head dims (the
 // launcher raises each instantiation's limit once): tc, 64 query rows and
-// 2 stages of 32-key K and V tiles, (hd + 8) bf16 a row: 101 376 bytes
-// at hd 256, 46 080 at hd 112; cc, 32 hd floats of queries and 2 stages
-// of 32 (hd + 4) floats of K and V: 165 888 bytes at hd 256.  q, k, v
-// and o must start on 16-byte boundaries.
+// 2 stages of 32-key K tiles, (hd + 8) bf16 a row, and V tiles, (hdv +
+// 8): 101 376 bytes at hd 256, 46 080 at hd 112, 68 608 at 192/128; cc,
+// 32 hd floats of queries and 2 stages of 32 (hd + 4) floats of K and
+// (hdv + 4) of V: 165 888 bytes at hd 256, 108 544 at 192/128.  At
+// 192/128 the bf16 block keeps 64 f32 accumulators of o a thread (16
+// 8-column tiles of the 128 v columns) and walks 12 16-deep k-steps of
+// S; one block an SM is asked of the compiler there, as at hd 256.  q, k,
+// v and o must start on 16-byte boundaries.
 
 #include <cmath>
 #include <cstdint>
@@ -191,21 +209,23 @@ __host__ __device__ constexpr int kv_row() {   // padded K/V row, in elements
   return HD + 16 / static_cast<int>(sizeof(float));
 }
 
-template <int HD>
+template <int HD, int HDV>
 constexpr int smem_bytes() {
   return kBQ * HD * static_cast<int>(sizeof(float)) +
-         kStages * 2 * kBK * kv_row<HD>() * static_cast<int>(sizeof(float));
+         kStages * kBK * (kv_row<HD>() + kv_row<HDV>()) *
+             static_cast<int>(sizeof(float));
 }
 
-// Start copying keys [k0, k0 + kBK) of K and V into one stage (ks, vs).
-template <int HD>
-__device__ __forceinline__ void stage_kv(float* ks, float* vs, const float* kb,
-                                         const float* vb, int k0, int skv,
-                                         int64_t kv_stride, int tid) {
+// Start copying rows [k0, k0 + kBK) of one (Skv, ., D) matrix (K or V)
+// into a stage, rows padded to kv_row<D>().
+template <int D>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           int k0, int skv, int64_t stride,
+                                           int tid) {
   constexpr int EPC = 16 / static_cast<int>(sizeof(float));  // per 16 bytes
-  constexpr int CPR = HD / EPC;                         // chunks per row
-  constexpr int KS = kv_row<HD>();
-  static_assert(HD % EPC == 0, "whole 16-byte chunks per row");
+  constexpr int CPR = D / EPC;                          // chunks per row
+  constexpr int RS = kv_row<D>();
+  static_assert(D % EPC == 0, "whole 16-byte chunks per row");
   constexpr int N = (kBK * CPR + kThreads - 1) / kThreads;
 #pragma unroll
   for (int i = 0; i < N; ++i) {
@@ -213,52 +233,72 @@ __device__ __forceinline__ void stage_kv(float* ks, float* vs, const float* kb,
     if (N * kThreads != kBK * CPR && c >= kBK * CPR) break;
     const int j = c / CPR, col = (c % CPR) * EPC;
     const bool ok = k0 + j < skv;
-    const int64_t off = (ok ? k0 + j : 0) * kv_stride + col;
-    cp_async16(ks + j * KS + col, kb + off, ok);
-    cp_async16(vs + j * KS + col, vb + off, ok);
+    cp_async16(dst + j * RS + col, src + (ok ? k0 + j : 0) * stride + col,
+               ok);
   }
 }
 
-template <int HD>
+// Start copying keys [k0, k0 + kBK) of K and V into stage st (K's kBK
+// rows, then V's).
+template <int HD, int HDV>
+__device__ __forceinline__ void stage_kv(float* st, const float* kb,
+                                         const float* vb, int k0, int skv,
+                                         int64_t k_stride, int64_t v_stride,
+                                         int tid) {
+  stage_rows<HD>(st, kb, k0, skv, k_stride, tid);
+  stage_rows<HDV>(st + kBK * kv_row<HD>(), vb, k0, skv, v_stride, tid);
+}
+
+template <int HD, int HDV>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
                        float* __restrict__ lse, int sq, int skv, int heads,
-                       int kv_heads, int causal, float scale) {
+                       int kv_heads, int causal, int window, float scale) {
   constexpr int KS = kv_row<HD>();
-  constexpr int DPL = (HD + 31) / 32;     // output columns per lane
-  static_assert(HD % DPL == 0, "lanes own whole column groups");
+  constexpr int VS = kv_row<HDV>();
+  constexpr int STAGE = kBK * (KS + VS);  // floats of one K/V stage
+  constexpr int DPL = (HDV + 31) / 32;    // output columns per lane
+  static_assert(HDV % DPL == 0, "lanes own whole column groups");
   constexpr int QC = 8;                   // query elements per load
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);             // kBQ x HD
-  float* kvs = qs + kBQ * HD;  // [stage][K, V][kBK][KS]
+  float* kvs = qs + kBQ * HD;  // [stage][K kBK x KS, V kBK x VS]
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int row0 = (tid >> 5) * kRows;           // this warp's first row
-  // lanes past HD / DPL own no column (HD not a multiple of 32: 112)
-  const bool col_ok = lane * DPL < HD;
+  // lanes past HDV / DPL own no column (HDV not a multiple of 32: 112)
+  const bool col_ok = lane * DPL < HDV;
   const int group = heads / kv_heads;
   const int rows = sq * group;                   // rows of this KV head
   const int f0 = (gridDim.x - 1 - blockIdx.x) * kBQ;   // longest first
   const int b = blockIdx.y / kv_heads;
   const int g = blockIdx.y % kv_heads;
   const int64_t pos_stride = static_cast<int64_t>(heads) * HD;
-  const int64_t kv_stride = static_cast<int64_t>(kv_heads) * HD;
-  const int64_t qo_base =
-      (static_cast<int64_t>(b) * sq * heads + g * group) * HD;
+  const int64_t o_pos_stride = static_cast<int64_t>(heads) * HDV;
+  const int64_t k_stride = static_cast<int64_t>(kv_heads) * HD;
+  const int64_t v_stride = static_cast<int64_t>(kv_heads) * HDV;
+  const int64_t head0 = static_cast<int64_t>(b) * sq * heads + g * group;
   const float* kb = k + (static_cast<int64_t>(b) * skv * kv_heads + g) * HD;
-  const float* vb = v + (static_cast<int64_t>(b) * skv * kv_heads + g) * HD;
-  // row f (< rows) -> its element offset in q and o from qo_base
+  const float* vb = v + (static_cast<int64_t>(b) * skv * kv_heads + g) * HDV;
+  // row f (< rows) -> its element offset in q (from head0 * HD) and in o
+  // (from head0 * HDV)
   auto row_off = [&](int f) {
     return (f / group) * pos_stride + (f % group) * HD;
+  };
+  auto o_off = [&](int f) {
+    return (f / group) * o_pos_stride + (f % group) * HDV;
   };
 
   const int last = min(f0 + kBQ, rows) - 1;
   const int kv_end = causal ? min(skv, last / group + 1) : skv;
   const int n_tiles = (kv_end + kBK - 1) / kBK;
-  stage_kv<HD>(kvs, kvs + kBK * KS, kb, vb, 0, skv, kv_stride, tid);
+  // the window: the first key the block's first row sees, and its tile
+  const int t0 = window ? max(0, f0 / group - window + 1) / kBK : 0;
+  stage_kv<HD, HDV>(kvs + (t0 % kStages) * STAGE, kb, vb, t0 * kBK, skv,
+                    k_stride, v_stride, tid);
   cp_async_commit();
 
   static_assert(HD % QC == 0, "whole loads per row");
@@ -270,7 +310,7 @@ flash_attention_kernel(const float* __restrict__ q,
     const int r = c / (HD / QC), col = (c % (HD / QC)) * QC;
     float x[QC];
     if (f0 + r < rows) {
-      load_f32<QC>(q + qo_base + row_off(f0 + r) + col, x);
+      load_f32<QC>(q + head0 * HD + row_off(f0 + r) + col, x);
 #pragma unroll
       for (int i = 0; i < QC; ++i) x[i] *= scale;
     } else {
@@ -291,18 +331,17 @@ flash_attention_kernel(const float* __restrict__ q,
     for (int i = 0; i < DPL; ++i) acc[r][i] = 0.0f;
   }
 
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = t0; t < n_tiles; ++t) {
     if (t + 1 < n_tiles) {     // the next tile's stage was freed last pass
-      float* nk = kvs + ((t + 1) % kStages) * 2 * kBK * KS;
-      stage_kv<HD>(nk, nk + kBK * KS, kb, vb, (t + 1) * kBK, skv,
-                      kv_stride, tid);
+      stage_kv<HD, HDV>(kvs + ((t + 1) % kStages) * STAGE, kb, vb,
+                        (t + 1) * kBK, skv, k_stride, v_stride, tid);
       cp_async_commit();
       cp_async_wait<1>();      // all but the newest group: tile t is in
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const float* ks = kvs + (t % kStages) * 2 * kBK * KS;
+    const float* ks = kvs + (t % kStages) * STAGE;
     const float* vs = ks + kBK * KS;
 
     // scores of key t * kBK + lane against this warp's rows
@@ -334,7 +373,8 @@ flash_attention_kernel(const float* __restrict__ q,
     const int kp = t * kBK + lane;
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
-      const bool ok = kp < skv && (!causal || kp <= qpos[r]);
+      const bool ok = kp < skv && (!causal || kp <= qpos[r]) &&
+                      (!window || qpos[r] - kp < window);
       const float sv = ok ? s[r] : kNegInf;
       const float m_new = fmaxf(m[r], warp_max(sv));
       const float p = ok ? expf(sv - m_new) : 0.0f;
@@ -351,7 +391,7 @@ flash_attention_kernel(const float* __restrict__ q,
     for (int j = 0; j < kBK; ++j) {
       float vv[DPL];
       if (col_ok) {
-        load_f32<DPL>(vs + j * KS + lane * DPL, vv);
+        load_f32<DPL>(vs + j * VS + lane * DPL, vv);
       } else {
 #pragma unroll
         for (int i = 0; i < DPL; ++i) vv[i] = 0.0f;
@@ -378,30 +418,30 @@ flash_attention_kernel(const float* __restrict__ q,
       const float inv = 1.0f / fmaxf(l[r], 1e-30f);
 #pragma unroll
       for (int i = 0; i < DPL; ++i) acc[r][i] *= inv;
-      store_f32<DPL>(o + qo_base + row_off(f) + lane * DPL, acc[r]);
+      store_f32<DPL>(o + head0 * HDV + o_off(f) + lane * DPL, acc[r]);
     }
   }
 }
 
-template <int HD>
+template <int HD, int HDV>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int batch, int sq, int skv, int heads, int kv_heads, int causal,
-           float scale, cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<HD>();
+           int window, float scale, cudaStream_t stream) {
+  constexpr int bytes = smem_bytes<HD, HDV>();
+  constexpr auto kern = flash_attention_kernel<HD, HDV>;
   static bool attr_set = false;    // per instantiation
   if (!attr_set) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<HD>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     attr_set = true;
   }
   const int rows = sq * (heads / kv_heads);
   const dim3 grid((rows + kBQ - 1) / kBQ, batch * kv_heads);
-  flash_attention_kernel<HD><<<grid, kThreads, bytes, stream>>>(
+  kern<<<grid, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, sq, skv,
-      heads, kv_heads, causal, scale);
+      heads, kv_heads, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -419,18 +459,22 @@ constexpr int kBQ = 16 * kWarps;          // query rows per block, 16 a warp
 constexpr int kBK = 32;                   // keys per K/V tile
 constexpr int kStages = 2;                // K/V tiles in the ring
 
-// The shapes of head dim HD.
-template <int HD>
+// The shapes of head dims HD (q, k) and HDV (v, o).
+template <int HD, int HDV>
 struct Cfg {
   // a shared-memory row of hd elements, padded by 16 bytes: hd / 8 + 1
   // chunks of 16 bytes is odd for every head dim, so the 8 rows that one
-  // ldmatrix reads fall on distinct banks
+  // ldmatrix reads fall on distinct banks (Q and K rows; V rows likewise)
   static constexpr int kRow = HD + 8;
-  static constexpr int kSmemBytes = (kBQ + kStages * 2 * kBK) * kRow *
-                                    static_cast<int>(sizeof(__nv_bfloat16));
+  static constexpr int kRowV = HDV + 8;
+  static constexpr int kStage = kBK * (kRow + kRowV);  // elements a stage
+  static constexpr int kSmemBytes =
+      (kBQ * kRow + kStages * kStage) *
+      static_cast<int>(sizeof(__nv_bfloat16));
   // blocks an SM must hold: four at hd <= 128 (at most 128 registers a
-  // thread; 52 KB of shared memory at hd 128), one at hd 256, where the
-  // (16 x hd) f32 accumulator alone takes 128 registers a thread
+  // thread; 52 KB of shared memory at hd 128), one above (hd 256, where
+  // the (16 x hd) f32 accumulator alone takes 128 registers a thread;
+  // 192/128, whose S walks 12 k-steps)
   static constexpr int kMinBlocks = HD > 128 ? 1 : 4;
 };
 
@@ -493,15 +537,14 @@ __device__ __forceinline__ float ex2(float x) {
 }
 #endif
 
-// Start copying the kBK keys from kt, vt (key k0's rows; n_keys = Skv - k0
-// of them exist) into one stage (ks, vs).
-template <int HD>
-__device__ __forceinline__ void stage_kv(__nv_bfloat16* ks,
-                                         __nv_bfloat16* vs,
-                                         const __nv_bfloat16* kt,
-                                         const __nv_bfloat16* vt, int n_keys,
-                                         int kv_stride, int tid) {
-  constexpr int RS = Cfg<HD>::kRow, CPR = HD / 8;
+// Start copying the kBK rows of one (Skv, ., D) matrix (K or V) from
+// src (key k0's row; n_keys = Skv - k0 of them exist) into a stage, rows
+// padded to D + 8.
+template <int D>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src,
+                                           int n_keys, int stride, int tid) {
+  constexpr int RS = D + 8, CPR = D / 8;
   constexpr int N = (kBK * CPR + kThreads - 1) / kThreads;
 #pragma unroll
   for (int i = 0; i < N; ++i) {
@@ -509,27 +552,45 @@ __device__ __forceinline__ void stage_kv(__nv_bfloat16* ks,
     if (N * kThreads != kBK * CPR && c >= kBK * CPR) break;
     const int j = c / CPR, col = (c % CPR) * 8;
     const bool ok = j < n_keys;
-    const int off = ok ? j * kv_stride + col : 0;   // < 2^31: j < BK
-    cp_async16(ks + j * RS + col, kt + off, ok);
-    cp_async16(vs + j * RS + col, vt + off, ok);
+    const int off = ok ? j * stride + col : 0;      // < 2^31: j < BK
+    cp_async16(dst + j * RS + col, src + off, ok);
   }
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kThreads, Cfg<HD>::kMinBlocks)
+// Start copying key tile t of K and V into its stage (K's kBK rows, then
+// V's).
+template <int HD, int HDV>
+__device__ __forceinline__ void stage_kv(__nv_bfloat16* kvs,
+                                         const __nv_bfloat16* kb,
+                                         const __nv_bfloat16* vb, int t,
+                                         int skv, int k_stride, int v_stride,
+                                         int tid) {
+  using C = Cfg<HD, HDV>;
+  __nv_bfloat16* st = kvs + (t % kStages) * C::kStage;
+  const int64_t at = static_cast<int64_t>(t) * kBK;
+  stage_rows<HD>(st, kb + at * k_stride, skv - t * kBK, k_stride, tid);
+  stage_rows<HDV>(st + kBK * C::kRow, vb + at * v_stride, skv - t * kBK,
+                  v_stride, tid);
+}
+
+template <int HD, int HDV>
+__global__ void __launch_bounds__(kThreads, (Cfg<HD, HDV>::kMinBlocks))
 flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v,
                        __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                        int sq, int skv, int heads, int kv_heads, int causal,
-                       float scale) {
-  constexpr int BK = kBK, RS = Cfg<HD>::kRow, CPR = HD / 8, BQ = kBQ;
+                       int window, float scale) {
+  using C = Cfg<HD, HDV>;
+  constexpr int BK = kBK, RS = C::kRow, RSV = C::kRowV, CPR = HD / 8;
+  constexpr int CPRV = HDV / 8, BQ = kBQ;
   constexpr int NS = BK / 8;              // 8-key column tiles of S
-  constexpr int NO = HD / 8;              // 8-column tiles of O
-  static_assert(HD % 16 == 0 && NO % 2 == 0, "whole k-steps and pairs");
+  constexpr int NO = HDV / 8;             // 8-column tiles of O
+  static_assert(HD % 16 == 0 && NO % 2 == 0 && HDV <= HD,
+                "whole k-steps and pairs; o staged in q's rows");
   extern __shared__ float4 smem4[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem4);  // BQ x RS
-  __nv_bfloat16* kvs = qs + BQ * RS;     // [stage][K, V][BK][RS]
+  __nv_bfloat16* kvs = qs + BQ * RS;  // [stage][K BK x RS, V BK x RSV]
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -540,21 +601,28 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
   const int b = blockIdx.y / kv_heads;
   const int g = blockIdx.y % kv_heads;
   const int64_t pos_stride = static_cast<int64_t>(heads) * HD;
-  const int kv_stride = kv_heads * HD;
-  const int64_t qo_base =
-      (static_cast<int64_t>(b) * sq * heads + g * group) * HD;
+  const int64_t o_pos_stride = static_cast<int64_t>(heads) * HDV;
+  const int k_stride = kv_heads * HD;
+  const int v_stride = kv_heads * HDV;
+  const int64_t head0 = static_cast<int64_t>(b) * sq * heads + g * group;
   const __nv_bfloat16* kb =
       k + (static_cast<int64_t>(b) * skv * kv_heads + g) * HD;
   const __nv_bfloat16* vb =
-      v + (static_cast<int64_t>(b) * skv * kv_heads + g) * HD;
-  // row f (< rows) -> its element offset in q and o from qo_base
+      v + (static_cast<int64_t>(b) * skv * kv_heads + g) * HDV;
+  // row f (< rows) -> its element offset in q (from head0 * HD) and in o
+  // (from head0 * HDV)
   auto row_off = [&](int f) {
     return (f / group) * pos_stride + (f % group) * HD;
+  };
+  auto o_off = [&](int f) {
+    return (f / group) * o_pos_stride + (f % group) * HDV;
   };
 
   const int last = min(f0 + BQ, rows) - 1;
   const int kv_end = causal ? min(skv, last / group + 1) : skv;
   const int n_tiles = (kv_end + BK - 1) / BK;
+  // the window: the first key the block's first row sees, and its tile
+  const int t0 = window ? max(0, f0 / group - window + 1) / BK : 0;
 
   // the block's query rows (zeros past `rows`) and K/V tile 0: group 0
   static_assert(BQ * CPR % kThreads == 0, "whole copies per thread");
@@ -564,15 +632,12 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
     const int r = c / CPR, col = (c % CPR) * 8;
     const bool ok = f0 + r < rows;
     cp_async16(qs + r * RS + col,
-               q + (ok ? qo_base + row_off(f0 + r) : 0) + col, ok);
+               q + (ok ? head0 * HD + row_off(f0 + r) : 0) + col, ok);
   }
 #pragma unroll
-  for (int t = 0; t < kStages - 1; ++t) {  // a group per stage, empty or not
-    if (t < n_tiles) {
-      __nv_bfloat16* st = kvs + t * 2 * BK * RS;
-      const int64_t at = static_cast<int64_t>(t) * BK * kv_stride;
-      stage_kv<HD>(st, st + BK * RS, kb + at, vb + at, skv - t * BK,
-                   kv_stride, tid);
+  for (int i = 0; i < kStages - 1; ++i) {  // a group per stage, empty or not
+    if (t0 + i < n_tiles) {
+      stage_kv<HD, HDV>(kvs, kb, vb, t0 + i, skv, k_stride, v_stride, tid);
     }
     cp_async_commit();
   }
@@ -582,6 +647,7 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
   const int fr = f0 + wrow + (lane >> 2);
   const int pos[2] = {fr / group, (fr + 8) / group};
   const int warp_pos = (f0 + wrow) / group;      // the warp's first position
+  const int warp_end = (f0 + wrow + 15) / group;  // and its last
   const float sl = scale * kLog2e;
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.0f, 0.0f};                     // this thread's share
@@ -592,18 +658,15 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
   }
 
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = t0; t < n_tiles; ++t) {
     const int next = t + kStages - 1;   // its stage was consumed at t - 1
     if (next < n_tiles) {
-      __nv_bfloat16* st = kvs + (next % kStages) * 2 * BK * RS;
-      const int64_t at = static_cast<int64_t>(next) * BK * kv_stride;
-      stage_kv<HD>(st, st + BK * RS, kb + at, vb + at, skv - next * BK,
-                   kv_stride, tid);
+      stage_kv<HD, HDV>(kvs, kb, vb, next, skv, k_stride, v_stride, tid);
     }
     cp_async_commit();
     cp_async_wait<kStages - 1>();       // all but the newest: tile t is in
     __syncthreads();
-    const __nv_bfloat16* ks = kvs + (t % kStages) * 2 * BK * RS;
+    const __nv_bfloat16* ks = kvs + (t % kStages) * C::kStage;
     const __nv_bfloat16* vs = ks + BK * RS;
 
     // S = Q K^T over the tile: 16 rows x BK keys a warp, f32
@@ -627,16 +690,19 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
 
-    // mask keys past Skv and past the diagonal (the scores stay unscaled:
+    // mask keys past Skv, past the diagonal and, with a window, W or more
+    // positions back, element by element (the scores stay unscaled:
     // `scale` enters the exponent below, on the f32 scores)
     const int k0 = t * BK;
-    if (k0 + BK > skv || (causal && k0 + BK - 1 > warp_pos)) {
+    if (k0 + BK > skv || (causal && k0 + BK - 1 > warp_pos) ||
+        (window && k0 <= warp_end - window)) {
 #pragma unroll
       for (int j = 0; j < NS; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int key = k0 + j * 8 + (lane & 3) * 2 + (e & 1);
-          if (key >= skv || (causal && key > pos[e >> 1])) {
+          if (key >= skv || (causal && key > pos[e >> 1]) ||
+              (window && pos[e >> 1] - key >= window)) {
             s[j][e] = -INFINITY;
           }
         }
@@ -687,7 +753,7 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
       for (int n = 0; n < NO; n += 2) {
         uint32_t bv[4];
         ldsm_x4_trans(bv, vs + (kk * 16 + (lane & 7) +
-                                ((lane >> 3) & 1) * 8) * RS +
+                                ((lane >> 3) & 1) * 8) * RSV +
                               n * 8 + (lane >> 4) * 8);
         mma(acc[n], a, bv[0], bv[1]);
         mma(acc[n + 1], a, bv[2], bv[3]);
@@ -719,36 +785,36 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
         pack_bf16(acc[n][2] * l[1], acc[n][3] * l[1]);
   }
   __syncwarp();
-  for (int c = lane; c < 16 * CPR; c += 32) {
-    const int r = c / CPR, col = (c % CPR) * 8;
+  for (int c = lane; c < 16 * CPRV; c += 32) {
+    const int r = c / CPRV, col = (c % CPRV) * 8;
     const int f = f0 + wrow + r;
     if (f < rows) {
-      *reinterpret_cast<uint4*>(o + qo_base + row_off(f) + col) =
+      *reinterpret_cast<uint4*>(o + head0 * HDV + o_off(f) + col) =
           *reinterpret_cast<const uint4*>(qs + (wrow + r) * RS + col);
     }
   }
 }
 
-template <int HD>
+template <int HD, int HDV>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int batch, int sq, int skv, int heads, int kv_heads, int causal,
-           float scale, cudaStream_t stream) {
-  constexpr int bytes = Cfg<HD>::kSmemBytes;
+           int window, float scale, cudaStream_t stream) {
+  constexpr int bytes = Cfg<HD, HDV>::kSmemBytes;
+  constexpr auto kern = flash_attention_kernel<HD, HDV>;
   static bool attr_set = false;    // per instantiation
   if (!attr_set) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<HD>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     attr_set = true;
   }
   const int rows = sq * (heads / kv_heads);
   const dim3 grid((rows + kBQ - 1) / kBQ, batch * kv_heads);
-  flash_attention_kernel<HD><<<grid, kThreads, bytes, stream>>>(
+  kern<<<grid, kThreads, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      lse, sq, skv, heads, kv_heads, causal, scale);
+      lse, sq, skv, heads, kv_heads, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -756,79 +822,88 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 
 // The design by dtype: 0 (float32) -> CUDA cores, 1 (bfloat16) -> tensor
 // cores.
-template <int HD>
+template <int HD, int HDV>
 int launch_dtype(int dtype, const void* q, const void* k, const void* v,
                  void* o, float* lse, int batch, int sq, int skv, int heads,
-                 int kv_heads, int causal, float scale, cudaStream_t s) {
+                 int kv_heads, int causal, int window, float scale,
+                 cudaStream_t s) {
   if (dtype == 0) {
-    return cc::launch<HD>(q, k, v, o, lse, batch, sq, skv, heads, kv_heads,
-                          causal, scale, s);
+    return cc::launch<HD, HDV>(q, k, v, o, lse, batch, sq, skv, heads,
+                               kv_heads, causal, window, scale, s);
   }
   if (dtype == 1) {
-    return tc::launch<HD>(q, k, v, o, lse, batch, sq, skv, heads, kv_heads,
-                          causal, scale, s);
+    return tc::launch<HD, HDV>(q, k, v, o, lse, batch, sq, skv, heads,
+                               kv_heads, causal, window, scale, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-int launch_hd(int hd, int dtype, const void* q, const void* k, const void* v,
-              void* o, float* lse, int batch, int sq, int skv, int heads,
-              int kv_heads, int causal, float scale, cudaStream_t s) {
-  switch (hd) {
-    case 32:
-      return launch_dtype<32>(dtype, q, k, v, o, lse, batch, sq, skv,
-                              heads, kv_heads, causal, scale, s);
-    case 64:
-      return launch_dtype<64>(dtype, q, k, v, o, lse, batch, sq, skv,
-                              heads, kv_heads, causal, scale, s);
-    case 112:
-      return launch_dtype<112>(dtype, q, k, v, o, lse, batch, sq, skv,
-                              heads, kv_heads, causal, scale, s);
-    case 128:
-      return launch_dtype<128>(dtype, q, k, v, o, lse, batch, sq, skv,
-                              heads, kv_heads, causal, scale, s);
-    case 256:
-      return launch_dtype<256>(dtype, q, k, v, o, lse, batch, sq, skv,
-                              heads, kv_heads, causal, scale, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+// The instance of (hd, hdv): hdv = hd at each head dim, and MLA's 192/128.
+int launch_hd(int hd, int hdv, int dtype, const void* q, const void* k,
+              const void* v, void* o, float* lse, int batch, int sq, int skv,
+              int heads, int kv_heads, int causal, int window, float scale,
+              cudaStream_t s) {
+#define FLASH_CASE(HD, HDV)                                                  \
+  if (hd == HD && hdv == HDV) {                                              \
+    return launch_dtype<HD, HDV>(dtype, q, k, v, o, lse, batch, sq, skv,     \
+                                 heads, kv_heads, causal, window, scale, s); \
   }
+  FLASH_CASE(32, 32)
+  FLASH_CASE(64, 64)
+  FLASH_CASE(112, 112)
+  FLASH_CASE(128, 128)
+  FLASH_CASE(256, 256)
+  FLASH_CASE(192, 128)
+#undef FLASH_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int launch_checked(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int batch, int sq, int skv, int heads,
+                   int kv_heads, int hd, int hdv, int causal, int window,
+                   float scale, int dtype, void* stream) {
+  if (batch <= 0 || sq <= 0 || skv <= 0 || kv_heads <= 0 ||
+      heads % kv_heads != 0 || batch * kv_heads > 65535 ||
+      static_cast<int64_t>(sq) * (heads / kv_heads) > (1 << 30) ||
+      window < 0 || (window > 0 && (!causal || sq > skv)) ||
+      ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) &
+       15) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_hd(hd, hdv, dtype, q, k, v, o, lse, batch, sq, skv, heads,
+                   kv_heads, causal, window, scale,
+                   static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it).  q, o
-// (batch, sq, heads, hd) and k, v (batch, skv, kv_heads, hd), row-major;
-// hd in {32, 64, 112, 128, 256}; heads a multiple of kv_heads; every pointer
-// on a 16-byte boundary.  lse, when not null, is float32 (batch, heads, sq):
-// each query row's natural-log log-sum-exp of its scaled, masked scores,
-// which the backward (flash_attention_bwd.cu) recomputes P from; a null lse
-// is written nowhere and changes nothing else.
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it).  q (batch,
+// sq, heads, hd), k (batch, skv, kv_heads, hd), v (batch, skv, kv_heads,
+// hdv) and o (batch, sq, heads, hdv), row-major; (hd, hdv) one of (32,
+// 32), (64, 64), (112, 112), (128, 128), (256, 256), (192, 128); heads a
+// multiple of kv_heads; every pointer on a 16-byte boundary.  window 0
+// masks nothing more; window > 0 needs causal and sq <= skv (so that a
+// query row always sees its own key) and hides key j from query i when
+// i - j >= window.
+extern "C" int flash_attention_window_launch(
+    const void* q, const void* k, const void* v, void* o, int batch, int sq,
+    int skv, int heads, int kv_heads, int hd, int hdv, int causal, int window,
+    float scale, int dtype, void* stream) {
+  return launch_checked(q, k, v, o, nullptr, batch, sq, skv, heads, kv_heads,
+                        hd, hdv, causal, window, scale, dtype, stream);
+}
+
+// hdv = hd and no window.  lse, when not null, is float32 (batch, heads,
+// sq): each query row's natural-log log-sum-exp of its scaled, masked
+// scores, which the backward (flash_attention_bwd.cu) recomputes P from;
+// a null lse is written nowhere and changes nothing else.
 extern "C" int flash_attention_lse_launch(const void* q, const void* k,
                                           const void* v, void* o, float* lse,
                                           int batch, int sq, int skv,
                                           int heads, int kv_heads, int hd,
                                           int causal, float scale, int dtype,
                                           void* stream) {
-  if (batch <= 0 || sq <= 0 || skv <= 0 || kv_heads <= 0 ||
-      heads % kv_heads != 0 || batch * kv_heads > 65535 ||
-      static_cast<int64_t>(sq) * (heads / kv_heads) > (1 << 30) ||
-      ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) &
-       15) != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return launch_hd(hd, dtype, q, k, v, o, lse, batch, sq, skv, heads,
-                   kv_heads, causal, scale, static_cast<cudaStream_t>(stream));
-}
-
-// The serving entry: no lse.
-extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int batch,
-                                      int sq, int skv, int heads,
-                                      int kv_heads, int hd, int causal,
-                                      float scale, int dtype, void* stream) {
-  return flash_attention_lse_launch(q, k, v, o, nullptr, batch, sq, skv,
-                                    heads, kv_heads, hd, causal, scale, dtype,
-                                    stream);
+  return launch_checked(q, k, v, o, lse, batch, sq, skv, heads, kv_heads, hd,
+                        hd, causal, 0, scale, dtype, stream);
 }

@@ -6,7 +6,8 @@ and ``flash_attention_bwd.cu`` (its gradient), built and loaded by
 hash; nothing runs at import time).
 
 ``flash_attention_cuda`` launches the forward on PyTorch's current stream
-and adds one to ``LAUNCHES["flash_attention"]`` per launch;
+(causal or not, with a window or not, v's head dim q's or MLA's 128 under
+192) and adds one to ``LAUNCHES["flash_attention"]`` per launch;
 ``flash_attention_fwd_lse_cuda`` launches the same kernel with the row
 log-sum-exp as a second output (also counted under ``"flash_attention"``),
 and ``flash_attention_bwd_cuda`` the backward's two kernels, counted under
@@ -23,16 +24,20 @@ from repro_torch.kernels import LAUNCHES, _build
 
 #: q/k/v/o dtypes the kernel takes, with its dtype code
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: head dims the kernel is instantiated for
-HEAD_DIMS = (32, 64, 112, 128, 256)
-#: head dims the backward kernels are instantiated for
+#: (q/k head dim, v head dim) pairs the forward is instantiated for: one
+#: head dim at each of 32, 64, 112, 128, 256, and MLA's 192 over 128
+HEAD_DIMS = ((32, 32), (64, 64), (112, 112), (128, 128), (256, 256),
+             (192, 128))
+#: the pairs of the forward's lse entry (training): v's head dim is q's
+LSE_HEAD_DIMS = tuple(p for p in HEAD_DIMS if p[0] == p[1])
+#: head dims the backward kernels are instantiated for (v's is q's)
 BWD_HEAD_DIMS = (32, 64, 112, 128)
 
 
 @functools.lru_cache(maxsize=1)
 def _launcher():
-    fn = _build.library("flash_attention").flash_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
+    fn = _build.library("flash_attention").flash_attention_window_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 \
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -61,8 +66,9 @@ def _bwd_launchers():
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            head_dims=HEAD_DIMS, what: str = "flash_attention_cuda"):
-    """Raise unless q ``(B, Sq, H, hd)``, k and v ``(B, Skv, KV, hd)`` are
-    what the kernels take; return (b, sq, skv, h, kv, hd)."""
+    """Raise unless q ``(B, Sq, H, hd)``, k ``(B, Skv, KV, hd)`` and v
+    ``(B, Skv, KV, hdv)`` are what the kernels take, ``(hd, hdv)`` in
+    ``head_dims``; return (b, sq, skv, h, kv, hd, hdv)."""
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError(f"{what} needs CUDA tensors on one "
@@ -70,17 +76,19 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must all be float32 or all bfloat16, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"need q (B, Sq, H, hd) and k, v (B, Skv, KV, hd), "
-                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
+            or k.shape[:3] != v.shape[:3]:
+        raise ValueError(f"need q (B, Sq, H, hd), k (B, Skv, KV, hd) and v "
+                         f"(B, Skv, KV, hdv), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, sq, h, hd = q.shape
-    skv, kv = k.shape[1], k.shape[2]
+    skv, kv, hdv = k.shape[1], k.shape[2], v.shape[3]
     if k.shape[0] != b or k.shape[3] != hd or h % kv:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
                          f"match (batch, head dim, H % KV == 0)")
-    if hd not in head_dims:
-        raise ValueError(f"head dim {hd} not in {head_dims}")
+    if (hd, hdv) not in head_dims:
+        raise ValueError(f"head dim {hd} (v {hdv}): the (q/k, v) pairs "
+                         f"are {head_dims}")
     if min(b, sq, skv) < 1 or b * kv > 65535:
         raise ValueError(f"need B, Sq, Skv >= 1 and B * KV <= 65535, got "
                          f"{b}, {sq}, {skv}, {b * kv}")
@@ -88,7 +96,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("q, k and v must be contiguous")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k and v must start on 16-byte boundaries")
-    return b, sq, skv, h, kv, hd
+    return b, sq, skv, h, kv, hd, hdv
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -97,19 +105,26 @@ def _raise_on(err: int, what: str) -> None:
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool = True) -> torch.Tensor:
-    """q ``(B, Sq, H, hd)``, k and v ``(B, Skv, KV, hd)``, contiguous and
-    on 16-byte boundaries, all float32 or all bfloat16, ``H % KV == 0``,
-    hd in ``HEAD_DIMS`` -> ``(B, Sq, H, hd)`` in q's dtype.  Query head h
-    reads KV head ``h // (H // KV)``.  Raises on anything the kernel does
-    not take."""
-    b, sq, skv, h, kv, hd = _check(q, k, v)
-    out = torch.empty_like(q)
-    _raise_on(_launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          out.data_ptr(), b, sq, skv, h, kv, hd, int(causal),
-                          hd ** -0.5, DTYPES[q.dtype],
-                          torch.cuda.current_stream(q.device).cuda_stream),
-              "flash_attention")
+                         causal: bool = True,
+                         window: int = 0) -> torch.Tensor:
+    """q ``(B, Sq, H, hd)``, k ``(B, Skv, KV, hd)`` and v ``(B, Skv, KV,
+    hdv)``, contiguous and on 16-byte boundaries, all float32 or all
+    bfloat16, ``H % KV == 0``, ``(hd, hdv)`` in ``HEAD_DIMS`` -> ``(B, Sq,
+    H, hdv)`` in q's dtype, scaled by ``hd ** -0.5``.  Query head h reads
+    KV head ``h // (H // KV)``.  A ``window`` > 0 (causal, ``Sq <= Skv``)
+    also hides key j from query i when ``i - j >= window``.  Raises on
+    anything the kernel does not take."""
+    b, sq, skv, h, kv, hd, hdv = _check(q, k, v)
+    window = int(window)
+    if window < 0 or (window and (not causal or sq > skv)):
+        raise ValueError(f"window {window}: a window is >= 0, and one > 0 "
+                         f"needs causal=True and Sq <= Skv (got causal="
+                         f"{causal}, Sq {sq}, Skv {skv})")
+    out = torch.empty((b, sq, h, hdv), dtype=q.dtype, device=q.device)
+    _raise_on(_launcher()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv,
+        h, kv, hd, hdv, int(causal), window, hd ** -0.5, DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream), "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return out
 
@@ -119,9 +134,10 @@ def flash_attention_fwd_lse_cuda(q: torch.Tensor, k: torch.Tensor,
     """``flash_attention_cuda`` that also returns each query row's
     natural-log log-sum-exp of its scaled, masked scores: ``(o, lse)``,
     lse float32 ``(B, H, Sq)`` (what the backward recomputes P from).
-    The same kernel: o has the bits ``flash_attention_cuda`` gives."""
-    b, sq, skv, h, kv, hd = _check(q, k, v,
-                                   what="flash_attention_fwd_lse_cuda")
+    The same kernel: o has the bits ``flash_attention_cuda`` gives.  No
+    window, and v's head dim is q's."""
+    b, sq, skv, h, kv, hd, _ = _check(q, k, v, LSE_HEAD_DIMS,
+                                      "flash_attention_fwd_lse_cuda")
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     _raise_on(_lse_launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -147,8 +163,9 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     group's query heads in the block: no atomics, the same bits every
     call.  hd must be in ``BWD_HEAD_DIMS``; raises on anything the kernels
     do not take."""
-    b, sq, skv, h, kv, hd = _check(q, k, v, BWD_HEAD_DIMS,
-                                   "flash_attention_bwd_cuda")
+    b, sq, skv, h, kv, hd, _ = _check(q, k, v,
+                                      tuple((d, d) for d in BWD_HEAD_DIMS),
+                                      "flash_attention_bwd_cuda")
     for name, t in (("o", o), ("do", do)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device \
                 or not t.is_contiguous() or t.data_ptr() % 16:

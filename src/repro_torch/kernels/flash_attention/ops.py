@@ -15,6 +15,11 @@ its forward is the kernel with the row log-sum-exp as a second output and
 its backward the hand-written backward kernels
 (``kernel.flash_attention_bwd_cuda``); on CPU tensors both are the plain
 versions.  Serving (no gradient) takes the plain call above.
+
+Serving also takes a ``window`` (the ``local`` layers' band: key j hidden
+from query i when ``i - j >= window``) and a v head dim below q's (MLA's
+192/128).  The gradient takes neither yet (ROADMAP A9.8a, A9.8e): asked
+for one with either, the op raises.
 """
 from __future__ import annotations
 
@@ -65,16 +70,27 @@ class FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
-    """q: ``(B, Sq, H, hd)``; k, v: ``(B, Skv, KV, hd)`` with
-    ``H % KV == 0``.  Returns ``(B, Sq, H, hd)`` in q's dtype."""
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q: ``(B, Sq, H, hd)``; k: ``(B, Skv, KV, hd)``; v: ``(B, Skv, KV,
+    hdv)`` with ``H % KV == 0``.  Returns ``(B, Sq, H, hdv)`` in q's
+    dtype, scores scaled by ``hd ** -0.5``.  ``window`` > 0 (causal,
+    ``Sq <= Skv``): key j is visible to query i iff ``j <= i`` and ``i - j
+    < window``."""
+    if window and (not causal or q.shape[1] > k.shape[1]):
+        raise ValueError(f"window {window} needs causal=True and Sq <= Skv, "
+                         f"got causal={causal}, Sq {q.shape[1]}, Skv "
+                         f"{k.shape[1]}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
+        if window or v.shape[-1] != q.shape[-1]:
+            raise NotImplementedError(
+                "the flash-attention gradient with a window (ROADMAP A9.8a) "
+                "or a v head dim other than q's (A9.8e) is not ported yet")
         return FlashAttention.apply(q, k, v, causal)
     dev = q.device.type
     if dev == "cuda":
         return flash_attention_cuda(aligned(q), aligned(k), aligned(v),
-                                    causal=causal)
+                                    causal=causal, window=window)
     if dev == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal)
+        return flash_attention_ref(q, k, v, causal=causal, window=window)
     raise ValueError(f"flash_attention runs on cuda or cpu tensors, not {dev}")

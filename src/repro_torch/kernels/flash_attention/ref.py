@@ -6,7 +6,13 @@ ref.py``) computes it.
 reference op (``repro/kernels/flash_attention/ops.py``) feeds its kernel:
 KV heads repeated to the query heads, heads folded into the batch.  It
 is what the CPU path runs and what the CUDA kernel is held against on
-the card.  Scores and softmax in float32, output in q's dtype.
+the card.  Scores and softmax in float32, output in q's dtype.  It also
+takes what the kernel takes beyond the reference op: a ``window`` (key j
+is visible to query i iff ``j <= i`` and ``i - j < window``, the mask of
+the reference's ``sliding_window_attention``) and a v head dim below
+q's and k's (MLA's 192/128).  It scores ``Q_CHUNK`` query rows at a time
+against only the keys they can see, so a long band never materialises
+S x S.
 
 ``flash_attention_fwd_lse_ref`` adds each query row's log-sum-exp, and
 ``flash_attention_bwd_ref`` is the gradient as the backward kernel
@@ -26,33 +32,54 @@ def _wide(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
+#: query rows the plain version scores at once
+Q_CHUNK = 1024
+
+
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True) -> torch.Tensor:
-    """q: ``(BH, Sq, hd)``; k, v: ``(BH, Skv, hd)`` -> ``(BH, Sq, hd)``."""
+                  causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q: ``(BH, Sq, hd)``; k: ``(BH, Skv, hd)``; v: ``(BH, Skv, hdv)`` ->
+    ``(BH, Sq, hdv)``.  A ``window`` (> 0) needs ``causal``."""
+    if window and not causal:
+        raise ValueError("a window is a causal band: pass causal=True")
     hd = q.shape[-1]
-    s = torch.einsum("bqd,bkd->bqk", _wide(q), _wide(k)) * hd ** -0.5
-    if causal:
-        sq, skv = q.shape[1], k.shape[1]
-        mask = (torch.arange(sq, device=q.device)[:, None]
-                >= torch.arange(skv, device=q.device)[None, :])
-        s = torch.where(mask[None], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bqk,bkd->bqd", p, _wide(v)).to(q.dtype)
+    sq, skv = q.shape[1], k.shape[1]
+    kw, vw = _wide(k), _wide(v)
+    out = torch.empty(q.shape[:2] + v.shape[2:], dtype=q.dtype,
+                      device=q.device)
+    for q0 in range(0, sq, Q_CHUNK):
+        q1 = min(q0 + Q_CHUNK, sq)
+        k0 = max(0, q0 - window + 1) if window else 0
+        k1 = min(skv, q1) if causal else skv
+        s = torch.einsum("bqd,bkd->bqk", _wide(q[:, q0:q1]),
+                         kw[:, k0:k1]) * hd ** -0.5
+        if causal:
+            qpos = torch.arange(q0, q1, device=q.device)[:, None]
+            kpos = torch.arange(k0, k1, device=q.device)[None, :]
+            mask = qpos >= kpos
+            if window:
+                mask &= qpos - kpos < window
+            s = torch.where(mask[None], s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        out[:, q0:q1] = torch.einsum("bqk,bkd->bqd", p, vw[:, k0:k1])
+    return out
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True) -> torch.Tensor:
-    """q: ``(B, Sq, H, hd)``; k, v: ``(B, Skv, KV, hd)`` with
-    ``H % KV == 0`` -> ``(B, Sq, H, hd)`` in q's dtype."""
+                        *, causal: bool = True,
+                        window: int = 0) -> torch.Tensor:
+    """q: ``(B, Sq, H, hd)``; k: ``(B, Skv, KV, hd)``; v: ``(B, Skv, KV,
+    hdv)`` with ``H % KV == 0`` -> ``(B, Sq, H, hdv)`` in q's dtype."""
     b, sq, h, hd = q.shape
+    hdv = v.shape[-1]
     g = h // k.shape[2]
     k = k.repeat_interleave(g, dim=2)
     v = v.repeat_interleave(g, dim=2)
     qf = q.transpose(1, 2).reshape(b * h, sq, hd)
     kf = k.transpose(1, 2).reshape(b * h, -1, hd)
-    vf = v.transpose(1, 2).reshape(b * h, -1, hd)
-    out = attention_ref(qf, kf, vf, causal=causal)
-    return out.reshape(b, h, sq, hd).transpose(1, 2)
+    vf = v.transpose(1, 2).reshape(b * h, -1, hdv)
+    out = attention_ref(qf, kf, vf, causal=causal, window=window)
+    return out.reshape(b, h, sq, hdv).transpose(1, 2)
 
 
 def _heads_first(q, k, v):

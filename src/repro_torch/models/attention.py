@@ -1,21 +1,23 @@
-"""Attention blocks of the port: grouped-query attention (GQA), the twin
-of the GQA half of the reference's ``repro/models/attention.py``.
+"""Attention blocks of the port: grouped-query attention (GQA) and
+DeepSeek's multi-head latent attention (MLA), the twins of those parts of
+the reference's ``repro/models/attention.py``.
 
-Prefill and training attention (``gqa_apply``) goes through the
-``flash_attention`` op: the CUDA kernel on the card, its plain version on
-the CPU; when a gradient is wanted, through its autograd op
-(``FlashAttention``: the forward kernel with the row log-sum-exp, the
-backward kernel).  For the
-``attn`` layers that is the reference's ``blocked_attention(causal=True)``.
-For the ``local`` layers the reference takes ``sliding_window_attention``;
-for a prompt no longer than the window the window masks nothing and the
-two are the same function, and a longer prompt raises
-``NotImplementedError`` (windowed prefill is ROADMAP A9.1).
-Decode (``gqa_decode``, with the ring buffer of the ``local`` layers) is
-plain torch, as in the reference.  All softmax math in float32.
+Prefill and training attention (``gqa_apply``, ``mla_apply``) goes
+through the ``flash_attention`` op: the CUDA kernel on the card, its
+plain version on the CPU; when a gradient is wanted, through its autograd
+op (``FlashAttention``: the forward kernel with the row log-sum-exp, the
+backward kernel).  For the ``attn`` layers that is the reference's
+``blocked_attention(causal=True)``; for the ``local`` layers its
+``sliding_window_attention``, the op with ``window=cfg.local_window``
+(a prompt of any length); for MLA, ``blocked_attention`` over q/k of
+``qk_nope + qk_rope`` (192) columns and v of ``v_head_dim`` (128), which
+the kernel takes as they are where the reference pads v to 192.
+Decode (``gqa_decode``, with the ring buffer of the ``local`` layers;
+``mla_decode``, absorbed into the latent space) is plain torch, as in
+the reference.  All softmax math in float32.
 
-MLA, cross-attention and the reference's sharded paths (``_cp_attention``,
-``_head_shard``) are not ported yet (ROADMAP A9.2, A9.3, A9.6).
+Cross-attention and the reference's sharded paths (``_cp_attention``,
+``_head_shard``) are not ported yet (ROADMAP A9.3, A9.6).
 """
 from __future__ import annotations
 
@@ -86,21 +88,15 @@ def _qkv(cfg: ModelConfig, p: Params, x):
 
 def gqa_apply(cfg: ModelConfig, p: Params, x, positions, *, window: int = 0,
               kv_out: bool = False):
-    """Full-sequence causal attention (prefill, training). Returns (out,
-    (k, v)) with ``kv_out``, else (out, None).  With a ``window``, a
-    prompt longer than it raises ``NotImplementedError``."""
+    """Full-sequence causal attention (prefill, training), banded to the
+    last ``window`` positions when one is given. Returns (out, (k, v))
+    with ``kv_out``, else (out, None)."""
     b, s = x.shape[:2]
-    if window and s > window:
-        raise NotImplementedError(
-            f"a {s}-token prompt through a local-attention layer of window "
-            f"{window}: the windowed flash-attention kernel is not ported "
-            f"yet (ROADMAP A9.1); prompts of at most {window} tokens are "
-            f"served")
     q, k, v = _qkv(cfg, p, x)
     if cfg.partial_rotary_factor > 0:
         q = L.apply_rope(q, positions, cfg.rope_theta, cfg.partial_rotary_factor)
         k = L.apply_rope(k, positions, cfg.rope_theta, cfg.partial_rotary_factor)
-    out = flash_attention(q, k, v, causal=True)
+    out = flash_attention(q, k, v, causal=True, window=window)
     out = out.reshape(b, s, -1) @ p["wo"]
     return (out, (k, v)) if kv_out else (out, None)
 
@@ -150,3 +146,107 @@ def gqa_cache_init(cfg: ModelConfig, batch: int, seq: int, dtype,
     shape = (batch, seq, cfg.num_kv_heads, hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def mla_init(gen, cfg: ModelConfig, dtype, device) -> Params:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.num_heads
+    qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+    r = m.kv_lora_rank
+    return {
+        "w_dq": L.dense_init(gen, d, m.q_lora_rank, dtype, device),
+        "q_norm": L.rmsnorm_init(gen, m.q_lora_rank, dtype, device),
+        "w_uq": L.dense_init(gen, m.q_lora_rank, h * qk_head, dtype, device),
+        "w_dkv": L.dense_init(gen, d, r, dtype, device),
+        "kv_norm": L.rmsnorm_init(gen, r, dtype, device),
+        "w_kr": L.dense_init(gen, d, m.qk_rope_head_dim, dtype, device),
+        # up-projections stored per head for the absorbed decode path
+        "w_uk": L.normal(gen, (h, m.qk_nope_head_dim, r), r ** -0.5, dtype,
+                         device),
+        "w_uv": L.normal(gen, (h, r, m.v_head_dim), r ** -0.5, dtype, device),
+        "wo": L.dense_init(gen, h * m.v_head_dim, d, dtype, device),
+    }
+
+
+def _mla_q(cfg: ModelConfig, p: Params, x, positions):
+    m = cfg.mla
+    b, s, _ = x.shape
+    cq = L.rmsnorm(p["q_norm"], x @ p["w_dq"], cfg.norm_eps)
+    q = (cq @ p["w_uq"]).reshape(b, s, cfg.num_heads,
+                                 m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    return q_nope, L.apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_latent(cfg: ModelConfig, p: Params, x, positions):
+    """The cached latents: c_kv ``(B, S, kv_lora_rank)`` and the shared
+    rotary key ``(B, S, 1, qk_rope_head_dim)``."""
+    c_kv = L.rmsnorm(p["kv_norm"], x @ p["w_dkv"], cfg.norm_eps)
+    k_rope = L.apply_rope((x @ p["w_kr"])[:, :, None, :], positions,
+                          cfg.rope_theta)
+    return c_kv, k_rope
+
+
+def mla_apply(cfg: ModelConfig, p: Params, x, positions):
+    """Full-sequence MLA (prefill).  Returns (out, (c_kv, k_rope)).  k is
+    materialised per head at ``qk_nope + qk_rope`` columns as in the
+    reference; v keeps its ``v_head_dim`` (the kernel's 192/128
+    instance), scale ``(qk_nope + qk_rope) ** -0.5``."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    q_nope, q_rope = _mla_q(cfg, p, x, positions)
+    c_kv, k_rope = _mla_latent(cfg, p, x, positions)
+    k_nope = torch.einsum("bsr,hdr->bshd", c_kv, p["w_uk"])
+    v = torch.einsum("bsr,hrv->bshv", c_kv, p["w_uv"])
+    k = torch.cat([k_nope, k_rope.expand(b, s, h, m.qk_rope_head_dim)], -1)
+    q = torch.cat([q_nope, q_rope], -1)
+    out = flash_attention(q, k, v, causal=True)
+    out = out.reshape(b, s, -1) @ p["wo"]
+    return out, (c_kv, k_rope[:, :, 0])
+
+
+def mla_decode(cfg: ModelConfig, p: Params, x, cache: Params, pos):
+    """Absorbed-matrix decode: attention runs in the latent space; the
+    cache holds only (c_kv, k_rope), written in place at ``pos``.  Plain
+    torch; bf16 operands enter each product exactly and sum in float32
+    (the reference's ``preferred_element_type``), rounded to the cache's
+    dtype where the reference rounds."""
+    m = cfg.mla
+    b = x.shape[0]
+    q_nope, q_rope = _mla_q(cfg, p, x, pos[:, None])
+    c_new, kr_new = _mla_latent(cfg, p, x, pos[:, None])
+    ckv, krope = cache["c_kv"], cache["k_rope"]
+    rows = torch.arange(b, device=x.device)
+    slot = pos.long()
+    ckv[rows, slot] = c_new[:, 0].to(ckv.dtype)
+    krope[rows, slot] = kr_new[:, 0, 0].to(krope.dtype)
+    q_lat = torch.einsum("bqhd,hdr->bhr", q_nope.float(),
+                         p["w_uk"].float())                       # (B,H,r)
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    s_lat = torch.einsum("bhr,bsr->bhs", q_lat.to(ckv.dtype).float(),
+                         ckv.float())
+    s_rope = torch.einsum("bqhd,bsd->bhs", q_rope.float(), krope.float())
+    logits = (s_lat + s_rope) * scale
+    idx = torch.arange(ckv.shape[1], device=x.device)[None, :]
+    logits = torch.where((idx <= pos[:, None])[:, None], logits, NEG_INF)
+    pr = torch.softmax(logits, dim=-1)
+    ctx = torch.einsum("bhs,bsr->bhr", pr.to(ckv.dtype).float(),
+                       ckv.float())                               # (B,H,r)
+    out = torch.einsum("bhr,hrv->bhv", ctx.to(p["w_uv"].dtype).float(),
+                       p["w_uv"].float())
+    out = out.reshape(b, 1, -1).to(x.dtype) @ p["wo"]
+    return out, {"c_kv": ckv, "k_rope": krope}
+
+
+def mla_cache_init(cfg: ModelConfig, batch: int, seq: int, dtype,
+                   device) -> Params:
+    m = cfg.mla
+    return {"c_kv": torch.zeros((batch, seq, m.kv_lora_rank), dtype=dtype,
+                                device=device),
+            "k_rope": torch.zeros((batch, seq, m.qk_rope_head_dim),
+                                  dtype=dtype, device=device)}

@@ -10,15 +10,15 @@ of stacked reference params (``repro_torch.convert.model_from_jax``).
 Each layer's params live in a ``Block`` module; ``model_zoo.Model`` owns
 the blocks in an ``nn.ModuleList``.
 
-Ported: the dense (``attn``), ``local`` and ``rglru`` layers with their
-MLPs, the ``rwkv`` time-mix with its ``rwkv_cm`` channel-mix, the MoE
-models' FFNs (``dense`` for the leading layers, ``moe``: routed experts
-plus the shared expert), ``prefill`` and ``decode_step``.  MLA, the
-encoder and the VLM frontend raise ``NotImplementedError`` when a model
-is built.
+Ported: the dense (``attn``, GQA or MLA), ``local`` and ``rglru``
+layers with their MLPs, the ``rwkv`` time-mix with its ``rwkv_cm``
+channel-mix, the MoE models' FFNs (``dense`` for the leading layers,
+``moe``: routed experts plus the shared expert), ``prefill`` and
+``decode_step``.  The encoder and the VLM frontend raise
+``NotImplementedError`` when a model is built.
 
 Training (``apply_block``, ``forward``, ``loss_fn``) takes the layers
-whose kernels have a backward: ``attn`` mixers with dense MLPs, the
+whose kernels have a backward: GQA ``attn`` mixers with dense MLPs, the
 ``dense`` family (``check_trainable`` refuses the rest, naming the
 ROADMAP item that brings it).  ``cfg.parallel.remat`` recomputes each
 layer in the backward (``torch.utils.checkpoint``, non-reentrant), as the
@@ -104,15 +104,13 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port cannot build yet."""
     missing = []
     if cfg.encoder is not None:
-        missing.append("the encoder-decoder stack")
+        missing.append("the encoder-decoder stack (ROADMAP A9.3)")
     if cfg.frontend == "vlm":
-        missing.append("the VLM frontend")
-    if cfg.attn_kind == "mla":
-        missing.append("MLA attention")
+        missing.append("the VLM frontend (ROADMAP A9.4)")
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP A9); "
-            f"the port serves dense (attn), local, rglru and rwkv layers "
+            f"{cfg.name}: {', '.join(missing)} not ported yet; the port "
+            f"serves dense (attn: GQA or MLA), local, rglru and rwkv layers "
             f"and MoE FFNs")
 
 
@@ -123,6 +121,9 @@ def check_trainable(cfg: ModelConfig) -> None:
     check_supported(cfg)
     kinds = set(cfg.layer_kinds())
     missing = []
+    if cfg.attn_kind == "mla":
+        missing.append("MLA attention (a flash-attention backward at q/k "
+                       "192, v 128, ROADMAP A9.8e)")
     if "local" in kinds:
         missing.append("local attention (a windowed flash-attention "
                        "backward kernel, ROADMAP A9.8a)")
@@ -152,7 +153,9 @@ def block_init(gen, cfg: ModelConfig, sig: LayerSig, dtype, device) -> Params:
                                       device),
                  "norm2": L.norm_init(gen, cfg.norm, cfg.d_model, dtype,
                                       device)}
-    if mix in ("attn", "local"):
+    if mix == "attn" and cfg.attn_kind == "mla":
+        p["attn"] = A.mla_init(gen, cfg, dtype, device)
+    elif mix in ("attn", "local"):
         p["attn"] = A.gqa_init(gen, cfg, dtype, device)
     elif mix == "rglru":
         p["rglru"] = RG.rglru_init(gen, cfg, dtype, device)
@@ -189,7 +192,10 @@ def apply_block(cfg: ModelConfig, sig: LayerSig, p: Params, x, positions):
     """Full-sequence training block (state-free): an ``attn`` mixer and
     a dense MLP (``check_trainable``).  Returns (x, aux), aux 0."""
     h = L.norm_apply(cfg.norm, p["norm1"], x, cfg.norm_eps)
-    a, _ = A.gqa_apply(cfg, p["attn"], h, positions)
+    if cfg.attn_kind == "mla":
+        a, _ = A.mla_apply(cfg, p["attn"], h, positions)
+    else:
+        a, _ = A.gqa_apply(cfg, p["attn"], h, positions)
     x = x + a
     h = L.norm_apply(cfg.norm, p["norm2"], x, cfg.norm_eps)
     return x + _ffn_apply(cfg, sig[1], p, h), torch.zeros(
@@ -203,6 +209,8 @@ def block_cache_init(cfg: ModelConfig, sig: LayerSig, batch: int, seq: int,
     holds a ``cm_shift`` key for the ``rwkv_cm`` FFN that nothing reads
     (its decode reads ``shift_cm``), which the port leaves out."""
     mix, _ = sig
+    if mix == "attn" and cfg.attn_kind == "mla":
+        return {"attn": A.mla_cache_init(cfg, batch, seq, dtype, device)}
     if mix == "attn":
         return {"attn": A.gqa_cache_init(cfg, batch, seq, dtype, device)}
     if mix == "local":
@@ -241,7 +249,14 @@ def apply_block_prefill(cfg: ModelConfig, sig: LayerSig, p: Params,
     h = L.norm_apply(cfg.norm, p["norm1"], x, cfg.norm_eps)
     b = x.shape[0]
     newc: Params = {}
-    if mix in ("attn", "local"):
+    if mix == "attn" and cfg.attn_kind == "mla":
+        a, (ckv, krope) = A.mla_apply(cfg, p["attn"], h, positions)
+        c = cache["attn"]
+        s = x.shape[1]
+        c["c_kv"][:, :s] = ckv.to(c["c_kv"].dtype)
+        c["k_rope"][:, :s] = krope.to(c["k_rope"].dtype)
+        newc["attn"] = c
+    elif mix in ("attn", "local"):
         window = cfg.local_window if mix == "local" else 0
         a, kv = A.gqa_apply(cfg, p["attn"], h, positions, window=window,
                             kv_out=True)
@@ -271,7 +286,9 @@ def apply_block_decode(cfg: ModelConfig, sig: LayerSig, p: Params,
     mix, ffn = sig
     h = L.norm_apply(cfg.norm, p["norm1"], x, cfg.norm_eps)
     newc: Params = {}
-    if mix in ("attn", "local"):
+    if mix == "attn" and cfg.attn_kind == "mla":
+        a, newc["attn"] = A.mla_decode(cfg, p["attn"], h, cache["attn"], pos)
+    elif mix in ("attn", "local"):
         window = cfg.local_window if mix == "local" else 0
         a, newc["attn"] = A.gqa_decode(cfg, p["attn"], h, cache["attn"], pos,
                                        window=window)

@@ -3,7 +3,9 @@ simulator's engine, one engine_run launch per run held against the
 per-cycle loop, the workload programs on its program instance, a Study
 as one launch per core count held against its single runs, and
 recurrentgemma-2b-smoke, rwkv6-1.6b-smoke and kimi-k2-1t-a32b-smoke
-served by ServeEngine, the model checker with the step kernel as its
+served by ServeEngine, the flash kernel's window and MLA's 192/128 head
+dims, chip_smoke's mla_serve_a and long_serve_a at full width, the model
+checker with the step kernel as its
 fused twin, and the flash-attention backward kernels with
 smollm-135m-smoke's training through them).
 
@@ -525,6 +527,51 @@ def test_flash_kernel_matches_plain_version(shape, cuda_device):
     rtol, atol = cs.FLASH_TOL[dtype]
     assert out.dtype == q.dtype and out.shape == q.shape
     assert torch.allclose(out.float(), ref.float(), rtol=rtol, atol=atol)
+
+
+#: (b, s, h, kv, hd, hdv, window, dtype), causal: chip_smoke's band and
+#: window past the sequence, MLA's 192/128 ragged, and a band of 50 keys
+#: (not a multiple of the 32-key tile) with GQA
+FLASH_WINDOW_CASES = [(2, 6144, 10, 1, 256, 256, 2048, "bfloat16"),
+                      (2, 512, 10, 1, 256, 256, 4096, "float32"),
+                      (1, 777, 16, 16, 192, 128, 0, "float32"),
+                      (1, 777, 16, 16, 192, 128, 0, "bfloat16"),
+                      (2, 300, 4, 1, 64, 64, 50, "bfloat16"),
+                      (2, 300, 4, 1, 64, 64, 50, "float32")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", FLASH_WINDOW_CASES)
+def test_flash_window_and_mla_kernel_match_plain_version(shape,
+                                                         cuda_device):
+    """One launch each, within FLASH_TOL of the plain version; a window
+    past the sequence gives the causal kernel's bits."""
+    cs = _chip_smoke()
+    b, s, h, kv, hd, hdv, window, dtype = shape
+    q, k, v = cs.flash_inputs(cuda_device, b, s, s, h, kv, hd, dtype,
+                              seed=s + window, hdv=hdv)
+    before = LAUNCHES["flash_attention"]
+    out = flash_attention.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == before + 1
+    assert out.dtype == q.dtype and tuple(out.shape) == (b, s, h, hdv)
+    ref = flash_attention.flash_attention_ref(q, k, v, window=window)
+    rtol, atol = cs.FLASH_TOL[dtype]
+    assert torch.allclose(out.float(), ref.float(), rtol=rtol, atol=atol)
+    if window >= s:
+        assert torch.equal(out, flash_attention.flash_attention(q, k, v))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("phase", ["phase_mla_serve_a", "phase_long_serve_a"])
+def test_serve_a_phases_hold_the_card_to_the_cpu(phase, cuda_device):
+    """deepseek-v3-671b (MLA, 2 layers, 32 experts) and recurrentgemma-2b
+    past its window (2 x 4 096 tokens) at full width, f32: the card's
+    logits within SERVE_A_TOL of the port's CPU run, launches exact (the
+    phase raises ``chip_smoke.Failed`` otherwise)."""
+    cs = _chip_smoke()
+    got = getattr(cs, phase)(cuda_device)
+    assert np.isfinite(got["max_abs_err"])
 
 
 @pytest.mark.gpu

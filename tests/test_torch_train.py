@@ -476,6 +476,14 @@ def test_untrainable_configs_are_refused(name, item):
                               steps=1, device="cpu"))
 
 
+def test_mla_model_is_refused():
+    """MLA with a dense FFN (no MoE to refuse first): its flash backward
+    at q/k 192, v 128 is ROADMAP A9.8e."""
+    cfg = dataclasses.replace(get_config("deepseek-v3-671b-smoke"), moe=None)
+    with pytest.raises(NotImplementedError, match="ROADMAP A9.8e"):
+        build(cfg, "cpu").train_mode()
+
+
 def test_rglru_only_model_is_refused():
     cfg = dataclasses.replace(get_config("recurrentgemma-2b-smoke"),
                               block_pattern=("rglru",))

@@ -18,7 +18,9 @@ Default mode: DIR's ``src/repro_torch/csrc/flash_attention.cu``,
 compiled with this checkout's ``nvcc`` flags and bound through their C
 interfaces (``rglru_scan_launch`` through the one of DIR's own source:
 ``BASE_RGLRU_ARGS``, the PR 13 design's (a, x, h0, h, T, B*w, stream) on
-contiguous inputs; the others through this checkout's).  At each serve
+contiguous inputs; ``flash_attention_launch`` through
+``BASE_FLASH_ARGS``, the entry before the window, against this tree's
+``flash_attention_cuda``; the others through this checkout's).  At each serve
 shape (the bf16 shapes of ``chip_smoke.FLASH_HEAD``, ``FLASH_MOE`` and
 ``GMM_SERVE``, the hd-256 shape in f32, ``RGLRU_HEAD`` and
 ``RWKV_HEAD``) the script times base, this, this, base with
@@ -27,7 +29,13 @@ checks both against the plain version within their ``chip_smoke``
 tolerances.  It prints one JSON line per shape: both builds' times (each
 the mean of its two turns, and the turns), the bound and the PyTorch
 library call where there is one (``scaled_dot_product_attention``,
-``torch.bmm``; none computes a linear recurrence).  The rglru row times
+``torch.bmm``; none computes a linear recurrence); a flash row also says
+whether both builds gave the same bits (``bit_equal``: the window and
+MLA's head dims leave the causal and full kernels as they were).  Two
+flash rows follow for this tree alone (``base`` null): the band of
+``chip_smoke.FLASH_BAND`` and MLA's 192/128 of ``FLASH_MLA``, beside
+``scaled_dot_product_attention`` (with a boolean band mask; with v at
+128).  The rglru row times
 both builds on contiguous ``(T, B, w)`` inputs and this one also on the
 model's ``(T, B, w)`` views of ``(B, T, w)`` tensors (``this_model_ms``;
 the base design took those only through two ``.contiguous()`` copies,
@@ -97,6 +105,11 @@ FLASH = (cs.FLASH_MOE, cs.FLASH_HEAD, cs.FLASH_HEAD[:-1] + ("float32",))
 #: takes 8-11 s a point at 5 000 cycles on an H100 (1.6-2.1 ms a
 #: cycle), and it runs twice at each of the five points
 AB_ENGINE_CYCLES = 5_000
+#: the C signature of the base checkout's ``flash_attention_launch`` (the
+#: forward's entry before the window and MLA's head dims): q, k, v, o,
+#: batch, sq, skv, heads, kv_heads, hd, causal, scale, dtype, stream
+BASE_FLASH_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 #: the C signature of the base checkout's ``rglru_scan_launch`` (PR 13's
 #: design): a, x, h0, h, T, B * w, stream
 BASE_RGLRU_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 \
@@ -132,14 +145,14 @@ def build_base(base: Path, name: str):
     return getattr(base_library(base, name), f"{name}_launch")
 
 
-def flash_call(fn, q, k, v, causal):
+def base_flash_call(fn, q, k, v, causal):
     b, sq, h, hd = q.shape
     out = torch.empty_like(q)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
              k.shape[1], h, k.shape[2], hd, int(causal), hd ** -0.5,
              fa.DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
     if err:
-        raise RuntimeError(f"flash_attention launch: CUDA error {err}")
+        raise RuntimeError(f"base flash_attention launch: CUDA error {err}")
     return out
 
 
@@ -319,27 +332,35 @@ def main() -> int:
 def flash_rows(base: Path, dev) -> None:
     """flash_attention at its serve shapes: base against this tree."""
     base_fa = build_base(base, "flash_attention")
-    base_fa.argtypes = fa._launcher().argtypes
-    this_fa = fa._launcher()
+    base_fa.argtypes = BASE_FLASH_ARGS
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for shape in FLASH:
         b, sq, skv, h, kv, hd, causal, dtype = shape
         q, k, v = cs.flash_inputs(dev, b, sq, skv, h, kv, hd, dtype, seed=5)
         ref = cs.flash_attention.flash_attention_ref(q, k, v, causal=causal)
         tol = cs.FLASH_TOL[dtype]
-        errs = [agrees(flash_call(fn, q, k, v, causal), ref, tol)
-                for fn in (base_fa, this_fa)]
+        outs = [base_flash_call(base_fa, q, k, v, causal),
+                fa.flash_attention_cuda(q, k, v, causal)]
+        errs = [agrees(o, ref, tol) for o in outs]
         qs, ks, vs = (t.repeat_interleave(h // t.shape[2], dim=2)
                       .transpose(1, 2).contiguous() for t in (q, k, v))
         rec = dict(kernel="flash_attention", shape=shape,
-                   **turns(lambda: flash_call(base_fa, q, k, v, causal),
-                           lambda: flash_call(this_fa, q, k, v, causal), 20),
+                   **turns(lambda: base_flash_call(base_fa, q, k, v, causal),
+                           lambda: fa.flash_attention_cuda(q, k, v, causal),
+                           20),
                    library_ms=cs.device_ms(
                        lambda: sdpa(qs, ks, vs, is_causal=causal), 20),
                    base_err=errs[0], this_err=errs[1],
+                   bit_equal=bool(torch.equal(*outs)),
                    **cs.flash_bound(*shape))
         print(json.dumps(rec), flush=True)
-        del q, k, v, qs, ks, vs, ref
+        del q, k, v, qs, ks, vs, ref, outs
+    # the band and MLA's 192/128: this tree only (a base before them has
+    # neither), beside scaled_dot_product_attention
+    for shape in (cs.FLASH_BAND, cs.FLASH_MLA):
+        print(json.dumps(dict(kernel="flash_attention", base=None,
+                              **cs.time_flash_window(dev, shape))),
+              flush=True)
 
 
 def gmm_rows(base: Path, dev) -> None:

@@ -67,10 +67,12 @@ Phases, one JSON line each:
    2^20 rows and T = 0: float sums within ``tests/test_kernels.py``'s
    tolerances, histograms exact (also against ``torch.bincount``), two
    calls bit for bit;
-5. the LM serve paths, recurrentgemma-2b, rwkv6-1.6b and then
-   kimi-k2-1t-a32b's MoE layer:
+5. the LM serve paths, recurrentgemma-2b, rwkv6-1.6b, kimi-k2-1t-a32b's
+   MoE layer, deepseek-v3-671b, whisper-large-v3 and phi-3-vision-4.2b:
    flash_kernel / rglru_kernel — each kernel against its plain version
-   on the card at the reference tests' shapes and the serve shapes,
+   on the card at the reference tests' shapes and the serve shapes
+   (flash: also whisper's non-causal encoder over 1 500 frames and its
+   cross-attention, 128 positions against them, and head dim 96),
    within ``FLASH_TOL`` / ``RGLRU_TOL`` (flash: bf16 through the
    tensor-core design, f32 through the CUDA-core one, and one request
    alone gives the same bits as in its batch; rglru: also at its tile
@@ -126,10 +128,26 @@ Phases, one JSON line each:
    serve_a; long_serve_b — a main path: full width and depth, bf16, two
    6 144-token prompts, 16 new each: 8 windowed flash_attention and 18
    rglru_scan launches per prefill;
+   whisper_serve_a — whisper-large-v3 at full width (d 1 280, 20 heads
+   of 64, 1 500 frames), 2 encoder and 2 decoder layers, f32, seeded
+   frame embeddings, 2 x 64 tokens: card logits against the CPU's as
+   serve_a, the greedy picks and the engines' tokens equal, 6
+   flash_attention launches per prefill; whisper_serve_b — a main path:
+   full width and depth (32 + 32 layers, bf16), four 128-token requests
+   and 16 new tokens each through ``ServeEngine`` (the reference
+   engine's zero frame embeddings): exactly 96 flash_attention launches
+   per prefill (each encoder layer's, each decoder layer's self- and
+   cross-attention) and none in decode; phi_serve_a / phi_serve_b —
+   phi-3-vision-4.2b likewise (d 3 072, 32 heads of 96): 2 layers, f32,
+   256 seeded patch embeddings over 2 x 512 tokens, 2 launches per
+   prefill; full depth (32 layers, bf16), four 512-token requests (text
+   after the engine's 256 zero patches): 32 launches at head dim 96 per
+   prefill, none in decode;
    lm_kernel_time — the four kernels' device time at the serve shapes
    beside their bounds, their plain versions and the library call
    (flash: ``scaled_dot_product_attention``, also at head dim 112, at
-   the band (with a boolean band mask) and at 192/128;
+   the band (with a boolean band mask), at 192/128, at whisper's
+   encoder and cross-attention shapes and at head dim 96;
    grouped_matmul: ``torch.bmm``);
 5b. the training path, smollm-135m (the dense family):
    flash_bwd_kernel — the flash-attention backward kernels
@@ -328,7 +346,8 @@ import repro_torch.kernels.rwkv6_wkv.kernel as rw_kernel  # noqa: E402
 from repro_torch.models import build  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.obs import perfetto  # noqa: E402
-from repro_torch.serving import Request, ServeEngine  # noqa: E402
+from repro_torch.serving import (  # noqa: E402
+    Request, ServeEngine, frontend_inputs)
 from repro_torch.obs.schema import STATE_NAMES  # noqa: E402
 from repro_torch.faults import FaultPlan  # noqa: E402
 from repro_torch.sync import Spec, run  # noqa: E402
@@ -642,7 +661,16 @@ SERVE_ARCH = "recurrentgemma-2b"
 #: (kimi-k2-1t-a32b's 64 heads on 8): an odd non-causal shape and the
 #: moe_serve_a (f32) and moe_serve_b (bf16) prefill shapes; the two bf16
 #: serve shapes also without the causal mask (bf16 runs the tensor-core
-#: design, f32 the CUDA-core one: each meets every mask branch)
+#: design, f32 the CUDA-core one: each meets every mask branch); then
+#: whisper-large-v3's attention at hd 64, H = KV = 20, at every shape of
+#: whisper_serve_b (bf16: the encoder over 1 500 frames, 46 full 32-key
+#: tiles and one of 28; the decoder's causal self-attention; its
+#: cross-attention, 128 positions against the 1 500 frames) and of
+#: whisper_serve_a (f32: the same at two requests of 64 tokens), and the
+#: cross shape also in f32; and phi-3-vision-4.2b's head dim 96 (32 heads
+#: on 32): phi_serve_b's prefill shape (bf16), phi_serve_a's (f32), a
+#: causal f32 one (two 256-token prompts) and a ragged non-causal GQA one
+#: in both dtypes
 FLASH_SHAPES = tuple(
     [(b, sq, skv, h, kv, hd, c, dt) for dt in ("float32", "bfloat16")
      for b, sq, skv, h, kv, hd in ((2, 128, 128, 4, 4, 64),
@@ -658,7 +686,19 @@ FLASH_SHAPES = tuple(
        (1, 100, 100, 8, 2, 112, False, "bfloat16"),
        (2, 256, 256, 64, 8, 112, True, "float32"),
        (4, 512, 512, 64, 8, 112, False, "bfloat16"),
-       (4, 512, 512, 64, 8, 112, True, "bfloat16")])
+       (4, 512, 512, 64, 8, 112, True, "bfloat16"),
+       (2, 1500, 1500, 20, 20, 64, False, "float32"),
+       (2, 64, 64, 20, 20, 64, True, "float32"),
+       (2, 64, 1500, 20, 20, 64, False, "float32"),
+       (4, 1500, 1500, 20, 20, 64, False, "bfloat16"),
+       (4, 128, 128, 20, 20, 64, True, "bfloat16"),
+       (4, 128, 1500, 20, 20, 64, False, "bfloat16"),
+       (4, 128, 1500, 20, 20, 64, False, "float32"),
+       (4, 512, 512, 32, 32, 96, True, "bfloat16"),
+       (2, 512, 512, 32, 32, 96, True, "float32"),
+       (2, 256, 256, 32, 32, 96, True, "float32"),
+       (1, 100, 100, 4, 2, 96, False, "float32"),
+       (1, 100, 100, 4, 2, 96, False, "bfloat16")])
 #: dtype -> (rtol, atol) of the kernel against its plain version on the
 #: card.  f32: tests/test_kernels.py's.  bf16: both sum in f32 and round
 #: the output to bf16 once, and the tensor-core design also rounds P to
@@ -672,7 +712,13 @@ FLASH_TOL = {"float32": (2e-5, 1e-4), "bfloat16": (1e-2, 1e-2)}
 #: the serve path's full-depth prefill shape: the kernels line's times
 FLASH_HEAD = (4, 512, 512, 10, 1, 256, True, "bfloat16")
 #: moe_serve_b's prefill shape (head dim 112), timed beside it
-FLASH_MOE = FLASH_SHAPES[-1]
+FLASH_MOE = (4, 512, 512, 64, 8, 112, True, "bfloat16")
+#: whisper_serve_b's prefill shapes at four requests (the encoder over
+#: 1 500 frames; the cross-attention, 128 positions against them) and
+#: phi_serve_b's (head dim 96), timed beside it
+FLASH_ENCODER = (4, 1500, 1500, 20, 20, 64, False, "bfloat16")
+FLASH_CROSS = (4, 128, 1500, 20, 20, 64, False, "bfloat16")
+FLASH_HD96 = (4, 512, 512, 32, 32, 96, True, "bfloat16")
 #: (T, B, w) of the rglru_kernel phase: the reference tests' shapes, the
 #: serve path's (serve_a: 256 x 2, serve_b: 512 x 4, width 2560) and the
 #: kernel's edges: one step, T a 64-step tile +- 1, widths that are not a
@@ -803,6 +849,32 @@ MLA_SERVE_B_LAUNCHES = {"flash_attention": 4, "grouped_matmul": 3}
 LONG_SERVE_A = dict(layers=3, requests=2, prompt=4096, new=8, seed=59)
 #: long_serve_b: full width and depth, bf16, 2 x 6 144 tokens, 16 new
 LONG_SERVE_B = dict(requests=2, prompt=6144, new=16, seed=61)
+
+# ---- the LM serve paths: whisper-large-v3 (encoder-decoder) and
+# ---- phi-3-vision-4.2b (the VLM frontend) ------------------------------
+WHISPER_ARCH = "whisper-large-v3"
+PHI_ARCH = "phi-3-vision-4.2b"
+#: whisper_serve_a: full width (d 1 280, 20 heads of 64, d_ff 5 120,
+#: vocab 51 866, 1 500 frames), 2 encoder and 2 decoder layers, f32;
+#: seeded frame embeddings, 2 x 64 tokens, 8 new
+WHISPER_SERVE_A = dict(layers=2, enc_layers=2, requests=2, prompt=64, new=8,
+                       seed=67)
+#: per prefill: each encoder layer's self-attention, each decoder layer's
+#: self- and cross-attention; decode is plain torch
+WHISPER_SERVE_A_LAUNCHES = {"flash_attention": 6}
+#: whisper_serve_b: full width and depth (32 + 32 layers, bf16), 4 x 128
+#: tokens, 16 new, the engine's zero frame embeddings
+WHISPER_SERVE_B = dict(requests=4, prompt=128, new=16, seed=71)
+WHISPER_SERVE_B_LAUNCHES = {"flash_attention": 96}
+#: phi_serve_a: full width (d 3 072, 32 heads on 32 of 96, d_ff 8 192,
+#: vocab 32 064), 2 layers, f32; seeded patch embeddings of 256 patches
+#: over 2 x 512-token prompts (256 text positions after them), 8 new
+PHI_SERVE_A = dict(layers=2, requests=2, prompt=512, new=8, seed=73)
+PHI_SERVE_A_LAUNCHES = {"flash_attention": 2}
+#: phi_serve_b: full width and depth (32 layers, bf16), 4 x 512 tokens
+#: (text after the engine's 256 zero patches), 16 new
+PHI_SERVE_B = dict(requests=4, prompt=512, new=16, seed=79)
+PHI_SERVE_B_LAUNCHES = {"flash_attention": 32}
 
 #: the LM path's kernels: a serve point must launch each exactly as often
 #: as its table says (0 where it names none)
@@ -3381,13 +3453,16 @@ def serve(eng, toks: np.ndarray, new: int) -> np.ndarray:
 
 
 def greedy_logits(model, toks: np.ndarray, new: int, cache_len: int,
-                  forced=None):
+                  forced=None, feats=None):
     """The engine's steps for equal-length prompts, keeping the logits:
-    prefill, then ``new`` decode steps, each fed the argmax of the last
+    prefill (given the frontend's ``feats``, a dict of CPU tensors, if
+    any), then ``new`` decode steps, each fed the argmax of the last
     logits, or ``forced[:, step]``.  Returns (logits of each step on the
     CPU, (B, new) tokens fed)."""
     dev = model.device
-    hidden, cache = model.prefill(torch.from_numpy(toks).to(dev), cache_len)
+    hidden, cache = model.prefill(
+        torch.from_numpy(toks).to(dev), cache_len,
+        **{k: v.to(dev) for k, v in (feats or {}).items()})
     out = [model.logits(hidden[:, -1:])[:, -1]]
     fed = []
     for step in range(new):
@@ -3451,16 +3526,20 @@ def router_diffs(cpu: RouterLog, card: RouterLog, k: int) -> list:
 
 
 #: the keys of a serve point that cut its config (``lm_cfg``)
-CUT_KEYS = ("layers", "experts", "moe_start")
+CUT_KEYS = ("layers", "enc_layers", "experts", "moe_start")
 
 
 def lm_cfg(arch: str, cut: dict, **kw):
     """``arch``'s config cut as ``cut`` says (``layers``: depth;
-    ``experts``: the MoE layers' routed experts; ``moe_start``: the first
-    MoE layer), with ``kw`` replaced."""
+    ``enc_layers``: the encoder's depth; ``experts``: the MoE layers'
+    routed experts; ``moe_start``: the first MoE layer), with ``kw``
+    replaced."""
     cfg = get_config(arch)
     if "layers" in cut:
         kw["num_layers"] = cut["layers"]
+    if "enc_layers" in cut:
+        kw["encoder"] = dataclasses.replace(cfg.encoder,
+                                            num_layers=cut["enc_layers"])
     moe_kw = {k: cut[c] for k, c in (("num_experts", "experts"),
                                      ("moe_layer_start", "moe_start"))
               if c in cut}
@@ -3470,13 +3549,19 @@ def lm_cfg(arch: str, cut: dict, **kw):
 
 
 def serve_a(dev, arch: str, sa: dict, want: dict, phase: str,
-            want_decode: dict = None, tokens_equal: bool = False) -> dict:
+            want_decode: dict = None, tokens_equal: bool = False,
+            frontend=None) -> dict:
     """Full width, ``sa["layers"]`` layers, f32: the card's prefill and
     decode logits against the port's on the CPU, on the same weights,
     teacher-forced on the CPU's greedy tokens.  The card's prefill must
     launch the LM kernels as ``want`` says, each decode step as
     ``want_decode`` says (none by default).  Router picks that differ
-    between the two are reported, and each must be a near-tie."""
+    between the two are reported, and each must be a near-tie.  With
+    ``frontend`` (cfg, sa -> {name: numpy array}), the logits are taken
+    on those seeded inputs of the frontend stub (frame or patch
+    embeddings), the engines' tokens on the engine's zero ones; with
+    ``tokens_equal``, the card's greedy picks on the seeded inputs must
+    equal the CPU's too."""
     gc.collect()                       # earlier phases' models
     torch.cuda.empty_cache()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3485,6 +3570,8 @@ def serve_a(dev, arch: str, sa: dict, want: dict, phase: str,
     cfg = lm_cfg(arch, sa, param_dtype="float32", compute_dtype="float32")
     cache_len = sa["prompt"] + sa["new"]
     toks = prompts(cfg.vocab_size, sa["requests"], sa["prompt"], sa["seed"])
+    feats = {k: torch.from_numpy(v)
+             for k, v in (frontend(cfg, sa) if frontend else {}).items()}
     card = build(cfg, dev).init(sa["seed"])
     cpu = build(cfg, "cpu").load_params(card.params())
     t0 = time.perf_counter()
@@ -3492,17 +3579,20 @@ def serve_a(dev, arch: str, sa: dict, want: dict, phase: str,
                                    cache_len=cache_len, device="cpu"),
                        toks, sa["new"])
     with RouterLog() as cpu_routes:
-        cpu_logits, fed = greedy_logits(cpu, toks, sa["new"], cache_len)
+        cpu_logits, fed = greedy_logits(cpu, toks, sa["new"], cache_len,
+                                        feats=feats)
     cpu_s = time.perf_counter() - t0
-    require(np.array_equal(fed, cpu_tokens),
+    require(bool(feats) or np.array_equal(fed, cpu_tokens),
             f"CPU engine tokens {cpu_tokens} != its greedy steps {fed}")
     del cpu
     probe = Probe(card)
     reset_launches()
     with RouterLog() as card_routes:
         card_logits, _ = greedy_logits(card, toks, sa["new"], cache_len,
-                                       forced=cpu_tokens)
+                                       forced=fed, feats=feats)
     launches = dict(LAUNCHES)
+    card_greedy = np.stack([lg.argmax(-1).int().numpy()
+                            for lg in card_logits[:-1]], axis=1)
     pre, dec = probe.calls["prefill"][:], probe.calls["decode_step"][:]
     card_tokens = serve(ServeEngine(cfg, card, batch_size=sa["requests"],
                                     cache_len=cache_len), toks, sa["new"])
@@ -3527,7 +3617,11 @@ def serve_a(dev, arch: str, sa: dict, want: dict, phase: str,
             f"{want_decode} per step")
     require(not tokens_equal or np.array_equal(cpu_tokens, card_tokens),
             f"card tokens {card_tokens} != CPU tokens {cpu_tokens}")
+    require(not (tokens_equal and feats) or np.array_equal(card_greedy, fed),
+            f"card greedy picks {card_greedy} != the CPU's {fed} on the "
+            f"seeded {sorted(feats)}")
     emit(phase=phase, arch=arch, layers=sa["layers"],
+         enc_layers=sa.get("enc_layers"), frontend_inputs=sorted(feats),
          experts=cfg.moe.num_experts if cfg.moe is not None else None,
          reduced=dict({k: sa[k] for k in CUT_KEYS if k in sa},
                       dtype="float32"),
@@ -3538,6 +3632,8 @@ def serve_a(dev, arch: str, sa: dict, want: dict, phase: str,
          router_calls=len(card_routes.calls), router_diffs=diffs,
          cpu_tokens=cpu_tokens.tolist(), card_tokens=card_tokens.tolist(),
          tokens_agree=bool(np.array_equal(cpu_tokens, card_tokens)),
+         cpu_greedy=fed.tolist(),
+         card_greedy_agrees=bool(np.array_equal(card_greedy, fed)),
          cpu_seconds=cpu_s, equal=True)
     return dict(max_abs_err=max(errs))
 
@@ -3638,8 +3734,14 @@ def serve_b(dev, arch: str, sb: dict, want: dict, phase: str,
     x = torch.from_numpy(toks).to(dev)
     state = {}
 
+    def prefill(t):
+        """The engine's prefill of the prompts ``t``, frontend inputs
+        and all."""
+        return model.prefill(t, cache_len, **frontend_inputs(
+            cfg, t.shape[0], t.shape[1], dev))
+
     def pre_call():
-        state["out"] = model.prefill(x, cache_len)
+        state["out"] = prefill(x)
 
     def dec_call():
         hidden, cache = state["out"]
@@ -3653,8 +3755,7 @@ def serve_b(dev, arch: str, sb: dict, want: dict, phase: str,
     # the batch dependence of the whole model (the kernels' own is nil:
     # flash_kernel, gmm_kernel), which decides solo_agrees at a near-tie
     solo_logits, batch_logits = (
-        model.logits(model.prefill(t, cache_len)[0][:1, -1:]).float()
-        for t in (x[:1], x))
+        model.logits(prefill(t)[0][:1, -1:]).float() for t in (x[:1], x))
     solo_diff = float((solo_logits - batch_logits).abs().max())
     LAUNCHES.update(launches_after)
     pre, dec = probe.calls["prefill"][0], probe.calls["decode_step"][:sb["new"]]
@@ -3675,6 +3776,7 @@ def serve_b(dev, arch: str, sb: dict, want: dict, phase: str,
             f"{want_decode} per step")
     decode_s = sum(c["seconds"] for c in dec)
     emit(phase=phase, arch=arch, layers=cfg.num_layers,
+         enc_layers=cfg.encoder.num_layers if cfg.encoder else None,
          reduced={k: sb[k] for k in CUT_KEYS if k in sb},
          params=n_params, weight_bytes=weight_bytes, dtype=cfg.param_dtype,
          requests=sb["requests"],
@@ -3840,6 +3942,48 @@ def phase_long_serve_b(dev) -> dict:
     """recurrentgemma-2b, 26 layers, bf16, 6 144-token prompts."""
     return serve_b(dev, SERVE_ARCH, LONG_SERVE_B, SERVE_B_LAUNCHES,
                    "long_serve_b")
+
+
+def frontend_feats(cfg, sa: dict) -> dict:
+    """Seeded inputs of the frontend stub for ``sa["requests"]`` prompts,
+    drawn N(0, 0.02^2) as the reference's ``make_batch`` draws them:
+    the encoder's frame embeddings (B, encoder.seq_len, d) for
+    ``frontend == "audio"``, the VLM's patch embeddings (B, num_patches,
+    d) for ``"vlm"``."""
+    rng = np.random.default_rng(sa["seed"])
+    if cfg.frontend == "audio":
+        name, n = "encoder_feats", cfg.encoder.seq_len
+    else:
+        name, n = "patch_embeds", cfg.num_patches
+    return {name: (rng.standard_normal((sa["requests"], n, cfg.d_model))
+                   * 0.02).astype(np.float32)}
+
+
+def phase_whisper_serve_a(dev) -> dict:
+    """whisper-large-v3, 2 encoder + 2 decoder layers, f32, seeded frame
+    embeddings."""
+    return serve_a(dev, WHISPER_ARCH, WHISPER_SERVE_A,
+                   WHISPER_SERVE_A_LAUNCHES, "whisper_serve_a",
+                   tokens_equal=True, frontend=frontend_feats)
+
+
+def phase_whisper_serve_b(dev) -> dict:
+    """whisper-large-v3, 32 + 32 layers, bf16."""
+    return serve_b(dev, WHISPER_ARCH, WHISPER_SERVE_B,
+                   WHISPER_SERVE_B_LAUNCHES, "whisper_serve_b")
+
+
+def phase_phi_serve_a(dev) -> dict:
+    """phi-3-vision-4.2b, 2 layers, f32, 256 seeded patches before 256
+    text positions."""
+    return serve_a(dev, PHI_ARCH, PHI_SERVE_A, PHI_SERVE_A_LAUNCHES,
+                   "phi_serve_a", tokens_equal=True, frontend=frontend_feats)
+
+
+def phase_phi_serve_b(dev) -> dict:
+    """phi-3-vision-4.2b, 32 layers, bf16."""
+    return serve_b(dev, PHI_ARCH, PHI_SERVE_B, PHI_SERVE_B_LAUNCHES,
+                   "phi_serve_b")
 
 
 def flash_bound(b, sq, skv, h, kv, hd, causal, dtype, window=0,
@@ -4377,15 +4521,23 @@ def lm_phases(dev) -> list:
     mla_run = timed(phase_mla_serve_b, dev)
     timed(phase_long_serve_a, dev)
     long_run = timed(phase_long_serve_b, dev)
+    timed(phase_whisper_serve_a, dev)
+    whisper_run = timed(phase_whisper_serve_b, dev)
+    timed(phase_phi_serve_a, dev)
+    phi_run = timed(phase_phi_serve_b, dev)
     t0 = time.perf_counter()
     flash_t, rglru_t, rwkv_t = time_flash(dev), time_rglru(dev), \
         time_rwkv(dev)
     flash_moe_t, gmm_t = time_flash(dev, FLASH_MOE), time_gmm(dev)
     band_t = time_flash_window(dev, FLASH_BAND)
     mla_t = time_flash_window(dev, FLASH_MLA)
+    enc_t, cross_t, hd96_t = (time_flash(dev, shape) for shape in (
+        FLASH_ENCODER, FLASH_CROSS, FLASH_HD96))
     emit(phase="lm_kernel_time", seconds=time.perf_counter() - t0,
          flash_attention=flash_t, flash_attention_hd112=flash_moe_t,
          flash_attention_band=band_t, flash_attention_mla=mla_t,
+         flash_attention_encoder=enc_t, flash_attention_cross=cross_t,
+         flash_attention_hd96=hd96_t,
          rglru_scan=rglru_t, rwkv6_wkv=rwkv_t, grouped_matmul=gmm_t)
     flash_worst = {k: max(flash_worst[k], window_worst[k])
                    for k in flash_worst}
@@ -4402,11 +4554,16 @@ def lm_phases(dev) -> list:
              hd112={k: flash_moe_t[k] for k in keys + ("shape",)},
              band={k: band_t[k] for k in keys + ("shape", "window")},
              mla={k: mla_t[k] for k in keys + ("shape", "hdv")},
+             encoder={k: enc_t[k] for k in keys + ("shape",)},
+             cross={k: cross_t[k] for k in keys + ("shape",)},
+             hd96={k: hd96_t[k] for k in keys + ("shape",)},
              launches_by_path={
                  "serve_b": main_run["launches"]["flash_attention"],
                  "moe_serve_b": moe_run["launches"]["flash_attention"],
                  "mla_serve_b": mla_run["launches"]["flash_attention"],
-                 "long_serve_b": long_run["launches"]["flash_attention"]}),
+                 "long_serve_b": long_run["launches"]["flash_attention"],
+                 "whisper_serve_b": whisper_run["launches"]["flash_attention"],
+                 "phi_serve_b": phi_run["launches"]["flash_attention"]}),
         dict(name="rglru_scan", route="cuda",
              source="src/repro_torch/csrc/rglru_scan.cu",
              replaces="src/repro/kernels/rglru_scan/kernel.py:20",

@@ -12,7 +12,8 @@ the reference's state to the port and to compare the two.
 tree (as numpy arrays), so that both packages run on the same weights;
 ``unstack_segments`` turns the reference's per-segment stacked layer
 trees (params or decode caches) into the port's one tree per layer, and
-``stack_segments`` back.  ``params_to_numpy``, ``adamw_state_from_jax``
+``stack_segments`` back; the encoder-decoder's stacked ``enc_blocks``
+become its ``enc_layers`` the same way.  ``params_to_numpy``, ``adamw_state_from_jax``
 and ``adamw_state_to_numpy`` carry parameters (or gradients) and AdamW
 moments between the two layouts; ``load_jax_checkpoint`` reads a
 checkpoint that the reference's ``Checkpointer`` wrote into the port's
@@ -62,21 +63,36 @@ def to_numpy(tree: Any) -> Any:
     return tree
 
 
+def _take(tree, r):
+    """Entry ``r`` of the leading (stacked) axis of every leaf."""
+    if isinstance(tree, dict):
+        return {k: _take(v, r) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):        # an int8 moment (q, scale)
+        return tuple(_take(v, r) for v in tree)
+    return tree[r]
+
+
+def _stack(trees):
+    """The trees' leaves stacked along a new leading axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    if isinstance(first, (list, tuple)):       # an int8 moment (q, scale)
+        return tuple(_stack([t[i] for t in trees])
+                     for i in range(len(first)))
+    if isinstance(first, torch.Tensor):
+        return torch.stack(trees)
+    return np.stack(trees)
+
+
 def unstack_segments(cfg, segments: List[Any]) -> List[Any]:
     """The reference's ``[segment tree, ...]`` (each ``{"u0": ..., "u1":
     ...}`` with a leading repeat axis, as ``plan_segments`` lays the
     layers out) -> one tree per layer, in layer order."""
-    def take(tree, r):
-        if isinstance(tree, dict):
-            return {k: take(v, r) for k, v in tree.items()}
-        if isinstance(tree, (list, tuple)):    # an int8 moment (q, scale)
-            return tuple(take(v, r) for v in tree)
-        return tree[r]
-
     layers = []
     for (unit, repeats), seg in zip(plan_segments(cfg), segments):
         for r in range(repeats):
-            layers.extend(take(seg[f"u{j}"], r) for j in range(len(unit)))
+            layers.extend(_take(seg[f"u{j}"], r) for j in range(len(unit)))
     return layers
 
 
@@ -85,48 +101,45 @@ def model_from_jax(cfg, params_np: dict, device=None) -> Model:
     without one it raises, as ``build`` does) holding the weights of the
     reference's parameter tree ``params_np`` (numpy arrays: ``embed``,
     ``final_norm``, ``lm_head`` when untied, and the stacked
-    ``segments``)."""
+    ``segments``; the encoder-decoder's also ``pos_embed``, ``enc_norm``
+    and the stacked ``enc_blocks``)."""
     dev = resolve_device(device)
-    tree = {k: v for k, v in params_np.items() if k != "segments"}
-    tree["layers"] = unstack_segments(cfg, params_np["segments"])
-    return build(cfg, dev).load_params(to_torch(tree, dev))
+    return build(cfg, dev).load_params(to_torch(_to_layers(cfg, params_np),
+                                                dev))
 
 
 def stack_segments(cfg, layers: List[Any]) -> List[Any]:
     """The inverse of ``unstack_segments``: one tree per layer (numpy
     arrays or tensors) -> the reference's ``[segment tree, ...]``, each
     leaf stacked along a leading repeat axis."""
-    def stack(trees):
-        first = trees[0]
-        if isinstance(first, dict):
-            return {k: stack([t[k] for t in trees]) for k in first}
-        if isinstance(first, (list, tuple)):   # an int8 moment (q, scale)
-            return tuple(stack([t[i] for t in trees])
-                         for i in range(len(first)))
-        if isinstance(first, torch.Tensor):
-            return torch.stack(trees)
-        return np.stack(trees)
-
     segments, i = [], 0
     for unit, repeats in plan_segments(cfg):
         n = len(unit)
-        segments.append({f"u{j}": stack([layers[i + r * n + j]
-                                         for r in range(repeats)])
+        segments.append({f"u{j}": _stack([layers[i + r * n + j]
+                                          for r in range(repeats)])
                          for j in range(n)})
         i += n * repeats
     return segments
 
 
 def _to_layers(cfg, tree: Dict[str, Any]) -> Dict[str, Any]:
-    """A reference tree (``segments`` stacked) -> the port's (``layers``)."""
-    out = {k: v for k, v in tree.items() if k != "segments"}
+    """A reference tree (``segments``, and ``enc_blocks``, stacked) -> the
+    port's (``layers``, and ``enc_layers``)."""
+    out = {k: v for k, v in tree.items()
+           if k not in ("segments", "enc_blocks")}
+    if "enc_blocks" in tree:
+        out["enc_layers"] = [_take(tree["enc_blocks"], r)
+                             for r in range(cfg.encoder.num_layers)]
     out["layers"] = unstack_segments(cfg, tree["segments"])
     return out
 
 
 def _to_segments(cfg, tree: Dict[str, Any]) -> Dict[str, Any]:
-    """The port's tree (``layers``) -> the reference's (``segments``)."""
-    out = {k: v for k, v in tree.items() if k != "layers"}
+    """The port's tree (``layers``, and ``enc_layers``) -> the reference's
+    (``segments``, and ``enc_blocks``)."""
+    out = {k: v for k, v in tree.items() if k not in ("layers", "enc_layers")}
+    if "enc_layers" in tree:
+        out["enc_blocks"] = _stack(tree["enc_layers"])
     out["segments"] = stack_segments(cfg, tree["layers"])
     return out
 

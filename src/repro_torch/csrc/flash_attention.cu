@@ -81,7 +81,8 @@
 // quarter-warp hit distinct banks), the warp reduces the running max and
 // denominator with shuffles, and each lane accumulates ceil(hd/32)
 // adjacent output columns of its 8 rows from the broadcast probabilities
-// (at hd 112 lanes 0-27 own 4 columns each and lanes 28-31 none).  Keys
+// (at hd 112 lanes 0-27 own 4 columns each and lanes 28-31 none; at hd 96
+// every lane owns 3, loaded and stored one float at a time).  Keys
 // past the diagonal and past Skv are masked to probability 0.  Bound: the
 // products at the f32 CUDA-core rate, 67 TFLOP/s (80 us for the hd-256
 // shape's 5.4 GFLOP).
@@ -98,9 +99,12 @@
 // Dynamic shared memory, above the 48 KB default at most head dims (the
 // launcher raises each instantiation's limit once): tc, 64 query rows and
 // 2 stages of 32-key K tiles, (hd + 8) bf16 a row, and V tiles, (hdv +
-// 8): 101 376 bytes at hd 256, 46 080 at hd 112, 68 608 at 192/128; cc,
-// 32 hd floats of queries and 2 stages of 32 (hd + 4) floats of K and
-// (hdv + 4) of V: 165 888 bytes at hd 256, 108 544 at 192/128.  At
+// 8): 101 376 bytes at hd 256, 46 080 at hd 112, 39 936 at hd 96, 68 608
+// at 192/128; cc, 32 hd floats of queries and 2 stages of 32 (hd + 4)
+// floats of K and (hdv + 4) of V: 165 888 bytes at hd 256, 63 488 at hd
+// 96, 108 544 at 192/128.  At hd 96 the bf16 block walks 6 k-steps of S
+// and keeps 12 8-column tiles of o (48 f32 accumulators a thread); a row
+// of 104 bf16 is 13 chunks of 16 bytes, odd as at every head dim.  At
 // 192/128 the bf16 block keeps 64 f32 accumulators of o a thread (16
 // 8-column tiles of the 128 v columns) and walks 12 16-deep k-steps of
 // S; one block an SM is asked of the compiler there, as at hd 256.  q, k,
@@ -838,7 +842,8 @@ int launch_dtype(int dtype, const void* q, const void* k, const void* v,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The instance of (hd, hdv): hdv = hd at each head dim, and MLA's 192/128.
+// The instance of (hd, hdv): hdv = hd at each head dim (phi-3-vision's 96
+// among them), and MLA's 192/128.
 int launch_hd(int hd, int hdv, int dtype, const void* q, const void* k,
               const void* v, void* o, float* lse, int batch, int sq, int skv,
               int heads, int kv_heads, int causal, int window, float scale,
@@ -850,6 +855,7 @@ int launch_hd(int hd, int hdv, int dtype, const void* q, const void* k,
   }
   FLASH_CASE(32, 32)
   FLASH_CASE(64, 64)
+  FLASH_CASE(96, 96)
   FLASH_CASE(112, 112)
   FLASH_CASE(128, 128)
   FLASH_CASE(256, 256)
@@ -881,8 +887,10 @@ int launch_checked(const void* q, const void* k, const void* v, void* o,
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it).  q (batch,
 // sq, heads, hd), k (batch, skv, kv_heads, hd), v (batch, skv, kv_heads,
 // hdv) and o (batch, sq, heads, hdv), row-major; (hd, hdv) one of (32,
-// 32), (64, 64), (112, 112), (128, 128), (256, 256), (192, 128); heads a
-// multiple of kv_heads; every pointer on a 16-byte boundary.  window 0
+// 32), (64, 64), (96, 96), (112, 112), (128, 128), (256, 256), (192, 128);
+// heads a multiple of kv_heads; every pointer on a 16-byte boundary.  Sq
+// and Skv are free (whisper's cross-attention: 128 queries, 1 500 keys,
+// non-causal).  window 0
 // masks nothing more; window > 0 needs causal and sq <= skv (so that a
 // query row always sees its own key) and hides key j from query i when
 // i - j >= window.

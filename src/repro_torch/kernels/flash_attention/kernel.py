@@ -25,9 +25,10 @@ from repro_torch.kernels import LAUNCHES, _build
 #: q/k/v/o dtypes the kernel takes, with its dtype code
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: (q/k head dim, v head dim) pairs the forward is instantiated for: one
-#: head dim at each of 32, 64, 112, 128, 256, and MLA's 192 over 128
-HEAD_DIMS = ((32, 32), (64, 64), (112, 112), (128, 128), (256, 256),
-             (192, 128))
+#: head dim at each of 32, 64, 96 (phi-3-vision), 112, 128, 256, and MLA's
+#: 192 over 128
+HEAD_DIMS = ((32, 32), (64, 64), (96, 96), (112, 112), (128, 128),
+             (256, 256), (192, 128))
 #: the pairs of the forward's lse entry (training): v's head dim is q's
 LSE_HEAD_DIMS = tuple(p for p in HEAD_DIMS if p[0] == p[1])
 #: head dims the backward kernels are instantiated for (v's is q's)

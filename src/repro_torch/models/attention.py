@@ -1,6 +1,6 @@
-"""Attention blocks of the port: grouped-query attention (GQA) and
-DeepSeek's multi-head latent attention (MLA), the twins of those parts of
-the reference's ``repro/models/attention.py``.
+"""Attention blocks of the port: grouped-query attention (GQA),
+DeepSeek's multi-head latent attention (MLA) and whisper's cross-attention,
+the twins of those parts of the reference's ``repro/models/attention.py``.
 
 Prefill and training attention (``gqa_apply``, ``mla_apply``) goes
 through the ``flash_attention`` op: the CUDA kernel on the card, its
@@ -11,13 +11,17 @@ backward kernel).  For the ``attn`` layers that is the reference's
 ``sliding_window_attention``, the op with ``window=cfg.local_window``
 (a prompt of any length); for MLA, ``blocked_attention`` over q/k of
 ``qk_nope + qk_rope`` (192) columns and v of ``v_head_dim`` (128), which
-the kernel takes as they are where the reference pads v to 192.
+the kernel takes as they are where the reference pads v to 192; for
+whisper's decoder, ``gqa_apply(rope=False)`` and ``cross_attn_apply``,
+the op with ``causal=False`` over Sq decoder queries and Skv encoder
+frames (``blocked_attention(causal=False)`` in the reference).
 Decode (``gqa_decode``, with the ring buffer of the ``local`` layers;
-``mla_decode``, absorbed into the latent space) is plain torch, as in
+``mla_decode``, absorbed into the latent space; whisper's cross-attention
+over its prefilled K/V by ``decode_attention``) is plain torch, as in
 the reference.  All softmax math in float32.
 
-Cross-attention and the reference's sharded paths (``_cp_attention``,
-``_head_shard``) are not ported yet (ROADMAP A9.3, A9.6).
+The reference's sharded paths (``_cp_attention``, ``_head_shard``) are
+not ported yet (ROADMAP A9.6).
 """
 from __future__ import annotations
 
@@ -86,29 +90,31 @@ def _qkv(cfg: ModelConfig, p: Params, x):
     return q, k, v
 
 
-def gqa_apply(cfg: ModelConfig, p: Params, x, positions, *, window: int = 0,
+def gqa_apply(cfg: ModelConfig, p: Params, x, positions, *,
+              causal: bool = True, window: int = 0, rope: bool = True,
               kv_out: bool = False):
-    """Full-sequence causal attention (prefill, training), banded to the
-    last ``window`` positions when one is given. Returns (out, (k, v))
-    with ``kv_out``, else (out, None)."""
+    """Full-sequence attention (prefill, training), causal unless asked
+    otherwise, banded to the last ``window`` positions when one is given,
+    rotary unless ``rope`` is off. Returns (out, (k, v)) with ``kv_out``,
+    else (out, None)."""
     b, s = x.shape[:2]
     q, k, v = _qkv(cfg, p, x)
-    if cfg.partial_rotary_factor > 0:
+    if rope and cfg.partial_rotary_factor > 0:
         q = L.apply_rope(q, positions, cfg.rope_theta, cfg.partial_rotary_factor)
         k = L.apply_rope(k, positions, cfg.rope_theta, cfg.partial_rotary_factor)
-    out = flash_attention(q, k, v, causal=True, window=window)
+    out = flash_attention(q, k, v, causal=causal, window=window)
     out = out.reshape(b, s, -1) @ p["wo"]
     return (out, (k, v)) if kv_out else (out, None)
 
 
 def gqa_decode(cfg: ModelConfig, p: Params, x, cache: Params, pos, *,
-               window: int = 0):
+               window: int = 0, rope: bool = True):
     """One-token decode with KV cache. x:(B,1,d); pos:(B,). Returns
     (out, cache). Cache k/v: (B,S,KV,hd) (ring buffer of size W for
     sliding-window layers), written in place: the returned cache is the
     one given, with this token's K/V at its slot."""
     q, k, v = _qkv(cfg, p, x)
-    if cfg.partial_rotary_factor > 0:
+    if rope and cfg.partial_rotary_factor > 0:
         q = L.apply_rope(q, pos[:, None], cfg.rope_theta, cfg.partial_rotary_factor)
         k = L.apply_rope(k, pos[:, None], cfg.rope_theta, cfg.partial_rotary_factor)
     k_cache, v_cache = cache["k"], cache["v"]
@@ -146,6 +152,37 @@ def gqa_cache_init(cfg: ModelConfig, batch: int, seq: int, dtype,
     shape = (batch, seq, cfg.num_kv_heads, hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (whisper decoder)
+# ---------------------------------------------------------------------------
+
+def cross_attn_init(gen, cfg: ModelConfig, dtype, device) -> Params:
+    """MHA projections without bias: ``wq``, ``wk``, ``wv`` (d, H * hd)
+    and ``wo`` (H * hd, d)."""
+    d, hd, h = cfg.d_model, cfg.resolved_head_dim, cfg.num_heads
+    return {"wq": L.dense_init(gen, d, h * hd, dtype, device),
+            "wk": L.dense_init(gen, d, h * hd, dtype, device),
+            "wv": L.dense_init(gen, d, h * hd, dtype, device),
+            "wo": L.dense_init(gen, h * hd, d, dtype, device)}
+
+
+def cross_attn_apply(cfg: ModelConfig, p: Params, x, enc_kv=None, enc=None):
+    """x (B, S, d) attends to every encoder frame, non-causal: K/V from
+    ``enc`` (B, Se, d), or the precomputed ``enc_kv`` = (k, v), each (B,
+    Se, H, hd).  Returns (out (B, S, d), (k, v))."""
+    b, s, _ = x.shape
+    hd, h = cfg.resolved_head_dim, cfg.num_heads
+    q = (x @ p["wq"]).reshape(b, s, h, hd)
+    if enc_kv is None:
+        se = enc.shape[1]
+        k = (enc @ p["wk"]).reshape(b, se, h, hd)
+        v = (enc @ p["wv"]).reshape(b, se, h, hd)
+    else:
+        k, v = enc_kv
+    out = flash_attention(q, k, v, causal=False)
+    return out.reshape(b, s, -1) @ p["wo"], (k, v)
 
 
 # ---------------------------------------------------------------------------

@@ -15,9 +15,6 @@ The twin of the reference's ``repro/models/layers.py``:
   time along its leading axis.  torch's generator gives other numbers
   than ``jax.random`` from the same seed, so parity tests convert the
   reference's weights (``repro_torch.convert.model_from_jax``).
-
-The reference's ``sinusoidal_positions`` is not ported yet: no ported
-path uses it.
 """
 from __future__ import annotations
 
@@ -216,6 +213,34 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     x1, x2 = xr[..., : rot // 2], xr[..., rot // 2:]           # rotate-half layout
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return torch.cat([out.to(x.dtype), x[..., rot:]], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Sinusoidal positions (whisper's decoder)
+# ---------------------------------------------------------------------------
+
+def sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """float32 ``(..., d)`` rows of the reference's sinusoidal table at
+    ``positions`` (any integer shape): sin on even columns, cos on odd
+    ones, of ``pos / 10000 ** (2i / d)``: the exponent in float32 as the
+    reference rounds it, the power correctly rounded (taken in float64),
+    one row at a time, so prefill's table and decode's one row agree at
+    every position."""
+    expo = torch.arange(0, d, 2, dtype=torch.float32,
+                        device=positions.device) / d
+    div = torch.pow(10000.0, expo.double()).float()
+    ang = positions.float()[..., None] / div
+    out = torch.zeros((*positions.shape, d), dtype=torch.float32,
+                      device=positions.device)
+    out[..., 0::2] = torch.sin(ang)
+    out[..., 1::2] = torch.cos(ang[..., : d // 2])
+    return out
+
+
+def sinusoidal_positions(max_len: int, d: int, device) -> torch.Tensor:
+    """The reference's ``sinusoidal_positions``: float32 ``(max_len, d)``,
+    row i the ``sinusoidal`` row of position i."""
+    return sinusoidal(torch.arange(max_len, device=device), d)
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,11 @@
 ``repro/models/model_zoo.py``: serving (``init``, ``init_cache``,
 ``prefill``, ``decode_step``, ``logits``) and training (``hidden``,
 ``loss``, after ``train_mode()`` hands out trainable parameters; the
-dense family only, ``transformer.check_trainable``).
+dense family only, ``transformer.check_trainable``).  A config with an
+encoder builds the encoder-decoder (``encdec``); the others the
+decoder-only LM (``transformer``).  ``prefill`` and ``hidden`` take the
+inputs of the reference's batch beside the tokens: ``encoder_feats`` for
+the encoder-decoder, ``patch_embeds`` for the VLM.
 
 The model lives on one device, chosen when it is built: the GPU unless
 the caller passes ``device="cpu"`` (``repro_torch.core.sim.
@@ -23,6 +27,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sim import resolve_device
+from repro_torch.models import encdec as ED
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as TF
 from repro_torch.tree import leaves
@@ -30,19 +35,32 @@ from repro_torch.tree import leaves
 Params = TF.Params
 
 
+#: the encoder-decoder's layer signatures (``TF.Block.sig``)
+ENC_SIG, DEC_SIG = ("enc", "mlp"), ("dec", "mlp")
+#: the inputs of the reference's batch that a frontend takes
+FRONTEND = ("encoder_feats", "patch_embeds")
+
+
 class Model(nn.Module):
     """The decoder-only LM: embedding, one ``TF.Block`` per layer in
-    ``blocks``, final norm and (untied) ``lm_head``."""
+    ``blocks``, final norm and (untied) ``lm_head``.  The encoder-decoder
+    (``cfg.encoder`` set) also holds the frames' ``pos_embed``, one block
+    per encoder layer in ``enc_blocks`` and the ``enc_norm``."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         self.cfg = cfg
-        params = TF.init_params(cfg, None, resolve_device(device))
+        encdec = cfg.encoder is not None
+        # the module of the architecture's init, cache and decode step
+        self._impl = ED if encdec else TF
+        params = self._impl.init_params(cfg, None, resolve_device(device))
         self.top = TF.ParamTree({k: v for k, v in params.items()
-                                 if k != "layers"})
+                                 if k not in ("layers", "enc_layers")})
+        self.enc_blocks = nn.ModuleList(
+            TF.Block(ENC_SIG, lp) for lp in params.get("enc_layers", []))
+        sigs = [DEC_SIG] * cfg.num_layers if encdec else TF.layer_sigs(cfg)
         self.blocks = nn.ModuleList(
-            TF.Block(sig, lp)
-            for sig, lp in zip(TF.layer_sigs(cfg), params["layers"]))
+            TF.Block(sig, lp) for sig, lp in zip(sigs, params["layers"]))
 
     @property
     def device(self) -> torch.device:
@@ -51,8 +69,14 @@ class Model(nn.Module):
     # ---- weights ----
     def params(self) -> Params:
         """The weights as the reference's tree, unstacked: ``{"embed",
-        "final_norm", ["lm_head"], "layers": [one dict per layer]}``."""
-        return dict(self.top.tree(), layers=[b.params() for b in self.blocks])
+        "final_norm", ["lm_head"], "layers": [one dict per layer]}``; the
+        encoder-decoder's ``{"pos_embed", "enc_norm", "embed",
+        "final_norm", "enc_layers": [...], "layers": [...]}``."""
+        out = self.top.tree()
+        if self.cfg.encoder is not None:
+            out["enc_layers"] = [b.params() for b in self.enc_blocks]
+        out["layers"] = [b.params() for b in self.blocks]
+        return out
 
     @torch.no_grad()
     def load_params(self, tree: Params) -> "Model":
@@ -90,9 +114,23 @@ class Model(nn.Module):
         at a time (a large leaf ``L.DRAW_CHUNK`` elements at a time)."""
         draw = L.Draw(torch.Generator(device=self.device).manual_seed(seed),
                       leaves(self.params()))
-        TF.init_params(self.cfg, draw, self.device)
+        self._impl.init_params(self.cfg, draw, self.device)
         draw.done()
         return self
+
+    def _frontend(self, given: Dict[str, Any]) -> Dict[str, Any]:
+        """The frontend inputs of ``given`` that are not None; raises
+        ValueError on one the architecture does not take, or when the
+        encoder-decoder lacks its ``encoder_feats``."""
+        given = {k: v for k, v in given.items() if v is not None}
+        takes = {"audio": "encoder_feats", "vlm": "patch_embeds"}.get(
+            self.cfg.frontend)
+        extra = sorted(set(given) - {takes})
+        if extra:
+            raise ValueError(f"{self.cfg.name} takes no {extra}")
+        if self.cfg.encoder is not None and takes not in given:
+            raise ValueError(f"{self.cfg.name} needs {takes}")
+        return given
 
     # ---- training ----
     def train_mode(self, on: bool = True) -> "Model":
@@ -106,8 +144,12 @@ class Model(nn.Module):
 
     def hidden(self, batch: Dict[str, Any]
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """batch ``{"tokens": (B,S)}`` -> (hidden (B,S,d), aux loss)."""
-        return TF.forward(self.cfg, self.params(), batch["tokens"])
+        """batch ``{"tokens": (B,S)}`` (with ``"encoder_feats"`` (B,Se,d)
+        for the encoder-decoder, optionally ``"patch_embeds"`` (B,P,d) for
+        the VLM) -> (hidden (B,S,d), aux loss)."""
+        frontend = self._frontend({k: batch.get(k) for k in FRONTEND})
+        return self._impl.forward(self.cfg, self.params(), batch["tokens"],
+                                  **frontend)
 
     def loss(self, batch: Dict[str, Any]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -121,20 +163,26 @@ class Model(nn.Module):
     # ---- serving ----
     def init_cache(self, batch: int, seq: int) -> List[Params]:
         """An empty decode cache of ``seq`` positions for ``batch``
-        sequences, one dict per layer, in the compute dtype."""
-        return TF.init_cache(self.cfg, batch, seq, self.device)
+        sequences, one dict per layer, in the compute dtype (the
+        encoder-decoder's also holds each layer's cross K/V)."""
+        return self._impl.init_cache(self.cfg, batch, seq, self.device)
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, cache_len: int):
-        """tokens (B,S) int -> (hidden (B,S,d), cache of ``cache_len``)."""
-        return TF.prefill(self.cfg, self.params(), tokens,
-                          self.init_cache(tokens.shape[0], cache_len))
+    def prefill(self, tokens: torch.Tensor, cache_len: int,
+                **frontend: torch.Tensor):
+        """tokens (B,S) int -> (hidden (B,S,d), cache of ``cache_len``);
+        the encoder-decoder needs ``encoder_feats`` (B,Se,d), the VLM
+        takes ``patch_embeds`` (B,P,d) over its first positions."""
+        cache = self.init_cache(tokens.shape[0], cache_len)
+        return self._impl.prefill(self.cfg, self.params(), tokens, cache,
+                                  **self._frontend(frontend))
 
     @torch.no_grad()
     def decode_step(self, cache: List[Params], tokens: torch.Tensor,
                     pos: torch.Tensor):
         """tokens (B,1), pos (B,) -> (logits (B,1,V) float32, cache)."""
-        return TF.decode_step(self.cfg, self.params(), cache, tokens, pos)
+        return self._impl.decode_step(self.cfg, self.params(), cache, tokens,
+                                      pos)
 
     @torch.no_grad()
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:

@@ -14,13 +14,16 @@ Ported: the dense (``attn``, GQA or MLA), ``local`` and ``rglru``
 layers with their MLPs, the ``rwkv`` time-mix with its ``rwkv_cm``
 channel-mix, the MoE models' FFNs (``dense`` for the leading layers,
 ``moe``: routed experts plus the shared expert), ``prefill`` and
-``decode_step``.  The encoder and the VLM frontend raise
-``NotImplementedError`` when a model is built.
+``decode_step``, and the VLM frontend: ``prefill`` and ``forward``
+splice precomputed patch embeddings over the first positions
+(``patch_embeds``).  The encoder-decoder is ``repro_torch.models.
+encdec``.
 
 Training (``apply_block``, ``forward``, ``loss_fn``) takes the layers
 whose kernels have a backward: GQA ``attn`` mixers with dense MLPs, the
-``dense`` family (``check_trainable`` refuses the rest, naming the
-ROADMAP item that brings it).  ``cfg.parallel.remat`` recomputes each
+``dense`` family (``check_trainable`` refuses the rest, and the
+encoder-decoder and the VLM, naming the ROADMAP item that brings it).
+``cfg.parallel.remat`` recomputes each
 layer in the backward (``torch.utils.checkpoint``, non-reentrant), as the
 reference's ``jax.checkpoint`` of its scan body; ``loss_fn`` recomputes
 each 1 024-token chunk's logits, so the (B, S, V) float32 logits are
@@ -100,25 +103,11 @@ def mlp_kind(cfg: ModelConfig) -> str:
     return "geglu" if cfg.norm == "rmsnorm" else "gelu"
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port cannot build yet."""
-    missing = []
-    if cfg.encoder is not None:
-        missing.append("the encoder-decoder stack (ROADMAP A9.3)")
-    if cfg.frontend == "vlm":
-        missing.append("the VLM frontend (ROADMAP A9.4)")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet; the port "
-            f"serves dense (attn: GQA or MLA), local, rglru and rwkv layers "
-            f"and MoE FFNs")
-
-
-def check_trainable(cfg: ModelConfig) -> None:
+def check_layers_trainable(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` unless every layer of ``cfg`` is an
-    ``attn`` mixer with a dense MLP (the layers whose kernels have a
-    backward), naming the ROADMAP item that brings the rest."""
-    check_supported(cfg)
+    ``attn`` mixer with a dense MLP (the layers ``forward`` runs and whose
+    kernels have a backward), naming the ROADMAP item that brings the
+    rest."""
     kinds = set(cfg.layer_kinds())
     missing = []
     if cfg.attn_kind == "mla":
@@ -141,6 +130,19 @@ def check_trainable(cfg: ModelConfig) -> None:
             f"{cfg.name}: training {', '.join(missing)} is not ported yet; "
             f"the port trains attn layers with dense MLPs (the dense "
             f"family)")
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """``check_layers_trainable``, and also refuse the encoder-decoder and
+    the VLM (the flash backward non-causal at Sq != Skv and at head dim
+    96, ROADMAP A9.8f)."""
+    if cfg.encoder is not None or cfg.frontend == "vlm":
+        raise NotImplementedError(
+            f"{cfg.name}: training the encoder-decoder and the VLM (a "
+            f"flash-attention backward non-causal at Sq != Skv and at head "
+            f"dim 96, ROADMAP A9.8f) is not ported yet; the port trains attn "
+            f"layers with dense MLPs (the dense family)")
+    check_layers_trainable(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -359,7 +361,6 @@ def init_params(cfg: ModelConfig, gen: Optional[L.Draw],
     """``{"embed", "final_norm", ["lm_head"], "layers": [one dict per
     layer]}``, allocated (``gen`` None; constants filled) or drawn in
     place into ``gen``'s leaves, in this order."""
-    check_supported(cfg)
     dtype = torch_dtype(cfg.param_dtype)
     params: Params = {
         "embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dtype, device),
@@ -381,16 +382,27 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int,
             for sig in layer_sigs(cfg)]
 
 
-def _embed(cfg: ModelConfig, params: Params, tokens) -> torch.Tensor:
-    return F.embedding(tokens.long(), params["embed"]).to(
-        torch_dtype(cfg.compute_dtype))
+def _embed(cfg: ModelConfig, params: Params, tokens,
+           patch_embeds=None) -> torch.Tensor:
+    """Token embeddings in the compute dtype; for the VLM with
+    ``patch_embeds`` (B, P, d), the first ``min(P, S)`` positions are the
+    patch embeddings instead (cast to the compute dtype), as the
+    reference splices them."""
+    cdt = torch_dtype(cfg.compute_dtype)
+    x = F.embedding(tokens.long(), params["embed"]).to(cdt)
+    if cfg.frontend == "vlm" and patch_embeds is not None:
+        p = min(patch_embeds.shape[1], x.shape[1])
+        x = torch.cat([patch_embeds[:, :p].to(cdt), x[:, p:]], dim=1)
+    return x
 
 
-def prefill(cfg: ModelConfig, params: Params, tokens, cache: List[Params]):
+def prefill(cfg: ModelConfig, params: Params, tokens, cache: List[Params],
+            patch_embeds=None):
     """Process a prompt ``tokens`` (B,S) into the empty ``cache`` (of
-    ``init_cache``); return (hidden (B,S,d), filled cache)."""
+    ``init_cache``), the VLM's ``patch_embeds`` (B,P,d) spliced over its
+    first positions; return (hidden (B,S,d), filled cache)."""
     s = tokens.shape[1]
-    x = _embed(cfg, params, tokens)
+    x = _embed(cfg, params, tokens, patch_embeds)
     positions = torch.arange(s, device=tokens.device)
     new_cache = []
     for sig, lp, lc in zip(layer_sigs(cfg), params["layers"], cache):
@@ -400,12 +412,13 @@ def prefill(cfg: ModelConfig, params: Params, tokens, cache: List[Params]):
     return x, new_cache
 
 
-def forward(cfg: ModelConfig, params: Params, tokens
+def forward(cfg: ModelConfig, params: Params, tokens, patch_embeds=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens: (B,S) -> (hidden (B,S,d), aux loss), the training forward;
-    with ``cfg.parallel.remat`` each layer is recomputed in the backward."""
-    check_trainable(cfg)
-    x = _embed(cfg, params, tokens)
+    """tokens: (B,S) -> (hidden (B,S,d), aux loss), the training forward
+    (the VLM's ``patch_embeds`` spliced as in ``prefill``); with
+    ``cfg.parallel.remat`` each layer is recomputed in the backward."""
+    check_layers_trainable(cfg)
+    x = _embed(cfg, params, tokens, patch_embeds)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for sig, lp in zip(layer_sigs(cfg), params["layers"]):

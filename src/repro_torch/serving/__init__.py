@@ -1,3 +1,3 @@
-from repro_torch.serving.engine import Request, ServeEngine
+from repro_torch.serving.engine import Request, ServeEngine, frontend_inputs
 
-__all__ = ["Request", "ServeEngine"]
+__all__ = ["Request", "ServeEngine", "frontend_inputs"]

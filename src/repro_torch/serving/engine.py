@@ -8,7 +8,10 @@ pads their prompts into one grid, prefills it (``Model.prefill``: the
 ``rglru_scan``, ``flash_attention`` and ``rwkv6_wkv`` kernels on the
 card), takes each sequence's logits at its own last position, and
 decodes greedily with a per-sequence position (``Model.decode_step``,
-plain torch).
+plain torch).  As in the reference, the encoder-decoder (``frontend ==
+"audio"``) is given zero frame embeddings ``(b, encoder.seq_len, d)``,
+and the VLM zero patch embeddings ``(b, min(num_patches, longest
+prompt), d)``, in the compute dtype (``frontend_inputs``).
 
 The engine runs on the GPU unless the caller passes ``device="cpu"``;
 without a GPU the default raises.  The model must live on that device.
@@ -30,6 +33,25 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sim import resolve_device
 from repro_torch.distributed import EventCoordinator
 from repro_torch.models import Model
+
+
+def frontend_inputs(cfg: ModelConfig, batch: int, max_prompt: int,
+                    device) -> dict:
+    """What the engine feeds the frontend stub beside the tokens, as the
+    reference engine does: zero frame embeddings ``encoder_feats`` (B,
+    encoder.seq_len, d) for ``frontend == "audio"``, zero
+    ``patch_embeds`` (B, min(num_patches, max_prompt), d) for ``"vlm"``,
+    in the compute dtype; nothing for the others."""
+    cdt = getattr(torch, cfg.compute_dtype)
+    if cfg.frontend == "audio":
+        return {"encoder_feats": torch.zeros(
+            (batch, cfg.encoder.seq_len, cfg.d_model), dtype=cdt,
+            device=device)}
+    if cfg.frontend == "vlm":
+        return {"patch_embeds": torch.zeros(
+            (batch, min(cfg.num_patches, max_prompt), cfg.d_model),
+            dtype=cdt, device=device)}
+    return {}
 
 
 @dataclasses.dataclass
@@ -83,11 +105,13 @@ class ServeEngine:
         # RIGHT pad: causal attention keeps pad K/V invisible to real tokens,
         # and per-seq decode positions overwrite pad slots before attending
         # to them.
-        toks = np.zeros((b, int(lens.max())), np.int32)
+        max_prompt = int(lens.max())
+        toks = np.zeros((b, max_prompt), np.int32)
         for i, r in enumerate(batch):
             toks[i, : len(r.prompt)] = r.prompt
-        hidden, cache = self.model.prefill(torch.from_numpy(toks).to(dev),
-                                           self.cache_len)
+        hidden, cache = self.model.prefill(
+            torch.from_numpy(toks).to(dev), self.cache_len,
+            **frontend_inputs(self.cfg, b, max_prompt, dev))
         last = torch.from_numpy(lens - 1).to(dev).long()
         h_last = hidden[torch.arange(b, device=dev), last][:, None]  # (B,1,d)
         logits = self.model.logits(h_last)

@@ -4,8 +4,10 @@ per-cycle loop, the workload programs on its program instance, a Study
 as one launch per core count held against its single runs, and
 recurrentgemma-2b-smoke, rwkv6-1.6b-smoke and kimi-k2-1t-a32b-smoke
 served by ServeEngine, the flash kernel's window and MLA's 192/128 head
-dims, chip_smoke's mla_serve_a and long_serve_a at full width, the model
-checker with the step kernel as its
+dims, whisper's non-causal encoder and cross-attention shapes and head
+dim 96, whisper-large-v3-smoke's and phi-3-vision-4.2b-smoke's prefill,
+chip_smoke's mla_serve_a, long_serve_a, whisper_serve_a and phi_serve_a
+at full width, the model checker with the step kernel as its
 fused twin, and the flash-attention backward kernels with
 smollm-135m-smoke's training through them).
 
@@ -562,13 +564,88 @@ def test_flash_window_and_mla_kernel_match_plain_version(shape,
         assert torch.equal(out, flash_attention.flash_attention(q, k, v))
 
 
+#: (b, sq, skv, h, kv, hd, causal, dtype): whisper-large-v3's encoder
+#: over 1 500 frames and its cross-attention (128 positions against the
+#: frames), non-causal, and its decoder's causal self-attention, at the
+#: whisper_serve_a/b shapes too; and phi-3-vision-4.2b's head dim 96,
+#: causal (phi_serve_a/b's shapes among them) and ragged non-causal with
+#: GQA
+FLASH_SLICE_CASES = [(1, 1500, 1500, 20, 20, 64, False, "bfloat16"),
+                     (1, 1500, 1500, 20, 20, 64, False, "float32"),
+                     (4, 1500, 1500, 20, 20, 64, False, "bfloat16"),
+                     (4, 128, 128, 20, 20, 64, True, "bfloat16"),
+                     (2, 64, 64, 20, 20, 64, True, "float32"),
+                     (2, 64, 1500, 20, 20, 64, False, "float32"),
+                     (2, 512, 512, 32, 32, 96, True, "float32"),
+                     (2, 128, 1500, 20, 20, 64, False, "bfloat16"),
+                     (2, 128, 1500, 20, 20, 64, False, "float32"),
+                     (2, 512, 512, 32, 32, 96, True, "bfloat16"),
+                     (1, 300, 300, 8, 8, 96, True, "float32"),
+                     (1, 100, 100, 4, 2, 96, False, "bfloat16"),
+                     (1, 100, 100, 4, 2, 96, False, "float32")]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("phase", ["phase_mla_serve_a", "phase_long_serve_a"])
+@pytest.mark.parametrize("shape", FLASH_SLICE_CASES)
+def test_flash_kernel_at_whisper_and_hd96_shapes(shape, cuda_device):
+    """One launch each, within FLASH_TOL of the plain version."""
+    cs = _chip_smoke()
+    b, sq, skv, h, kv, hd, causal, dtype = shape
+    q, k, v = cs.flash_inputs(cuda_device, b, sq, skv, h, kv, hd, dtype,
+                              seed=sq + hd)
+    before = LAUNCHES["flash_attention"]
+    out = flash_attention.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == before + 1
+    assert out.dtype == q.dtype and out.shape == q.shape
+    ref = flash_attention.flash_attention_ref(q, k, v, causal=causal)
+    rtol, atol = cs.FLASH_TOL[dtype]
+    assert torch.allclose(out.float(), ref.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,launches", [("whisper-large-v3-smoke", 6),
+                                           ("phi-3-vision-4.2b-smoke", 2)])
+def test_encdec_and_vlm_prefill_on_the_card_match_the_cpu(name, launches,
+                                                          cuda_device):
+    """The smoke models seeded on the card, copied to the CPU: prefill's
+    hidden states on seeded frame or patch embeddings (8 patches over 12
+    tokens) within 2e-3, with ``launches`` flash launches (whisper: 2
+    encoder layers, 2 decoder layers' self- and cross-attention), and the
+    next decode step's logits too."""
+    cs = _chip_smoke()
+    cfg = get_config(name)
+    card = build(cfg).init(1)
+    cpu = build(cfg, "cpu").load_params(card.params())
+    toks = torch.from_numpy(cs.prompts(cfg.vocab_size, 2, 12, seed=2))
+    sa = dict(requests=2, seed=3)
+    feats = {k: torch.from_numpy(v)
+             for k, v in cs.frontend_feats(cfg, sa).items()}
+    before = LAUNCHES["flash_attention"]
+    hc, cc = card.prefill(toks.to(cuda_device), 16,
+                          **{k: v.to(cuda_device) for k, v in feats.items()})
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == before + launches
+    hp, cp = cpu.prefill(toks, 16, **feats)
+    assert torch.allclose(hc.cpu(), hp, rtol=2e-3, atol=2e-3)
+    tok, pos = toks[:, -1:], torch.full((2,), 12, dtype=torch.int32)
+    lc, _ = card.decode_step(cc, tok.to(cuda_device), pos.to(cuda_device))
+    lp, _ = cpu.decode_step(cp, tok, pos)
+    assert LAUNCHES["flash_attention"] == before + launches
+    assert torch.allclose(lc.cpu(), lp, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("phase", ["phase_mla_serve_a", "phase_long_serve_a",
+                                   "phase_whisper_serve_a",
+                                   "phase_phi_serve_a"])
 def test_serve_a_phases_hold_the_card_to_the_cpu(phase, cuda_device):
-    """deepseek-v3-671b (MLA, 2 layers, 32 experts) and recurrentgemma-2b
-    past its window (2 x 4 096 tokens) at full width, f32: the card's
-    logits within SERVE_A_TOL of the port's CPU run, launches exact (the
-    phase raises ``chip_smoke.Failed`` otherwise)."""
+    """deepseek-v3-671b (MLA, 2 layers, 32 experts), recurrentgemma-2b
+    past its window (2 x 4 096 tokens), whisper-large-v3 (2 + 2 layers,
+    seeded frames) and phi-3-vision-4.2b (2 layers, 256 seeded patches) at
+    full width, f32: the card's logits within SERVE_A_TOL of the port's
+    CPU run, launches exact (the phase raises ``chip_smoke.Failed``
+    otherwise)."""
     cs = _chip_smoke()
     got = getattr(cs, phase)(cuda_device)
     assert np.isfinite(got["max_abs_err"])

@@ -246,17 +246,6 @@ def test_local_prompt_longer_than_the_window_is_refused(pair):
                                            want[kind][k], **MODEL_TOL)
 
 
-#: architecture -> the ROADMAP item that brings what the port refuses
-UNPORTED = {"whisper-large-v3": "A9.3", "phi-3-vision-4.2b": "A9.4"}
-
-
-@pytest.mark.parametrize("name", sorted(UNPORTED))
-def test_unported_architectures_are_refused_at_build(name):
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP {UNPORTED[name]}"):
-        build(get_config(name + "-smoke"), device="cpu")
-
-
 def test_seeded_init_is_reproducible():
     cfg = get_config(NAME)
     a = build(cfg, device="cpu").init(3).params()

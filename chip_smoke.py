@@ -177,7 +177,30 @@ Phases, one JSON line each:
    and the kernels' own (seven), its plain version and the backward of
    ``scaled_dot_product_attention`` on the same tensors, timed alone;
    also the forward with lse beside ``scaled_dot_product_attention``'s
-   forward;
+   forward; and (``FLASH_BWD_TIMED``) each newer instance at its training
+   path's shape (the band with a boolean band mask for the library call),
+   and the scan's gradient at rg_train_b's shape;
+5c. the training paths of recurrentgemma-2b (local and rglru layers),
+   whisper-large-v3 (the encoder-decoder) and phi-3-vision-4.2b (the
+   VLM): flash_bwd_kernel also holds ``FLASH_BWD_NEW`` (hd 80 and 96 in
+   both dtypes, whisper's encoder and cross-attention, recurrentgemma's
+   band at 4 096 tokens and a ragged f32 band; the windowed forward with
+   lse bit for bit the windowed forward without); rglru_bwd_kernel — the
+   scan's gradient (one launch of ``csrc/rglru_scan.cu`` over the
+   reversed time axis, ordered look-back) against ``rglru_scan_bwd_ref``
+   at ``RGLRU_BWD_SHAPES`` on the model's views, two calls bit for bit;
+   rg_train_a, whisper_train_a — full width, f32 (one ``rglru, rglru,
+   local`` unit; 2 + 2 layers against 1 500 frames), card against the
+   port's CPU run within ``TRAIN_A_TOL`` as train_a (recurrentgemma's
+   parameters with ``RG_TRAIN_A["excused"]``: at most one element in a
+   million of a leaf past the tolerance, at near-zero CPU gradients, each
+   within ``adam_reach``); rg_train_b,
+   whisper_train_b, phi_train_b — the training main paths at full width,
+   bf16, remat, f32 moments through ``run_training``, 3 steps
+   (``RG_TRAIN_B``, ``WHISPER_TRAIN_B``, ``PHI_TRAIN_B``: phi's depth cut
+   to 28; AdamW at ``NEW_TRAIN_OPT``): exactly ``*_TRAIN_B_LAUNCHES``
+   every step, losses finite and falling, ms per step, tokens/s, the
+   busy share of the profiled last step, peak memory;
 6. exact — ``zipf_index`` (skew 0, and the skewed streams of
    ``ZIPF_PROBES`` in either form) and ``_hash`` on the card against the
    CPU over 2^24 inputs, and the engine_run kernel's own device code
@@ -313,6 +336,8 @@ import dataclasses
 import gc
 import hashlib
 import json
+import math
+import os
 import shutil
 import subprocess
 import sys
@@ -322,6 +347,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# the training entry point's allocator setting (repro_torch.launch.train's
+# CUDA_ALLOC_CONF, which its main sets): this script calls run_training
+# in its own process, so it sets it before torch starts, for every phase
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -353,7 +382,7 @@ from repro_torch.faults import FaultPlan  # noqa: E402
 from repro_torch.sync import Spec, run  # noqa: E402
 from repro_torch import optim, tree  # noqa: E402
 from repro_torch.tree import flatten  # noqa: E402
-from repro_torch.configs.base import ShapeSpec  # noqa: E402
+from repro_torch.configs.base import SHAPES, ShapeSpec  # noqa: E402
 from repro_torch.data import SyntheticPipeline  # noqa: E402
 import repro_torch.launch.train as train_mod  # noqa: E402
 
@@ -670,7 +699,8 @@ SERVE_ARCH = "recurrentgemma-2b"
 #: cross shape also in f32; and phi-3-vision-4.2b's head dim 96 (32 heads
 #: on 32): phi_serve_b's prefill shape (bf16), phi_serve_a's (f32), a
 #: causal f32 one (two 256-token prompts) and a ragged non-causal GQA one
-#: in both dtypes
+#: in both dtypes; and stablelm-3b's head dim 80 (32 heads on 32), causal
+#: at four 512-token prompts, in both dtypes
 FLASH_SHAPES = tuple(
     [(b, sq, skv, h, kv, hd, c, dt) for dt in ("float32", "bfloat16")
      for b, sq, skv, h, kv, hd in ((2, 128, 128, 4, 4, 64),
@@ -698,7 +728,9 @@ FLASH_SHAPES = tuple(
        (2, 512, 512, 32, 32, 96, True, "float32"),
        (2, 256, 256, 32, 32, 96, True, "float32"),
        (1, 100, 100, 4, 2, 96, False, "float32"),
-       (1, 100, 100, 4, 2, 96, False, "bfloat16")])
+       (1, 100, 100, 4, 2, 96, False, "bfloat16"),
+       (4, 512, 512, 32, 32, 80, True, "float32"),
+       (4, 512, 512, 32, 32, 80, True, "bfloat16")])
 #: dtype -> (rtol, atol) of the kernel against its plain version on the
 #: card.  f32: tests/test_kernels.py's.  bf16: both sum in f32 and round
 #: the output to bf16 once, and the tensor-core design also rounds P to
@@ -913,7 +945,13 @@ TRAIN_OPT = dict(lr=1e-3, warmup_steps=2)      # examples/train_e2e.py's
 #: after the steps, element by element, absolute: about three times the
 #: worst element measured on the H100 (3.5e-5), a fifteenth of the
 #: learning rates summed (1.5e-3, as far as two Adam steps move a weight
-#: one way), so a flipped or lost update of any element fails
+#: one way), so a flipped or lost update of any element fails.  A phase
+#: whose dict sets ``excused`` lets that share of a leaf's elements past
+#: the parameter tolerance, but only where the CPU's gradient was within
+#: the gradient tolerance of 0 at some step (there the two sides' f32
+#: gradients are not held to one sign, and Adam moves a weight by about
+#: lr whatever |g|), each within ``adam_reach`` of the CPU's
+TRAIN_A_TOL = dict(loss=1e-5, grad=1e-4, param=1e-4)
 TRAIN_A_TOL = dict(loss=1e-5, grad=1e-4, param=1e-4)
 #: train_b: full width and depth, bf16, remat, f32 moments; train_4k's
 #: 4 096 tokens, the global batch cut from 256 to 8; 6 steps with a
@@ -923,6 +961,86 @@ TRAIN_B = dict(batch=8, seq=4096, steps=6, ckpt_every=3, crash_at=4)
 #: and again in the remat recompute, each backward kernel once per layer
 TRAIN_B_LAUNCHES = {"flash_attention": 60, "flash_attention_bwd_dq": 30,
                     "flash_attention_bwd_dkdv": 30}
+
+# ---- the training paths of recurrentgemma-2b (local and rglru layers),
+# ---- whisper-large-v3 (the encoder-decoder) and phi-3-vision-4.2b (VLM)
+#: ((b, sq, skv, h, kv, hd, causal, dtype), window) of the flash_bwd_kernel
+#: phase beside FLASH_BWD_SHAPES: stablelm-3b's hd 80 and phi-3-vision's
+#: hd 96 (32 heads on 32, causal) in both dtypes; whisper's encoder over
+#: 1 500 frames and its cross-attention, 448 decoder positions against
+#: them (non-causal, 20 heads on 20); recurrentgemma's band (10 heads on
+#: 1, hd 256, window 2 048 over 4 096 tokens) and a ragged f32 band
+FLASH_BWD_NEW = (((2, 1024, 1024, 32, 32, 80, True, "float32"), 0),
+                 ((2, 1024, 1024, 32, 32, 80, True, "bfloat16"), 0),
+                 ((2, 1024, 1024, 32, 32, 96, True, "float32"), 0),
+                 ((2, 1024, 1024, 32, 32, 96, True, "bfloat16"), 0),
+                 ((4, 1500, 1500, 20, 20, 64, False, "bfloat16"), 0),
+                 ((4, 448, 1500, 20, 20, 64, False, "bfloat16"), 0),
+                 ((2, 4096, 4096, 10, 1, 256, True, "bfloat16"), 2048),
+                 ((1, 777, 777, 10, 1, 256, True, "float32"), 300))
+#: ((b, sq, skv, h, kv, hd, causal, dtype), window) timed in
+#: train_kernel_time: each new instance at its training path's shape:
+#: rg_train_b's band, whisper_train_b's cross-attention (non-causal, Sq
+#: != Skv), phi_train_b's hd 96, stablelm-3b's hd 80 at train_4k's 4 096
+#: tokens (one sequence)
+FLASH_BWD_TIMED = (((4, 4096, 4096, 10, 1, 256, True, "bfloat16"), 2048),
+                   ((8, 448, 1500, 20, 20, 64, False, "bfloat16"), 0),
+                   ((1, 4096, 4096, 32, 32, 96, True, "bfloat16"), 0),
+                   ((1, 4096, 4096, 32, 32, 80, True, "bfloat16"), 0))
+#: (T, B, w) of the rglru_bwd_kernel phase, on the model's (T, B, w) views
+#: of (B, T, w) tensors: rg_train_b's (4 096 tokens, 4 sequences, width
+#: 2 560) and a ragged T (a last chunk of 40 steps) and width
+RGLRU_BWD_SHAPES = ((4096, 4, 2560), (1000, 3, 200))
+RGLRU_BWD_HEAD = RGLRU_BWD_SHAPES[0]
+#: *_train_a: full width, f32, card against the port's CPU run from the
+#: same weights and batches (TRAIN_A_TOL): recurrentgemma one (rglru,
+#: rglru, local) unit at 2 x 128 tokens (the CPU's side, with its 256 000
+#: x 2 560 embedding and head in f32, took 88 s at 2 x 256); whisper 2
+#: encoder and 2 decoder layers, 2 x 128 decoder tokens against the
+#: 1 500 frames.  recurrentgemma's ``excused``: at most one element in a
+#: million of a leaf past the parameter tolerance at a near-zero CPU
+#: gradient; on the H100 its embedding and head had 6 and 2 such elements
+#: of 655 360 000 (10 in all, up to 4.2e-4) at 2 x 128 tokens, 21 and 7
+#: (33 in all, up to 1.13e-3) at 2 x 256; whisper's and smollm's none
+RG_TRAIN_A = dict(layers=3, batch=2, seq=128, steps=2, seed=83,
+                  excused=1e-6)
+WHISPER_TRAIN_A = dict(layers=2, enc_layers=2, batch=2, seq=128, steps=2,
+                       seed=89)
+#: *_train_b: the training main path at full width, bf16, remat, f32
+#: moments, through run_training, 3 steps (the third profiled).
+#: recurrentgemma at full depth (26 layers), 4 x 4 096 tokens (the band
+#: past its window of 2 048); whisper at full depth (32 + 32 layers),
+#: 8 x 448 decoder tokens against 1 500 frames; phi-3-vision 4 096
+#: tokens (256 patches), its depth cut 32 -> 28 (a cut of scale: the
+#: AdamW update holds the old and the new f32 moments beside the bf16
+#: weights and gradients, ~22 bytes a parameter; at 24 layers the step
+#: peaked at 64.65 GB on the H100, 2.49 GB more a layer, so 32 layers
+#: would need ~84.6 GB of the card's 85.0)
+RG_TRAIN_B = dict(batch=4, seq=4096, steps=3)
+WHISPER_TRAIN_B = dict(batch=8, seq=448, steps=3)
+PHI_TRAIN_B = dict(layers=28, batch=1, seq=4096, steps=3)
+#: AdamW of the three, one setting so that their steps compare.  Adam's
+#: first steps move each weight by about lr * sign(g), so a layer's output
+#: moves by about lr * |x|_1 in one direction: at these widths (1 280 -
+#: 3 072) and larger rates the losses swung from step to step on the H100
+#: (whisper 11.24, 12.10, 14.15 at 1e-3; recurrentgemma 12.99, 10.56,
+#: 19.72 at whisper-large's published 1.75e-4); at 3e-5 each fell at every
+#: step.  A smoke of the path, not a training recipe
+NEW_TRAIN_OPT = dict(lr=3e-5, warmup_steps=2)
+#: launches of each kernel per step: the forward once per layer and
+#: again in the remat recompute, each backward kernel once per layer
+RG_TRAIN_B_LAUNCHES = {"flash_attention": 16, "flash_attention_bwd_dq": 8,
+                       "flash_attention_bwd_dkdv": 8, "rglru_scan": 36,
+                       "rglru_scan_bwd": 18}
+WHISPER_TRAIN_B_LAUNCHES = {"flash_attention": 192,
+                            "flash_attention_bwd_dq": 96,
+                            "flash_attention_bwd_dkdv": 96}
+PHI_TRAIN_B_LAUNCHES = {"flash_attention": 56, "flash_attention_bwd_dq": 28,
+                        "flash_attention_bwd_dkdv": 28}
+#: every kernel a training step may launch
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkdv", "rglru_scan", "rglru_scan_bwd",
+                 "rwkv6_wkv", "grouped_matmul")
 
 KERNELS = ("engine_step", "colibri_scatter", "flash_attention",
            "flash_attention_bwd", "rglru_scan",
@@ -4134,29 +4252,32 @@ def time_gmm(dev) -> list:
 
 # ---- the training path (smollm-135m) -----------------------------------
 
-def flash_bwd_check(dev, shape, seed) -> dict:
+def flash_bwd_check(dev, shape, seed, window=0) -> dict:
     """The forward with lse (o and lse) and the backward kernel against
-    the plain versions at ``shape``, the backward on the forward kernel's
-    o and lse; two launches
-    bit for bit; the forward with lse bit for bit the forward without."""
+    the plain versions at ``shape`` with ``window``, the backward on the
+    forward kernel's o and lse; two launches bit for bit; the forward with
+    lse bit for bit the forward without."""
     b, sq, skv, h, kv, hd, causal, dtype = shape
     q, k, v = flash_inputs(dev, b, sq, skv, h, kv, hd, dtype, seed)
     do = torch.randn(q.shape, generator=torch.Generator(device=dev)
                      .manual_seed(seed + 1), device=dev).to(q.dtype)
-    o, lse = fa_kernel.flash_attention_fwd_lse_cuda(q, k, v, causal=causal)
-    bare = fa_kernel.flash_attention_cuda(q, k, v, causal=causal)
+    o, lse = fa_kernel.flash_attention_fwd_lse_cuda(q, k, v, causal=causal,
+                                                    window=window)
+    bare = fa_kernel.flash_attention_cuda(q, k, v, causal=causal,
+                                          window=window)
     got = fa_kernel.flash_attention_bwd_cuda(q, k, v, o, do, lse,
-                                             causal=causal)
+                                             causal=causal, window=window)
     again = fa_kernel.flash_attention_bwd_cuda(q, k, v, o, do, lse,
-                                               causal=causal)
+                                               causal=causal, window=window)
     torch.cuda.synchronize()
-    what = f"{(b, sq, skv, h, kv, hd)} causal={causal} {dtype}"
+    what = f"{(b, sq, skv, h, kv, hd)} causal={causal} window={window} " \
+        f"{dtype}"
     require(torch.equal(o, bare),
             f"{what}: the forward with lse differs from the one without")
     require(all(torch.equal(x, y) for x, y in zip(got, again)),
             f"{what}: two backward launches differ")
     o_ref, lse_ref = flash_attention.flash_attention_fwd_lse_ref(
-        q, k, v, causal=causal)
+        q, k, v, causal=causal, window=window)
     o_err = float((o.float() - o_ref.float()).abs().max())
     require(torch.allclose(o.float(), o_ref.float(), rtol=FLASH_TOL[dtype][0],
                            atol=FLASH_TOL[dtype][1]),
@@ -4167,7 +4288,8 @@ def flash_bwd_check(dev, shape, seed) -> dict:
             f"{what}: lse differs from the plain version's by {lse_err}")
     del o_ref, lse_ref
     want = flash_attention.flash_attention_bwd_ref(q, k, v, o, do, lse,
-                                                   causal=causal)
+                                                   causal=causal,
+                                                   window=window)
     rtol, atol = FLASH_BWD_TOL[dtype]
     errs, scales = {}, {}
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
@@ -4181,15 +4303,16 @@ def flash_bwd_check(dev, shape, seed) -> dict:
             f"{what}: {name} differs from the plain version by "
             f"{errs[name]} (largest {scales[name]})")
     del want, got, again
-    return dict(shape=shape, o_err=o_err, lse_err=lse_err, **errs,
-                largest=scales)
+    return dict(shape=shape, window=window, o_err=o_err, lse_err=lse_err,
+                **errs, largest=scales)
 
 
 def phase_flash_bwd_kernel(dev) -> dict:
     worst = dict.fromkeys(FLASH_BWD_TOL, 0.0)
     cases = []
-    for i, shape in enumerate(FLASH_BWD_SHAPES):
-        rec = flash_bwd_check(dev, shape, 60 + i)
+    for i, (shape, window) in enumerate(
+            [(sh, 0) for sh in FLASH_BWD_SHAPES] + list(FLASH_BWD_NEW)):
+        rec = flash_bwd_check(dev, shape, 60 + i, window)
         cases.append(rec)
         worst[shape[-1]] = max(worst[shape[-1]], rec["dq"], rec["dk"],
                                rec["dv"])
@@ -4201,18 +4324,19 @@ def phase_flash_bwd_kernel(dev) -> dict:
     return worst
 
 
-def flash_bwd_bound(b, sq, skv, h, kv, hd, causal, dtype) -> dict:
+def flash_bwd_bound(b, sq, skv, h, kv, hd, causal, dtype, window=0) -> dict:
     """The least time the card could take for one backward call: q, k, v,
     o, do and lse read once, dq, dk, dv written once, over 3.35 TB/s; the
     gradient's five products over the unmasked (query, key) pairs (S
-    recomputed, dO V^T, P^T dO, dS K, dS^T Q), 2 hd flops each, over the
-    type's peak.  Also the kernels' own bound: the seven products of the
-    two-launch design (S and dO V^T in both launches), and each launch's
-    share of them (dq three, dkdv four)."""
+    recomputed, dO V^T, P^T dO, dS K, dS^T Q; a window also hides i - j >=
+    window), 2 hd flops each, over the type's peak.  Also the kernels' own
+    bound: the seven products of the two-launch design (S and dO V^T in
+    both launches), and each launch's share of them (dq three, dkdv
+    four)."""
     size = torch.tensor([], dtype=getattr(torch, dtype)).element_size()
     n_bytes = (4 * b * sq * h * hd + 4 * b * skv * kv * hd) * size \
         + b * h * sq * 4
-    pairs = (sum(min(i + 1, skv) for i in range(sq)) if causal
+    pairs = (sum(min(i + 1, skv, window or skv) for i in range(sq)) if causal
              else sq * skv)
     product = 2 * hd * pairs * b * h           # flops of one product
     flops = 5 * product
@@ -4226,54 +4350,66 @@ def flash_bwd_bound(b, sq, skv, h, kv, hd, causal, dtype) -> dict:
                 bound7_dkdv_ms=4 * product / peak * 1e3)
 
 
-def time_flash_bwd(dev, shape=FLASH_BWD_HEAD) -> dict:
+def time_flash_bwd(dev, shape=FLASH_BWD_HEAD, window=0,
+                   reps: int = 10) -> dict:
     """The backward kernels' device time per call (both launches) and per
-    launch (``dq_ms``, ``dkdv_ms``) at ``shape`` beside the plain
-    version's, the bounds and the backward of
+    launch (``dq_ms``, ``dkdv_ms``) at ``shape`` with ``window`` beside
+    the plain version's, the bounds and the backward of
     ``scaled_dot_product_attention`` on the same tensors (heads first, KV
-    heads repeated), timed alone; the forward kernel with lse and
-    ``scaled_dot_product_attention``'s forward (``library_fwd_ms``)."""
+    heads repeated, a band as a boolean mask), timed alone; the forward
+    kernel with lse and ``scaled_dot_product_attention``'s forward
+    (``library_fwd_ms``)."""
     b, sq, skv, h, kv, hd, causal, dtype = shape
     q, k, v = flash_inputs(dev, b, sq, skv, h, kv, hd, dtype, seed=7)
     do = torch.randn(q.shape, device=dev).to(q.dtype)
     before = dict(LAUNCHES)
-    o, lse = fa_kernel.flash_attention_fwd_lse_cuda(q, k, v, causal=causal)
+    o, lse = fa_kernel.flash_attention_fwd_lse_cuda(q, k, v, causal=causal,
+                                                    window=window)
 
     def bwd():
         return fa_kernel.flash_attention_bwd_cuda(q, k, v, o, do, lse,
-                                                  causal=causal)
-    rec = dict(shape=shape, ms=device_ms(bwd, 10),
-               dq_ms=device_ms(bwd, 10, "dq_kernel"),
-               dkdv_ms=device_ms(bwd, 10, "dkdv_kernel"),
+                                                  causal=causal,
+                                                  window=window)
+    rec = dict(shape=shape, window=window, ms=device_ms(bwd, reps),
+               dq_ms=device_ms(bwd, reps, "dq_kernel"),
+               dkdv_ms=device_ms(bwd, reps, "dkdv_kernel"),
                fwd_lse_ms=device_ms(
                    lambda: fa_kernel.flash_attention_fwd_lse_cuda(
-                       q, k, v, causal=causal), 10),
+                       q, k, v, causal=causal, window=window), reps),
                plain_ms=device_ms(lambda: flash_attention.
                                   flash_attention_bwd_ref(
-                                      q, k, v, o, do, lse, causal=causal), 3),
-               **flash_bwd_bound(*shape))
+                                      q, k, v, o, do, lse, causal=causal,
+                                      window=window), 3),
+               **flash_bwd_bound(*shape, window=window))
     gc.collect()
     torch.cuda.empty_cache()
-    rec["library_fwd_ms"], rec["library_ms"] = sdpa_ms(q, k, v, do, causal)
+    rec["library_fwd_ms"], rec["library_ms"] = sdpa_ms(q, k, v, do, causal,
+                                                       window, reps)
     LAUNCHES.update(before)                 # timing runs are not counted
     return rec
 
 
-def sdpa_ms(q, k, v, do, causal) -> tuple:
+def sdpa_ms(q, k, v, do, causal, window=0, reps: int = 10) -> tuple:
     """Device ms of ``scaled_dot_product_attention``'s forward and of its
     backward (``torch.autograd.grad``) on the kernels' ``(B, S, H, hd)``
-    tensors, heads first and KV heads repeated (the copies not timed)."""
+    tensors, heads first and KV heads repeated (the copies not timed); a
+    window as a boolean band mask."""
     h = q.shape[2]
     qs, ks, vs = (t.repeat_interleave(h // t.shape[2], dim=2)
                   .transpose(1, 2).contiguous().requires_grad_()
                   for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    kw = dict(is_causal=causal)
+    if window:
+        i = torch.arange(q.shape[1], device=q.device)[:, None]
+        j = torch.arange(k.shape[1], device=q.device)[None, :]
+        kw = dict(attn_mask=(j <= i) & (i - j < window))
     fwd_ms = device_ms(lambda: sdpa(qs.detach(), ks.detach(), vs.detach(),
-                                    is_causal=causal), 10)
-    out = sdpa(qs, ks, vs, is_causal=causal)
+                                    **kw), reps)
+    out = sdpa(qs, ks, vs, **kw)
     dos = do.transpose(1, 2).contiguous()
     bwd_ms = device_ms(lambda: torch.autograd.grad(
-        out, (qs, ks, vs), dos, retain_graph=True), 10)
+        out, (qs, ks, vs), dos, retain_graph=True), reps)
     return fwd_ms, bwd_ms
 
 
@@ -4281,14 +4417,49 @@ def phase_train_a(dev) -> dict:
     """Full width, 2 layers, f32: the loss, every gradient leaf and the
     parameters after 2 AdamW steps on the card against the port's CPU run
     from the same weights and batches."""
+    return train_a(dev, TRAIN_ARCH, TRAIN_A, "train_a", TRAIN_B_LAUNCHES)
+
+
+def phase_rg_train_a(dev) -> dict:
+    return train_a(dev, SERVE_ARCH, RG_TRAIN_A, "rg_train_a",
+                   RG_TRAIN_B_LAUNCHES)
+
+
+def phase_whisper_train_a(dev) -> dict:
+    return train_a(dev, WHISPER_ARCH, WHISPER_TRAIN_A, "whisper_train_a",
+                   WHISPER_TRAIN_B_LAUNCHES)
+
+
+def adam_reach(opt_cfg, lrs: list, w0: float) -> float:
+    """The most that AdamW under ``opt_cfg`` at the learning rates ``lrs``
+    (one a step) moves a weight of magnitude at most ``w0``, over any
+    gradients.  At step t the update is m/(sqrt(v) + eps) with bias-
+    corrected m = sum_i c_i g_i and v = sum_i d_i g_i^2, so by Cauchy-
+    Schwarz |m| <= sqrt(sum_i c_i^2 / d_i) sqrt(v); decay adds
+    weight_decay |w|, and |w| grows by at most the moves before."""
+    b1, b2, reach = opt_cfg.b1, opt_cfg.b2, 0.0
+    for t, lr in enumerate(lrs, 1):
+        step = math.sqrt(sum(
+            ((1 - b1) * b1 ** (t - i) / (1 - b1 ** t)) ** 2
+            / ((1 - b2) * b2 ** (t - i) / (1 - b2 ** t))
+            for i in range(1, t + 1)))
+        reach += lr * (step + opt_cfg.weight_decay * (w0 + reach))
+    return reach
+
+
+def train_a(dev, arch: str, ta: dict, phase: str, want: dict) -> dict:
+    """``arch`` at full width, cut as ``ta`` says, f32: the loss, every
+    gradient leaf and the parameters after ``ta["steps"]`` AdamW steps on
+    the card against the port's CPU run from the same weights and batches
+    (the pipeline's, frontend inputs included), within TRAIN_A_TOL; every
+    kernel of ``want`` launched on the card."""
     gc.collect()
     torch.cuda.empty_cache()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    ta = TRAIN_A
-    cfg = lm_cfg(TRAIN_ARCH, ta, param_dtype="float32",
-                 compute_dtype="float32")
-    shape = ShapeSpec("train_a", ta["seq"], ta["batch"], "train")
+    cfg = lm_cfg(arch, ta, param_dtype="float32", compute_dtype="float32")
+    shape = ShapeSpec(phase, ta["seq"], ta["batch"], "train")
+    tol = TRAIN_A_TOL
     opt_cfg = dataclasses.replace(
         optim.AdamWConfig(**TRAIN_OPT),
         state_dtype=cfg.parallel.opt_state_dtype, total_steps=10)
@@ -4306,20 +4477,40 @@ def phase_train_a(dev) -> dict:
         grads = [p.grad.detach().cpu().clone() for p in model.parameters()]
         for p in model.parameters():
             p.grad = None
+        w0 = [float(p.detach().abs().max()) for p in model.parameters()]
         step = train_mod.make_train_step(model, opt_cfg)
         state = optim.init(opt_cfg, model.params())
         losses = []
-        for i in range(ta["steps"]):
-            state, met = step(state, pipe.batch(i))
-            losses.append(float(met["loss"]))
-        runs[name] = dict(loss=loss.item(), grads=grads, losses=losses,
+        # the CPU's gradient elements within the gradient check's tolerance
+        # of 0 at some step, by weight (see the parameter check)
+        noise, update = {}, optim.update
+
+        def noted(cfg_, grads_, state_, params_):
+            for w, gr in zip(tree.leaves(params_), tree.leaves(grads_)):
+                mag = gr.abs()
+                near = mag <= tol["grad"] * mag.max()
+                if id(w) in noise:
+                    noise[id(w)].logical_or_(near)
+                else:
+                    noise[id(w)] = near
+            return update(cfg_, grads_, state_, params_)
+        if where == "cpu" and ta.get("excused"):
+            optim.update = noted
+        try:
+            for i in range(ta["steps"]):
+                state, met = step(state, pipe.batch(i))
+                losses.append(float(met["loss"]))
+        finally:
+            optim.update = update
+        runs[name] = dict(loss=loss.item(), grads=grads, losses=losses, w0=w0,
                           launches=dict(LAUNCHES),
+                          noise=[noise.get(id(p)) for p in
+                                 model.parameters()],
                           params=[p.detach().cpu() for p in
                                   model.parameters()])
         if name == "cpu":
             t_cpu = time.perf_counter() - t0
     c, g = runs["cpu"], runs["card"]
-    tol = TRAIN_A_TOL
     loss_err = max(abs(a - b) / abs(b) for a, b in
                    zip([g["loss"]] + g["losses"], [c["loss"]] + c["losses"]))
     require(loss_err <= tol["loss"],
@@ -4334,31 +4525,61 @@ def phase_train_a(dev) -> dict:
                 and grad_errs[n] <= tol["grad"],
                 f"gradient {n}: card differs from CPU by {grad_errs[n]} of "
                 f"its largest magnitude {scale}")
-    lr_sum = sum(float(optim.schedule(opt_cfg, torch.tensor(i + 1)))
-                 for i in range(ta["steps"]))
-    param_max, param_over = 0.0, {}
-    for n, a, b in zip(names, g["params"], c["params"]):
-        d = (a - b).abs()
+    lrs = [float(optim.schedule(opt_cfg, torch.tensor(i + 1)))
+           for i in range(ta["steps"])]
+    lr_sum = sum(lrs)
+    share = ta.get("excused", 0.0)
+    param_max, param_over, param_excused = 0.0, {}, {}
+    for n, a, b, noise, w0 in zip(names, g["params"], c["params"], c["noise"],
+                                  c["w0"]):
+        d = (a - b).abs_()
+        d_max = float(d.max())            # NaN or inf when either side is
+        require(math.isfinite(d_max),
+                f"parameter {n} after {ta['steps']} steps is not finite")
+        param_max = max(param_max, d_max)
         over = int((d > 1e-5).sum())
-        param_max = max(param_max, float(d.max()))
         if over:
             param_over[n] = over
-        require(float(d.max()) <= tol["param"],
-                f"parameter {n} after {ta['steps']} steps: "
-                f"{int((d > tol['param']).sum())} of {d.numel()} elements "
-                f"beyond {tol['param']}, max {float(d.max())}")
-    per_step = {k: g["launches"][k] for k in TRAIN_B_LAUNCHES}
-    require(per_step["flash_attention_bwd_dq"] > 0
-            and per_step["flash_attention_bwd_dkdv"] > 0,
+        if d_max <= tol["param"]:
+            continue
+        flat = d.view(-1)
+        at = torch.nonzero(flat > tol["param"]).squeeze(1)
+        require(bool(share), f"parameter {n} after {ta['steps']} steps: "
+                f"{at.numel()} of {d.numel()} elements beyond "
+                f"{tol['param']}, max {d_max}")
+        bad = ~noise.view(-1)[at]
+        require(not bool(bad.any()),
+                f"parameter {n} after {ta['steps']} steps: {int(bad.sum())} "
+                f"of {d.numel()} elements beyond {tol['param']} where the "
+                f"gradient is not within its tolerance of 0, max "
+                f"{float(flat[at][bad].max()) if bad.any() else 0.0}")
+        # each side moves a weight at most adam_reach: the two at most twice
+        bound = 2 * adam_reach(opt_cfg, lrs, w0)
+        rec = dict(elements=at.numel(), numel=d.numel(),
+                   share=at.numel() / d.numel(),
+                   noise_share=int(noise.sum()) / d.numel(), max=d_max,
+                   bound=bound)
+        param_excused[n] = rec
+        require(rec["share"] <= share and d_max <= bound,
+                f"parameter {n} after {ta['steps']} steps: {at.numel()} of "
+                f"{d.numel()} elements beyond {tol['param']} at near-zero "
+                f"gradients (at most {share} of the leaf), max {d_max} (at "
+                f"most {bound})")
+    per_step = {k: g["launches"][k] for k in want}
+    require(all(per_step.values()),
             f"the card's training launched {per_step}")
-    emit(phase="train_a", arch=TRAIN_ARCH, layers=cfg.num_layers,
+    emit(phase=phase, arch=arch, layers=cfg.num_layers,
+         enc_layers=cfg.encoder.num_layers if cfg.encoder else None,
          d_model=cfg.d_model, vocab=cfg.vocab_size, dtype="float32",
          batch=ta["batch"], seq=ta["seq"], steps=ta["steps"],
          remat=cfg.parallel.remat, loss_cpu=[c["loss"]] + c["losses"],
          loss_card=[g["loss"]] + g["losses"], loss_rel_err=loss_err,
          grad_rel_err_max=max(grad_errs.values()),
          grad_rel_err=grad_errs, param_abs_err_max=param_max,
-         params_beyond_1e5=param_over, lr_sum=lr_sum, tolerance=tol, launches=per_step,
+         params_beyond_1e5=param_over,
+         params_excused=param_excused, excused_share_max=share,
+         lr_sum=lr_sum,
+         tolerance=tol, launches=per_step,
          cpu_seconds=t_cpu, equal=True)
     return dict(loss_err=loss_err, grad_err=max(grad_errs.values()))
 
@@ -4473,16 +4694,211 @@ def phase_train_b(dev) -> dict:
     return dict(launches=launches, ms_per_step=step_s * 1e3)
 
 
+def phase_rglru_bwd_kernel(dev) -> float:
+    """The scan's gradient (``rglru_scan_bwd_cuda``: one launch over the
+    reversed time axis, then the elementwise da and dh0) against its plain
+    version (``rglru_scan_bwd_ref``) on the model's (T, B, w) views of
+    (B, T, w) tensors, h from the forward kernel; two calls bit for
+    bit."""
+    worst = 0.0
+    rtol, atol = RGLRU_TOL
+    cases = []
+    for i, (t, b, w) in enumerate(RGLRU_BWD_SHAPES):
+        a, x, h0 = rglru_inputs(dev, t, b, w, 90 + i)
+        a, x = batch_major(a), batch_major(x)
+        h = rglru_scan.rglru_scan(a, x, h0)
+        dh = batch_major(torch.randn((t, b, w), device=dev,
+                                     generator=torch.Generator(device=dev)
+                                     .manual_seed(95 + i)))
+        before = LAUNCHES["rglru_scan_bwd"]
+        got = rg_kernel.rglru_scan_bwd_cuda(a, h, h0, dh)
+        again = rg_kernel.rglru_scan_bwd_cuda(a, h, h0, dh)
+        torch.cuda.synchronize()
+        require(LAUNCHES["rglru_scan_bwd"] == before + 2,
+                f"{(t, b, w)}: {LAUNCHES['rglru_scan_bwd'] - before} "
+                f"launches of the gradient's scan for two calls")
+        require(all(torch.equal(g, a2) for g, a2 in zip(got, again)),
+                f"{(t, b, w)}: two launches of the gradient differ")
+        want = rglru_scan.rglru_scan_bwd_ref(a, h, h0, dh)
+        errs = {}
+        for name, g, wt in zip(("da", "db", "dh0"), got, want):
+            errs[name] = float((g - wt).abs().max())
+            require(g.shape == wt.shape and torch.allclose(
+                g, wt, rtol=rtol, atol=atol * max(1.0, float(wt.abs().max()))),
+                f"{(t, b, w)}: {name} differs from the plain version by "
+                f"{errs[name]} (largest {float(wt.abs().max())})")
+        worst = max(worst, *errs.values())
+        cases.append(dict(shape=(t, b, w), **errs))
+        del a, x, h, dh, got, again, want
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit(phase="rglru_bwd_kernel", cases=cases, layout="batch_major",
+         max_abs_err=worst, tolerance=RGLRU_TOL, deterministic=True,
+         equal=True)
+    return worst
+
+
+def rglru_bwd_bound(t, b, w) -> dict:
+    """The least time the card could take for the scan's gradient: a, h
+    and dh read once, h0 read once, da and db written once, dh0 written
+    once, over 3.35 TB/s; 4 flops per element over the f32 peak."""
+    n_bytes = 20 * t * b * w + 8 * b * w
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, 4 * t * b * w / F32_FLOPS
+    return dict(bound_bytes=n_bytes, bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_rglru_bwd(dev) -> dict:
+    """The gradient at ``RGLRU_BWD_HEAD`` on the model's views: ``ms``,
+    the whole call (the reversed copies, the ordered scan, da and dh0);
+    ``kernel_ms``, the scan kernel alone; the plain version's time."""
+    t, b, w = RGLRU_BWD_HEAD
+    a, x, h0 = rglru_inputs(dev, t, b, w, seed=7)
+    a, x = batch_major(a), batch_major(x)
+    h = rglru_scan.rglru_scan(a, x, h0)
+    dh = batch_major(torch.randn((t, b, w), device=dev))
+    before = dict(LAUNCHES)
+
+    def call():
+        return rg_kernel.rglru_scan_bwd_cuda(a, h, h0, dh)
+    rec = dict(shape=RGLRU_BWD_HEAD, ms=device_ms(call, 20),
+               kernel_ms=device_ms(call, 20, "rglru_scan_kernel"),
+               plain_ms=device_ms(lambda: rglru_scan.rglru_scan_bwd_ref(
+                   a, h, h0, dh), 2),
+               library_ms=None, **rglru_bwd_bound(t, b, w))
+    LAUNCHES.update(before)                 # timing runs are not counted
+    return rec
+
+
+def phase_rg_train_b(dev) -> dict:
+    return train_main(dev, SERVE_ARCH, RG_TRAIN_B, RG_TRAIN_B_LAUNCHES,
+                      "rg_train_b")
+
+
+def phase_whisper_train_b(dev) -> dict:
+    return train_main(dev, WHISPER_ARCH, WHISPER_TRAIN_B,
+                      WHISPER_TRAIN_B_LAUNCHES, "whisper_train_b")
+
+
+def phase_phi_train_b(dev) -> dict:
+    return train_main(dev, PHI_ARCH, PHI_TRAIN_B, PHI_TRAIN_B_LAUNCHES,
+                      "phi_train_b")
+
+
+def train_main(dev, arch: str, tb: dict, want: dict, phase: str) -> dict:
+    """A training main path: ``arch`` at full width (bf16, remat, f32
+    moments; at full depth unless ``tb["layers"]`` cuts it) through
+    ``run_training`` at ``NEW_TRAIN_OPT``, ``tb["steps"]`` steps on the
+    pipeline's batches
+    (frontend inputs included).  Every step launches each kernel exactly
+    as ``want`` says (0 where it names none); the losses are finite and
+    fall.  ms per step (the steps between the first and the last),
+    tokens/s, the busy share of the last step (profiled), peak memory."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = lm_cfg(arch, tb)
+    shape = ShapeSpec(phase, tb["seq"], tb["batch"], "train")
+    records, made = [], train_mod.make_train_step
+
+    def probed(*args, **kwargs):               # times each step of the run
+        fn = made(*args, **kwargs)
+
+        def step(state, batch):
+            torch.cuda.synchronize()
+            before = dict(LAUNCHES)
+            rec = {}
+            t0 = time.perf_counter()
+            if len(records) == tb["steps"] - 1:        # the last step
+                prof = {}
+
+                def call():
+                    prof["out"] = fn(state, batch)
+                rec["profile"] = profile_call(call)
+                out = prof["out"]
+            else:
+                out = fn(state, batch)
+            torch.cuda.synchronize()
+            rec.update(seconds=time.perf_counter() - t0,
+                       loss=float(out[1]["loss"]),
+                       grad_norm=float(out[1]["grad_norm"]),
+                       launches={k: LAUNCHES[k] - before[k]
+                                 for k in TRAIN_KERNELS})
+            records.append(rec)
+            return out
+        return step
+
+    train_mod.make_train_step = probed
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = train_mod.run_training(train_mod.TrainRun(
+            cfg=cfg, shape=shape, steps=tb["steps"], log_every=100,
+            opt=optim.AdamWConfig(**NEW_TRAIN_OPT), device="cuda"))
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        train_mod.make_train_step = made
+    n_params = sum(p.numel() for p in tree.leaves(out["params"]))
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses = [r["loss"] for r in records]
+    per_step = {k: want.get(k, 0) for k in TRAIN_KERNELS}
+    require(len(records) == tb["steps"], f"{len(records)} steps")
+    require(all(np.isfinite(x) for x in losses) and losses[-1] < losses[0],
+            f"losses {losses}")
+    require(all(r["launches"] == per_step for r in records),
+            f"launches per step {[r['launches'] for r in records]}, want "
+            f"{per_step}")
+    steady = sorted(r["seconds"] for r in records[1:] if "profile" not in r)
+    step_s = steady[len(steady) // 2]
+    prof = records[-1]["profile"]
+    tokens = tb["batch"] * tb["seq"]
+    full = get_config(arch)
+    reduced = {"global_batch": [SHAPES["train_4k"].global_batch,
+                                tb["batch"]]}
+    if cfg.num_layers != full.num_layers:
+        reduced["num_layers"] = [full.num_layers, cfg.num_layers]
+    emit(phase=phase, arch=arch, layers=cfg.num_layers,
+         enc_layers=cfg.encoder.num_layers if cfg.encoder else None,
+         params=n_params, dtype=cfg.param_dtype,
+         opt_state_dtype=cfg.parallel.opt_state_dtype,
+         remat=cfg.parallel.remat, batch=tb["batch"], seq=tb["seq"],
+         reduced=reduced, steps=tb["steps"], opt=NEW_TRAIN_OPT,
+         losses=losses,
+         grad_norms=[r["grad_norm"] for r in records],
+         ms_per_step=step_s * 1e3,
+         step_ms=[r["seconds"] * 1e3 for r in records],
+         tokens_per_s=tokens / step_s, run_wall_s=wall,
+         device_busy_share=prof["device_busy_share"], profile=prof,
+         peak_memory_bytes=peak, launches_per_step=per_step)
+    return dict(launches={k: v * tb["steps"] for k, v in per_step.items()},
+                launches_per_step=per_step, ms_per_step=step_s * 1e3)
+
+
 def train_phases(dev) -> list:
-    """The training path's phases; its entry of the kernels line."""
+    """The training paths' phases; their entries of the kernels line."""
     bwd_worst = timed(phase_flash_bwd_kernel, dev)
+    rglru_bwd_worst = timed(phase_rglru_bwd_kernel, dev)
     timed(phase_train_a, dev)
     main_run = timed(phase_train_b, dev)
+    timed(phase_rg_train_a, dev)
+    timed(phase_whisper_train_a, dev)
+    rg_run = timed(phase_rg_train_b, dev)
+    whisper_run = timed(phase_whisper_train_b, dev)
+    phi_run = timed(phase_phi_train_b, dev)
     t0 = time.perf_counter()
     bwd_t = time_flash_bwd(dev)
+    new_t = [time_flash_bwd(dev, shape, window, reps=3)
+             for shape, window in FLASH_BWD_TIMED]
+    rglru_bwd_t = time_rglru_bwd(dev)
     emit(phase="train_kernel_time", seconds=time.perf_counter() - t0,
-         flash_attention_bwd=bwd_t)
+         flash_attention_bwd=bwd_t, flash_attention_bwd_new=new_t,
+         rglru_scan_bwd=rglru_bwd_t)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    paths = {"train_b": main_run, "rg_train_b": rg_run,
+             "whisper_train_b": whisper_run, "phi_train_b": phi_run}
     return [dict(name="flash_attention_bwd", route="cuda",
                  source="src/repro_torch/csrc/flash_attention_bwd.cu",
                  replaces="none: the reference differentiates plain "
@@ -4494,6 +4910,11 @@ def train_phases(dev) -> list:
                      k: main_run["launches"][k]
                      for k in ("flash_attention_bwd_dq",
                                "flash_attention_bwd_dkdv")},
+                 launches_per_step_by_path={
+                     name: {k: run["launches_per_step"][k] for k in (
+                         "flash_attention", "flash_attention_bwd_dq",
+                         "flash_attention_bwd_dkdv")}
+                     for name, run in paths.items() if name != "train_b"},
                  forward_launches=main_run["launches"]["flash_attention"],
                  max_abs_err=max(bwd_worst.values()),
                  **{k: bwd_t[k] for k in keys},
@@ -4501,7 +4922,25 @@ def train_phases(dev) -> list:
                  **{k: bwd_t[k] for k in ("dq_ms", "dkdv_ms", "bound7_ms",
                                           "bound7_dq_ms", "bound7_dkdv_ms",
                                           "fwd_lse_ms", "library_fwd_ms")},
-                 train_ms_per_step=main_run["ms_per_step"])]
+                 instances=[{k: r[k] for k in keys + (
+                     "shape", "window", "dq_ms", "dkdv_ms", "fwd_lse_ms",
+                     "library_fwd_ms", "bound7_ms")} for r in new_t],
+                 train_ms_per_step={name: run["ms_per_step"]
+                                    for name, run in paths.items()}),
+            dict(name="rglru_scan_bwd", route="cuda",
+                 source="src/repro_torch/csrc/rglru_scan.cu",
+                 replaces="none: the reference differentiates "
+                          "lax.associative_scan (src/repro/models/"
+                          "rglru.py:86) with XLA",
+                 launches=rg_run["launches"]["rglru_scan_bwd"],
+                 launches_per_step=rg_run["launches_per_step"][
+                     "rglru_scan_bwd"],
+                 forward_launches_per_step=rg_run["launches_per_step"][
+                     "rglru_scan"],
+                 max_abs_err=rglru_bwd_worst,
+                 **{k: rglru_bwd_t[k] for k in keys},
+                 kernel_ms=rglru_bwd_t["kernel_ms"],
+                 shape=rglru_bwd_t["shape"])]
 
 
 def lm_phases(dev) -> list:

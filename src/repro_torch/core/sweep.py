@@ -120,6 +120,15 @@ def _sweep_group(chunk: Sequence[SimParams], device, started=None
     return _sim.simulate_batch(chunk, device, started)
 
 
+def _refuse_on_card(p: SimParams) -> None:
+    """Raise ``NotImplementedError`` if the card's run kernel does not
+    take the point ``p`` (``engine_step.kernel.refuse_on_card``)."""
+    from repro_torch.core import protocols, workloads
+    from repro_torch.kernels.engine_step import kernel as es_kernel
+    es_kernel.refuse_on_card(p, protocols.get(p.protocol),
+                             workloads.get(p.workload).program(p))
+
+
 def _to_host(outs: List[Dict[str, torch.Tensor]], started=None):
     """Queue a chunk's ONE device→host copy (``core.sim.to_host``, into
     pinned memory, behind the launch); ``started`` is the CUDA event
@@ -168,8 +177,10 @@ def sweep_iter(configs: Sequence[SimParams],
     an error record.  A fault on the card while a chunk runs surfaces
     when its copy is waited for and is raised, not isolated: a sticky
     CUDA error poisons the context, so re-running halves cannot isolate
-    it.  Refusals (``NotImplementedError``) are raised when a
-    ``SimParams`` is built, before any sweep.
+    it.  Refusals (``NotImplementedError``: a point the card's kernel
+    does not take, ``engine_step.kernel.refuse_on_card``) are raised on
+    the card while the grid is planned, before its first launch, and
+    pass through the fence: a refusal is not a failure of one point.
     """
     if max_batch is None:
         max_batch = int(os.environ.get("REPRO_SWEEP_MAX_BATCH",
@@ -185,6 +196,8 @@ def sweep_iter(configs: Sequence[SimParams],
         report.note_env("cuda" if on_card else "cpu", max_batch, dev)
     groups: Dict[int, List[int]] = {}
     for i, c in enumerate(configs):
+        if on_card:
+            _refuse_on_card(c)
         groups.setdefault(_launch_key(c), []).append(i)
 
     def solo(i, stage):
@@ -193,6 +206,8 @@ def sweep_iter(configs: Sequence[SimParams],
         c = configs[i]
         try:
             outs = _sweep_group([c], dev)
+        except NotImplementedError:
+            raise
         except Exception as e:       # noqa: BLE001 — fenced by design
             return {"error": f"{type(e).__name__}: {e}",
                     "error_stage": stage}
@@ -232,6 +247,8 @@ def sweep_iter(configs: Sequence[SimParams],
         for half in (part[:mid], part[mid:]):
             try:
                 outs = _sweep_group([configs[i] for i in half], dev)
+            except NotImplementedError:
+                raise
             except Exception:        # noqa: BLE001 — fenced by design
                 yield from isolate(half, stage)
                 continue
@@ -255,6 +272,8 @@ def sweep_iter(configs: Sequence[SimParams],
                 started = torch.cuda.Event(enable_timing=True)
             try:
                 outs = _sweep_group([configs[i] for i in part], dev, started)
+            except NotImplementedError:
+                raise
             except Exception:        # noqa: BLE001 — fenced by design
                 yield from isolate(part, "dispatch")
                 continue

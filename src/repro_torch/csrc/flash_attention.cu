@@ -82,7 +82,8 @@
 // denominator with shuffles, and each lane accumulates ceil(hd/32)
 // adjacent output columns of its 8 rows from the broadcast probabilities
 // (at hd 112 lanes 0-27 own 4 columns each and lanes 28-31 none; at hd 96
-// every lane owns 3, loaded and stored one float at a time).  Keys
+// every lane owns 3, loaded and stored one float at a time; at hd 80,
+// where 3 does not divide 80, lanes 0-19 own 4 and lanes 20-31 none).  Keys
 // past the diagonal and past Skv are masked to probability 0.  Bound: the
 // products at the f32 CUDA-core rate, 67 TFLOP/s (80 us for the hd-256
 // shape's 5.4 GFLOP).
@@ -93,8 +94,8 @@
 // (flash_attention_lse_launch).  The serving entry,
 // flash_attention_window_launch, passes a null pointer: nothing else of
 // the kernel changes, so o has the same bits with and without it.  The
-// lse entry takes neither a window nor hdv != hd (the backward has
-// neither).
+// lse entry takes the window (the local layers' training) but not hdv !=
+// hd (the backward has no such instance).
 //
 // Dynamic shared memory, above the 48 KB default at most head dims (the
 // launcher raises each instantiation's limit once): tc, 64 query rows and
@@ -208,6 +209,15 @@ __device__ __forceinline__ void store_f32(float* p, const float* x) {
   }
 }
 
+// output columns a lane owns: the fewest (at least ceil(HDV / 32)) that
+// divide HDV, so that lanes own whole groups (4 at hd 80: lanes 0-19)
+template <int HDV>
+__host__ __device__ constexpr int lane_cols() {
+  int d = (HDV + 31) / 32;
+  while (HDV % d) ++d;
+  return d;
+}
+
 template <int HD>
 __host__ __device__ constexpr int kv_row() {   // padded K/V row, in elements
   return HD + 16 / static_cast<int>(sizeof(float));
@@ -263,7 +273,7 @@ flash_attention_kernel(const float* __restrict__ q,
   constexpr int KS = kv_row<HD>();
   constexpr int VS = kv_row<HDV>();
   constexpr int STAGE = kBK * (KS + VS);  // floats of one K/V stage
-  constexpr int DPL = (HDV + 31) / 32;    // output columns per lane
+  constexpr int DPL = lane_cols<HDV>();   // output columns per lane
   static_assert(HDV % DPL == 0, "lanes own whole column groups");
   constexpr int QC = 8;                   // query elements per load
   extern __shared__ float4 smem4[];
@@ -273,7 +283,8 @@ flash_attention_kernel(const float* __restrict__ q,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int row0 = (tid >> 5) * kRows;           // this warp's first row
-  // lanes past HDV / DPL own no column (HDV not a multiple of 32: 112)
+  // lanes past HDV / DPL own no column (HDV not a multiple of 32: 80,
+  // 112)
   const bool col_ok = lane * DPL < HDV;
   const int group = heads / kv_heads;
   const int rows = sq * group;                   // rows of this KV head
@@ -842,8 +853,8 @@ int launch_dtype(int dtype, const void* q, const void* k, const void* v,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The instance of (hd, hdv): hdv = hd at each head dim (phi-3-vision's 96
-// among them), and MLA's 192/128.
+// The instance of (hd, hdv): hdv = hd at each head dim (stablelm-3b's 80
+// and phi-3-vision's 96 among them), and MLA's 192/128.
 int launch_hd(int hd, int hdv, int dtype, const void* q, const void* k,
               const void* v, void* o, float* lse, int batch, int sq, int skv,
               int heads, int kv_heads, int causal, int window, float scale,
@@ -855,6 +866,7 @@ int launch_hd(int hd, int hdv, int dtype, const void* q, const void* k,
   }
   FLASH_CASE(32, 32)
   FLASH_CASE(64, 64)
+  FLASH_CASE(80, 80)
   FLASH_CASE(96, 96)
   FLASH_CASE(112, 112)
   FLASH_CASE(128, 128)
@@ -887,7 +899,8 @@ int launch_checked(const void* q, const void* k, const void* v, void* o,
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it).  q (batch,
 // sq, heads, hd), k (batch, skv, kv_heads, hd), v (batch, skv, kv_heads,
 // hdv) and o (batch, sq, heads, hdv), row-major; (hd, hdv) one of (32,
-// 32), (64, 64), (96, 96), (112, 112), (128, 128), (256, 256), (192, 128);
+// 32), (64, 64), (80, 80), (96, 96), (112, 112), (128, 128), (256, 256),
+// (192, 128);
 // heads a multiple of kv_heads; every pointer on a 16-byte boundary.  Sq
 // and Skv are free (whisper's cross-attention: 128 queries, 1 500 keys,
 // non-causal).  window 0
@@ -902,16 +915,17 @@ extern "C" int flash_attention_window_launch(
                         hd, hdv, causal, window, scale, dtype, stream);
 }
 
-// hdv = hd and no window.  lse, when not null, is float32 (batch, heads,
-// sq): each query row's natural-log log-sum-exp of its scaled, masked
-// scores, which the backward (flash_attention_bwd.cu) recomputes P from;
-// a null lse is written nowhere and changes nothing else.
+// hdv = hd; window as flash_attention_window_launch's.  lse, when not
+// null, is float32 (batch, heads, sq): each query row's natural-log
+// log-sum-exp of its scaled, masked scores, which the backward
+// (flash_attention_bwd.cu) recomputes P from; a null lse is written
+// nowhere and changes nothing else.
 extern "C" int flash_attention_lse_launch(const void* q, const void* k,
                                           const void* v, void* o, float* lse,
                                           int batch, int sq, int skv,
                                           int heads, int kv_heads, int hd,
-                                          int causal, float scale, int dtype,
-                                          void* stream) {
+                                          int causal, int window, float scale,
+                                          int dtype, void* stream) {
   return launch_checked(q, k, v, o, lse, batch, sq, skv, heads, kv_heads, hd,
-                        hd, causal, 0, scale, dtype, stream);
+                        hd, causal, window, scale, dtype, stream);
 }

@@ -98,12 +98,32 @@
 // within a row, the box for k >= 64) or N-major (8-row groups along k
 // 1024 bytes apart, the next 64 columns one box further).
 //
+// At hd 80 and 96 the second box is half or a quarter filled, as at hd
+// 112, and the dK/dV and dQ products are m64n80k16 and m64n96k16; their
+// dkdv, as at hd 112 and 128, finishes a tile's products before the
+// next tile's.
+//
 // float32 -> CUDA cores (namespace cc): 8 warps of 8 rows, lane j scores
 // the tile's row j of the other side; the products' sums are fma chains
 // per lane and shuffles broadcast P and dS, as in flash_attention.cu's cc
-// design.  Tensor cores cannot meet the f32 tolerance (tf32).
+// design.  Tensor cores cannot meet the f32 tolerance (tf32).  bfloat16
+// at hd 256 (recurrentgemma-2b's local layers) takes this design too, its
+// tiles converted to f32 as they are staged and its outputs rounded to
+// bf16 once: the wgmma layout does not fit there (128 own K/V rows are 128
+// KB and the 4-stage ring of Q and dO 256 KB, against 227 KB a block; a
+// dkdv consumer's 64 x 256 f32 dK and dV would be 256 registers a
+// thread).  A simple design that is right; PERF.md has its time beside
+// its bound.
 //
-// Head dims 32, 64, 112 and 128; the launchers refuse others.
+// The window (the local layers' band, key j hidden from query i when
+// i - j >= W, causal only): a dq block walks only the key tiles from the
+// one holding its first row's first visible key, a dkdv block only the
+// query tiles through the last query that sees its last key; tiles wholly
+// outside the band are never loaded, and the per-element mask applies on
+// both edges of the band (W = 0: the causal tiles and masks as before).
+//
+// Head dims 32, 64, 80, 96, 112, 128 and 256; the launchers refuse
+// others.
 //
 // Bound on an NVIDIA H100 SXM (data-sheet rates, 700 W) at smollm-135m's
 // training shape (B 8, S 4 096, H 9, KV 3, hd 64, causal, bf16): the five
@@ -330,6 +350,48 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_rs(float (&d)[40],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {%0, %1, %2, %3, "
+      "%4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, "
+      "%33, %34, %35, %36, %37, %38, %39}, {%40, %41, %42, %43}, %44, p, 1, "
+      "1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[48],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {%0, %1, %2, %3, "
+      "%4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, "
+      "%33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, "
+      "%47}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 __device__ __forceinline__ void wgmma_rs(float (&d)[56],
                                          const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
@@ -400,7 +462,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // the shapes of one call
 struct Dims {
-  int batch, sq, skv, heads, kv_heads, causal;
+  int batch, sq, skv, heads, kv_heads, causal, window;
   float scale;
 };
 
@@ -419,25 +481,56 @@ __host__ __device__ constexpr int pad_row() {  // a lane-read row, in floats
   return HD + 4;
 }
 
+// output columns a lane owns: the fewest (at least ceil(HD / 32)) that
+// divide HD (4 at hd 80: lanes 0-19 own columns, 20-31 none)
+template <int HD>
+__host__ __device__ constexpr int lane_cols() {
+  int d = (HD + 31) / 32;
+  while (HD % d) ++d;
+  return d;
+}
+
 template <int HD>
 constexpr int smem_bytes() {
   return (2 * kBR * HD + 2 * kBT * pad_row<HD>() + 2 * kBT) *
          static_cast<int>(sizeof(float));
 }
 
-// n_rows rows of hd floats, row r from src + r * stride, into dst rows of
-// dst_stride, zeros past `valid` rows, times `mul`
-template <int HD>
+// the inputs' element type to and from f32 (the design computes in f32
+// from either type, and rounds each output once)
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
+  *p = __floats2bfloat162_rn(x, 0.0f).x;
+}
+
+// n_rows rows of hd elements, row r from src + r * stride, into f32 dst
+// rows of dst_stride, zeros past `valid` rows, times `mul`
+template <int HD, class T>
 __device__ __forceinline__ void load_rows(float* dst, int dst_stride,
-                                          const float* src, int64_t stride,
+                                          const T* src, int64_t stride,
                                           int n_rows, int valid, float mul,
                                           int tid) {
-  constexpr int C = HD / 4;  // float4 chunks a row
+  constexpr int C = HD / 4;  // 4-element chunks a row
   for (int c = tid; c < n_rows * C; c += kThreads) {
     const int r = c / C, col = (c % C) * 4;
     float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     if (r < valid) {
-      x = *reinterpret_cast<const float4*>(src + r * stride + col);
+      x = load4(src + r * stride + col);
       x.x *= mul;
       x.y *= mul;
       x.z *= mul;
@@ -466,10 +559,10 @@ __device__ __forceinline__ float dot(const float* a, const float* b) {
 // acc[r][i] += sum_j w_j[r] * t[j][lane * DPL + i] over the kBT rows of
 // t (stride TS), w_j[r] lane j's w[r]
 template <int HD, int TS>
-__device__ __forceinline__ void accumulate(float (&acc)[kRows][(HD + 31) / 32],
-                                           const float (&w)[kRows],
-                                           const float* t, int lane) {
-  constexpr int DPL = (HD + 31) / 32;
+__device__ __forceinline__ void accumulate(
+    float (&acc)[kRows][lane_cols<HD>()], const float (&w)[kRows],
+    const float* t, int lane) {
+  constexpr int DPL = lane_cols<HD>();
   const bool col_ok = lane * DPL < HD;
 #pragma unroll 4
   for (int j = 0; j < kBT; ++j) {
@@ -487,33 +580,36 @@ __device__ __forceinline__ void accumulate(float (&acc)[kRows][(HD + 31) / 32],
   }
 }
 
-template <int HD>
-__device__ __forceinline__ void store_rows(float* dst, int64_t stride,
-                                           const float (&acc)[kRows]
-                                                             [(HD + 31) / 32],
-                                           int row0, int valid, float mul,
-                                           int lane) {
-  constexpr int DPL = (HD + 31) / 32;
+template <int HD, class T>
+__device__ __forceinline__ void store_rows(
+    T* dst, int64_t stride, const float (&acc)[kRows][lane_cols<HD>()],
+    int row0, int valid, float mul, int lane) {
+  constexpr int DPL = lane_cols<HD>();
   if (lane * DPL >= HD) return;
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     if (row0 + r < valid) {
 #pragma unroll
       for (int i = 0; i < DPL; ++i) {
-        dst[(row0 + r) * stride + lane * DPL + i] = acc[r][i] * mul;
+        store1(dst + (row0 + r) * stride + lane * DPL + i, acc[r][i] * mul);
       }
     }
   }
 }
 
-template <int HD>
+// whether query i sees key j
+__device__ __forceinline__ bool visible(const Dims& p, int i, int j) {
+  return !p.causal || (j <= i && (!p.window || i - j < p.window));
+}
+
+template <int HD, class T>
 __global__ void __launch_bounds__(kThreads)
-dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, const float* __restrict__ o,
-          const float* __restrict__ dout, const float* __restrict__ lse,
-          float* __restrict__ delta, float* __restrict__ dq, Dims p) {
+dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+          const T* __restrict__ v, const T* __restrict__ o,
+          const T* __restrict__ dout, const float* __restrict__ lse,
+          float* __restrict__ delta, T* __restrict__ dq, Dims p) {
   constexpr int KS = pad_row<HD>();
-  constexpr int DPL = (HD + 31) / 32;
+  constexpr int DPL = lane_cols<HD>();
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);   // kBR x HD, times scale
   float* dos = qs + kBR * HD;                    // kBR x HD
@@ -547,8 +643,8 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float part = 0.0f;
     if (i < valid) {
       for (int c = lane; c < HD; c += 32) {
-        part = fmaf(o[qo + i * pos_stride + c], dout[qo + i * pos_stride + c],
-                    part);
+        part = fmaf(to_f32(o[qo + i * pos_stride + c]),
+                    to_f32(dout[qo + i * pos_stride + c]), part);
       }
     }
     dd[r] = warp_sum(part);
@@ -563,8 +659,12 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < DPL; ++i) acc[r][i] = 0.0f;
   }
 
+  // keys from the tile holding the first row's first visible key (the
+  // window's edge) through the last row's position (causal)
+  const int kv_begin =
+      p.window ? max(0, q0 - p.window + 1) / kBT * kBT : 0;
   const int kv_end = p.causal ? min(p.skv, q0 + valid) : p.skv;
-  for (int k0 = 0; k0 < kv_end; k0 += kBT) {
+  for (int k0 = kv_begin; k0 < kv_end; k0 += kBT) {
     const int nk = min(kBT, p.skv - k0);
     __syncthreads();   // the previous tile is consumed (and qs, dos in)
     load_rows<HD>(ks, KS, k + kvb + k0 * kv_stride, kv_stride, kBT, nk, 1.0f,
@@ -579,7 +679,7 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int i = row0 + r;
       const float s = dot<HD>(qs + i * HD, ks + lane * KS);
       const float dp = dot<HD>(dos + i * HD, vs + lane * KS);
-      const bool ok = i < valid && key < p.skv && (!p.causal || key <= q0 + i);
+      const bool ok = i < valid && key < p.skv && visible(p, q0 + i, key);
       const float pr = ok ? expf(s - ll[r]) : 0.0f;
       ds[r] = pr * (dp - dd[r]);
     }
@@ -588,14 +688,14 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   store_rows<HD>(dq + qo, pos_stride, acc, row0, valid, p.scale, lane);
 }
 
-template <int HD>
+template <int HD, class T>
 __global__ void __launch_bounds__(kThreads)
-dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-            const float* __restrict__ v, const float* __restrict__ dout,
+dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+            const T* __restrict__ v, const T* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ delta,
-            float* __restrict__ dk, float* __restrict__ dv, Dims p) {
+            T* __restrict__ dk, T* __restrict__ dv, Dims p) {
   constexpr int KS = pad_row<HD>();
-  constexpr int DPL = (HD + 31) / 32;
+  constexpr int DPL = lane_cols<HD>();
   extern __shared__ float4 smem4[];
   float* ks = reinterpret_cast<float*>(smem4);   // kBR x HD
   float* vs = ks + kBR * HD;                     // kBR x HD
@@ -625,11 +725,14 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < DPL; ++i) dka[r][i] = dva[r][i] = 0.0f;
   }
 
+  // queries from the tile holding the first key (causal) to the last
+  // that sees the block's last key (the window's edge)
   const int u0 = p.causal ? k0 / kBT * kBT : 0;
+  const int u1 = p.window ? min(p.sq, k0 + valid - 1 + p.window) : p.sq;
   for (int hr = 0; hr < group; ++hr) {
     const int h = g * group + hr;
     const int64_t stat = (static_cast<int64_t>(b) * p.heads + h) * p.sq;
-    for (int q0 = u0; q0 < p.sq; q0 += kBT) {
+    for (int q0 = u0; q0 < u1; q0 += kBT) {
       const int nq = min(kBT, p.sq - q0);
       const int64_t qo = (static_cast<int64_t>(b) * p.sq + q0) * pos_stride +
                          static_cast<int64_t>(h) * HD;
@@ -648,8 +751,7 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const int key = k0 + row0 + r;
         const float s = dot<HD>(ks + (row0 + r) * HD, qs + lane * KS);
         const float dp = dot<HD>(vs + (row0 + r) * HD, dos + lane * KS);
-        const bool ok = lane < nq && row0 + r < valid &&
-                        (!p.causal || key <= qi);
+        const bool ok = lane < nq && row0 + r < valid && visible(p, qi, key);
         pr[r] = ok ? expf(s - ls[lane]) : 0.0f;
         ds[r] = pr[r] * (dp - dl[lane]);
       }
@@ -824,7 +926,10 @@ dq_kernel(const __grid_constant__ Maps maps, const float* __restrict__ lse,
   const int g = h / (p.heads / p.kv_heads);
   const int valid = min(C::kRows, p.sq - q0);
   const int kv_end = p.causal ? min(p.skv, q0 + valid) : p.skv;
-  const int n_kt = (kv_end + kTile - 1) / kTile;
+  // key tiles kt0 .. kt0 + n_kt - 1: from the one holding the first
+  // row's first visible key (the window's edge) to the last row's
+  const int kt0 = p.window ? max(0, q0 - p.window + 1) / kTile : 0;
+  const int n_kt = (kv_end + kTile - 1) / kTile - kt0;
 
   if (tid == 0) {
     mbar_init(own_bar, 1);
@@ -855,9 +960,10 @@ dq_kernel(const __grid_constant__ Maps maps, const float* __restrict__ lse,
 #pragma unroll
       for (int x = 0; x < C::kBoxes; ++x) {
         const int at = x * kTile * 128;
-        tma_load(ks + at, &maps.k, 64 * x, g, it * kTile, b, &full[s]);
-        tma_load(ks + C::kRing + at, &maps.v, 64 * x, g, it * kTile, b,
+        tma_load(ks + at, &maps.k, 64 * x, g, (kt0 + it) * kTile, b,
                  &full[s]);
+        tma_load(ks + C::kRing + at, &maps.v, 64 * x, g, (kt0 + it) * kTile,
+                 b, &full[s]);
       }
     }
     return;
@@ -936,15 +1042,18 @@ dq_kernel(const __grid_constant__ Maps maps, const float* __restrict__ lse,
   // P of key tile it into sa, from S; rows past Sq have Q = dO = 0 and
   // lse = D = 0, so their dS is 0 unmasked
   auto softmax = [&](int it) {
-    const int k0 = it * kTile;
+    const int k0 = (kt0 + it) * kTile;
 #pragma unroll
     for (int e = 0; e < 32; ++e)
       sa[e] = ex2(fmaf(sa[e], sl, -l2[(e >> 1) & 1]));
-    if ((p.causal && k0 >= qc) || k0 + kTile > p.skv) {
+    if ((p.causal && k0 >= qc) || k0 + kTile > p.skv ||
+        (p.window && qc + kTile - 1 - k0 >= p.window)) {
 #pragma unroll
       for (int e = 0; e < 32; ++e) {
         const int key = k0 + 8 * (e >> 2) + t2 + (e & 1);
-        if (key >= p.skv || (p.causal && key > row[(e >> 1) & 1]))
+        const int i = row[(e >> 1) & 1];
+        if (key >= p.skv || (p.causal && key > i) ||
+            (p.window && i - key >= p.window))
           sa[e] = 0.0f;
       }
     }
@@ -1026,7 +1135,12 @@ dkdv_kernel(const __grid_constant__ Maps maps, const float* __restrict__ lse,
   const int b = bg / p.kv_heads, g = bg % p.kv_heads;               // first
   const int n_qt = (p.sq + kTile - 1) / kTile;
   const int qt0 = p.causal ? k0 / kTile : 0;      // the first key's tile
-  const int per_head = max(n_qt - qt0, 0);
+  // the tile past the last query that sees the block's last key (the
+  // window's edge)
+  const int qt1 = p.window ? min(n_qt, (min(p.skv, k0 + C::kRows) - 1 +
+                                        p.window + kTile - 1) / kTile)
+                           : n_qt;
+  const int per_head = max(qt1 - qt0, 0);
   const int n_iter = group * per_head;            // the group's heads in turn
 
   if (tid == 0) {
@@ -1127,11 +1241,14 @@ dkdv_kernel(const __grid_constant__ Maps maps, const float* __restrict__ lse,
       const float l2 = st[8 * (e >> 2) + t2 + (e & 1)] * kLog2e;
       sa[e] = ex2(fmaf(sa[e], sl, -l2));
     }
-    if ((p.causal && q0 <= kc) || q0 + kTile > p.sq || kc + kTile > p.skv) {
+    if ((p.causal && q0 <= kc) || q0 + kTile > p.sq || kc + kTile > p.skv ||
+        (p.window && q0 + kTile - 1 - kc >= p.window)) {
 #pragma unroll
       for (int e = 0; e < 32; ++e) {
         const int qi = q0 + 8 * (e >> 2) + t2 + (e & 1), kr = key[(e >> 1) & 1];
-        if (qi >= p.sq || kr >= p.skv || (p.causal && kr > qi)) sa[e] = 0.0f;
+        if (qi >= p.sq || kr >= p.skv || (p.causal && kr > qi) ||
+            (p.window && qi - kr >= p.window))
+          sa[e] = 0.0f;
       }
     }
   };
@@ -1254,20 +1371,49 @@ int make_maps(Maps& m, const void* q, const void* k, const void* v,
   return err;
 }
 
+// The CUDA-core design for element type T (float; bf16 at hd 256, where
+// the tensor-core layout does not fit)
+template <int HD, class T>
+int launch_cc_dq(const void* q, const void* k, const void* v, const void* o,
+                 const void* dout, const float* lse, float* delta, void* dq,
+                 const Dims& p, cudaStream_t s) {
+  const int grid = (p.sq + cc::kBR - 1) / cc::kBR * p.batch * p.heads;
+  static bool done = false;
+  constexpr int bytes = cc::smem_bytes<HD>();
+  constexpr auto kern = cc::dq_kernel<HD, T>;
+  if (int err = allow_smem(kern, bytes, done)) return err;
+  kern<<<grid, cc::kThreads, bytes, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(o),
+      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD, class T>
+int launch_cc_dkdv(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   void* dk, void* dv, const Dims& p, cudaStream_t s) {
+  const int grid = (p.skv + cc::kBR - 1) / cc::kBR * p.batch * p.kv_heads;
+  static bool done = false;
+  constexpr int bytes = cc::smem_bytes<HD>();
+  constexpr auto kern = cc::dkdv_kernel<HD, T>;
+  if (int err = allow_smem(kern, bytes, done)) return err;
+  kern<<<grid, cc::kThreads, bytes, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      static_cast<T*>(dk), static_cast<T*>(dv), p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int HD>
 int launch_dq(int dtype, const void* q, const void* k, const void* v,
               const void* o, const void* dout, const float* lse, float* delta,
               void* dq, const Dims& p, cudaStream_t s) {
-  if (dtype == 0) {
-    const int grid = (p.sq + 63) / 64 * p.batch * p.heads;
-    static bool done = false;
-    constexpr int bytes = cc::smem_bytes<HD>();
-    if (int err = allow_smem(cc::dq_kernel<HD>, bytes, done)) return err;
-    cc::dq_kernel<HD><<<grid, cc::kThreads, bytes, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(o),
-        static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq),
-        p);
+  if (dtype == 0)
+    return launch_cc_dq<HD, float>(q, k, v, o, dout, lse, delta, dq, p, s);
+  if constexpr (HD > 128) {
+    return launch_cc_dq<HD, __nv_bfloat16>(q, k, v, o, dout, lse, delta, dq,
+                                           p, s);
   } else {
     using C = tc::Cfg<HD>;
     Maps m{};
@@ -1279,23 +1425,19 @@ int launch_dq(int dtype, const void* q, const void* k, const void* v,
     if (int err = allow_smem(tc::dq_kernel<HD>, bytes, done)) return err;
     tc::dq_kernel<HD><<<grid, C::kThreads, bytes, s>>>(
         m, lse, delta, static_cast<__nv_bfloat16*>(dq), p);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <int HD>
 int launch_dkdv(int dtype, const void* q, const void* k, const void* v,
                 const void* dout, const float* lse, const float* delta,
                 void* dk, void* dv, const Dims& p, cudaStream_t s) {
-  if (dtype == 0) {
-    const int grid = (p.skv + 63) / 64 * p.batch * p.kv_heads;
-    static bool done = false;
-    constexpr int bytes = cc::smem_bytes<HD>();
-    if (int err = allow_smem(cc::dkdv_kernel<HD>, bytes, done)) return err;
-    cc::dkdv_kernel<HD><<<grid, cc::kThreads, bytes, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-        delta, static_cast<float*>(dk), static_cast<float*>(dv), p);
+  if (dtype == 0)
+    return launch_cc_dkdv<HD, float>(q, k, v, dout, lse, delta, dk, dv, p, s);
+  if constexpr (HD > 128) {
+    return launch_cc_dkdv<HD, __nv_bfloat16>(q, k, v, dout, lse, delta, dk,
+                                             dv, p, s);
   } else {
     using C = tc::Cfg<HD>;
     Maps m{};
@@ -1309,33 +1451,54 @@ int launch_dkdv(int dtype, const void* q, const void* k, const void* v,
     tc::dkdv_kernel<HD><<<grid, C::kThreads, bytes, s>>>(
         m, lse, delta, static_cast<__nv_bfloat16*>(dk),
         static_cast<__nv_bfloat16*>(dv), p);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 bool dims_ok(const Dims& p, int hd, int dtype, uintptr_t ptrs) {
   return p.batch > 0 && p.sq > 0 && p.skv > 0 && p.kv_heads > 0 &&
          p.heads % p.kv_heads == 0 && (dtype == 0 || dtype == 1) &&
-         (hd == 32 || hd == 64 || hd == 112 || hd == 128) &&
+         (hd == 32 || hd == 64 || hd == 80 || hd == 96 || hd == 112 ||
+          hd == 128 || hd == 256) &&
+         p.window >= 0 && (p.window == 0 || (p.causal && p.sq <= p.skv)) &&
          static_cast<int64_t>((p.sq + 63) / 64) * p.batch * p.heads <
              (int64_t{1} << 31) &&
          (ptrs & 15) == 0;
 }
 
+// the instance of hd
+#define FLASH_BWD_HD(CALL)                \
+  switch (hd) {                           \
+    case 32: return CALL(32);             \
+    case 64: return CALL(64);             \
+    case 80: return CALL(80);             \
+    case 96: return CALL(96);             \
+    case 112: return CALL(112);           \
+    case 128: return CALL(128);           \
+    default: return CALL(256);            \
+  }
+
 }  // namespace
+
+// The version of the two launches' C signature, for a program that binds
+// another checkout's build: 1 since they take the window (a build
+// without this symbol has the signature before it).
+extern "C" int flash_attention_bwd_abi() { return 1; }
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, o, do and the gradients share
 // it).  q, o, do, dq (batch, sq, heads, hd) and k, v, dk, dv (batch, skv,
 // kv_heads, hd), row-major; lse (the forward's) and delta (written here) f32
-// (batch, heads, sq); hd in {32, 64, 112, 128}; heads a multiple of
-// kv_heads; q, k, v, o, do, dq, dk, dv on 16-byte boundaries.  Launch dq
-// first: dkdv reads its delta.
+// (batch, heads, sq); hd in {32, 64, 80, 96, 112, 128, 256}; heads a
+// multiple of kv_heads; window 0, or > 0 with causal and sq <= skv (key j
+// hidden from query i when i - j >= window, as in the forward); q, k, v,
+// o, do, dq, dk, dv on 16-byte boundaries.  Launch dq first: dkdv reads
+// its delta.
 extern "C" int flash_attention_bwd_dq_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, void* dq, int batch,
-    int sq, int skv, int heads, int kv_heads, int hd, int causal, float scale,
-    int dtype, void* stream) {
-  const Dims p{batch, sq, skv, heads, kv_heads, causal, scale};
+    int sq, int skv, int heads, int kv_heads, int hd, int causal, int window,
+    float scale, int dtype, void* stream) {
+  const Dims p{batch, sq, skv, heads, kv_heads, causal, window, scale};
   const uintptr_t ptrs =
       reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
@@ -1344,24 +1507,17 @@ extern "C" int flash_attention_bwd_dq_launch(
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 32:
-      return launch_dq<32>(dtype, q, k, v, o, dout, lse, delta, dq, p, s);
-    case 64:
-      return launch_dq<64>(dtype, q, k, v, o, dout, lse, delta, dq, p, s);
-    case 112:
-      return launch_dq<112>(dtype, q, k, v, o, dout, lse, delta, dq, p, s);
-    default:
-      return launch_dq<128>(dtype, q, k, v, o, dout, lse, delta, dq, p, s);
-  }
+#define DQ(HD) launch_dq<HD>(dtype, q, k, v, o, dout, lse, delta, dq, p, s)
+  FLASH_BWD_HD(DQ)
+#undef DQ
 }
 
 extern "C" int flash_attention_bwd_dkdv_launch(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dk, void* dv, int batch,
-    int sq, int skv, int heads, int kv_heads, int hd, int causal, float scale,
-    int dtype, void* stream) {
-  const Dims p{batch, sq, skv, heads, kv_heads, causal, scale};
+    int sq, int skv, int heads, int kv_heads, int hd, int causal, int window,
+    float scale, int dtype, void* stream) {
+  const Dims p{batch, sq, skv, heads, kv_heads, causal, window, scale};
   const uintptr_t ptrs =
       reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
@@ -1372,16 +1528,8 @@ extern "C" int flash_attention_bwd_dkdv_launch(
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 32:
-      return launch_dkdv<32>(dtype, q, k, v, dout, lse, delta, dk, dv, p, s);
-    case 64:
-      return launch_dkdv<64>(dtype, q, k, v, dout, lse, delta, dk, dv, p, s);
-    case 112:
-      return launch_dkdv<112>(dtype, q, k, v, dout, lse, delta, dk, dv, p,
-                              s);
-    default:
-      return launch_dkdv<128>(dtype, q, k, v, dout, lse, delta, dk, dv, p,
-                              s);
-  }
+#define DKDV(HD) \
+  launch_dkdv<HD>(dtype, q, k, v, dout, lse, delta, dk, dv, p, s)
+  FLASH_BWD_HD(DKDV)
+#undef DKDV
 }

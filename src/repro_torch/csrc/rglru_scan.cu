@@ -30,7 +30,13 @@
 //   4. gets its carry-in by decoupled look-back over the earlier chunks
 //      of the same lanes: an inclusive value (h at that tile's end) ends
 //      the look-back, an aggregate is composed and the look-back goes on;
-//      then publishes its own inclusive value, A * carry + B;
+//      then publishes its own inclusive value, A * carry + B.  With
+//      `ordered` set, only chunk 0's inclusive value ends the look-back
+//      and every later chunk's aggregate is composed, whichever flag it
+//      has reached: the carry is then one fixed sequence of operations,
+//      and two launches give the same bits, whatever order the blocks
+//      run in (the gradient's launch; its cost is a look-back over every
+//      earlier chunk, T / 64 steps at most);
 //   5. walks the tile again from h = carry, one FMA a step, writing h.
 // a and x are read from device memory once and h written once.  The sum
 // is reassociated only at tile borders (the carries), so results agree
@@ -170,7 +176,8 @@ rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ x,
                   int64_t t_len, int64_t width, int64_t a_st, int64_t a_sb,
                   int64_t x_st, int64_t x_sb, int64_t h_st, int64_t h_sb,
                   int64_t h0_sb, int64_t row_tiles, int64_t lane_tiles,
-                  int bulk, const __grid_constant__ Maps maps, Scratch sc) {
+                  int bulk, int ordered, const __grid_constant__ Maps maps,
+                  Scratch sc) {
   extern __shared__ __align__(128) float tile_smem[];
   float* sa = tile_smem;                     // (kSteps, kLanes)
   float* sx = tile_smem + kSteps * kLanes;
@@ -250,7 +257,7 @@ rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ x,
       const int f = s_flag;
       __syncthreads();                       // s_flag is rewritten next
       const int64_t pl = pred * kLanes + tid;
-      if (f == kInclusive) {
+      if (f == kInclusive && (j == 0 || !ordered)) {
         if (live) carry = fmaf(ca, __ldcg(sc.incl + pl), cb);
         break;
       }
@@ -298,15 +305,17 @@ extern "C" long long rglru_scan_scratch_floats(long long t_len,
 // a, x: (t_len, batch, width) float32 with element strides (a_st, a_sb),
 // (x_st, x_sb) along T and B and unit stride along width; h: the same
 // shape, written through (h_st, h_sb); h0: (batch, width), stride h0_sb
-// along B, unit along width.  ints and floats: the scratch above, ints
-// zeroed.
+// along B, unit along width.  ordered: 0, or 1 for the look-back that
+// gives the same bits every launch (step 4 above).  ints and floats: the
+// scratch above, ints zeroed.
 extern "C" int rglru_scan_launch(const void* a, const void* x, const void* h0,
                                  void* h, long long t_len, long long batch,
                                  long long width, long long a_st,
                                  long long a_sb, long long x_st,
                                  long long x_sb, long long h_st,
-                                 long long h_sb, long long h0_sb, void* ints,
-                                 void* floats, void* stream) {
+                                 long long h_sb, long long h0_sb,
+                                 long long ordered, void* ints, void* floats,
+                                 void* stream) {
   if (t_len <= 0 || batch <= 0 || width <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long lane_tiles = lane_tiles_of(batch, width);
@@ -343,6 +352,7 @@ extern "C" int rglru_scan_launch(const void* a, const void* x, const void* h0,
       static_cast<const float*>(a), static_cast<const float*>(x),
       static_cast<const float*>(h0), static_cast<float*>(h), t_len, width,
       a_st, a_sb, x_st, x_sb, h_st, h_sb, h0_sb,
-      (width + kLanes - 1) / kLanes, lane_tiles, bulk ? 1 : 0, maps, sc);
+      (width + kLanes - 1) / kLanes, lane_tiles, bulk ? 1 : 0,
+      ordered ? 1 : 0, maps, sc);
   return static_cast<int>(cudaGetLastError());
 }

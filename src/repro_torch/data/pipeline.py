@@ -6,9 +6,11 @@ Determinism is a fault-tolerance feature: batch(step) is a pure function of
 -- no data-loader state to checkpoint.  The draw is the reference's own
 (numpy's Philox keyed by seed + step, then a search of the skewed
 unigram table), so both packages see the same tokens; the batch is then
-moved to the pipeline's device (the GPU unless ``device="cpu"``).  A
-batch holds tokens and labels only: the reference's audio and VLM
-inputs come with their frontends (ROADMAP A9).
+moved to the pipeline's device (the GPU unless ``device="cpu"``).  The
+encoder-decoder's batch also holds ``encoder_feats`` (B, Se, d) and the
+VLM's ``patch_embeds`` (B, P, d): normals times 0.02 drawn from the same
+generator after the tokens, in the config's compute dtype, the
+reference's bits.
 
 The token statistics go through the colibri ordered commit
 (``kernels.colibri_scatter.colibri_histogram``: the commit kernel on the
@@ -59,8 +61,16 @@ class SyntheticPipeline:
         tokens = np.searchsorted(self.cum, u).astype(np.int32)
         labels = np.roll(tokens, -1, axis=1)
         labels[:, -1] = -1                       # mask final position
-        return {"tokens": torch.from_numpy(tokens).to(self.device),
-                "labels": torch.from_numpy(labels).to(self.device)}
+        out = {"tokens": tokens, "labels": labels}
+        cdt = getattr(torch, self.cfg.compute_dtype)
+        if self.cfg.frontend == "audio":
+            feats = rng.standard_normal(
+                (b, self.cfg.encoder.seq_len, self.cfg.d_model)) * 0.02
+            out["encoder_feats"] = torch.from_numpy(feats).to(cdt)
+        if self.cfg.frontend == "vlm":
+            out["patch_embeds"] = torch.from_numpy(rng.standard_normal(
+                (b, self.cfg.num_patches, self.cfg.d_model)) * 0.02).to(cdt)
+        return {k: torch.as_tensor(v).to(self.device) for k, v in out.items()}
 
     def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
         step = 0

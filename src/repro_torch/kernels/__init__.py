@@ -20,7 +20,8 @@ LAUNCHES: Dict[str, int] = {"engine_step": 0, "engine_run": 0,
                             "flash_attention": 0,
                             "flash_attention_bwd_dq": 0,
                             "flash_attention_bwd_dkdv": 0, "rglru_scan": 0,
-                            "rwkv6_wkv": 0, "grouped_matmul": 0}
+                            "rglru_scan_bwd": 0, "rwkv6_wkv": 0,
+                            "grouped_matmul": 0}
 
 
 def aligned(t: torch.Tensor) -> torch.Tensor:

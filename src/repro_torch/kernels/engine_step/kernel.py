@@ -310,6 +310,30 @@ def _bo_tab(backoff: int, exp_cap: int) -> tuple:
                  for k in range(BO_TAB))
 
 
+def refuse_on_card(p, proto, prog) -> None:
+    """Raise ``NotImplementedError`` for a run of ``SimParams`` ``p`` that
+    the ``engine_run`` kernel does not take: a protocol without its
+    branch, a program of more than ``MAX_STEPS`` steps, a topology of
+    more than ``MAX_LEVELS`` levels, off the default tree or of
+    ``MAX_TOPO_CORES`` cores or more.  Cheap: a sweep checks every point
+    with it before its first launch."""
+    _require_branch(proto, "engine_run")
+    if prog.length > MAX_STEPS:
+        raise NotImplementedError(
+            f"the engine_run kernel runs programs of at most {MAX_STEPS} "
+            f"steps, by design: a program's step tables are words of each "
+            f"run's parameters (workload {p.workload!r} has {prog.length}; "
+            f"the plain loop, device='cpu', runs it)")
+    topo = topo_registry.get(p.topology)
+    levels, n = len(topo.levels), p.n_cores
+    if levels and (levels > MAX_LEVELS or not topo.uses_default_tree()
+                   or n >= MAX_TOPO_CORES):
+        raise NotImplementedError(
+            f"the engine_run kernel runs topologies of at most {MAX_LEVELS} "
+            f"levels on the default cluster tree, below {MAX_TOPO_CORES} "
+            f"cores (topology {p.topology!r}, {levels} levels, {n} cores)")
+
+
 def run_scalars(p, proto, prog, banks=None, traced=False) -> Dict[str, Any]:
     """Every per-run scalar ``run_cuda`` passes to the kernel, derived from
     ``SimParams`` ``p``, the protocol and the workload's program as
@@ -332,14 +356,9 @@ def run_scalars(p, proto, prog, banks=None, traced=False) -> Dict[str, Any]:
     program of more than ``MAX_STEPS`` steps is refused, and so is a
     topology of more than ``MAX_LEVELS`` levels or one off the default
     tree."""
+    refuse_on_card(p, proto, prog)
     pt = prog.tables()
     L = prog.length
-    if L > MAX_STEPS:
-        raise NotImplementedError(
-            f"the engine_run kernel runs programs of at most {MAX_STEPS} "
-            f"steps, by design: a program's step tables are words of each "
-            f"run's parameters (workload {p.workload!r} has {L}; the plain "
-            f"loop, device='cpu', runs it)")
     n, n_addrs = p.n_cores, p.n_addrs
     a = n_addrs if banks is None else banks
     if a < n_addrs:
@@ -360,12 +379,6 @@ def run_scalars(p, proto, prog, banks=None, traced=False) -> Dict[str, Any]:
             zipf_c = c
     topo = topo_registry.get(p.topology)
     levels = len(topo.levels)
-    if levels and (levels > MAX_LEVELS or not topo.uses_default_tree()
-                   or n >= MAX_TOPO_CORES):
-        raise NotImplementedError(
-            f"the engine_run kernel runs topologies of at most {MAX_LEVELS} "
-            f"levels on the default cluster tree, below {MAX_TOPO_CORES} "
-            f"cores (topology {p.topology!r}, {levels} levels, {n} cores)")
     core_size, core_clusters, bank_clusters = topo.leaf_geometry(p, n, a)
     faults, fault_masks = _fault_words(p, proto, n, a)
     return dict(
@@ -817,7 +830,6 @@ def run_cuda_batch(runs: Sequence[Tuple[Any, Any, Any, int]], device,
         if p.n_cores != n:
             raise ValueError(f"one launch runs one core count: {n} and "
                              f"{p.n_cores}")
-        _require_branch(proto, "engine_run")
         scalars.append((p, proto, run_scalars(p, proto, prog, banks,
                                               traced)))
     lib = _run_library()

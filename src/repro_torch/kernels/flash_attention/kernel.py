@@ -25,14 +25,14 @@ from repro_torch.kernels import LAUNCHES, _build
 #: q/k/v/o dtypes the kernel takes, with its dtype code
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: (q/k head dim, v head dim) pairs the forward is instantiated for: one
-#: head dim at each of 32, 64, 96 (phi-3-vision), 112, 128, 256, and MLA's
-#: 192 over 128
-HEAD_DIMS = ((32, 32), (64, 64), (96, 96), (112, 112), (128, 128),
+#: head dim at each of 32, 64, 80 (stablelm-3b), 96 (phi-3-vision), 112,
+#: 128, 256, and MLA's 192 over 128
+HEAD_DIMS = ((32, 32), (64, 64), (80, 80), (96, 96), (112, 112), (128, 128),
              (256, 256), (192, 128))
 #: the pairs of the forward's lse entry (training): v's head dim is q's
 LSE_HEAD_DIMS = tuple(p for p in HEAD_DIMS if p[0] == p[1])
 #: head dims the backward kernels are instantiated for (v's is q's)
-BWD_HEAD_DIMS = (32, 64, 112, 128)
+BWD_HEAD_DIMS = (32, 64, 80, 96, 112, 128, 256)
 
 
 @functools.lru_cache(maxsize=1)
@@ -47,21 +47,31 @@ def _launcher():
 @functools.lru_cache(maxsize=1)
 def _lse_launcher():
     fn = _build.library("flash_attention").flash_attention_lse_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 \
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 \
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
+#: the backward launches' C signature (``flash_attention_bwd_abi()`` in
+#: the source says its version, ``BWD_ABI``): q, k, v, o or dout, dout or
+#: lse, lse or delta, delta or dk, dq or dv; batch, sq, skv, heads,
+#: kv_heads, hd, causal, window; scale, dtype, stream
+BWD_ABI = 1
+BWD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 \
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+
+
 @functools.lru_cache(maxsize=1)
 def _bwd_launchers():
     lib = _build.library("flash_attention_bwd")
+    if lib.flash_attention_bwd_abi() != BWD_ABI:
+        raise RuntimeError("flash_attention_bwd.cu's launches are not the "
+                           f"signature this module binds (ABI {BWD_ABI})")
     dq, dkdv = lib.flash_attention_bwd_dq_launch, \
         lib.flash_attention_bwd_dkdv_launch
     for fn in (dq, dkdv):
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        fn.argtypes, fn.restype = BWD_ARGS, ctypes.c_int
     return dq, dkdv
 
 
@@ -100,6 +110,17 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return b, sq, skv, h, kv, hd, hdv
 
 
+def _check_window(window, causal: bool, sq: int, skv: int) -> int:
+    """``window`` as an int; raises unless it is 0, or > 0 with causal
+    attention and ``Sq <= Skv``."""
+    window = int(window)
+    if window < 0 or (window and (not causal or sq > skv)):
+        raise ValueError(f"window {window}: a window is >= 0, and one > 0 "
+                         f"needs causal=True and Sq <= Skv (got causal="
+                         f"{causal}, Sq {sq}, Skv {skv})")
+    return window
+
+
 def _raise_on(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
@@ -116,11 +137,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     also hides key j from query i when ``i - j >= window``.  Raises on
     anything the kernel does not take."""
     b, sq, skv, h, kv, hd, hdv = _check(q, k, v)
-    window = int(window)
-    if window < 0 or (window and (not causal or sq > skv)):
-        raise ValueError(f"window {window}: a window is >= 0, and one > 0 "
-                         f"needs causal=True and Sq <= Skv (got causal="
-                         f"{causal}, Sq {sq}, Skv {skv})")
+    window = _check_window(window, causal, sq, skv)
     out = torch.empty((b, sq, h, hdv), dtype=q.dtype, device=q.device)
     _raise_on(_launcher()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv,
@@ -131,19 +148,21 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_fwd_lse_cuda(q: torch.Tensor, k: torch.Tensor,
-                                 v: torch.Tensor, causal: bool = True):
+                                 v: torch.Tensor, causal: bool = True,
+                                 window: int = 0):
     """``flash_attention_cuda`` that also returns each query row's
     natural-log log-sum-exp of its scaled, masked scores: ``(o, lse)``,
     lse float32 ``(B, H, Sq)`` (what the backward recomputes P from).
-    The same kernel: o has the bits ``flash_attention_cuda`` gives.  No
-    window, and v's head dim is q's."""
+    The same kernel: o has the bits ``flash_attention_cuda`` gives, with
+    the same ``window``.  v's head dim is q's."""
     b, sq, skv, h, kv, hd, _ = _check(q, k, v, LSE_HEAD_DIMS,
                                       "flash_attention_fwd_lse_cuda")
+    window = _check_window(window, causal, sq, skv)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     _raise_on(_lse_launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                               out.data_ptr(), lse.data_ptr(), b, sq, skv, h,
-                              kv, hd, int(causal), hd ** -0.5,
+                              kv, hd, int(causal), window, hd ** -0.5,
                               DTYPES[q.dtype],
                               torch.cuda.current_stream(q.device).cuda_stream),
               "flash_attention")
@@ -154,11 +173,12 @@ def flash_attention_fwd_lse_cuda(q: torch.Tensor, k: torch.Tensor,
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, o: torch.Tensor,
                              do: torch.Tensor, lse: torch.Tensor,
-                             causal: bool = True):
+                             causal: bool = True, window: int = 0):
     """The gradient of flash attention: ``(dq, dk, dv)`` in q's dtype and
     shapes of q, k, v, from the forward's inputs, its output ``o``, the
     output's gradient ``do`` (both ``(B, Sq, H, hd)``, q's dtype,
-    contiguous, 16-byte aligned) and its ``lse`` (float32 ``(B, H, Sq)``).
+    contiguous, 16-byte aligned) and its ``lse`` (float32 ``(B, H, Sq)``),
+    with the forward's ``window``.
     Two launches on the current stream: the dq kernel (which also writes
     each row's D = rowsum(do * o)), then the dk/dv kernel, which sums the
     group's query heads in the block: no atomics, the same bits every
@@ -167,6 +187,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     b, sq, skv, h, kv, hd, _ = _check(q, k, v,
                                       tuple((d, d) for d in BWD_HEAD_DIMS),
                                       "flash_attention_bwd_cuda")
+    window = _check_window(window, causal, sq, skv)
     for name, t in (("o", o), ("do", do)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device \
                 or not t.is_contiguous() or t.data_ptr() % 16:
@@ -181,8 +202,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     delta = torch.empty_like(lse)
     launch_dq, launch_dkdv = _bwd_launchers()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    dims = (b, sq, skv, h, kv, hd, int(causal), hd ** -0.5, DTYPES[q.dtype],
-            stream)
+    dims = (b, sq, skv, h, kv, hd, int(causal), window, hd ** -0.5,
+            DTYPES[q.dtype], stream)
     _raise_on(launch_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         o.data_ptr(), do.data_ptr(), lse.data_ptr(),
                         delta.data_ptr(), dq.data_ptr(), *dims),

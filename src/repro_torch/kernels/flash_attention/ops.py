@@ -16,10 +16,10 @@ its backward the hand-written backward kernels
 (``kernel.flash_attention_bwd_cuda``); on CPU tensors both are the plain
 versions.  Serving (no gradient) takes the plain call above.
 
-Serving also takes a ``window`` (the ``local`` layers' band: key j hidden
-from query i when ``i - j >= window``) and a v head dim below q's (MLA's
-192/128).  The gradient takes neither yet (ROADMAP A9.8a, A9.8e): asked
-for one with either, the op raises.
+Both take a ``window`` (the ``local`` layers' band: key j hidden from
+query i when ``i - j >= window``).  Serving also takes a v head dim
+below q's (MLA's 192/128); the gradient does not yet (ROADMAP A9.8e):
+asked for one with it, the op raises.
 """
 from __future__ import annotations
 
@@ -36,10 +36,11 @@ from repro_torch.kernels.flash_attention.ref import (
 class FlashAttention(torch.autograd.Function):
     """Flash attention with its gradient: the kernels on CUDA tensors, the
     plain versions on CPU tensors.  The forward keeps q, k, v, o and the
-    row log-sum-exp; the backward recomputes P from them."""
+    row log-sum-exp; the backward recomputes P from them.  ``window`` as
+    ``flash_attention``'s."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool):
+    def forward(ctx, q, k, v, causal: bool, window: int = 0):
         dev = q.device.type
         if dev == "cuda":
             if q.shape[-1] not in BWD_HEAD_DIMS:
@@ -47,13 +48,15 @@ class FlashAttention(torch.autograd.Function):
                     f"head dim {q.shape[-1]}: the flash-attention backward "
                     f"kernel takes {BWD_HEAD_DIMS}")
             q, k, v = aligned(q), aligned(k), aligned(v)
-            o, lse = flash_attention_fwd_lse_cuda(q, k, v, causal=causal)
+            o, lse = flash_attention_fwd_lse_cuda(q, k, v, causal=causal,
+                                                  window=window)
         elif dev == "cpu":
-            o, lse = flash_attention_fwd_lse_ref(q, k, v, causal=causal)
+            o, lse = flash_attention_fwd_lse_ref(q, k, v, causal=causal,
+                                                 window=window)
         else:
             raise ValueError(f"flash_attention runs on cuda or cpu tensors, "
                              f"not {dev}")
-        ctx.causal = causal
+        ctx.causal, ctx.window = causal, window
         ctx.save_for_backward(q, k, v, o, lse)
         return o
 
@@ -61,12 +64,13 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         if q.device.type == "cuda":
-            dq, dk, dv = flash_attention_bwd_cuda(q, k, v, o, aligned(do),
-                                                  lse, causal=ctx.causal)
+            dq, dk, dv = flash_attention_bwd_cuda(
+                q, k, v, o, aligned(do), lse, causal=ctx.causal,
+                window=ctx.window)
         else:
-            dq, dk, dv = flash_attention_bwd_ref(q, k, v, o, do, lse,
-                                                 causal=ctx.causal)
-        return dq, dk, dv, None
+            dq, dk, dv = flash_attention_bwd_ref(
+                q, k, v, o, do, lse, causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -82,11 +86,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{k.shape[1]}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        if window or v.shape[-1] != q.shape[-1]:
+        if v.shape[-1] != q.shape[-1]:
             raise NotImplementedError(
-                "the flash-attention gradient with a window (ROADMAP A9.8a) "
-                "or a v head dim other than q's (A9.8e) is not ported yet")
-        return FlashAttention.apply(q, k, v, causal)
+                "the flash-attention gradient with a v head dim other than "
+                "q's (ROADMAP A9.8e) is not ported yet")
+        return FlashAttention.apply(q, k, v, causal, int(window))
     dev = q.device.type
     if dev == "cuda":
         return flash_attention_cuda(aligned(q), aligned(k), aligned(v),

@@ -91,41 +91,49 @@ def _heads_first(q, k, v):
             _wide(v).repeat_interleave(g, dim=2).transpose(1, 2))
 
 
-def _scaled_scores(qh, kh, causal: bool):
+def _scaled_scores(qh, kh, causal: bool, window: int = 0):
     """scale * q k^T ``(B, H, Sq, Skv)`` and the mask of the keys each
     query sees (None when it sees all)."""
+    if window and not causal:
+        raise ValueError("a window is a causal band: pass causal=True")
     s = torch.einsum("bhqd,bhkd->bhqk", qh, kh) * qh.shape[-1] ** -0.5
     if not causal:
         return s, None
     sq, skv = qh.shape[2], kh.shape[2]
-    mask = (torch.arange(sq, device=qh.device)[:, None]
-            >= torch.arange(skv, device=qh.device)[None, :])
+    gap = (torch.arange(sq, device=qh.device)[:, None]
+           - torch.arange(skv, device=qh.device)[None, :])
+    mask = gap >= 0
+    if window:
+        mask &= gap < window
     return s, mask
 
 
 def flash_attention_fwd_lse_ref(q: torch.Tensor, k: torch.Tensor,
-                                v: torch.Tensor, *, causal: bool = True):
+                                v: torch.Tensor, *, causal: bool = True,
+                                window: int = 0):
     """``(flash_attention_ref(q, k, v), lse)``: lse float32 ``(B, H, Sq)``,
-    the natural-log log-sum-exp of each row's scaled, masked scores."""
-    s, mask = _scaled_scores(*_heads_first(q, k, v)[:2], causal)
+    the natural-log log-sum-exp of each row's scaled, masked scores
+    (``window`` as ``flash_attention_ref``'s)."""
+    s, mask = _scaled_scores(*_heads_first(q, k, v)[:2], causal, window)
     if mask is not None:
         s = torch.where(mask, s, NEG_INF)
-    return flash_attention_ref(q, k, v, causal=causal), \
+    return flash_attention_ref(q, k, v, causal=causal, window=window), \
         torch.logsumexp(s, dim=-1)
 
 
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, o: torch.Tensor,
                             do: torch.Tensor, lse: torch.Tensor, *,
-                            causal: bool = True):
+                            causal: bool = True, window: int = 0):
     """``(dq, dk, dv)`` in the dtypes and shapes of q, k, v: the gradient
-    of ``flash_attention_ref`` at output gradient ``do``, recomputed from
-    the forward's output ``o`` and ``lse`` (float32 ``(B, H, Sq)``)."""
+    of ``flash_attention_ref`` (with its ``window``) at output gradient
+    ``do``, recomputed from the forward's output ``o`` and ``lse``
+    (float32 ``(B, H, Sq)``)."""
     b, sq, h, hd = q.shape
     kv = k.shape[2]
     qh, kh, vh = _heads_first(q, k, v)
     doh, oh = _wide(do).transpose(1, 2), _wide(o).transpose(1, 2)
-    s, mask = _scaled_scores(qh, kh, causal)
+    s, mask = _scaled_scores(qh, kh, causal, window)
     p = torch.exp(s - lse[..., None])
     if mask is not None:
         p = torch.where(mask, p, 0.0)

@@ -5,7 +5,11 @@ The source is ``repro_torch/csrc/rglru_scan.cu``, built and loaded by
 hash; nothing runs at import time).
 
 ``rglru_scan_cuda`` launches the kernel on PyTorch's current stream and
-adds one to ``LAUNCHES["rglru_scan"]`` per launch.
+adds one to ``LAUNCHES["rglru_scan"]`` per launch; ``rglru_scan_bwd_cuda``
+is the gradient, one launch of the same kernel on time-reversed copies
+(the adjoint ``g_t = dy_t + a_{t+1} g_{t+1}`` is the recurrence run
+backwards with ``a`` one step ahead), counted under
+``LAUNCHES["rglru_scan_bwd"]``.
 """
 from __future__ import annotations
 
@@ -25,7 +29,7 @@ def _launcher():
         fn.argtypes = [ctypes.c_longlong] * 3
         fn.restype = ctypes.c_longlong
     fn = lib.rglru_scan_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 10 \
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 11 \
         + [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
     return fn
@@ -37,11 +41,14 @@ def unit_along_w(x: torch.Tensor) -> bool:
 
 
 def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor,
-                    h0: torch.Tensor) -> torch.Tensor:
+                    h0: torch.Tensor, counter: str = "rglru_scan",
+                    ordered: bool = False) -> torch.Tensor:
     """a, b ``(T, B, w)`` and h0 ``(B, w)``, float32 with unit stride
     along w (any strides along T and B), on one CUDA device -> h ``(T, B,
     w)`` float32 with a's strides.  Raises on anything the kernel does
-    not take."""
+    not take.  The launch is counted under ``LAUNCHES[counter]``;
+    ``ordered`` takes the look-back that gives the same bits every
+    launch."""
     if not all(t.dtype == torch.float32 for t in (a, b, h0)):
         raise ValueError(f"a, b, h0 must be float32, got {a.dtype}, "
                          f"{b.dtype}, {h0.dtype}")
@@ -71,10 +78,31 @@ def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor,
     err = launch(a.data_ptr(), b.data_ptr(), h0.data_ptr(), out.data_ptr(),
                  t, bdim, w, a.stride(0), a.stride(1), b.stride(0),
                  b.stride(1), out.stride(0), out.stride(1), h0.stride(0),
-                 ints.data_ptr(), floats.data_ptr(),
+                 int(ordered), ints.data_ptr(), floats.data_ptr(),
                  torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rglru_scan kernel launch failed: CUDA error "
                            f"{err}")
-    LAUNCHES["rglru_scan"] += 1
+    LAUNCHES[counter] += 1
     return out
+
+
+def rglru_scan_bwd_cuda(a: torch.Tensor, h: torch.Tensor, h0: torch.Tensor,
+                        dh: torch.Tensor):
+    """The gradient of ``h = rglru_scan(a, b, h0)`` at ``dh``: ``(da, db,
+    dh0)`` float32 in the shapes of a, b, h0, from the forward's a, h and
+    h0 (all ``(T, B, w)`` but h0 ``(B, w)``, float32, on one CUDA
+    device).  ``g = db`` solves ``g_t = dh_t + a_{t+1} g_{t+1}``
+    (``g_{T-1} = dh_{T-1}``): ONE launch of the scan kernel over the
+    reversed time axis, ``a`` shifted one step (``a_T = 0``) and h0 = 0,
+    with the ordered look-back (the same bits every launch), counted
+    under ``"rglru_scan_bwd"``; then ``da_t = g_t h_{t-1}`` (h_{-1} = h0)
+    and ``dh0 = a_0 g_0``, elementwise."""
+    t = a.shape[0]
+    a_rev = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    a_rev[0].zero_()
+    a_rev[1:] = a[1:].flip(0)
+    g = rglru_scan_cuda(a_rev, dh.float().flip(0), torch.zeros_like(h0),
+                        counter="rglru_scan_bwd", ordered=True).flip(0)
+    h_prev = torch.cat([h0[None].float(), h[:t - 1]], dim=0)
+    return g * h_prev, g, a[0] * g[0]

@@ -4,14 +4,44 @@ The device of the tensors picks the path: CUDA tensors launch the
 hand-written kernel (``kernel.rglru_scan_cuda``), CPU tensors take the
 plain version (``ref.rglru_scan_ref``).  There is no fallback from one
 to the other: a CUDA launch that cannot run raises.
+
+When a gradient is wanted (grad mode on and a, b or h0 requiring it), the
+op is ``RglruScan``, a ``torch.autograd.Function`` whose backward is the
+adjoint scan: on CUDA tensors one launch of the kernel over the reversed
+time axis (``kernel.rglru_scan_bwd_cuda``), on CPU tensors
+``ref.rglru_scan_bwd_ref``.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.rglru_scan.kernel import (rglru_scan_cuda,
+from repro_torch.kernels.rglru_scan.kernel import (rglru_scan_bwd_cuda,
+                                                   rglru_scan_cuda,
                                                    unit_along_w)
-from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+from repro_torch.kernels.rglru_scan.ref import (rglru_scan_bwd_ref,
+                                                rglru_scan_ref)
+
+
+class RglruScan(torch.autograd.Function):
+    """The scan with its gradient: the kernel forward and backward on CUDA
+    tensors, the plain versions on CPU tensors.  The forward keeps a, h
+    and h0; the gradients are float32, cast to the inputs' dtypes."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        h = _scan(a, b, h0)
+        ctx.dtypes = (a.dtype, b.dtype, h0.dtype)
+        ctx.save_for_backward(a, h, h0)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h, h0 = ctx.saved_tensors
+        if a.device.type == "cuda":
+            grads = rglru_scan_bwd_cuda(a.float(), h, h0.float(), dh)
+        else:
+            grads = rglru_scan_bwd_ref(a, h, h0, dh)
+        return tuple(g.to(dt) for g, dt in zip(grads, ctx.dtypes))
 
 
 def rglru_scan(a: torch.Tensor, b: torch.Tensor,
@@ -20,6 +50,14 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
     float32; on the card with a's strides, so the ``(T, B, w)`` view of a
     contiguous ``(B, T, w)`` tensor gets the same view back, and no
     copy is made of inputs whose last axis has unit stride."""
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad
+                                    or h0.requires_grad):
+        return RglruScan.apply(a, b, h0)
+    return _scan(a, b, h0)
+
+
+def _scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor
+          ) -> torch.Tensor:
     dev = a.device.type
     if dev == "cuda":
         # the kernel reads any strides along T and B

@@ -5,20 +5,27 @@ on one device.
     python -m repro_torch.launch.train --arch smollm-135m [--smoke]
         [--steps N] [--ckpt-dir D] [--device cpu]
 
+``--arch`` names any architecture the port trains: the dense family
+(smollm-135m, stablelm-3b, qwen2-7b, mistral-large-123b),
+recurrentgemma-2b (``rglru`` and banded ``local`` layers),
+whisper-large-v3 (the encoder-decoder: the pipeline draws its frames)
+and phi-3-vision-4.2b (the VLM: the pipeline draws its patches).
+
 ``make_train_step`` builds one optimizer step over ``accum_steps``
 microbatches (gradients summed in float32, then averaged, as the
 reference's ``lax.scan`` does); ``run_training`` is the loop with
 checkpoint / resume and a simulated crash (``crash_at``).  Both run on
 the GPU unless the run asks for ``device="cpu"``.  The reference's mesh
 path (``Policy``, sharded jit) is not ported: a ``mesh`` raises
-(ROADMAP A9.6).  The port trains the dense family (``attn`` layers with
-dense MLPs); other layers raise ``NotImplementedError``
-(``models.transformer.check_trainable``).
+(ROADMAP A9.6).  rwkv, MoE and MLA layers raise
+``NotImplementedError`` (``models.transformer.check_trainable``, ROADMAP
+A9.8c/d/e).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 from typing import Any, Dict, Optional
 
@@ -159,7 +166,19 @@ def run_training(run: TrainRun, resume: bool = True,
     return out
 
 
-def main():
+#: the caching allocator's setting for a training run: segments grow in
+#: place, so the memory freed between steps is reused whatever the sizes
+#: asked next (recurrentgemma-2b at 4 x 4 096 tokens, 73.3 GB at its peak
+#: on an 80 GB H100, ran out of memory with fixed segments).  ``main`` sets
+#: it unless the environment already does; a program that calls
+#: ``run_training`` itself sets ``PYTORCH_CUDA_ALLOC_CONF`` before its
+#: first CUDA allocation.
+CUDA_ALLOC_CONF = "expandable_segments:True"
+
+
+def main(argv=None):
+    # before anything touches the card: the allocator reads it once
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", CUDA_ALLOC_CONF)
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--shape", default="train_4k", choices=list(SHAPES))
@@ -170,7 +189,7 @@ def main():
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--device", default=None,
                     help="cpu to run on the CPU (default: the GPU)")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
     name = args.arch + ("-smoke" if args.smoke else "")
     cfg = get_config(name)
     shape = SHAPES[args.shape]

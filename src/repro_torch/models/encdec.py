@@ -20,6 +20,12 @@ cache, the cross-attention by ``decode_attention`` over the K/V of every
 frame that prefill wrote once.  The cache is one ``{"self": {k, v},
 "cross": {k, v}}`` per decoder layer; the logits are the tied
 embedding's.
+
+Training runs ``forward`` (the encoder, then the decoder over the whole
+sequence), every attention through the op's gradient; with
+``cfg.parallel.remat`` each encoder and decoder layer is recomputed in
+the backward (``torch.utils.checkpoint``, non-reentrant), as the
+reference's ``jax.checkpoint`` of its scan bodies.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
@@ -83,17 +90,33 @@ def init_params(cfg: ModelConfig, gen: Optional[L.Draw], device) -> Params:
 # Encoder
 # ---------------------------------------------------------------------------
 
-def encode(cfg: ModelConfig, params: Params, feats) -> torch.Tensor:
+def _layers(body, cfg: ModelConfig, layer_params, x, *args,
+            remat: bool = False):
+    """``x = body(cfg, p, x, *args)`` for each layer's ``p`` in order, each
+    recomputed in the backward when ``remat``."""
+    for p in layer_params:
+        x = checkpoint(body, cfg, p, x, *args, use_reentrant=False) \
+            if remat else body(cfg, p, x, *args)
+    return x
+
+
+def _enc_block(cfg: ModelConfig, p: Params, x):
+    """One encoder layer: LN, MHA non-causal over the frames, LN, MLP."""
+    h = L.layernorm(p["norm1"], x, cfg.norm_eps)
+    a, _ = A.cross_attn_apply(cfg, p["attn"], h, enc=h)  # self, MHA
+    x = x + a
+    h = L.layernorm(p["norm2"], x, cfg.norm_eps)
+    return x + L.mlp_apply(p["mlp"], h, "gelu")
+
+
+def encode(cfg: ModelConfig, params: Params, feats,
+           remat: bool = False) -> torch.Tensor:
     """feats (B, Se, d) precomputed frame embeddings (the frontend stub)
-    -> the encoder's output (B, Se, d) in the compute dtype."""
+    -> the encoder's output (B, Se, d) in the compute dtype; ``remat``
+    recomputes each layer in the backward."""
     cdt = torch_dtype(cfg.compute_dtype)
     x = feats.to(cdt) + params["pos_embed"].to(cdt)[None]
-    for p in params["enc_layers"]:
-        h = L.layernorm(p["norm1"], x, cfg.norm_eps)
-        a, _ = A.cross_attn_apply(cfg, p["attn"], h, enc=h)  # self, MHA
-        x = x + a
-        h = L.layernorm(p["norm2"], x, cfg.norm_eps)
-        x = x + L.mlp_apply(p["mlp"], h, "gelu")
+    x = _layers(_enc_block, cfg, params["enc_layers"], x, remat=remat)
     return L.layernorm(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -123,14 +146,21 @@ def _dec_block(cfg: ModelConfig, p: Params, x, enc, positions):
     return x + L.mlp_apply(p["mlp"], h, "gelu"), kv, ckv
 
 
+def _dec_train(cfg: ModelConfig, p: Params, x, enc, positions):
+    """``_dec_block``'s new x alone (training keeps no cache)."""
+    return _dec_block(cfg, p, x, enc, positions)[0]
+
+
 def forward(cfg: ModelConfig, params: Params, tokens, encoder_feats):
     """tokens (B, S) decoder input, encoder_feats (B, Se, d) -> (hidden (B,
-    S, d), aux 0)."""
-    enc = encode(cfg, params, encoder_feats)
+    S, d), aux 0), the training forward; with ``cfg.parallel.remat`` each
+    encoder and decoder layer is recomputed in the backward."""
+    remat = cfg.parallel.remat
+    enc = encode(cfg, params, encoder_feats, remat=remat)
     x = _embed(cfg, params, tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    for p in params["layers"]:
-        x, _, _ = _dec_block(cfg, p, x, enc, positions)
+    x = _layers(_dec_train, cfg, params["layers"], x, enc, positions,
+                remat=remat)
     x = L.layernorm(params["final_norm"], x, cfg.norm_eps)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 

@@ -2,10 +2,10 @@
 ``nn.Module`` with the entry points of the reference's
 ``repro/models/model_zoo.py``: serving (``init``, ``init_cache``,
 ``prefill``, ``decode_step``, ``logits``) and training (``hidden``,
-``loss``, after ``train_mode()`` hands out trainable parameters; the
-dense family only, ``transformer.check_trainable``).  A config with an
-encoder builds the encoder-decoder (``encdec``); the others the
-decoder-only LM (``transformer``).  ``prefill`` and ``hidden`` take the
+``loss``, after ``train_mode()`` hands out trainable parameters; every
+architecture but rwkv, MoE and MLA, ``transformer.check_trainable``).  A
+config with an encoder builds the encoder-decoder (``encdec``); the
+others the decoder-only LM (``transformer``).  ``prefill`` and ``hidden`` take the
 inputs of the reference's batch beside the tokens: ``encoder_feats`` for
 the encoder-decoder, ``patch_embeds`` for the VLM.
 
@@ -153,9 +153,10 @@ class Model(nn.Module):
 
     def loss(self, batch: Dict[str, Any]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """batch ``{"tokens", "labels"}`` (labels -1 masked) -> (loss,
-        {"loss", "acc", "aux"}): the mean token cross entropy with the
-        reference's z-loss, over chunked logits."""
+        """batch ``{"tokens", "labels"}`` (labels -1 masked; with the
+        frontend's input as ``hidden`` takes it) -> (loss, {"loss", "acc",
+        "aux"}): the mean token cross entropy with the reference's z-loss,
+        over chunked logits."""
         h, aux = self.hidden(batch)
         loss, acc = TF.loss_fn(self.cfg, self.params(), h, batch["labels"])
         return loss, {"loss": loss, "acc": acc, "aux": aux}

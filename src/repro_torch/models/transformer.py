@@ -20,9 +20,11 @@ splice precomputed patch embeddings over the first positions
 encdec``.
 
 Training (``apply_block``, ``forward``, ``loss_fn``) takes the layers
-whose kernels have a backward: GQA ``attn`` mixers with dense MLPs, the
-``dense`` family (``check_trainable`` refuses the rest, and the
-encoder-decoder and the VLM, naming the ROADMAP item that brings it).
+whose kernels have a backward: GQA ``attn`` and ``local`` mixers (the
+flash op's gradient, banded for ``local``) and ``rglru`` ones (the scan's
+gradient), with dense MLPs; the VLM's spliced patches and the
+encoder-decoder (``encdec.forward``) too.  ``check_trainable`` refuses
+the rest (rwkv, MoE, MLA), naming the ROADMAP item that brings it.
 ``cfg.parallel.remat`` recomputes each
 layer in the backward (``torch.utils.checkpoint``, non-reentrant), as the
 reference's ``jax.checkpoint`` of its scan body; ``loss_fn`` recomputes
@@ -105,20 +107,14 @@ def mlp_kind(cfg: ModelConfig) -> str:
 
 def check_layers_trainable(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` unless every layer of ``cfg`` is an
-    ``attn`` mixer with a dense MLP (the layers ``forward`` runs and whose
-    kernels have a backward), naming the ROADMAP item that brings the
-    rest."""
+    ``attn``, ``local`` or ``rglru`` mixer with a dense MLP (the layers
+    ``forward`` runs and whose kernels have a backward), naming the
+    ROADMAP item that brings the rest."""
     kinds = set(cfg.layer_kinds())
     missing = []
     if cfg.attn_kind == "mla":
         missing.append("MLA attention (a flash-attention backward at q/k "
                        "192, v 128, ROADMAP A9.8e)")
-    if "local" in kinds:
-        missing.append("local attention (a windowed flash-attention "
-                       "backward kernel, ROADMAP A9.8a)")
-    if "rglru" in kinds:
-        missing.append("rglru layers (an rglru_scan backward kernel, "
-                       "ROADMAP A9.8b)")
     if "rwkv" in kinds:
         missing.append("rwkv layers (an rwkv6_wkv backward kernel, ROADMAP "
                        "A9.8c)")
@@ -128,21 +124,16 @@ def check_layers_trainable(cfg: ModelConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: training {', '.join(missing)} is not ported yet; "
-            f"the port trains attn layers with dense MLPs (the dense "
-            f"family)")
+            f"the port trains attn, local and rglru layers with dense MLPs, "
+            f"the encoder-decoder and the VLM")
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """``check_layers_trainable``, and also refuse the encoder-decoder and
-    the VLM (the flash backward non-causal at Sq != Skv and at head dim
-    96, ROADMAP A9.8f)."""
-    if cfg.encoder is not None or cfg.frontend == "vlm":
-        raise NotImplementedError(
-            f"{cfg.name}: training the encoder-decoder and the VLM (a "
-            f"flash-attention backward non-causal at Sq != Skv and at head "
-            f"dim 96, ROADMAP A9.8f) is not ported yet; the port trains attn "
-            f"layers with dense MLPs (the dense family)")
-    check_layers_trainable(cfg)
+    """What ``Model.train_mode`` checks: the encoder-decoder's layers are
+    GQA attention with dense MLPs, which train; every other architecture
+    trains where ``check_layers_trainable`` lets it."""
+    if cfg.encoder is None:
+        check_layers_trainable(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -191,13 +182,20 @@ def _ffn_apply(cfg: ModelConfig, ffn: str, p: Params, h):
 
 
 def apply_block(cfg: ModelConfig, sig: LayerSig, p: Params, x, positions):
-    """Full-sequence training block (state-free): an ``attn`` mixer and
-    a dense MLP (``check_trainable``).  Returns (x, aux), aux 0."""
+    """Full-sequence training block (state-free): an ``attn``, ``local``
+    (the band of ``cfg.local_window``) or ``rglru`` mixer (from a zero
+    state) and a dense MLP (``check_trainable``).  Returns (x, aux), aux
+    0."""
+    mix = sig[0]
     h = L.norm_apply(cfg.norm, p["norm1"], x, cfg.norm_eps)
-    if cfg.attn_kind == "mla":
+    if mix == "rglru":
+        a, _ = RG.rglru_apply(cfg, p["rglru"], h,
+                              RG.state_init(cfg, x.shape[0], x.device))
+    elif cfg.attn_kind == "mla":
         a, _ = A.mla_apply(cfg, p["attn"], h, positions)
     else:
-        a, _ = A.gqa_apply(cfg, p["attn"], h, positions)
+        a, _ = A.gqa_apply(cfg, p["attn"], h, positions, window=(
+            cfg.local_window if mix == "local" else 0))
     x = x + a
     h = L.norm_apply(cfg.norm, p["norm2"], x, cfg.norm_eps)
     return x + _ffn_apply(cfg, sig[1], p, h), torch.zeros(

@@ -16,8 +16,12 @@ flat Spec field — *including* ``protocol``/``workload`` names and
 one launch of the engine kernel).  Irregular point sets (figure
 benchmarks with special-cased lines) skip the builder:
 :meth:`Study.from_specs` takes an explicit spec list, of specs or of
-spec dicts (the reference's ``Spec.to_dict()`` too).  A point the port
-does not run yet raises ``NotImplementedError`` when its spec is built.
+spec dicts (the reference's ``Spec.to_dict()`` too).  A point the card's
+kernel does not take (``engine_step.kernel.refuse_on_card``: a program
+of more than ``MAX_STEPS`` steps, too deep a topology) raises
+``NotImplementedError`` from ``run``/``stream`` on the card while the
+grid is planned, before any launch; the plain loop (``device="cpu"``)
+runs it.
 
 Execution runs the point list through the batched sweep
 (``repro_torch.core.sweep``) on ``device`` (default the GPU; pass

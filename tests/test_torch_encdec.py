@@ -204,9 +204,20 @@ def test_seeded_init_draws_every_leaf():
                        b["layers"][0]["cross_attn"]["wq"])
 
 
-def test_training_is_refused_naming_a9_8f():
-    with pytest.raises(NotImplementedError, match="ROADMAP A9.8f"):
-        build(get_config(NAME), device="cpu").train_mode()
+def test_training_is_accepted_since_a9_8f():
+    """The model trains (ROADMAP A9.8f): ``train_mode`` hands out its
+    weights, and one loss on the pipeline's batch (with its frontend
+    input) gives every weight a finite gradient; the parity with the
+    reference's gradients is ``tests/test_torch_train_layers.py``'s."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import SyntheticPipeline
+    cfg = get_config(NAME)
+    model = build(cfg, device="cpu").init(0).train_mode()
+    batch = SyntheticPipeline(cfg, ShapeSpec("t", 12, 2, "train"),
+                              device="cpu").batch(0)
+    model.loss(batch)[0].backward()
+    for p in model.parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all()
 
 
 @pytest.mark.parametrize("name,given,match", [

@@ -69,6 +69,7 @@ constexpr int cudaErrorInvalidValue = 1;
 struct alignas(8) float2 { float x, y; };
 struct alignas(16) float4 { float x, y, z, w; };
 struct alignas(16) uint4 { uint32_t x, y, z, w; };
+struct alignas(8) uint2 { uint32_t x, y; };
 inline float2 make_float2(float x, float y) { return {x, y}; }
 inline float4 make_float4(float x, float y, float z, float w) {
   return {x, y, z, w};
@@ -337,11 +338,11 @@ def libs(tmp_path_factory):
         assert proc.returncode == 0, proc.stderr[-4000:]
         out[name] = ctypes.CDLL(str(lib))
     for fn in (out["flash_attention"].flash_attention_lse_launch,):
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 \
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 \
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     for fn in (out["flash_attention_bwd"].flash_attention_bwd_dq_launch,
                out["flash_attention_bwd"].flash_attention_bwd_dkdv_launch):
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 \
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     return out
 
@@ -349,7 +350,7 @@ def libs(tmp_path_factory):
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def fwd_mock(lib, q, k, v, causal):
+def fwd_mock(lib, q, k, v, causal, window=0):
     """The mock build of ``flash_attention_lse_launch``: (o, lse)."""
     b, sq, h, hd = q.shape
     skv, kv = k.shape[1], k.shape[2]
@@ -357,20 +358,20 @@ def fwd_mock(lib, q, k, v, causal):
     lse = torch.full((b, h, sq), float("nan"))
     err = lib.flash_attention_lse_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), b, sq, skv, h, kv, hd, int(causal), hd ** -0.5,
-        DTYPES[q.dtype], None)
+        lse.data_ptr(), b, sq, skv, h, kv, hd, int(causal), window,
+        hd ** -0.5, DTYPES[q.dtype], None)
     assert err == 0
     return o, lse
 
 
-def bwd_mock(lib, q, k, v, o, do, lse, causal):
+def bwd_mock(lib, q, k, v, o, do, lse, causal, window=0):
     """The mock build of the two backward launches: (dq, dk, dv)."""
     b, sq, h, hd = q.shape
     skv, kv = k.shape[1], k.shape[2]
     dq, dk, dv = (torch.full_like(t, float("nan")) for t in (q, k, v))
     delta = torch.full_like(lse, float("nan"))
-    dims = (b, sq, skv, h, kv, hd, int(causal), hd ** -0.5, DTYPES[q.dtype],
-            None)
+    dims = (b, sq, skv, h, kv, hd, int(causal), window, hd ** -0.5,
+            DTYPES[q.dtype], None)
     assert lib.flash_attention_bwd_dq_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
@@ -401,8 +402,29 @@ SHAPES = [(2, 70, 70, 4, 2, 32, True), (1, 45, 77, 3, 1, 64, False),
 #: GQA, hd 32 with more key tiles than stages in dq
 BF16_SHAPES = [(1, 300, 300, 3, 1, 64, True), (1, 70, 150, 2, 2, 128, False),
                (1, 150, 150, 4, 2, 112, True), (2, 200, 200, 2, 1, 32, False)]
-CASES = [(s, dt) for s in SHAPES for dt in (torch.float32, torch.bfloat16)] \
-    + [(s, torch.bfloat16) for s in BF16_SHAPES]
+#: both dtypes, the instances and the band of the local layers: hd 80
+#: (stablelm-3b) and 96 (phi-3-vision) causal with GQA and ragged tiles,
+#: the window (50 inside a key tile, 70 across tiles, 1: a row sees only
+#: itself) at hd 64 and 32, hd 256 (recurrentgemma-2b: 4 heads on 1, the
+#: CUDA-core design in both dtypes) with a window and without
+WIDE_SHAPES = [(1, 90, 90, 4, 2, 80, True, 0),
+               (1, 75, 75, 3, 1, 96, True, 0),
+               (1, 150, 150, 4, 2, 64, True, 50),
+               (1, 200, 200, 2, 1, 32, True, 70),
+               (2, 45, 45, 3, 3, 32, True, 1),
+               (1, 70, 70, 4, 1, 256, True, 20),
+               (1, 40, 40, 2, 1, 256, False, 0)]
+#: bf16 only: whisper's cross-attention (Sq < Skv, non-causal, MHA) with
+#: a last key tile of 28, as at 1 500 frames, at hd 64, and a band that
+#: spans more query tiles than the ring has stages at hd 96
+WIDE_BF16_SHAPES = [(1, 20, 220, 2, 2, 64, False, 0),
+                    (1, 330, 330, 2, 1, 96, True, 130)]
+CASES = [(s + (0,), dt) for s in SHAPES
+         for dt in (torch.float32, torch.bfloat16)] \
+    + [(s + (0,), torch.bfloat16) for s in BF16_SHAPES] \
+    + [(s, dt) for s in WIDE_SHAPES
+       for dt in (torch.float32, torch.bfloat16)] \
+    + [(s, torch.bfloat16) for s in WIDE_BF16_SHAPES]
 #: dtype -> (rtol, atol) of the gradients against the plain version: f32
 #: sums in another order; bf16 also rounds P and dS to bf16 before the
 #: products (the plain version keeps f32) and the outputs to bf16
@@ -411,18 +433,21 @@ TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (3e-2, 3e-2)}
 
 @pytest.mark.parametrize(
     "shape,dtype", CASES,
-    ids=["x".join(map(str, s)) + "-" + str(dt).split(".")[-1]
-         for s, dt in CASES])
+    ids=["x".join(map(str, s[:-1])) + (f"-w{s[-1]}" if s[-1] else "") + "-"
+         + str(dt).split(".")[-1] for s, dt in CASES])
 def test_backward_kernel_source_matches_plain(libs, shape, dtype):
-    *dims, causal = shape
+    *dims, causal, window = shape
     q, k, v, do = inputs(*dims, dtype, seed=list(dims))
-    o, lse = fwd_mock(libs["flash_attention"], q, k, v, causal)
-    o_ref, lse_ref = flash_attention_fwd_lse_ref(q, k, v, causal=causal)
+    o, lse = fwd_mock(libs["flash_attention"], q, k, v, causal, window)
+    o_ref, lse_ref = flash_attention_fwd_lse_ref(q, k, v, causal=causal,
+                                                 window=window)
     np.testing.assert_allclose(lse.numpy(), lse_ref.numpy(), rtol=1e-5,
                                atol=1e-5 if dtype == torch.float32 else 2e-3)
-    want = flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal)
+    want = flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal,
+                                   window=window)
     rtol, atol = TOL[dtype]
-    got = bwd_mock(libs["flash_attention_bwd"], q, k, v, o, do, lse, causal)
+    got = bwd_mock(libs["flash_attention_bwd"], q, k, v, o, do, lse, causal,
+                   window)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == w.dtype and g.shape == w.shape, name
         np.testing.assert_allclose(g.float().numpy(), w.float().numpy(),
@@ -431,7 +456,7 @@ def test_backward_kernel_source_matches_plain(libs, shape, dtype):
     libs["flash_attention_bwd"].mock_set_block_order(1)
     try:
         again = bwd_mock(libs["flash_attention_bwd"], q, k, v, o, do, lse,
-                         causal)
+                         causal, window)
     finally:
         libs["flash_attention_bwd"].mock_set_block_order(0)
     for g, a in zip(got, again):
@@ -449,7 +474,7 @@ def test_forward_lse_leaves_the_output_unchanged(libs, dtype):
     bare = torch.full_like(q, float("nan"))
     assert lib.flash_attention_lse_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bare.data_ptr(), None, 1,
-        50, 50, 4, 2, 64, 1, 64 ** -0.5, DTYPES[dtype], None) == 0
+        50, 50, 4, 2, 64, 1, 0, 64 ** -0.5, DTYPES[dtype], None) == 0
     assert torch.equal(o, bare)
 
 
@@ -457,7 +482,38 @@ def test_backward_refuses_other_head_dims(libs):
     q, k, v, do = inputs(1, 8, 8, 2, 2, 32, torch.float32, seed=0)
     fn = libs["flash_attention_bwd"].flash_attention_bwd_dq_launch
     lse = torch.zeros(1, 2, 8)
-    for hd in (16, 96, 256):
+    for hd in (16, 48, 192):
         assert fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), q.data_ptr(),
                   do.data_ptr(), lse.data_ptr(), lse.data_ptr(),
-                  q.data_ptr(), 1, 8, 8, 2, 2, hd, 1, 1.0, 0, None) != 0
+                  q.data_ptr(), 1, 8, 8, 2, 2, hd, 1, 0, 1.0, 0, None) != 0
+    # a window needs causal attention and Sq <= Skv, and is >= 0
+    for causal, window in ((0, 4), (1, -1)):
+        assert fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), q.data_ptr(),
+                  do.data_ptr(), lse.data_ptr(), lse.data_ptr(),
+                  q.data_ptr(), 1, 8, 8, 2, 2, 32, causal, window, 1.0, 0,
+                  None) != 0
+
+
+def test_backward_abi_tells_the_bindings_apart(libs):
+    """The source's ``flash_attention_bwd_abi()`` is the version the
+    wrapper binds, and ``tools/kernel_ab.py`` binds a base build by it:
+    the signature before the window where the symbol is absent, this
+    tree's at this version, and a raise at another."""
+    import importlib.util
+    import types
+
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    lib = libs["flash_attention_bwd"]
+    assert lib.flash_attention_bwd_abi() == fa_kernel.BWD_ABI
+    spec = importlib.util.spec_from_file_location(
+        "kernel_ab", ROOT / "tools" / "kernel_ab.py")
+    ab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ab)
+    assert ab.base_bwd_args(lib) == fa_kernel.BWD_ARGS
+    assert ab.base_bwd_args(types.SimpleNamespace()) \
+        == ab.BASE_FLASH_BWD_ARGS
+    assert len(ab.BASE_FLASH_BWD_ARGS) == len(fa_kernel.BWD_ARGS) - 1
+    later = types.SimpleNamespace(
+        flash_attention_bwd_abi=lambda: fa_kernel.BWD_ABI + 1)
+    with pytest.raises(RuntimeError, match="ABI"):
+        ab.base_bwd_args(later)

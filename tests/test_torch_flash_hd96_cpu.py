@@ -15,7 +15,10 @@ designs: float32 on the CUDA cores, bfloat16 on the tensor cores.  Cases:
   self-attention over 1 500 frames (46 full 32-key tiles and one of 28,
   masked by the ``key < Skv`` test alone), and the decoder's
   cross-attention, Sq decoder positions against Skv frames, Sq < Skv
-  and Sq > Skv; B and H cut so that the mock stays fast.
+  and Sq > Skv; B and H cut so that the mock stays fast;
+* head dim 80 (stablelm-3b), causal with GQA and non-causal at Sq != Skv:
+  4 columns a lane of the f32 design (lanes 20-31 own none), 10 chunks a
+  row of the bf16 one.
 
 Each within ``chip_smoke.FLASH_TOL``.  Skips without g++.
 """
@@ -54,7 +57,9 @@ CASES = [((1, 100, 100, 4, 2, 96), True),
          ((1, 37, 130, 3, 1, 96), False),
          ((1, 64, 1500, 1, 1, 64), False),
          ((1, 40, 75, 2, 2, 64), False),
-         ((1, 75, 40, 2, 2, 64), False)]
+         ((1, 75, 40, 2, 2, 64), False),
+         ((1, 90, 90, 4, 2, 80), True),
+         ((1, 37, 60, 2, 1, 80), False)]
 
 
 @pytest.fixture(scope="module")
@@ -103,3 +108,9 @@ def test_kernel_source_matches_plain(lib, shape, causal, dtype):
 
 def test_head_dim_96_is_an_instance():
     assert (96, 96) in HEAD_DIMS and (96, 96) in LSE_HEAD_DIMS
+
+
+def test_head_dim_80_is_an_instance():
+    """stablelm-3b's head dim, in both designs (lanes 0-19 own 4 columns
+    of the f32 design's output; 10 chunks a row in the bf16 one)."""
+    assert (80, 80) in HEAD_DIMS and (80, 80) in LSE_HEAD_DIMS

@@ -895,6 +895,42 @@ def test_flash_backward_kernel_matches_plain_version(shape, cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape,window", [
+    ((1, 300, 300, 8, 8, 80, True, "bfloat16"), 0),
+    ((1, 300, 300, 8, 8, 96, True, "float32"), 0),
+    ((1, 70, 260, 4, 4, 64, False, "bfloat16"), 0),
+    ((1, 400, 400, 10, 1, 256, True, "bfloat16"), 130),
+    ((1, 333, 333, 4, 2, 64, True, "bfloat16"), 100)])
+def test_flash_backward_window_and_new_head_dims(shape, window, cuda_device):
+    """hd 80, 96 and 256, Sq < Skv non-causal and the band: the backward
+    against its plain version (``chip_smoke.flash_bwd_check``)."""
+    cs = _chip_smoke()
+    rec = cs.flash_bwd_check(cuda_device, shape, seed=shape[1], window=window)
+    assert rec["lse_err"] <= cs.FLASH_LSE_TOL[shape[-1]]
+
+
+@pytest.mark.gpu
+def test_rglru_gradient_runs_the_kernel(cuda_device):
+    """A gradient through the scan on CUDA tensors: one forward and one
+    gradient launch, the gradients the plain version's."""
+    from repro_torch.kernels.rglru_scan import rglru_scan_bwd_ref
+    cs = _chip_smoke()
+    a, x, h0 = cs.rglru_inputs(cuda_device, 200, 2, 300, 3)
+    a, x = (cs.batch_major(t).requires_grad_() for t in (a, x))
+    before = dict(LAUNCHES)
+    h = rglru_scan.rglru_scan(a, x, h0)
+    dh = torch.randn_like(h)
+    h.backward(dh)
+    torch.cuda.synchronize()
+    assert LAUNCHES["rglru_scan"] - before["rglru_scan"] == 1
+    assert LAUNCHES["rglru_scan_bwd"] - before["rglru_scan_bwd"] == 1
+    want = rglru_scan_bwd_ref(a.detach(), h.detach(), h0, dh)
+    for g, w in zip((a.grad, x.grad), want):
+        assert torch.allclose(g, w, rtol=1e-4,
+                              atol=1e-4 * float(w.abs().max()))
+
+
+@pytest.mark.gpu
 def test_flash_autograd_op_runs_the_kernels(cuda_device):
     """A gradient through the op on CUDA tensors: the lse forward kernel
     and the two backward kernels, once each; the gradients equal the
@@ -925,12 +961,12 @@ def test_flash_autograd_op_runs_the_kernels(cuda_device):
 def test_flash_backward_refuses_other_head_dims(cuda_device):
     from repro_torch.kernels.flash_attention import kernel as fa
     cs = _chip_smoke()
-    q, k, v = cs.flash_inputs(cuda_device, 1, 16, 16, 2, 1, 256, "bfloat16",
+    q, k, v = cs.flash_inputs(cuda_device, 1, 16, 16, 2, 1, 48, "bfloat16",
                               seed=1)
-    with pytest.raises(ValueError, match="head dim 256"):
+    with pytest.raises(ValueError, match="head dim 48"):
         flash_attention.FlashAttention.apply(q.requires_grad_(), k, v, True)
     lse = torch.zeros(1, 2, 16, device=cuda_device)
-    with pytest.raises(ValueError, match="head dim 256"):
+    with pytest.raises(ValueError, match="head dim 48"):
         fa.flash_attention_bwd_cuda(q.detach(), k, v, q.detach(), q.detach(),
                                     lse)
 

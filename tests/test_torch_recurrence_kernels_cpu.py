@@ -271,7 +271,7 @@ def wkv_mock(lib_path, r, k, v, w, u):
     return out, state
 
 
-def rglru_mock(lib_path, a, x, h0):
+def rglru_mock(lib_path, a, x, h0, ordered=False):
     """The mock build of ``rglru_scan_launch``, as
     ``kernels/rglru_scan/kernel.py::rglru_scan_cuda`` calls it."""
     lib = ctypes.CDLL(lib_path)
@@ -279,7 +279,7 @@ def rglru_mock(lib_path, a, x, h0):
         getattr(lib, name).argtypes = [ctypes.c_longlong] * 3
         getattr(lib, name).restype = ctypes.c_longlong
     fn = lib.rglru_scan_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 10 \
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 11 \
         + [ctypes.c_void_p] * 3
     t, b, w = a.shape
     out = torch.full_like(a, float("nan"))
@@ -289,8 +289,8 @@ def rglru_mock(lib_path, a, x, h0):
                         float("nan"))
     err = fn(a.data_ptr(), x.data_ptr(), h0.data_ptr(), out.data_ptr(), t, b,
              w, a.stride(0), a.stride(1), x.stride(0), x.stride(1),
-             out.stride(0), out.stride(1), h0.stride(0), ints.data_ptr(),
-             floats.data_ptr(), None)
+             out.stride(0), out.stride(1), h0.stride(0), int(ordered),
+             ints.data_ptr(), floats.data_ptr(), None)
     assert err == 0
     assert (ints[:-1] == 2).all()             # every tile ended inclusive
     return out
@@ -361,6 +361,38 @@ def check_rglru(lib_path, case):
         float((got - want).abs().max())
 
 
+def check_rglru_bwd(lib_path, case):
+    """``rglru_scan_bwd_cuda`` (the gradient: one launch over the reversed
+    time axis, ``a`` one step ahead) with its launch on the mock build,
+    against ``rglru_scan_bwd_ref``, from the model's (B, T, w) views."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.rglru_scan import kernel as K
+    from repro_torch.kernels.rglru_scan import rglru_scan_bwd_ref
+    t, b, w = case
+    rng = np.random.default_rng([t, b, w, 7])
+
+    def draw(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    a = torch.sigmoid(draw((b, t, w)) + 2.0).transpose(0, 1)
+    h = draw((b, t, w)).transpose(0, 1)
+    dh = draw((b, t, w)).transpose(0, 1)
+    h0 = draw((b, w))
+
+    def launch(a_, x_, h0_, counter="rglru_scan", ordered=False):
+        assert ordered
+        LAUNCHES[counter] += 1
+        return rglru_mock(lib_path, a_, x_, h0_, ordered)
+    K.rglru_scan_cuda = launch
+    got = K.rglru_scan_bwd_cuda(a, h, h0, dh)
+    assert LAUNCHES["rglru_scan_bwd"] == 1 and LAUNCHES["rglru_scan"] == 0
+    want = rglru_scan_bwd_ref(a, h, h0, dh)
+    rtol, atol = CS.RGLRU_TOL
+    for name, g, wt in zip(("da", "db", "dh0"), got, want):
+        assert g.shape == wt.shape, name
+        assert torch.allclose(g, wt, rtol=rtol, atol=atol), \
+            (name, float((g - wt).abs().max()))
+
+
 #: (B, T, H, hd), decay mean, padding heads (strides along T and B): one
 #: step, a ragged last sub-tile and chunk, each head dim, strided inputs
 WKV_CASES = [((1, 1, 2, 64), 1.0, 0), ((1, 130, 1, 64), -5.0, 0),
@@ -382,3 +414,10 @@ def test_wkv_kernel_source_matches_the_plain_version(case, libs):
 @pytest.mark.parametrize("case", RGLRU_CASES, ids=str)
 def test_rglru_kernel_source_matches_the_plain_version(case, libs):
     _run_child("check_rglru", libs["rglru_scan"], case)
+
+
+#: (T, B, w) of the gradient: one step (g_0 = dh_0, a past the end 0), a
+#: ragged chunk and width
+@pytest.mark.parametrize("case", [(1, 2, 60), (130, 2, 200)], ids=str)
+def test_rglru_gradient_launch_matches_the_plain_version(case, libs):
+    _run_child("check_rglru_bwd", libs["rglru_scan"], case)

@@ -146,3 +146,67 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(kind):
     with pytest.raises(ValueError, match=match):
         rglru_scan_cuda(*args)
     assert LAUNCHES["rglru_scan"] == before
+
+
+def test_rglru_block_gradient_matches_the_reference_vjp():
+    """The port's RG-LRU block differentiated through ``RglruScan`` (the
+    scan's gradient, ``rglru_scan_bwd_ref`` here) against ``jax.vjp`` of
+    the reference's block (an associative scan), at a ragged 70 steps,
+    past the smoke config's window of 64: the input's and every
+    weight's gradient, within ``test_torch_train.py``'s tolerances."""
+    jcfg = j_get_config("recurrentgemma-2b-smoke")
+    cfg = get_config("recurrentgemma-2b-smoke")
+    jp = JRG.rglru_init(jax.random.PRNGKey(2), jcfg, jnp.float32)
+    rng = np.random.default_rng(3)
+    x = (rng.standard_normal((2, 70, cfg.d_model)) * 0.5).astype(np.float32)
+    dy = rng.standard_normal((2, 70, cfg.d_model)).astype(np.float32)
+    jp = jax.tree.map(lambda v: v + 0.1 * jnp.asarray(rng.standard_normal(
+        v.shape), v.dtype) if v.ndim == 1 else v, jp)   # gates off zero
+    _, vjp = jax.vjp(lambda p_, x_: JRG.rglru_apply(
+        jcfg, p_, x_, JRG.state_init(jcfg, 2))[0], jp, jnp.asarray(x))
+    want_p, want_x = vjp(jnp.asarray(dy))
+    p = {k: v.requires_grad_() for k, v in
+         to_torch(jax.tree.map(np.asarray, jp), "cpu").items()}
+    tx = torch.from_numpy(x).requires_grad_()
+    out, _ = RG.rglru_apply(cfg, p, tx, RG.state_init(cfg, 2, "cpu"))
+    assert any("RglruScan" in type(n).__name__ for n in _graph(out.grad_fn))
+    out.backward(torch.from_numpy(dy))
+    for name, g, w in [("x", tx.grad, want_x)] + [
+            (k, p[k].grad, want_p[k]) for k in sorted(p)]:
+        w = np.asarray(w)
+        np.testing.assert_allclose(
+            g.numpy(), w, rtol=1e-4, atol=1e-5 + 1e-4 * np.abs(w).max(),
+            err_msg=name)
+
+
+def _graph(fn):
+    """Every node of the autograd graph below ``fn``."""
+    seen, todo = [], [fn]
+    while todo:
+        n = todo.pop()
+        if n is None or n in seen:
+            continue
+        seen.append(n)
+        todo.extend(f for f, _ in n.next_functions)
+    return seen
+
+
+@pytest.mark.parametrize("t,b,w", [(1, 2, 5), (37, 3, 8)])
+def test_scan_gradient_is_the_adjoint_recurrence(t, b, w):
+    """``RglruScan``'s gradients of a, b and h0 against torch autograd
+    through the recurrence walked as differentiable steps (float32, the
+    same operations; 1e-6)."""
+    ins = [torch.from_numpy(v).requires_grad_()
+           for v in _inputs(t, b, w, seed=[t, b, w, 2])]
+    dy = torch.from_numpy(_inputs(t, b, w, seed=[t, b, w, 3])[1])
+    rglru_scan(*ins).backward(dy)
+    got = [v.grad for v in ins]
+    ref = [v.detach().clone().requires_grad_() for v in ins]
+    h, hs = ref[2], []
+    for i in range(t):
+        h = ref[0][i] * h + ref[1][i]
+        hs.append(h)
+    torch.stack(hs).backward(dy)
+    for name, g, v in zip(("a", "b", "h0"), got, ref):
+        np.testing.assert_allclose(g.numpy(), v.grad.numpy(), rtol=1e-6,
+                                   atol=1e-6, err_msg=name)

@@ -3,9 +3,10 @@ tests of ``tests/test_sync_api.py``.
 
 ``repro_torch.sync.Study(...).run(device="cpu")`` and ``.stream()``
 equal the reference's ``repro.sync.Study`` on the same spec dicts, key
-for key; ordering, immutability and axis errors match; a spec the port
-does not run yet is refused with ``NotImplementedError`` inside a Study
-too; ``RunReport``/``collect`` record one chunk per launch with the
+for key; ordering, immutability and axis errors match; a spec the card's
+kernel does not take is refused with ``NotImplementedError`` from
+``Study.run(device="cuda")`` before any launch (a stubbed launch here);
+``RunReport``/``collect`` record one chunk per launch with the
 reference's keys.
 """
 import numpy as np
@@ -106,7 +107,8 @@ def test_a_refused_spec_raises_inside_a_study():
     """A grid of fault plans, once refused, runs inside a Study and
     equals the reference's, faulted and fault-free points alike; a spec
     the run kernel does not take (a topology deeper than its levels) is
-    still refused, never an error record."""
+    refused by its scalars (``run_scalars``; through a Study on the card
+    in the test below)."""
     def study(pkg):
         return pkg.Study(protocol="colibri", n_cores=8, cycles=120) \
             .grid(faults=({}, {"n_kill": 1, "watchdog_cyc": 16}))
@@ -135,6 +137,73 @@ def test_a_refused_spec_raises_inside_a_study():
                           workloads.get(p.workload).program(p))
     finally:
         del registry._REGISTRY["deep_levels"]
+
+
+class _Deep:
+    """A topology deeper than the run kernel's levels, registered in the
+    port's registry for the length of the block."""
+
+    def __enter__(self):
+        from repro_torch.core.topologies import base as tbase, registry
+        from repro_torch.kernels.engine_step import kernel as K
+
+        class Deep(tbase.Topology):
+            name = "deep_levels"
+            levels = tuple(tbase.LinkLevel(f"l{i}", extra_lat=1, bw_div=1)
+                           for i in range(K.MAX_LEVELS + 1))
+        registry.register(Deep)
+
+    def __exit__(self, *exc):
+        from repro_torch.core.topologies import registry
+        del registry._REGISTRY["deep_levels"]
+
+
+def _card_stub(monkeypatch, launched, raise_in_launch=None):
+    """Study.run(device="cuda") on the CPU: a GPU reported, the library
+    load skipped, and each chunk's launch recorded in ``launched`` (and
+    raising ``raise_in_launch`` when given)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(tsweep, "_library_load", lambda: None)
+
+    def launch(chunk, dev, started=None):
+        launched.append([p.topology for p in chunk])
+        if raise_in_launch is not None:
+            raise raise_in_launch
+        raise AssertionError("the stub runs no chunk")
+    monkeypatch.setattr(tsweep, "_sweep_group", launch)
+
+
+@pytest.mark.parametrize("where", [0, 2], ids=["first", "last"])
+def test_a_card_refusal_raises_from_study_run_before_any_launch(
+        monkeypatch, where):
+    """A point the run kernel does not take (a topology deeper than its
+    levels), first or last in the grid, raises NotImplementedError from
+    ``Study.run(device="cuda")`` while the grid is planned: no chunk is
+    launched, and no point becomes an ``ok=False`` record."""
+    launched = []
+    _card_stub(monkeypatch, launched)
+    topos = ["flat", "flat", "flat"]
+    topos[where] = "deep_levels"
+    with _Deep():
+        st = tsync.Study(protocol="colibri", n_cores=8, cycles=50) \
+            .zip(topology=tuple(topos), seed=(0, 1, 2))
+        with pytest.raises(NotImplementedError, match="deep_levels"):
+            st.run(device="cuda")
+        with pytest.raises(NotImplementedError, match="deep_levels"):
+            next(iter(st.stream(device="cuda")))
+    assert launched == []
+
+
+def test_a_refusal_in_a_launch_passes_through_the_fence(monkeypatch):
+    """A NotImplementedError raised by a chunk's packing is a refusal,
+    not a failed point: the isolation ladder lets it through."""
+    launched = []
+    _card_stub(monkeypatch, launched, NotImplementedError("refused here"))
+    st = tsync.Study(protocol="colibri", n_cores=8, cycles=50) \
+        .grid(seed=(0, 1))
+    with pytest.raises(NotImplementedError, match="refused here"):
+        st.run(device="cuda")
+    assert launched == [["flat", "flat"]]
 
 
 def test_study_without_device_needs_a_gpu(monkeypatch):

@@ -293,6 +293,32 @@ def test_pipeline_batches_match_the_reference():
                                     % 256, 256)))
 
 
+@pytest.mark.parametrize("name,b,s", [
+    ("whisper-large-v3-smoke", 3, 33), ("phi-3-vision-4.2b-smoke", 3, 33),
+    ("whisper-large-v3", 1, 8), ("phi-3-vision-4.2b", 2, 8)])
+def test_pipeline_frontend_batches_match_the_reference(name, b, s):
+    """The encoder-decoder's ``encoder_feats`` and the VLM's
+    ``patch_embeds``, drawn after the tokens from the same generator: every
+    key, dtype and bit the reference's (float32 in the smoke configs,
+    bfloat16 at full width: 1 500 frames, 256 patches)."""
+    jcfg, cfg = j_get_config(name), get_config(name)
+    jp = JPipeline(jcfg, JShape("t", s, b, "train"))
+    p = SyntheticPipeline(cfg, ShapeSpec("t", s, b, "train"), device="cpu")
+    frontend = "encoder_feats" if cfg.frontend == "audio" else "patch_embeds"
+    for step in (0, 5):
+        want, got = jp.batch(step), p.batch(step)
+        assert set(got) == set(want) == {"tokens", "labels", frontend}
+        for k in want:
+            w = np.asarray(want[k])
+            assert str(got[k].dtype).split(".")[-1] == str(w.dtype), k
+            assert tuple(got[k].shape) == w.shape, k
+            if got[k].dtype == torch.bfloat16:
+                np.testing.assert_array_equal(
+                    got[k].view(torch.int16).numpy(), w.view(np.int16))
+            else:
+                np.testing.assert_array_equal(got[k].numpy(), w)
+
+
 # ---------------------------------------------------------------------------
 # Checkpoints
 # ---------------------------------------------------------------------------
@@ -467,13 +493,22 @@ def test_failure_resume_bit_identical(tmp_path):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("name,item", [
-    ("recurrentgemma-2b", "A9.8a"), ("rwkv6-1.6b", "A9.8c"),
-    ("kimi-k2-1t-a32b", "A9.8d"), ("deepseek-v3-671b", "A9")])
+    ("rwkv6-1.6b", "A9.8c"), ("kimi-k2-1t-a32b", "A9.8d"),
+    ("deepseek-v3-671b", "A9.8e")])
 def test_untrainable_configs_are_refused(name, item):
     cfg = get_config(name + "-smoke")
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         run_training(TrainRun(cfg=cfg, shape=ShapeSpec("t", 8, 1, "train"),
                               steps=1, device="cpu"))
+
+
+@pytest.mark.parametrize("name", ["recurrentgemma-2b", "whisper-large-v3",
+                                  "phi-3-vision-4.2b", "stablelm-3b"])
+def test_trainable_configs_are_accepted(name):
+    """The local and rglru layers (A9.8a, b), the encoder-decoder and the
+    VLM (A9.8f) train: ``train_mode`` hands their weights out."""
+    model = build(get_config(name + "-smoke"), "cpu").train_mode()
+    assert all(p.requires_grad for p in model.parameters())
 
 
 def test_mla_model_is_refused():
@@ -484,12 +519,20 @@ def test_mla_model_is_refused():
         build(cfg, "cpu").train_mode()
 
 
-def test_rglru_only_model_is_refused():
+def test_rglru_only_model_trains():
+    """A model of rglru layers alone: every weight gets a finite, non-zero
+    gradient through the scan's backward (A9.8b)."""
     cfg = dataclasses.replace(get_config("recurrentgemma-2b-smoke"),
-                              block_pattern=("rglru",))
-    model = build(cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9.8b"):
-        model.train_mode()
+                              block_pattern=("rglru",), num_layers=2)
+    model = build(cfg, "cpu").init(0).train_mode()
+    batch = SyntheticPipeline(cfg, ShapeSpec("t", 12, 2, "train"),
+                              device="cpu").batch(0)
+    model.loss(batch)[0].backward()
+    for p in model.parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all()
+    for lp in model.params()["layers"]:
+        assert all(float(g.grad.abs().max()) > 0
+                   for g in leaves(lp["rglru"]))
 
 
 def test_a_mesh_is_refused():
@@ -506,3 +549,19 @@ def test_serving_weights_stay_frozen():
     assert all(p.requires_grad for p in model.parameters())
     model.train_mode(False)
     assert not any(p.requires_grad for p in model.parameters())
+
+
+def test_main_sets_the_allocator_setting(monkeypatch, capsys):
+    """The CLI sets the caching allocator's setting before the run (unless
+    the environment holds one) and trains the smoke config."""
+    from repro_torch.launch import train
+    monkeypatch.setenv("PYTORCH_CUDA_ALLOC_CONF", "placeholder")
+    monkeypatch.delenv("PYTORCH_CUDA_ALLOC_CONF")
+    train.main(["--arch", "smollm-135m", "--smoke", "--steps", "1",
+                "--device", "cpu"])
+    assert os.environ["PYTORCH_CUDA_ALLOC_CONF"] == train.CUDA_ALLOC_CONF
+    assert "loss" in capsys.readouterr().out
+    monkeypatch.setenv("PYTORCH_CUDA_ALLOC_CONF", "backend:native")
+    train.main(["--arch", "smollm-135m", "--smoke", "--steps", "1",
+                "--device", "cpu"])
+    assert os.environ["PYTORCH_CUDA_ALLOC_CONF"] == "backend:native"

@@ -194,7 +194,7 @@ def lib(tmp_path_factory):
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 \
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     out.flash_attention_lse_launch.argtypes = \
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 \
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 \
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     return out
 
@@ -245,15 +245,15 @@ def test_kernel_source_matches_plain(lib, shape, causal, window, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["float32", "bfloat16"])
 def test_window_zero_and_past_the_sequence_give_the_causal_bits(lib, dtype):
-    """window = 0, the training entry (``flash_attention_lse_launch``,
-    which takes no window) and a window longer than the sequence run the
-    same tiles: the same bits."""
+    """window = 0, the training entry (``flash_attention_lse_launch`` at
+    window 0) and a window longer than the sequence run the same tiles:
+    the same bits."""
     q, k, v = _inputs((1, 100, 4, 2, 32, 32), dtype, seed=5)
     causal = mock_flash(lib, q, k, v, True, 0)
     old = torch.full_like(q, float("nan"))
     assert lib.flash_attention_lse_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), old.data_ptr(), None, 1,
-        100, 100, 4, 2, 32, 1, 32 ** -0.5, DTYPES[dtype], None) == 0
+        100, 100, 4, 2, 32, 1, 0, 32 ** -0.5, DTYPES[dtype], None) == 0
     assert torch.equal(old, causal)
     for window in (100, 4096):
         assert torch.equal(mock_flash(lib, q, k, v, True, window), causal)

@@ -18,7 +18,8 @@ Default mode: DIR's ``src/repro_torch/csrc/flash_attention.cu``,
 compiled with this checkout's ``nvcc`` flags and bound through their C
 interfaces (``rglru_scan_launch`` through the one of DIR's own source:
 ``BASE_RGLRU_ARGS``, the PR 13 design's (a, x, h0, h, T, B*w, stream) on
-contiguous inputs; ``flash_attention_launch`` through
+contiguous inputs; a later design, which exports
+``rglru_scan_scratch_ints``, raises; ``flash_attention_launch`` through
 ``BASE_FLASH_ARGS``, the entry before the window, against this tree's
 ``flash_attention_cuda``; the others through this checkout's).  At each serve
 shape (the bf16 shapes of ``chip_smoke.FLASH_HEAD``, ``FLASH_MOE`` and
@@ -43,8 +44,10 @@ which its row adds as ``base_copies_ms``).  ``--only`` picks the
 kernels: ``flash``, ``gmm``, ``rglru``, ``rwkv``, ``scatter``.
 
 ``flash_bwd`` (not in the default set): DIR's
-``flash_attention_bwd.cu`` against this tree's, both bound through this
-tree's C signatures (the two entries have not changed), at
+``flash_attention_bwd.cu`` against this tree's, DIR's bound by the
+version its ``flash_attention_bwd_abi()`` says (``base_bwd_args``: the
+signature before the window, ``BASE_FLASH_BWD_ARGS``, where DIR has no
+such symbol; this tree's at the same version; any other raises), at
 ``FLASH_BWD_AB`` (train_b's shape and a bf16 hd-128 one), on the forward
 kernel's o and lse: base, this, this, base, each call both launches.
 Both builds' dq, dk and dv are held to the plain version within
@@ -109,6 +112,10 @@ AB_ENGINE_CYCLES = 5_000
 #: forward's entry before the window and MLA's head dims): q, k, v, o,
 #: batch, sq, skv, heads, kv_heads, hd, causal, scale, dtype, stream
 BASE_FLASH_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+#: the C signature of a base checkout's backward launches from before the
+#: window argument, a build without ``flash_attention_bwd_abi``
+BASE_FLASH_BWD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 #: the C signature of the base checkout's ``rglru_scan_launch`` (PR 13's
 #: design): a, x, h0, h, T, B * w, stream
@@ -191,7 +198,11 @@ def wkv_call(fn, r, k, v, w, u):
 
 def rglru_rows(base: Path, dev) -> None:
     """The RG-LRU scan at ``RGLRU_HEAD``: base against this tree."""
-    base_fn = build_base(base, "rglru_scan")
+    lib = base_library(base, "rglru_scan")
+    if hasattr(lib, "rglru_scan_scratch_ints"):
+        raise RuntimeError("the base's rglru_scan takes strides and a "
+                           "scratch, not BASE_RGLRU_ARGS: no binding for it")
+    base_fn = lib.rglru_scan_launch
     base_fn.argtypes = BASE_RGLRU_ARGS
     base_fn.restype = ctypes.c_int
     shape = cs.RGLRU_HEAD
@@ -446,8 +457,10 @@ def bwd_call(fns, q, k, v, o, do, lse, causal):
     b, sq, h, hd = q.shape
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty_like(lse)
-    dims = (b, sq, k.shape[1], h, k.shape[2], hd, int(causal), hd ** -0.5,
-            fa.DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
+    window = (0,) if len(dq_fn.argtypes) > len(BASE_FLASH_BWD_ARGS) else ()
+    dims = (b, sq, k.shape[1], h, k.shape[2], hd, int(causal), *window,
+            hd ** -0.5, fa.DTYPES[q.dtype],
+            torch.cuda.current_stream().cuda_stream)
     for err in (dq_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       o.data_ptr(), do.data_ptr(), lse.data_ptr(),
                       delta.data_ptr(), dq.data_ptr(), *dims),
@@ -475,6 +488,21 @@ def bwd_agrees(got, want, dtype) -> float:
     return worst
 
 
+def base_bwd_args(lib) -> list:
+    """The argtypes of a base build's backward launches, told apart by the
+    ``flash_attention_bwd_abi()`` it exports: ``BASE_FLASH_BWD_ARGS``
+    without it, this tree's at this tree's ``BWD_ABI``; another version
+    raises rather than guess."""
+    if not hasattr(lib, "flash_attention_bwd_abi"):
+        return BASE_FLASH_BWD_ARGS
+    lib.flash_attention_bwd_abi.restype = ctypes.c_int
+    abi = lib.flash_attention_bwd_abi()
+    if abi != fa.BWD_ABI:
+        raise RuntimeError(f"the base's flash_attention_bwd ABI {abi} is not "
+                           f"this tree's {fa.BWD_ABI}: no binding for it")
+    return fa.BWD_ARGS
+
+
 def flash_bwd_rows(base: Path, dev) -> None:
     """The flash-attention backward at ``FLASH_BWD_AB``: base against
     this tree."""
@@ -482,8 +510,9 @@ def flash_bwd_rows(base: Path, dev) -> None:
     this_fns = fa._bwd_launchers()
     base_fns = (lib.flash_attention_bwd_dq_launch,
                 lib.flash_attention_bwd_dkdv_launch)
-    for fn, ref in zip(base_fns, this_fns):
-        fn.argtypes, fn.restype = ref.argtypes, ref.restype
+    args = base_bwd_args(lib)
+    for fn in base_fns:
+        fn.argtypes, fn.restype = args, ctypes.c_int
     for shape in FLASH_BWD_AB:
         b, sq, skv, h, kv, hd, causal, dtype = shape
         q, k, v = cs.flash_inputs(dev, b, sq, skv, h, kv, hd, dtype, seed=5)
